@@ -1,0 +1,49 @@
+"""rust_wgpu_raytracing_tpu_torch — the ray tracer on PyTorch and CUDA.
+
+A port of the JAX/Pallas package `rust_wgpu_raytracing_tpu` (which stays
+in the repository as the reference) to PyTorch, with the frame's kernels
+hand-written in CUDA C++ for Hopper (csrc/). This slice renders the
+split shadowed frame: spheres plus one triangle soup of at most
+STREAM_FACES faces, Blinn-Phong shading with textures, hard shadows,
+accel "brute" or "cull". What is not ported yet raises
+NotImplementedError and is listed in ROADMAP.md.
+
+The host modules (config, camera, controllers, OBJ/MTL import, scene
+assembly) are copies of the JAX package's, because importing any module
+of that package imports JAX. This package never imports JAX.
+
+    from rust_wgpu_raytracing_tpu_torch import Renderer
+    r = Renderer(cfg, device="cuda")   # or device="cpu"
+    color, depth = r.render(block=True)
+"""
+
+from .config import (
+    CameraConfig,
+    LightConfig,
+    MeshConfig,
+    RenderConfig,
+    SceneConfig,
+    SphereConfig,
+)
+from .core.camera import Camera, CameraUniforms
+from .core.controls import CircleCameraController, OrbitAnimator
+from .core.scene import Scene, SceneData
+from .runtime.renderer import Renderer
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "Camera",
+    "CameraUniforms",
+    "CameraConfig",
+    "CircleCameraController",
+    "LightConfig",
+    "MeshConfig",
+    "OrbitAnimator",
+    "RenderConfig",
+    "Renderer",
+    "Scene",
+    "SceneData",
+    "SceneConfig",
+    "SphereConfig",
+]

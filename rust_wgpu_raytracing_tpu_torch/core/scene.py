@@ -1,0 +1,434 @@
+"""Scene assembly: configs + assets -> SoA tensors.
+
+The counterpart of the JAX package's core/scene.py. Scene.build is the
+same NumPy program (Morton-sorted triangle soup, per-face edge planes,
+cluster AABBs, the packed u16 texel pool and the winner-attribute table
+`gpack`); only its closing conversion differs: torch tensors on the CPU
+instead of jnp arrays. `SceneData.to(device)` moves the scene to the
+card.
+
+Intersection precompute (derivation): the reference's kernel
+(triangle_list/compute.wgsl:82-148) computes, per (ray, face),
+    N = e0 x (p2-p0),  t = -(N.O + d)/(N.D),  P = O + tD
+and three inside-outside values dot(N, cross(edge_i, P - p_i)). Using the
+scalar-triple identity (a x b).c = (b x c).a, each inside-outside value is
+    (P - p_i).(N x edge_i) = O.g_i + t*(D.g_i) - p_i.g_i,  g_i = N x edge_i
+— affine in the ray, which is what the closest-hit and any-hit kernels
+evaluate per (face, ray).
+
+Texel pools: the (12, N) pool holds, for each texel, its clamped 2x2
+neighbourhood [t00, t01, t10, t11] x RGB as 16-bit linear-light values.
+torch's uint16 supports few operations, so the pool keeps the same BITS
+in an int16 tensor: the texshade kernel reads them as unsigned short,
+and texshade_plain widens with `& 0xFFFF` after the int32 cast.
+
+Not carried over from the JAX SceneData (their consumers are later
+slices, see ROADMAP.md): the LBVH pack (accel="bvh"), the bump pool and
+tangent-space tables (normal mapping), the mip pyramid, the streaming
+record `spack` (meshes above STREAM_FACES), the f32 texture stack (the
+oracle) and the unused material columns.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Dict, List, Tuple
+
+import numpy as np
+import torch
+
+from ..config import SceneConfig, resolve_asset
+from ..io.obj import ObjMaterial
+from ..io.textures import TextureData, load_texture_file, solid_texture
+
+# Pad face count to a multiple of this.
+FACE_PAD = 128
+# Faces per cull cluster (= the intersection kernels' face-block size).
+CULL_BLOCK = 32
+# Small scenes cull at finer granularity (8-face clusters below 4096
+# faces); the kernels read the granularity off blk_lo's shape.
+SMALL_CULL_BLOCK = 8
+SMALL_CLUSTER_FACES = 4096
+# Streaming superblock and the all-on-chip limit: meshes above
+# STREAM_FACES take the JAX package's streaming kernels, not ported yet.
+SUPER_F = 32 * CULL_BLOCK
+STREAM_FACES = 16384
+
+# Winner-attribute table (GPACK_ROWS, F): rows resolved after the
+# (t, face) sweep by one gather (ops/megakernel.py expand_tf_gbuffer).
+GP_INVD = 0
+GP_UN = 1  # 1-3 unit normal
+GP_UV = 4  # 4-9 uv corners (u0,v0,u1,v1,u2,v2)
+GP_MAT = 10
+GP_VN = 11  # 11-19 per-corner vertex normals
+GP_TAN = 20  # 20-22 tangent, 23-25 bitangent
+GP_N = 26  # 26-28 unnormalized geometric normal (ndotd recompute)
+GP_G1 = 29  # 29-31 edge plane g1 (h1 recompute)
+GP_G2 = 32  # 32-34 edge plane g2 (h2 recompute)
+GP_C1 = 35  # plane constants c1/c2 (per-ray-origin h recompute)
+GP_C2 = 36
+GPACK_ROWS = 37
+
+
+def _pad_rows(a: np.ndarray, n: int, fill=0) -> np.ndarray:
+    if a.shape[0] == n:
+        return a
+    pad = np.full((n - a.shape[0],) + a.shape[1:], fill, dtype=a.dtype)
+    return np.concatenate([a, pad], axis=0)
+
+
+def _gpack_sources_np(padded: int, n, g, c, inv_denom, uv3, vn3,
+                      face_mat, tangent, bitangent) -> np.ndarray:
+    """(GPACK_ROWS, padded) winner-attribute table from the planar
+    source arrays; padding faces are all-zero columns."""
+    f = n.shape[0]
+    out = np.zeros((GPACK_ROWS, padded), np.float32)
+    nlen = np.linalg.norm(n, axis=1, keepdims=True)
+    un = np.where(nlen > 0, n / np.maximum(nlen, 1e-30), 0.0)
+    out[GP_INVD, :f] = inv_denom
+    out[GP_UN:GP_UN + 3, :f] = un.T
+    out[GP_UV:GP_UV + 6, :f] = uv3.reshape(f, 6).T
+    out[GP_MAT, :f] = face_mat.astype(np.float32)
+    out[GP_VN:GP_VN + 9, :f] = vn3.reshape(f, 9).T
+    out[GP_TAN:GP_TAN + 3, :f] = tangent.T
+    out[GP_TAN + 3:GP_TAN + 6, :f] = bitangent.T
+    out[GP_N:GP_N + 3, :f] = n.T
+    out[GP_G1:GP_G1 + 3, :f] = g[:, 1, :].T
+    out[GP_G2:GP_G2 + 3, :f] = g[:, 2, :].T
+    out[GP_C1, :f] = c[:, 1]
+    out[GP_C2, :f] = c[:, 2]
+    return out
+
+
+@dataclass
+class SceneData:
+    """The scene as tensors on one device.
+
+    Faces across all meshes are concatenated in pass order and then
+    Morton-sorted; padding faces are all-zero rows, which make the plane
+    math produce NaN that every kernel rejects by comparison.
+    """
+
+    # --- spheres (pass order precedes meshes, src/lib.rs:1106-1184) ---
+    sphere_center: torch.Tensor  # (S,3) f32
+    sphere_radius: torch.Tensor  # (S,)  f32
+    sphere_color: torch.Tensor  # (S,3) f32
+    sphere_coeff: torch.Tensor  # (S,3) f32  [ambient, diffuse, specular]
+    sphere_light: torch.Tensor  # (S,3) f32  per-sphere light dir (quirk)
+
+    # --- triangle soup (F = padded face count) ---
+    tri_p0: torch.Tensor  # (F,3) f32
+    tri_n: torch.Tensor  # (F,3) f32   geometric normal (unnormalized)
+    tri_d: torch.Tensor  # (F,)  f32   -N.p0
+    tri_g: torch.Tensor  # (F,3,3) f32 g_i = N x edge_i  for i=0,1,2
+    tri_c: torch.Tensor  # (F,3)  f32  c_i = p_i.g_i
+    tri_inv_denom: torch.Tensor  # (F,) f32  1/(N.N), 0 for padding faces
+    tri_uv: torch.Tensor  # (F,3,2) f32 per-corner uvs
+    tri_vn: torch.Tensor  # (F,3,3) f32 per-corner shading normals
+    tri_mat: torch.Tensor  # (F,) i32 material id
+    tri_orig: torch.Tensor  # (F,) i32 original (pre-Morton-sort) face index
+    tri_tangent: torch.Tensor  # (F,3) f32 per-face tangent (uv-aligned)
+    tri_bitangent: torch.Tensor  # (F,3) f32
+
+    # --- acceleration (Morton clusters; ops/bvh.py) ---
+    blk_lo: torch.Tensor  # (F/cluster, 3) f32 cluster AABB min
+    blk_hi: torch.Tensor  # (F/cluster, 3) f32 cluster AABB max
+
+    # --- materials ---
+    mat_ambient: torch.Tensor  # (M,3) f32
+    mat_specular: torch.Tensor  # (M,3) f32
+    mat_light: torch.Tensor  # (M,3) f32 light dir for faces of this material
+
+    # --- diffuse texel pool (see module docstring) ---
+    tex_packed: torch.Tensor  # (12, N) int16 holding u16 bits
+    mat_tex_base: torch.Tensor  # (M,) i32 texel offset of the diffuse map
+    mat_tex_h: torch.Tensor  # (M,) f32
+    mat_tex_w: torch.Tensor  # (M,) f32
+
+    # (GPACK_ROWS, F) f32 winner-attribute table
+    gpack: torch.Tensor
+
+    num_faces: int = 0
+    num_spheres: int = 0
+
+    @property
+    def padded_faces(self) -> int:
+        return self.tri_p0.shape[0]
+
+    def tensors(self) -> Dict[str, torch.Tensor]:
+        return {f.name: getattr(self, f.name)
+                for f in dataclasses.fields(self)
+                if isinstance(getattr(self, f.name), torch.Tensor)}
+
+    def to(self, device) -> "SceneData":
+        return dataclasses.replace(
+            self, **{k: v.to(device) for k, v in self.tensors().items()})
+
+
+def _tensor_fields() -> List[str]:
+    return [f.name for f in dataclasses.fields(SceneData)
+            if f.name not in ("num_faces", "num_spheres")]
+
+
+def scene_data_from_numpy(fields: Dict[str, np.ndarray],
+                          **static) -> SceneData:
+    """Build a SceneData from NumPy arrays keyed by field name — the
+    bridge that carries the JAX package's SceneData (each field through
+    np.asarray) into the port. Fields the port does not use are
+    ignored; u16 texel pools keep their bits as int16. `static` holds
+    num_faces and num_spheres."""
+    out = {}
+    for name in _tensor_fields():
+        a = np.asarray(fields[name])
+        if a.dtype == np.uint16:
+            a = a.view(np.int16)
+        out[name] = torch.from_numpy(np.array(a, copy=True))
+    return SceneData(**out, **static)
+
+
+def _precompute_faces(positions: np.ndarray, uvs: np.ndarray, normals: np.ndarray,
+                      faces: np.ndarray):
+    """Per-face edge-plane precompute (see module docstring)."""
+    p0 = positions[faces[:, 0]]
+    p1 = positions[faces[:, 1]]
+    p2 = positions[faces[:, 2]]
+    e0 = p1 - p0
+    e1 = p2 - p1
+    e2 = p0 - p2
+    n = np.cross(e0, p2 - p0)
+    denom = np.einsum("fi,fi->f", n, n)
+    d = -np.einsum("fi,fi->f", n, p0)
+    g0 = np.cross(n, e0)
+    g1 = np.cross(n, e1)
+    g2 = np.cross(n, e2)
+    c0 = np.einsum("fi,fi->f", p0, g0)
+    c1 = np.einsum("fi,fi->f", p1, g1)
+    c2 = np.einsum("fi,fi->f", p2, g2)
+    with np.errstate(divide="ignore"):
+        inv_denom = np.where(denom > 0, 1.0 / np.maximum(denom, 1e-30), 0.0)
+    uv3 = uvs[faces]  # (F,3,2)
+    vn3 = normals[faces]  # (F,3,3)
+    g = np.stack([g0, g1, g2], axis=1)  # (F,3,3)
+    c = np.stack([c0, c1, c2], axis=1)  # (F,3)
+
+    # per-face tangent frame from uv deltas (standard tangent-space
+    # construction; flat per face, matching the flat geometric normals)
+    duv1 = uv3[:, 1] - uv3[:, 0]  # (F,2)
+    duv2 = uv3[:, 2] - uv3[:, 0]
+    det = duv1[:, 0] * duv2[:, 1] - duv1[:, 1] * duv2[:, 0]
+    inv_det = np.where(np.abs(det) > 1e-12, 1.0 / np.where(det == 0, 1, det),
+                       0.0)
+    ep1 = p1 - p0
+    ep2 = p2 - p0
+    tangent = (ep1 * duv2[:, 1:2] - ep2 * duv1[:, 1:2]) * inv_det[:, None]
+    bitangent = (ep2 * duv1[:, 0:1] - ep1 * duv2[:, 0:1]) * inv_det[:, None]
+
+    def _norm_rows(x):
+        l = np.linalg.norm(x, axis=1, keepdims=True)
+        return np.where(l > 1e-12, x / np.maximum(l, 1e-12), 0.0)
+
+    tangent = _norm_rows(tangent).astype(np.float32)
+    bitangent = _norm_rows(bitangent).astype(np.float32)
+
+    return (p0, n, d, g, c, inv_denom.astype(np.float32), uv3, vn3,
+            tangent, bitangent)
+
+
+def _pack_neighborhoods(rgb_linear: np.ndarray) -> np.ndarray:
+    """(h*w, 12) u16: each texel's clamped 2x2 neighborhood."""
+    lin16 = np.clip(rgb_linear * 65535.0 + 0.5, 0,
+                    65535).astype(np.uint16)
+    h, w = rgb_linear.shape[:2]
+    yy1 = np.minimum(np.arange(h) + 1, h - 1)
+    xx1 = np.minimum(np.arange(w) + 1, w - 1)
+    out = np.zeros((h, w, 12), np.uint16)
+    out[:, :, 0:3] = lin16
+    out[:, :, 3:6] = lin16[:, xx1]
+    out[:, :, 6:9] = lin16[yy1, :]
+    out[:, :, 9:12] = lin16[yy1][:, xx1]
+    return out.reshape(-1, 12)
+
+
+@dataclass
+class Scene:
+    """Host-side scene: config + loaded assets + the SceneData."""
+
+    config: SceneConfig
+    data: SceneData
+    mesh_names: List[str]
+
+    @staticmethod
+    def build(config: SceneConfig) -> "Scene":
+        """Assemble the scene on the host; returns CPU tensors."""
+        from ..models.sphere import Sphere
+        from ..models.triangle_list import TriangleList
+
+        # ---- spheres ----
+        spheres = config.spheres
+        s_center, s_radius, s_color, s_coeff, s_light = Sphere.soa(spheres)
+
+        # ---- meshes -> one soup ----
+        all_pos: List[np.ndarray] = []
+        all_uv: List[np.ndarray] = []
+        all_nrm: List[np.ndarray] = []
+        all_faces: List[np.ndarray] = []
+        all_face_mat: List[np.ndarray] = []
+        mesh_names: List[str] = []
+        materials: List[ObjMaterial] = []
+        mat_light: List[Tuple[float, float, float]] = []
+        vert_off = 0
+
+        for mesh_cfg in config.meshes:
+            model = TriangleList(mesh_cfg)
+            meshes, mats = model.load()
+            mat_off = len(materials)
+            materials.extend(mats)
+            mat_light.extend([mesh_cfg.light_direction] * len(mats))
+            for m in meshes:
+                pos = model.world_positions(m)
+                all_pos.append(pos)
+                all_uv.append(m.uvs)
+                all_nrm.append(m.normals)
+                all_faces.append(m.faces + vert_off)
+                all_face_mat.append(
+                    np.full((m.faces.shape[0],), mat_off + m.material_id, dtype=np.int32))
+                vert_off += pos.shape[0]
+                mesh_names.append(m.name)
+
+        if all_pos:
+            positions = np.concatenate(all_pos, axis=0).astype(np.float32)
+            uvs = np.concatenate(all_uv, axis=0).astype(np.float32)
+            normals = np.concatenate(all_nrm, axis=0).astype(np.float32)
+            faces = np.concatenate(all_faces, axis=0).astype(np.int32)
+            face_mat = np.concatenate(all_face_mat, axis=0)
+        else:
+            positions = np.zeros((3, 3), np.float32)
+            uvs = np.zeros((3, 2), np.float32)
+            normals = np.zeros((3, 3), np.float32)
+            faces = np.zeros((0, 3), np.int32)
+            face_mat = np.zeros((0,), np.int32)
+
+        if not materials:
+            materials = [ObjMaterial(name="default")]
+            mat_light = [(1.0, -1.0, -5.0)]
+
+        num_faces = faces.shape[0]
+        pad_unit = SUPER_F if num_faces > STREAM_FACES else FACE_PAD
+        padded = max(pad_unit, -(-max(num_faces, 1) // pad_unit) * pad_unit)
+
+        if num_faces:
+            # Morton-sort faces by centroid so fixed-size clusters are
+            # spatially compact (ops/bvh.py). Stable sort: equal codes
+            # keep buffer order.
+            from ..ops.bvh import cluster_aabbs, morton_order
+
+            order = morton_order(positions[faces[:, 0]],
+                                 positions[faces[:, 1]],
+                                 positions[faces[:, 2]])
+            faces = faces[order]
+            face_mat = face_mat[order]
+            orig_ids = order.astype(np.int32)
+
+            (p0, n, d, g, c, inv_denom, uv3, vn3, tangent,
+             bitangent) = _precompute_faces(positions, uvs, normals, faces)
+            cull = (SMALL_CULL_BLOCK if num_faces <= SMALL_CLUSTER_FACES
+                    else CULL_BLOCK)
+            blk_lo, blk_hi = cluster_aabbs(
+                _pad_rows(positions[faces[:, 0]], padded),
+                _pad_rows(positions[faces[:, 1]], padded),
+                _pad_rows(positions[faces[:, 2]], padded),
+                cull, num_faces)
+            gpack_np = _gpack_sources_np(padded, n, g, c, inv_denom,
+                                         uv3, vn3, face_mat,
+                                         tangent, bitangent)
+        else:
+            p0 = np.zeros((0, 3), np.float32)
+            n = np.zeros((0, 3), np.float32)
+            d = np.zeros((0,), np.float32)
+            g = np.zeros((0, 3, 3), np.float32)
+            c = np.zeros((0, 3), np.float32)
+            inv_denom = np.zeros((0,), np.float32)
+            uv3 = np.zeros((0, 3, 2), np.float32)
+            vn3 = np.zeros((0, 3, 3), np.float32)
+            tangent = np.zeros((0, 3), np.float32)
+            bitangent = np.zeros((0, 3), np.float32)
+            orig_ids = np.zeros((0,), np.int32)
+            nb = padded // CULL_BLOCK
+            blk_lo = np.full((nb, 3), np.inf, np.float32)
+            blk_hi = np.full((nb, 3), -np.inf, np.float32)
+            gpack_np = np.zeros((GPACK_ROWS, 0), np.float32)
+
+        # ---- diffuse textures (sRGB-decoded), deduplicated by path ----
+        textures: List[TextureData] = []
+        tex_cache: dict = {}
+        mat_tex: List[int] = []
+
+        def tex_id(key, loader):
+            if key not in tex_cache:
+                tex_cache[key] = len(textures)
+                textures.append(loader())
+            return tex_cache[key]
+
+        for mat in materials:
+            if mat.map_kd:
+                path = resolve_asset(mat.map_kd)
+                mat_tex.append(tex_id((path, True),
+                                      lambda p=path: load_texture_file(p)))
+            else:
+                mat_tex.append(tex_id(("__solid_white__", True),
+                                      lambda: solid_texture((1.0,) * 3)))
+
+        base_d = {}
+        chunks = []
+        off = 0
+        for t_id in sorted(set(mat_tex)):
+            t = textures[t_id]
+            base_d[t_id] = off
+            chunks.append(_pack_neighborhoods(t.rgb_linear))
+            off += t.height * t.width
+        pool_d = np.ascontiguousarray(np.concatenate(chunks, axis=0).T)
+
+        # i32 base offsets: exact at any pool size (f32 loses integers
+        # past 2^24 texels — see ops/megakernel.py _mat_const)
+        m_tex_base = np.array([base_d[t] for t in mat_tex], np.int32)
+        m_tex_h = np.array([textures[t].height for t in mat_tex], np.float32)
+        m_tex_w = np.array([textures[t].width for t in mat_tex], np.float32)
+
+        def tens(a):
+            return torch.from_numpy(np.ascontiguousarray(a))
+
+        data = SceneData(
+            sphere_center=tens(s_center),
+            sphere_radius=tens(s_radius),
+            sphere_color=tens(s_color),
+            sphere_coeff=tens(s_coeff),
+            sphere_light=tens(s_light),
+            tri_p0=tens(_pad_rows(p0.astype(np.float32), padded)),
+            tri_n=tens(_pad_rows(n.astype(np.float32), padded)),
+            tri_d=tens(_pad_rows(d.astype(np.float32), padded)),
+            tri_g=tens(_pad_rows(g.astype(np.float32), padded)),
+            tri_c=tens(_pad_rows(c.astype(np.float32), padded)),
+            tri_inv_denom=tens(_pad_rows(inv_denom, padded)),
+            tri_uv=tens(_pad_rows(uv3.astype(np.float32), padded)),
+            tri_vn=tens(_pad_rows(vn3.astype(np.float32), padded)),
+            tri_mat=tens(_pad_rows(face_mat, padded)),
+            tri_orig=tens(_pad_rows(orig_ids, padded)),
+            tri_tangent=tens(_pad_rows(tangent, padded)),
+            tri_bitangent=tens(_pad_rows(bitangent, padded)),
+            blk_lo=tens(blk_lo),
+            blk_hi=tens(blk_hi),
+            mat_ambient=tens(
+                np.array([m.ambient for m in materials], np.float32)),
+            mat_specular=tens(
+                np.array([m.specular for m in materials], np.float32)),
+            mat_light=tens(np.array(mat_light, np.float32).reshape(-1, 3)),
+            tex_packed=tens(pool_d.view(np.int16)),
+            mat_tex_base=tens(m_tex_base),
+            mat_tex_h=tens(m_tex_h),
+            mat_tex_w=tens(m_tex_w),
+            gpack=tens(gpack_np),
+            num_faces=num_faces,
+            num_spheres=len(spheres),
+        )
+        return Scene(config=config, data=data, mesh_names=mesh_names)

@@ -1,0 +1,64 @@
+"""Texture decode and sampler semantics.
+
+The reference decodes PNG/JPEG to RGBA8, uploads as Rgba8UnormSrgb
+(texture.rs:108-148) and samples with clamp-to-edge + linear mag filter
+(texture.rs:151-158); `textureSampleGrad(..., 0, 0)`
+(triangle_list/compute.wgsl:225) forces LOD<=0, i.e. bilinear mip-0
+sampling. Here a texture is decoded once, linearized on the host and
+kept as a (H,W,3) f32 array; core/scene.py packs it into the u16 texel
+pool that ops/megakernel.py gathers from.
+
+PIL is imported only when an image file is actually loaded: scenes
+without image textures (solid colours, the builtin meshes) run without
+PIL installed.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+
+from ..core.math3d import srgb_to_linear
+
+
+@dataclass(frozen=True)
+class TextureData:
+    """Decoded, linearized texture."""
+
+    name: str
+    rgb_linear: np.ndarray  # (H,W,3) f32, linear light
+    rgb_u8: np.ndarray  # (H,W,3) u8, as-decoded sRGB bytes
+
+    @property
+    def height(self) -> int:
+        return self.rgb_linear.shape[0]
+
+    @property
+    def width(self) -> int:
+        return self.rgb_linear.shape[1]
+
+
+def load_texture_file(path: str, srgb: bool = True) -> TextureData:
+    """Decode an image file to a linear-light f32 texture.
+
+    Matches Texture::from_image (texture.rs:108-133): convert to RGBA8 then
+    treat as sRGB (so kernel-visible values are linearized). The alpha
+    channel is dropped — the reference never uses texture alpha.
+    """
+    from PIL import Image
+
+    with Image.open(path) as im:
+        rgba = np.asarray(im.convert("RGBA"), dtype=np.uint8)
+    rgb_u8 = rgba[..., :3]
+    rgb = rgb_u8.astype(np.float32) / 255.0
+    if srgb:
+        rgb = srgb_to_linear(rgb)
+    return TextureData(name=path, rgb_linear=rgb.astype(np.float32), rgb_u8=rgb_u8)
+
+
+def solid_texture(color, size: int = 4, name: str = "solid") -> TextureData:
+    """1-color texture used when a material has no map_Kd."""
+    rgb = np.broadcast_to(np.asarray(color, dtype=np.float32), (size, size, 3)).copy()
+    u8 = np.clip(rgb * 255.0 + 0.5, 0, 255).astype(np.uint8)
+    return TextureData(name=name, rgb_linear=rgb, rgb_u8=u8)

@@ -1,0 +1,41 @@
+"""The frame's hand-written CUDA kernels, each with its plain PyTorch
+version and a launch counter.
+
+| kernel | wrapper | CUDA source | replaces (JAX package) |
+| --- | --- | --- | --- |
+| K1 | closest_hit | csrc/closest_hit.cu | ops/megakernel.py _make_closest_hit_kernel |
+| K2 | texshade | csrc/texshade.cu | ops/megakernel.py _texshade_kernel |
+| K3 | anyhit | csrc/anyhit.cu | ops/megakernel.py _make_anyhit_kernel |
+
+A wrapper launches its kernel for CUDA tensors and runs its plain
+version for CPU tensors. The frame takes a KernelSet, so a caller can
+compose the same frame from the plain versions on the card (PLAIN) to
+check the kernels against it.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, NamedTuple
+
+from .anyhit import anyhit, anyhit_plain
+from .closest_hit import closest_hit, closest_hit_plain
+from .texshade import texshade, texshade_plain
+
+
+class KernelSet(NamedTuple):
+    closest_hit: Callable
+    anyhit: Callable
+    texshade: Callable
+
+
+KERNELS = KernelSet(closest_hit, anyhit, texshade)
+PLAIN = KernelSet(closest_hit_plain, anyhit_plain, texshade_plain)
+
+
+def launch_counts() -> dict:
+    return {f.__name__: f.launches for f in KERNELS}
+
+
+def reset_launch_counts() -> None:
+    for f in KERNELS:
+        f.launches = 0

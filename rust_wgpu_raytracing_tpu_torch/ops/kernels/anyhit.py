@@ -1,0 +1,94 @@
+"""Shadow any-hit for per-ray origins (kernel K3).
+
+The wrapper `anyhit` launches csrc/anyhit.cu for CUDA tensors and runs
+`anyhit_plain` for CPU tensors; `anyhit.launches` counts kernel
+launches. Both compute the JAX package's _make_anyhit_kernel: occ = 1
+where an active ray hits some face of a block its tile's schedule
+admits at t >= 1e-3. The plain version loops over face blocks,
+vectorised over the admitted tiles' rays, without early termination
+(an OR over hits does not depend on visit order, and termination only
+drops blocks no live ray can reach).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .build import check, library
+from .common import (TILE_R, admitted_tiles, block_rows, is_cuda_call, ptr,
+                     require, stream_ptr)
+
+K_EPSILON = 1e-6
+
+
+def _check(tlb, order, planes, fpack, dc, block_f):
+    n_tiles, nb = tlb.shape
+    r = n_tiles * TILE_R
+    f = nb * block_f
+    require(tlb, "tlb", torch.float32, (n_tiles, nb))
+    require(order, "order", torch.int32, (n_tiles, nb))
+    for name, x in zip(("dx", "dy", "dz", "ox", "oy", "oz", "act", "texit"),
+                       planes):
+        require(x, name, torch.float32, (r,))
+    if fpack.dim() != 2 or fpack.shape[1] < 12:
+        raise ValueError(f"fpack: shape {tuple(fpack.shape)}, expected (F, >=12)")
+    require(fpack, "fpack", torch.float32, (f, fpack.shape[1]))
+    require(dc, "dc", torch.float32, (f, 8))
+    if not 1 <= block_f <= 32:
+        raise ValueError(f"block_f {block_f} outside 1..32")
+    return n_tiles, nb
+
+
+def anyhit(tlb, order, dx, dy, dz, ox, oy, oz, act, texit, fpack, dc, *,
+           block_f: int):
+    """occ (R,) f32 in {0, 1} for R = tiles * 1024 rays with per-ray
+    origins. act (R,) f32: 1 for rays to test; dc (F, 8): [d, c0, c1,
+    c2, ...]; the rest as for closest_hit."""
+    planes = (dx, dy, dz, ox, oy, oz, act, texit)
+    n_tiles, nb = _check(tlb, order, planes, fpack, dc, block_f)
+    if not is_cuda_call(tlb, order, *planes, fpack, dc):
+        return anyhit_plain(tlb, order, *planes, fpack, dc, block_f=block_f)
+    occ = torch.empty(dx.shape[0], dtype=torch.float32, device=dx.device)
+    err = library().rt_anyhit(
+        ptr(tlb), ptr(order), *[ptr(p) for p in planes], ptr(fpack),
+        ptr(dc), n_tiles, nb, block_f, fpack.shape[1], ptr(occ),
+        stream_ptr(dx.device))
+    check(err, "rt_anyhit")
+    anyhit.launches += 1
+    return occ
+
+
+anyhit.launches = 0
+
+
+def anyhit_plain(tlb, order, dx, dy, dz, ox, oy, oz, act, texit, fpack, dc,
+                 *, block_f: int):
+    """Plain PyTorch version of anyhit (same arguments, same results)."""
+    del order, texit  # an OR does not depend on visit order or termination
+    occ = torch.zeros_like(dx)
+    for j, tiles in enumerate(admitted_tiles(tlb)):
+        if tiles is None:
+            continue
+        x, y, z, u, v, w, a = (block_rows(p, tiles)
+                               for p in (dx, dy, dz, ox, oy, oz, act))
+        g = fpack[j * block_f:(j + 1) * block_f]
+        d = dc[j * block_f:(j + 1) * block_f]
+
+        def c(m, k):
+            return m[:, k:k + 1]
+
+        ndotd = c(g, 0) * x + c(g, 1) * y + c(g, 2) * z
+        ndoto = c(g, 0) * u + c(g, 1) * v + c(g, 2) * w
+        tt = -(ndoto + c(d, 0)) / ndotd
+
+        def edge(k, col):
+            og = c(g, k) * u + c(g, k + 1) * v + c(g, k + 2) * w - c(d, col)
+            dg = c(g, k) * x + c(g, k + 1) * y + c(g, k + 2) * z
+            return og + tt * dg
+
+        hit = ((ndotd.abs() >= K_EPSILON) & (tt >= 1e-3) & (edge(3, 1) >= 0.0)
+               & (edge(6, 2) >= 0.0) & (edge(9, 3) >= 0.0))
+        any_hit = torch.where(hit, 1.0, 0.0).amax(dim=0) * a
+        occ.view(-1, TILE_R)[tiles] = torch.maximum(
+            block_rows(occ, tiles), any_hit).view(-1, TILE_R)
+    return occ

@@ -1,0 +1,115 @@
+"""Build and load the port's CUDA kernels.
+
+All kernel sources under csrc/ compile with ONE nvcc command into one
+shared library with a plain C interface, loaded with ctypes (no
+PyTorch headers, so the build takes seconds). The library lands in
+build/kernels/ at the repository root (git-ignored), named by a hash of
+the sources and flags, so an edited source rebuilds and an unchanged
+one loads at once.
+
+Flags: sm_90a (Hopper), -O3, and -fmad=false. nvcc contracts a*b+c
+into a fused multiply-add by default; that changes the last ulp of the
+plane math (t = o0/ndotd, h = o + t*(g.d)) and of the texture mix, and
+the kernels must agree bit for bit with their plain PyTorch versions,
+which round every product. --use_fast_math is never passed, so
+division and sqrt stay IEEE-rounded.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+from typing import Optional
+
+_PKG = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
+
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
+              "-std=c++17", "-fmad=false", "-shared", "-Xcompiler", "-fPIC"]
+
+_VOIDP = ctypes.c_void_p
+_INT = ctypes.c_int
+_FLOAT = ctypes.c_float
+
+# C signatures (csrc/*.cu): pointers and the stream are c_void_p
+_SIGNATURES = {
+    "rt_closest_hit": [_VOIDP] * 9 + [_INT] * 5 + [_FLOAT] * 2
+    + [_VOIDP] * 7 + [_VOIDP],
+    "rt_anyhit": [_VOIDP] * 12 + [_INT] * 4 + [_VOIDP] + [_VOIDP],
+    "rt_texshade": [_VOIDP] * 11 + [_INT] + [_VOIDP] * 3 + [_VOIDP],
+}
+
+_lib: Optional[ctypes.CDLL] = None
+
+
+def _nvcc() -> str:
+    for home in (os.environ.get("CUDA_HOME"), os.environ.get("CUDA_PATH")):
+        if home and os.path.exists(os.path.join(home, "bin", "nvcc")):
+            return os.path.join(home, "bin", "nvcc")
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    if os.path.exists("/usr/local/cuda/bin/nvcc"):
+        return "/usr/local/cuda/bin/nvcc"
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+
+
+def sources():
+    return sorted(glob.glob(os.path.join(CSRC, "*.cu"))
+                  + glob.glob(os.path.join(CSRC, "*.cuh")))
+
+
+def library_path() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sources():
+        h.update(os.path.basename(path).encode())
+        with open(path, "rb") as fh:
+            h.update(fh.read())
+    return os.path.join(BUILD_DIR, f"librt_kernels_{h.hexdigest()[:16]}.so")
+
+
+def build(verbose: bool = False) -> str:
+    """Compile csrc/*.cu into the shared library (if not built yet) and
+    return its path. Raises on a compiler error, with its output."""
+    path = library_path()
+    if os.path.exists(path):
+        return path
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
+           *[s for s in sources() if s.endswith(".cu")]]
+    if verbose:
+        cmd.insert(1, "--ptxas-options=-v")
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
+                           f"{' '.join(cmd)}\n{res.stdout}{res.stderr}")
+    if verbose:
+        print(res.stdout + res.stderr, flush=True)
+    os.replace(tmp, path)  # atomic: a concurrent build never sees half a file
+    return path
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first use."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(build())
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = _INT
+        _lib = lib
+    return _lib
+
+
+def check(err: int, name: str) -> None:
+    """Raise if a launch returned a CUDA error (cudaGetLastError)."""
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA error {err} at launch")

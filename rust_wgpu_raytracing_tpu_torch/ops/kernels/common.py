@@ -1,0 +1,59 @@
+"""Argument checks and pointer plumbing shared by the kernel wrappers."""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+TILE_R = 1024  # rays per schedule tile: one CUDA block of the sweep kernels
+INT_MAX = 2**31 - 1
+
+
+def is_cuda_call(*tensors: torch.Tensor) -> bool:
+    """True when every tensor is on one CUDA device, False when every one
+    is on the CPU; raises on a mix or on any other device."""
+    devs = {t.device for t in tensors}
+    if len(devs) != 1:
+        raise ValueError(f"kernel inputs on several devices: {sorted(map(str, devs))}")
+    dev = next(iter(devs))
+    if dev.type == "cuda":
+        return True
+    if dev.type == "cpu":
+        return False
+    raise ValueError(f"no kernel for device {dev}")
+
+
+def require(t: torch.Tensor, name: str, dtype: torch.dtype, shape) -> None:
+    """Raise unless `t` has this dtype and shape and is contiguous."""
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: not contiguous")
+
+
+def ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def stream_ptr(device: torch.device) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def admitted_tiles(tlb: torch.Tensor):
+    """For each face block j, the tiles whose schedule admits it (finite
+    entry bound) as an index tensor on tlb's device, or None. The plain
+    sweeps visit exactly these (tile, block) pairs."""
+    adm = torch.isfinite(tlb).T.cpu()
+    out = []
+    for j in range(adm.shape[0]):
+        idx = adm[j].nonzero().squeeze(1)
+        out.append(idx.to(tlb.device) if idx.numel() else None)
+    return out
+
+
+def block_rows(x: torch.Tensor, tiles: torch.Tensor) -> torch.Tensor:
+    """The rays of `tiles` of a (T*TILE_R,) plane, flattened."""
+    return x.view(-1, TILE_R).index_select(0, tiles).reshape(-1)

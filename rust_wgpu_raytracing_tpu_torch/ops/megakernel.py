@@ -1,0 +1,743 @@
+"""The split shadowed frame: PyTorch glue around the three CUDA kernels.
+
+Counterpart of the JAX package's ops/megakernel.py for
+`render_megakernel(fused=False)` on meshes of at most STREAM_FACES
+faces. Each function keeps its JAX name (the kernel launch sites are
+`gbuffer` for JAX's gbuffer_pallas, `anyhit_rays` for anyhit_pallas and
+`kernels.texshade` for _texshade_pallas). Everything per ray is planar:
+separate (R,) tensors per component, rays ordered by 32x32 screen tiles
+so that each 1024-ray schedule tile is a compact screen block.
+
+Float semantics. Every expression keeps the JAX operation order, and
+every product and sum rounds on its own (no fused multiply-add; the
+kernels are compiled with -fmad=false). Where the JAX code divides by
+a compile-time constant, XLA's algebraic simplifier multiplies by the
+constant's f32 reciprocal instead; the port writes that multiply out
+(`_rcp`), so the rays, masks and schedules are bit-identical to the
+JAX package's under the same rounding rules.
+
+Not ported here (see ROADMAP.md): the fused frame kernel, accel="bvh",
+normal mapping, mip sampling, path tracing, meshes above STREAM_FACES
+(streaming kernels), row-slab sharding and gp staging. The one-hot
+matrix-unit winner fetch of expand_tf_gbuffer is a TPU device that
+yields the same values as the plain gather used here, and the
+measurement flags RT_TEX_ROW_GATHER / RT_AH_PERRAY do not exist.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from ..core.camera import CameraUniforms
+from ..core.scene import (GP_G1, GP_G2, GP_INVD, GP_MAT, GP_N, GP_UN, GP_UV,
+                          STREAM_FACES, SceneData)
+from .composite import to_nonlinear_depth
+from .rounding import sqrt
+from .kernels import KERNELS, KernelSet
+from .kernels.common import TILE_R
+from .shade import quantize_rgba8
+from .traverse import (ray_root_exit, slab_interval_entry, slab_interval_ok,
+                       tile_ray_bounds)
+
+F32_INF = float("inf")
+BLOCK_F = 32
+
+_ROADMAP = "not ported to the PyTorch/CUDA package yet; see ROADMAP.md"
+
+
+def _rcp(c) -> float:
+    """The f32 reciprocal XLA substitutes for a division by constant c."""
+    return float(np.float32(1.0) / np.float32(c))
+
+
+class GBuffer(NamedTuple):
+    """Planar per-ray intersection + shading inputs, all (R,)."""
+
+    t: torch.Tensor
+    face: torch.Tensor  # i32, 0 on miss
+    u: torch.Tensor  # normalized barycentric (corner 0 weight)
+    v: torch.Tensor
+    nd: torch.Tensor  # N.D at winner (sign decides normal flip)
+    uvx: torch.Tensor  # interpolated texture coords (pre-V-flip)
+    uvy: torch.Tensor
+    nx: torch.Tensor  # unit geometric normal, NOT yet flipped
+    ny: torch.Tensor
+    nz: torch.Tensor
+    mat: torch.Tensor  # material id as f32
+
+
+def pack_face_columns(scene: SceneData) -> torch.Tensor:
+    """(F, 40) f32 per-face static pack, the JAX kernels' layout. The
+    sweep kernels read columns 0-11 (N and the edge planes g0-g2)."""
+    f = scene.tri_p0.shape[0]
+    n = scene.tri_n
+    nlen = sqrt(n[:, 0:1] * n[:, 0:1] + n[:, 1:2] * n[:, 1:2]
+                      + n[:, 2:3] * n[:, 2:3])
+    un = torch.where(nlen > 0, n / torch.where(nlen > 0, nlen, 1.0), 0.0)
+    cols = [
+        n,  # 0-2
+        scene.tri_g.reshape(f, 9),  # 3-11
+        scene.tri_inv_denom[:, None],  # 12
+        un,  # 13-15
+        scene.tri_uv.reshape(f, 6),  # 16-21
+        scene.tri_mat.to(torch.float32)[:, None],  # 22
+        scene.tri_orig.to(torch.float32)[:, None],  # 23
+        scene.tri_tangent,  # 24-26
+        scene.tri_bitangent,  # 27-29
+        scene.tri_vn.reshape(f, 9),  # 30-38
+        torch.zeros((f, 1), dtype=torch.float32, device=n.device),  # 39 pad
+    ]
+    return torch.cat(cols, dim=1)
+
+
+def pack_origin_cols(scene: SceneData, origin: torch.Tensor) -> torch.Tensor:
+    """(F, 8) f32 per-frame origin terms for shared-origin rays:
+    cols [t_num, hc0, hc1, hc2, 0...] with t_num = -(N.O + d),
+    hc_i = O.g_i - c_i. The 3-term dots are summed in index order, as
+    XLA's f32 dot computes them."""
+    o0, o1, o2 = origin[0], origin[1], origin[2]
+    n = scene.tri_n
+    t_num = -(n[:, 0] * o0 + n[:, 1] * o1 + n[:, 2] * o2 + scene.tri_d)
+    g = scene.tri_g
+    hc = g[:, :, 0] * o0 + g[:, :, 1] * o1 + g[:, :, 2] * o2 - scene.tri_c
+    f = t_num.shape[0]
+    return torch.cat([t_num[:, None], hc,
+                      torch.zeros((f, 4), dtype=torch.float32,
+                                  device=n.device)], dim=1)
+
+
+def expand_tf_gbuffer(scene: SceneData, t, face, dx, dy, dz,
+                      oterm) -> GBuffer:
+    """Resolve the G-buffer from the sweep's (t, face): ONE gather of the
+    winner faces' gpack columns, then h1/h2/ndotd and the shading
+    attributes recomputed with the kernels' own expressions on the
+    winner's values, with the frame's exact origin-term floats `oterm`.
+    Miss rays (t == inf) zero every attribute."""
+    gp = scene.gpack
+    idx = face.clamp(0, gp.shape[1] - 1).long()
+    a = gp.index_select(1, idx)  # (GPACK_ROWS, R)
+    hit = torch.isfinite(t)
+
+    def m(x):
+        return torch.where(hit, x, 0.0)
+
+    ts = torch.where(hit, t, 0.0)
+    nd = a[GP_N] * dx + a[GP_N + 1] * dy + a[GP_N + 2] * dz
+    g1d = a[GP_G1] * dx + a[GP_G1 + 1] * dy + a[GP_G1 + 2] * dz
+    g2d = a[GP_G2] * dx + a[GP_G2 + 1] * dy + a[GP_G2 + 2] * dz
+    og = oterm[:, 2:4].index_select(0, idx)
+    o1, o2 = og[:, 0], og[:, 1]
+    h1 = o1 + ts * g1d
+    h2 = o2 + ts * g2d
+
+    u_n = h1 * a[GP_INVD]
+    v_n = h2 * a[GP_INVD]
+    w_n = 1.0 - u_n - v_n
+    uvx = u_n * a[GP_UV] + v_n * a[GP_UV + 2] + w_n * a[GP_UV + 4]
+    uvy = u_n * a[GP_UV + 1] + v_n * a[GP_UV + 3] + w_n * a[GP_UV + 5]
+    return GBuffer(t=t, face=face, u=m(u_n), v=m(v_n), nd=m(nd),
+                   uvx=m(uvx), uvy=m(uvy), nx=m(a[GP_UN]),
+                   ny=m(a[GP_UN + 1]), nz=m(a[GP_UN + 2]), mat=m(a[GP_MAT]))
+
+
+def _pad1(x, tile, fill=0.0):
+    pad = (-x.shape[0]) % tile
+    if pad:
+        x = torch.cat([x, torch.full((pad,), fill, dtype=x.dtype,
+                                     device=x.device)])
+    return x
+
+
+def _regroup_mask(mask, f, block_f):
+    """Adapt a (tiles, f/cluster) cull mask to the kernels' face-block
+    granularity (coarser blocks OR the member clusters; finer repeat)."""
+    cull = f // mask.shape[1]
+    if block_f == cull:
+        return mask
+    if block_f > cull:
+        return mask.reshape(mask.shape[0], -1, block_f // cull).amax(dim=2)
+    return mask.repeat_interleave(cull // block_f, dim=1)
+
+
+def _pack_mask_bits(mask):
+    """Pack a (tiles, nb) 0/1 i32 mask into (tiles * ceil(nb/32),) i32
+    words, bit k of word w = block 32w + k."""
+    t, nb = mask.shape
+    nw = -(-nb // 32)
+    pad = nw * 32 - nb
+    if pad:
+        mask = torch.cat([mask, torch.zeros((t, pad), dtype=mask.dtype,
+                                            device=mask.device)], dim=1)
+    bits = mask.reshape(t, nw, 32).to(torch.int64)
+    weights = torch.ones(32, dtype=torch.int64, device=mask.device) << \
+        torch.arange(32, dtype=torch.int64, device=mask.device)
+    words = (bits * weights).sum(dim=2)  # in [0, 2^32)
+    words = torch.where(words >= 2**31, words - 2**32, words)
+    return words.to(torch.int32).reshape(-1), nw
+
+
+def _vmem_sched(scene: SceneData, mask, nwords: int, ox, oy, oz,
+                dx, dy, dz, tile_r: int, f: int, block_f: int, act=None):
+    """Front-to-back schedule for the sweep kernels.
+
+    Returns (tlb (T, nb) f32, order (T, nb) i32, texit (R,) f32):
+    per-(tile, face-block) conservative entry-t lower bounds (+inf where
+    the accel mask culls the block), the per-tile visit order ascending
+    in entry t (a stable sort, as jnp.argsort is), and the per-ray
+    root-exit cap. (The JAX version returns tlb/order as (T, 1, nb).)"""
+    nb = f // block_f
+    n_tiles = dx.shape[0] // tile_r
+    omin, omax, dmin, dmax = tile_ray_bounds(ox, oy, oz, dx, dy, dz,
+                                             tile_r, act)
+    finite = torch.isfinite(scene.blk_lo) & torch.isfinite(scene.blk_hi)
+    blo = torch.where(finite, scene.blk_lo, F32_INF)
+    bhi = torch.where(finite, scene.blk_hi, -F32_INF)
+    a = blo[None, :, :] - omax[:, None, :]
+    b = bhi[None, :, :] - omin[:, None, :]
+    _, t0 = slab_interval_entry(a, b, dmin[:, None, :], dmax[:, None, :])
+
+    cull = f // scene.blk_lo.shape[0]
+    if block_f > cull:
+        t0 = t0.reshape(n_tiles, -1, block_f // cull).amin(dim=2)
+    elif block_f < cull:
+        t0 = t0.repeat_interleave(cull // block_f, dim=1)
+
+    words = mask.reshape(n_tiles, nwords)
+    c = torch.arange(nb, dtype=torch.int32, device=dx.device)
+    bits = (words[:, (c >> 5).long()] >> (c & 31)) & 1
+    tlb = torch.where(bits != 0, t0, F32_INF)
+    order = torch.argsort(tlb, dim=1, stable=True).to(torch.int32)
+
+    lo = blo.amin(dim=0)
+    hi = bhi.amax(dim=0)
+    texit = ray_root_exit(lo, hi, ox, oy, oz, dx, dy, dz)
+    live = (dx != 0.0) | (dy != 0.0) | (dz != 0.0)
+    texit = torch.where(live, texit, -1.0)
+    return tlb.contiguous(), order.contiguous(), texit
+
+
+def _natural_block_f(scene: SceneData, f: int) -> int:
+    """The scene's own cull-cluster granularity (8 for small scenes, 32
+    past SMALL_CLUSTER_FACES): the kernels' face-block size."""
+    nbc = scene.blk_lo.shape[0]
+    if nbc and f % nbc == 0:
+        return max(1, f // nbc)
+    return min(BLOCK_F, f)
+
+
+def tile_cull_mask(scene: SceneData, ox, oy, oz, dx, dy, dz, tile_r,
+                   act=None):
+    """(tiles, clusters) i32 conservative activity mask — the FLAT scan
+    (interval-arithmetic slab test of every tile's ray cone against every
+    cluster AABB)."""
+    omin, omax, dmin, dmax = tile_ray_bounds(ox, oy, oz, dx, dy, dz,
+                                             tile_r, act)
+    a = scene.blk_lo[None, :, :] - omax[:, None, :]  # (T,B,3)
+    b = scene.blk_hi[None, :, :] - omin[:, None, :]
+    ok = slab_interval_ok(a, b, dmin[:, None, :], dmax[:, None, :])
+    return ok.to(torch.int32)
+
+
+def _mask_words(scene: SceneData, accel: str, ox, oy, oz, dx, dy, dz,
+                tile_r: int, block_f: int, f: int, act=None):
+    """Packed per-(tile, block) activity words: "brute" sets every bit,
+    "cull" runs the flat interval scan. Both are conservative, so the
+    frame is bit-identical across them."""
+    n_tiles = dx.shape[0] // tile_r
+    nb = f // block_f
+    nwords = -(-nb // 32)
+    if accel == "brute":
+        return torch.full((n_tiles * nwords,), -1, dtype=torch.int32,
+                          device=dx.device), nwords
+    if accel != "cull":
+        raise ValueError(f"accel {accel!r}: the port has brute and cull")
+    mask = tile_cull_mask(scene, ox, oy, oz, dx, dy, dz, tile_r, act)
+    return _pack_mask_bits(_regroup_mask(mask, f, block_f))
+
+
+def _sphere_pack(scene: SceneData, origin: torch.Tensor) -> torch.Tensor:
+    """(3 + 4S,) [origin, (center, radius) per sphere] for the sweep."""
+    return torch.cat([origin.reshape(3), torch.cat(
+        [scene.sphere_center, scene.sphere_radius[:, None]],
+        dim=1).reshape(-1)]).contiguous()
+
+
+def gbuffer(scene: SceneData, origin, dx, dy, dz, *, accel: str = "cull",
+            near: float = 0.01, far: float = 100.0,
+            kernels: KernelSet = KERNELS):
+    """Closest-hit G-buffer for shared-origin planar rays dx/dy/dz (R,),
+    spheres fused (JAX: gbuffer_pallas(..., with_spheres=True), VMEM
+    branch). Returns (GBuffer, sph) with sph = (t, id_f32, nx, ny, nz)
+    of the winning sphere per ray, or None for a scene without
+    spheres."""
+    f = scene.padded_faces
+    block_f = _natural_block_f(scene, f)
+    nrays = dx.shape[0]
+    dx, dy, dz = (_pad1(v, TILE_R) for v in (dx, dy, dz))
+
+    oterm = pack_origin_cols(scene, origin)
+    fpack = pack_face_columns(scene)
+    o0, o1, o2 = origin[0], origin[1], origin[2]
+    mask, nwords = _mask_words(scene, accel, o0, o1, o2, dx, dy, dz,
+                               TILE_R, block_f, f)
+    tlb, order, texit = _vmem_sched(scene, mask, nwords, o0, o1, o2,
+                                    dx, dy, dz, TILE_R, f, block_f)
+    t, face, sph = kernels.closest_hit(
+        tlb, order, dx, dy, dz, texit, fpack, oterm,
+        _sphere_pack(scene, origin), block_f=block_f, near=near, far=far)
+    t, face = t[:nrays], face[:nrays]
+    if sph is not None:
+        sph = tuple(p[:nrays] for p in sph)
+    gb = expand_tf_gbuffer(scene, t, face, dx[:nrays], dy[:nrays],
+                           dz[:nrays], oterm)
+    return gb, sph
+
+
+def anyhit_rays(scene: SceneData, ox, oy, oz, dx, dy, dz, active, *,
+                accel: str = "cull", kernels: KernelSet = KERNELS):
+    """Planar any-hit (JAX: anyhit_pallas, VMEM branch): (R,) bool
+    occlusion for per-ray origins; only `active` rays are tested."""
+    f = scene.padded_faces
+    block_f = _natural_block_f(scene, f)
+    nrays = dx.shape[0]
+    args = [_pad1(a, TILE_R) for a in (dx, dy, dz, ox, oy, oz)]
+    act = _pad1(active.to(torch.float32), TILE_R)
+    dxp, dyp, dzp, oxp, oyp, ozp = args
+    mask, nwords = _mask_words(scene, accel, oxp, oyp, ozp,
+                               dxp, dyp, dzp, TILE_R, block_f, f)
+    fpack = pack_face_columns(scene)
+    dc = torch.cat([scene.tri_d[:, None], scene.tri_c,
+                    torch.zeros((f, 4), dtype=torch.float32,
+                                device=dxp.device)], dim=1)  # (F, 8)
+    tlb, order, texit = _vmem_sched(scene, mask, nwords,
+                                    oxp, oyp, ozp, dxp, dyp, dzp,
+                                    TILE_R, f, block_f, act=(act > 0))
+    occ = kernels.anyhit(tlb, order, *args, act, texit, fpack, dc,
+                         block_f=block_f)
+    return occ[:nrays] > 0.0
+
+
+def _ray_matrix(uni: CameraUniforms):
+    """M = V^-1[:3,:3] @ (GL2WGPU P^-1)[:3,:] and the constant column,
+    in f32 on the host, summed in index order like XLA's f32 dot."""
+    v = np.asarray(uni.view_inv, np.float32)[:3, :3]
+    p = np.asarray(uni.proj_inv_wgpu, np.float32)[:3, :]
+    m = v[:, 0:1] * p[0:1, :] + v[:, 1:2] * p[1:2, :] + v[:, 2:3] * p[2:3, :]
+    return m, m[:, 2] + m[:, 3]
+
+
+def _directions(m, const, xr, yr):
+    dx = float(m[0, 0]) * xr + float(m[0, 1]) * yr + float(const[0])
+    dy = float(m[1, 0]) * xr + float(m[1, 1]) * yr + float(const[1])
+    dz = float(m[2, 0]) * xr + float(m[2, 1]) * yr + float(const[2])
+    inv_l = 1.0 / sqrt(dx * dx + dy * dy + dz * dz)
+    return dx * inv_l, dy * inv_l, dz * inv_l
+
+
+def raygen_planar(width, height, uni: CameraUniforms, *, device):
+    """Planar pixelToRay (sphere/compute.wgsl:87-101): returns dx, dy, dz
+    (R,) f32 flat W-major (texel row 0 first)."""
+    m, const = _ray_matrix(uni)
+    x = torch.arange(width, dtype=torch.float32, device=device)
+    y = torch.arange(height, dtype=torch.float32, device=device)
+    x_nds = (2.0 * (x + 0.5)) * _rcp(width) - 1.0
+    y_nds = (2.0 * (y + 0.5)) * _rcp(height) - 1.0
+    xr = x_nds.repeat(height)  # (R,) W-major
+    yr = y_nds.repeat_interleave(width)
+    return _directions(m, const, xr, yr)
+
+
+def raygen_planar_tiled(width, height, uni: CameraUniforms, *, device,
+                        total_height=None, tile_h: int = 8,
+                        tile_w: int = 128):
+    """raygen_planar with rays ordered by (tile_h x tile_w)-PIXEL SCREEN
+    TILES, so each 1024-ray schedule tile is a compact screen block and
+    its ray cone culls tightly. Requires height % tile_h == 0 and
+    width % tile_w == 0 (render_megakernel pads rows and crops); NDC y
+    uses total_height (the true image height) so visible pixels' rays
+    equal the untiled ones. Reassemble outputs with tiled_to_image()."""
+    m, const = _ray_matrix(uni)
+    th = total_height or height
+    r = width * height
+    tsz = tile_h * tile_w
+    tiles_x = width // tile_w
+    ridx = torch.arange(r, dtype=torch.int32, device=device)
+    tile = ridx // tsz
+    within = ridx % tsz
+    py = (tile // tiles_x) * tile_h + within // tile_w
+    px = (tile % tiles_x) * tile_w + within % tile_w
+    xr = (2.0 * (px.to(torch.float32) + 0.5)) * _rcp(width) - 1.0
+    yr = (2.0 * (py.to(torch.float32) + 0.5)) * _rcp(th) - 1.0
+    return _directions(m, const, xr, yr)
+
+
+def tiled_to_image(plane, width, height, tile_h: int = 8,
+                   tile_w: int = 128):
+    """(R,) plane in (tile_h x tile_w)-tile order -> (H, W)."""
+    tiles_x = width // tile_w
+    tiles_y = height // tile_h
+    return plane.reshape(tiles_y, tiles_x, tile_h, tile_w).permute(
+        0, 2, 1, 3).reshape(height, width)
+
+
+def _pick_tile_shape(width: int, height: int):
+    """Squarest 1024-ray screen tile the frame admits: tile_w must
+    divide width; rows are padded to a tile_h multiple (then cropped).
+    Prefers the squarest tile unless its row padding exceeds height/8,
+    in which case the least-padded tiling wins. Returns (tile_h, tile_w,
+    padded_height) or None (untiled scanline order — also chosen when
+    every tiling would more than double the rows)."""
+    cands = []
+    for tile_w in (32, 64, 128):  # squarest first
+        if width % tile_w == 0:
+            tile_h = TILE_R // tile_w
+            h_pad = -(-height // tile_h) * tile_h
+            cands.append((tile_h, tile_w, h_pad))
+    if not cands:
+        return None
+    choice = cands[0]
+    if (choice[2] - height) * 8 > height:
+        choice = min(cands, key=lambda c: c[2])  # stable: ties stay squarest
+    if choice[2] > 2 * height:
+        return None
+    return choice
+
+
+def _norm3(x, y, z):
+    l = sqrt(x * x + y * y + z * z)
+    return x / l, y / l, z / l
+
+
+def sphere_pass_planar(scene, i, origin, dx, dy, dz):
+    """Planar sphere intersect (sphere/compute.wgsl:63-85) + normal, for
+    frames without a mesh (a mesh frame gets its sphere winner from the
+    closest-hit kernel)."""
+    cx, cy, cz = (scene.sphere_center[i, 0], scene.sphere_center[i, 1],
+                  scene.sphere_center[i, 2])
+    radius = scene.sphere_radius[i]
+    ocx, ocy, ocz = origin[0] - cx, origin[1] - cy, origin[2] - cz
+    a = dx * dx + dy * dy + dz * dz
+    b = 2.0 * (ocx * dx + ocy * dy + ocz * dz)
+    c = (ocx * ocx + ocy * ocy + ocz * ocz) - radius * radius
+    disc = b * b - 4.0 * a * c
+    sq = sqrt(disc.clamp_min(0.0))
+    t1 = (-b - sq) / (2.0 * a)
+    t2 = (-b + sq) / (2.0 * a)
+    t = torch.where(t1 >= 0.0, t1, torch.where(t2 >= 0.0, t2, F32_INF))
+    t = torch.where(disc < 0.0, F32_INF, t)
+    hit = torch.isfinite(t)
+    ts = torch.where(hit, t, 0.0)
+    px, py, pz = origin[0] + dx * ts, origin[1] + dy * ts, origin[2] + dz * ts
+    nx, ny, nz = px - cx, py - cy, pz - cz
+    l = sqrt(nx * nx + ny * ny + nz * nz)
+    l = torch.where(l > 0, l, 1.0)
+    return t, hit, nx / l, ny / l, nz / l
+
+
+def blinn_phong_planar(nx, ny, nz, dx, dy, dz, light):
+    """Shared planar Blinn-Phong factors: returns (lambert, spec_pow32)."""
+    lx, ly, lz = _norm3(light[0], light[1], light[2])
+    lam = (-(nx * lx + ny * ly + nz * lz)).clamp_min(0.0)
+    hx, hy, hz = -lx - dx, -ly - dy, -lz - dz
+    hl = sqrt(hx * hx + hy * hy + hz * hz)
+    hl = torch.where(hl > 0, hl, 1.0)
+    hdotn = ((hx * nx + hy * ny + hz * nz) / hl).clamp_min(0.0)
+    spec = hdotn ** 32.0
+    return lam, spec
+
+
+def gather_packed_taps(pool, base, hw_h, hw_w, u, v):
+    """Clamped texel address + fractional weights, and THE one gather:
+    returns (taps (12, R) int16 u16-bits, fx, fy). Clamp-to-edge: the
+    packed texel at the clamped floor coordinate carries its own clamped
+    2x2 neighbourhood, and fx/fy are zeroed when floor < 0."""
+    x = u * hw_w - 0.5
+    y = v * hw_h - 0.5
+    x0f = torch.floor(x)
+    y0f = torch.floor(y)
+    fx = torch.where(x0f < 0, 0.0, x - x0f)
+    fy = torch.where(y0f < 0, 0.0, y - y0f)
+    x0 = torch.minimum(x0f.to(torch.int32).clamp_min(0),
+                       (hw_w - 1.0).to(torch.int32))
+    y0 = torch.minimum(y0f.to(torch.int32).clamp_min(0),
+                       (hw_h - 1.0).to(torch.int32))
+    flat = base.to(torch.int32) + y0 * hw_w.to(torch.int32) + x0
+    return pool.index_select(1, flat.long()), fx, fy
+
+
+def _mat_const(scene: SceneData, mat_f32, getter):
+    """Resolve a per-material constant via an M-way select (no gather),
+    keeping the constant's dtype: texel BASE OFFSETS stay i32 (an f32
+    plane loses integers past 2^24 texels)."""
+    m = scene.mat_ambient.shape[0]
+    out = getter(0).expand(mat_f32.shape).contiguous()
+    for k in range(1, m):
+        out = torch.where(mat_f32 == float(k), getter(k), out)
+    return out
+
+
+def present_planar(cr, cg, cb, depth, *, width, height, shape, quantize):
+    """Quantize + de-tile the planar color/depth planes to ((H, W, 3),
+    (H, W)). shape is the _pick_tile_shape tiling this frame rendered with."""
+    if quantize:
+        cr = quantize_rgba8(cr)
+        cg = quantize_rgba8(cg)
+        cb = quantize_rgba8(cb)
+    if shape is not None:
+        tile_h, tile_w, render_h = shape
+        cr, cg, cb, depth = (
+            tiled_to_image(p, width, render_h, tile_h, tile_w)[:height]
+            for p in (cr, cg, cb, depth))
+        return torch.stack([cr, cg, cb], dim=-1), depth
+    color = torch.stack(
+        [cr.reshape(height, width), cg.reshape(height, width),
+         cb.reshape(height, width)], dim=-1)
+    return color, depth.reshape(height, width)
+
+
+def _spheres_occlude_planar(scene, px, py, pz, dx, dy, dz, t_min=1e-3):
+    occ = torch.zeros(px.shape, dtype=torch.bool, device=px.device)
+    for i in range(scene.num_spheres):
+        cx, cy, cz = (scene.sphere_center[i, 0], scene.sphere_center[i, 1],
+                      scene.sphere_center[i, 2])
+        radius = scene.sphere_radius[i]
+        ocx, ocy, ocz = px - cx, py - cy, pz - cz
+        a = dx * dx + dy * dy + dz * dz
+        b = 2.0 * (ocx * dx + ocy * dy + ocz * dz)
+        c = (ocx * ocx + ocy * ocy + ocz * ocz) - radius * radius
+        disc = b * b - 4.0 * a * c
+        sq = sqrt(disc.clamp_min(0.0))
+        t1 = (-b - sq) / (2.0 * a)
+        t2 = (-b + sq) / (2.0 * a)
+        t = torch.where(t1 >= 0.0, t1, torch.where(t2 >= 0.0, t2, F32_INF))
+        t = torch.where(disc < 0.0, F32_INF, t)
+        occ = occ | ((t >= t_min) & torch.isfinite(t))
+    return occ
+
+
+def check_supported(scene: SceneData, *, accel: str = "cull",
+                    fused: Optional[bool] = None,
+                    normal_mapping: bool = False, mip: bool = False) -> None:
+    """Raise NotImplementedError for what the split frame of this port
+    does not render yet (never silently render something else)."""
+    if fused:
+        raise NotImplementedError(f"the fused frame is {_ROADMAP}")
+    if normal_mapping:
+        raise NotImplementedError(f"normal mapping is {_ROADMAP}")
+    if mip:
+        raise NotImplementedError(f"mip sampling is {_ROADMAP}")
+    if accel == "bvh":
+        raise NotImplementedError(f'accel="bvh" is {_ROADMAP}')
+    if accel not in ("brute", "cull"):
+        raise ValueError(f"unknown accel {accel!r}")
+    if scene.padded_faces > STREAM_FACES:
+        raise NotImplementedError(
+            f"meshes above STREAM_FACES={STREAM_FACES} faces (streaming "
+            f"kernels) are {_ROADMAP}")
+
+
+def render_megakernel(scene: SceneData, uni_flat, *, width: int, height: int,
+                      near: float = 0.01, far: float = 100.0,
+                      background=(0.0, 0.0, 0.0), shadows: bool = False,
+                      quantize: bool = True, normal_mapping: bool = False,
+                      accel: str = "cull", fused: Optional[bool] = None,
+                      mip: bool = False, kernels: KernelSet = KERNELS):
+    """One split frame on the scene's device: planar raygen -> closest-hit
+    kernel (spheres fused) -> one-gather texture shade kernel ->
+    composite -> shadow any-hit kernel. Returns (color (H,W,3) f32,
+    depth (H,W) f32), bit for bit the JAX package's
+    render_megakernel(fused=False) under the same rounding rules.
+
+    fused=None picks the split frame (the only one ported so far);
+    `kernels` selects the kernel implementations (PLAIN composes the
+    frame from the plain PyTorch versions)."""
+    check_supported(scene, accel=accel, fused=fused,
+                    normal_mapping=normal_mapping, mip=mip)
+    device = scene.tri_n.device
+    uni = CameraUniforms.unflat(np.asarray(
+        uni_flat.cpu() if isinstance(uni_flat, torch.Tensor) else uni_flat,
+        np.float32))
+    origin = torch.as_tensor(uni.origin, dtype=torch.float32, device=device)
+
+    # JAX's _frame_shape; without row slabs it is _pick_tile_shape
+    shape = _pick_tile_shape(width, height)
+    if shape is not None:
+        tile_h, tile_w, render_h = shape
+        dx, dy, dz = raygen_planar_tiled(width, render_h, uni, device=device,
+                                         total_height=height,
+                                         tile_h=tile_h, tile_w=tile_w)
+    else:
+        render_h = height
+        dx, dy, dz = raygen_planar(width, height, uni, device=device)
+    r = width * render_h
+
+    def full(v):
+        return torch.full((r,), float(np.float32(v)), dtype=torch.float32,
+                          device=device)
+
+    def plane(v):  # a 0-dim constant as an (R,) plane
+        return v.expand(r)
+
+    cr, cg, cb = full(background[0]), full(background[1]), full(background[2])
+    depth = full(1.0)
+
+    def composite(state, pr, pg, pb, t, hit, extra=None):
+        cr, cg, cb, depth = state[:4]
+        d = to_nonlinear_depth(torch.where(hit, t, 1.0), near, far)
+        write = hit & (d < depth)
+        out = [torch.where(write, pr, cr), torch.where(write, pg, cg),
+               torch.where(write, pb, cb), torch.where(write, d, depth)]
+        if extra is not None:
+            out.extend(torch.where(write, new, old)
+                       for new, old in zip(extra, state[4:]))
+        return out, write
+
+    has_mesh = scene.num_faces > 0
+    state = [cr, cg, cb, depth]
+    if shadows:
+        # winner planes for the single deferred shadow pass: ambient-only
+        # color, hit point inputs and light dir of the VISIBLE surface
+        # (only the last pass that wins the depth test reaches the screen)
+        zero = full(0.0)
+        state += [zero, zero, zero, zero, zero, zero, zero, zero, zero,
+                  full(1.0), torch.zeros(r, dtype=torch.bool, device=device)]
+        covered = torch.zeros(r, dtype=torch.bool, device=device)
+
+    sph_out = None
+    if has_mesh:
+        gb, sph_out = gbuffer(scene, origin, dx, dy, dz, accel=accel,
+                              near=near, far=far, kernels=kernels)
+
+    # --- sphere passes, in config order (src/lib.rs:1106-1148) ---
+    if sph_out is not None:
+        # fused winner: per-ray constants resolve by sphere id, then ONE
+        # Blinn-Phong + composite with the same strict nonlinear-depth rule
+        st, sid, nx, ny, nz = sph_out
+        hit = torch.isfinite(st)
+
+        def sph_const(getter):
+            out = plane(getter(0))
+            for k in range(1, scene.num_spheres):
+                out = torch.where(sid == float(k), getter(k), out)
+            return out
+
+        lx = sph_const(lambda k: scene.sphere_light[k, 0])
+        ly = sph_const(lambda k: scene.sphere_light[k, 1])
+        lz = sph_const(lambda k: scene.sphere_light[k, 2])
+        c0 = sph_const(lambda k: scene.sphere_coeff[k, 0])
+        c1 = sph_const(lambda k: scene.sphere_coeff[k, 1])
+        c2 = sph_const(lambda k: scene.sphere_coeff[k, 2])
+        kr = sph_const(lambda k: scene.sphere_color[k, 0])
+        kg = sph_const(lambda k: scene.sphere_color[k, 1])
+        kb = sph_const(lambda k: scene.sphere_color[k, 2])
+        lam, spec = blinn_phong_planar(nx, ny, nz, dx, dy, dz, (lx, ly, lz))
+        shade = c0 + c1 * lam
+        pr = kr * shade + c2 * spec
+        pg = kg * shade + c2 * spec
+        pb = kb * shade + c2 * spec
+        extra = None
+        if shadows:
+            extra = [kr * c0, kg * c0, kb * c0, st, nx, ny, nz,
+                     lx, ly, lz, (lam > 0.0) | (spec > 0.0)]
+        state, write = composite(state, pr, pg, pb, st, hit, extra)
+        if shadows:
+            covered = covered | write
+    else:
+        for i in range(scene.num_spheres):
+            t, hit, nx, ny, nz = sphere_pass_planar(scene, i, origin,
+                                                    dx, dy, dz)
+            light = scene.sphere_light[i]
+            lam, spec = blinn_phong_planar(nx, ny, nz, dx, dy, dz, light)
+            coeff = scene.sphere_coeff[i]
+            col = scene.sphere_color[i]
+            shade = coeff[0] + coeff[1] * lam
+            pr = col[0] * shade + coeff[2] * spec
+            pg = col[1] * shade + coeff[2] * spec
+            pb = col[2] * shade + coeff[2] * spec
+            extra = None
+            if shadows:
+                extra = [plane(col[0] * coeff[0]), plane(col[1] * coeff[0]),
+                         plane(col[2] * coeff[0]), t, nx, ny, nz,
+                         plane(light[0]), plane(light[1]), plane(light[2]),
+                         (lam > 0.0) | (spec > 0.0)]
+            state, write = composite(state, pr, pg, pb, t, hit, extra)
+            if shadows:
+                covered = covered | write
+
+    # --- mesh pass (closest-hit G-buffer + one-gather shading) ---
+    if has_mesh:
+        hit = torch.isfinite(gb.t)
+        flip = gb.nd > 0.0
+        nx = torch.where(flip, -gb.nx, gb.nx)
+        ny = torch.where(flip, -gb.ny, gb.ny)
+        nz = torch.where(flip, -gb.nz, gb.nz)
+
+        tex_base = _mat_const(scene, gb.mat, lambda k: scene.mat_tex_base[k])
+        hw_h = _mat_const(scene, gb.mat, lambda k: scene.mat_tex_h[k])
+        hw_w = _mat_const(scene, gb.mat, lambda k: scene.mat_tex_w[k])
+        tex_u = gb.uvx
+        tex_v = 1.0 - gb.uvy  # V-flip (triangle_list/compute.wgsl:223)
+
+        # per-pixel light dir can vary by material (reference quirk:
+        # per-kernel light dirs) — resolve via M-way select
+        lightx = _mat_const(scene, gb.mat, lambda k: scene.mat_light[k, 0])
+        lighty = _mat_const(scene, gb.mat, lambda k: scene.mat_light[k, 1])
+        lightz = _mat_const(scene, gb.mat, lambda k: scene.mat_light[k, 2])
+        lam, spec = blinn_phong_planar(nx, ny, nz, dx, dy, dz,
+                                       (lightx, lighty, lightz))
+        amb_r = _mat_const(scene, gb.mat, lambda k: scene.mat_ambient[k, 0])
+        amb_g = _mat_const(scene, gb.mat, lambda k: scene.mat_ambient[k, 1])
+        amb_b = _mat_const(scene, gb.mat, lambda k: scene.mat_ambient[k, 2])
+        spc_r = _mat_const(scene, gb.mat, lambda k: scene.mat_specular[k, 0])
+        spc_g = _mat_const(scene, gb.mat, lambda k: scene.mat_specular[k, 1])
+        spc_b = _mat_const(scene, gb.mat, lambda k: scene.mat_specular[k, 2])
+
+        taps, fxw, fyw = gather_packed_taps(scene.tex_packed, tex_base,
+                                            hw_h, hw_w, tex_u, tex_v)
+        pr, pg, pb = kernels.texshade(taps, fxw, fyw, lam, spec,
+                                      amb_r, amb_g, amb_b,
+                                      spc_r, spc_g, spc_b)
+        extra = None
+        if shadows:
+            extra = [amb_r, amb_g, amb_b, gb.t, nx, ny, nz,
+                     lightx, lighty, lightz, (lam > 0.0) | (spec > 0.0)]
+        state, write = composite(state, pr, pg, pb, gb.t, hit, extra)
+        if shadows:
+            covered = covered | write
+
+    cr, cg, cb, depth = state[:4]
+
+    # --- single deferred shadow pass for the visible surface ---
+    if shadows:
+        (w_ar, w_ag, w_ab, w_t, w_nx, w_ny, w_nz,
+         w_lx, w_ly, w_lz, w_rel) = state[4:]
+        ll = sqrt(w_lx * w_lx + w_ly * w_ly + w_lz * w_lz)
+        ll = torch.where(ll > 0, ll, 1.0)
+        # trace only pixels whose shading the occlusion bit can change:
+        # where lam == 0 and spec == 0 the lit and shadowed colours are
+        # bitwise equal, so the ray is parked (far origin, zero
+        # direction) and the tile cull drops it
+        relevant = covered & w_rel
+        park = 1e9
+        sdx = torch.where(relevant, -w_lx / ll, 0.0)
+        sdy = torch.where(relevant, -w_ly / ll, 0.0)
+        sdz = torch.where(relevant, -w_lz / ll, 0.0)
+        ts = torch.where(relevant, w_t, 0.0)
+        px = torch.where(relevant, origin[0] + dx * ts + w_nx * 1e-3, park)
+        py = torch.where(relevant, origin[1] + dy * ts + w_ny * 1e-3, park)
+        pz = torch.where(relevant, origin[2] + dz * ts + w_nz * 1e-3, park)
+        occ = torch.zeros(r, dtype=torch.bool, device=device)
+        if has_mesh:
+            occ = anyhit_rays(scene, px, py, pz, sdx, sdy, sdz, relevant,
+                              accel=accel, kernels=kernels)
+        occ = occ | _spheres_occlude_planar(scene, px, py, pz, sdx, sdy, sdz)
+        shadowed = covered & occ
+        cr = torch.where(shadowed, w_ar, cr)
+        cg = torch.where(shadowed, w_ag, cg)
+        cb = torch.where(shadowed, w_ab, cb)
+
+    return present_planar(cr, cg, cb, depth, width=width, height=height,
+                          shape=shape, quantize=quantize)

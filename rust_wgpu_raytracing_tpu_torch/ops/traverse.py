@@ -1,0 +1,113 @@
+"""Tile-cone culling math shared by the cull mask and the visit schedule.
+
+Counterpart of the JAX package's ops/traverse.py (slab tests, root
+exit, per-tile ray bounds). Every expression keeps the JAX operation
+order, so the masks and schedules are bit-identical to the JAX ones.
+The LBVH walk (accel="bvh") is not ported yet; see ROADMAP.md.
+"""
+
+from __future__ import annotations
+
+import torch
+
+F32_INF = float("inf")
+
+
+def slab_interval_ok(a, b, dn, dp):
+    """Conservative ray-interval vs AABB slab test.
+
+    a = box_lo - origin_max, b = box_hi - origin_min, dn/dp = per-axis
+    direction min/max; all (..., 3). Returns (...,) bool: True if some
+    t >= 0 can reach the box for SOME ray in the interval bounds.
+    """
+    ok, _ = slab_interval_entry(a, b, dn, dp)
+    return ok
+
+
+def slab_interval_entry(a, b, dn, dp):
+    """slab_interval_ok plus the conservative ENTRY-t lower bound.
+
+    Returns (ok (...,) bool, t0 (...,) f32): t0 <= the true entry
+    parameter of EVERY ray in the interval family that reaches the box
+    (clamped to >= 0); +inf where the box is unreachable."""
+    mixed = (dn <= 0.0) & (dp >= 0.0)
+    zero = (dn == 0.0) & (dp == 0.0)  # parked rays (direction == 0)
+    pos = dn > 0.0
+    dp_s = torch.where(dp.abs() > 1e-30, dp, 1e-30)
+    dn_s = torch.where(dn.abs() > 1e-30, dn, 1e-30)
+
+    lo_pos = torch.where(a > 0.0, a / dp_s, 0.0)
+    hi_pos = torch.where(b >= 0.0, b / dn_s, -1.0)
+    lo_neg = torch.where(b < 0.0, b / dn_s, 0.0)
+    hi_neg = torch.where(a <= 0.0, a / dp_s, -1.0)
+
+    lo_t = torch.where(mixed, 0.0, torch.where(pos, lo_pos, lo_neg))
+    hi_t = torch.where(mixed, F32_INF, torch.where(pos, hi_pos, hi_neg))
+    hi_t = torch.where(zero & ~((a <= 0.0) & (b >= 0.0)), -1.0, hi_t)
+
+    box_ok = (b >= a).all(dim=-1)
+    t0 = lo_t.amax(dim=-1)
+    t1 = hi_t.amin(dim=-1)
+    ok = box_ok & (t1 >= 0.0) & (t1 >= t0)
+    # deflate by ~100 f32 division ulps so rounding can never lift the
+    # bound above a true entry (exactness of the early-exit skip)
+    t0_lb = t0.clamp_min(0.0) * (1.0 - 1e-5) - 1e-6
+    return ok, torch.where(ok, t0_lb, F32_INF)
+
+
+def ray_root_exit(lo, hi, ox, oy, oz, dx, dy, dz):
+    """Per-ray conservative UPPER bound of the exit parameter from the
+    scene root AABB [lo, hi] ((3,) each); -1.0 for rays that miss the
+    root entirely. ox.. may be 0-dim tensors (shared origin)."""
+    t0 = torch.zeros_like(dx)
+    t1 = torch.full_like(dx, F32_INF)
+    for a, (o, d) in enumerate(((ox, dx), (oy, dy), (oz, dz))):
+        d_safe = torch.where(d == 0.0, 1.0, d)
+        ta = (lo[a] - o) / d_safe
+        tb = (hi[a] - o) / d_safe
+        tn = torch.minimum(ta, tb)
+        tf = torch.maximum(ta, tb)
+        inside = (o >= lo[a]) & (o <= hi[a])
+        tn = torch.where(d == 0.0,
+                         torch.where(inside, 0.0, F32_INF), tn)
+        tf = torch.where(d == 0.0,
+                         torch.where(inside, F32_INF, -F32_INF), tf)
+        t0 = torch.maximum(t0, tn)
+        t1 = torch.minimum(t1, tf)
+    hit = t1 >= t0
+    return torch.where(hit, t1 * (1.0 + 1e-5) + 1e-6, -1.0)
+
+
+def _tile_minmax(x, tile_r, act=None):
+    t = x.reshape(-1, tile_r)
+    if act is None:
+        return t.amin(dim=1), t.amax(dim=1)
+    a = act.reshape(-1, tile_r)
+    return (torch.where(a, t, F32_INF).amin(dim=1),
+            torch.where(a, t, -F32_INF).amax(dim=1))
+
+
+def tile_ray_bounds(ox, oy, oz, dx, dy, dz, tile_r, act=None):
+    """Componentwise per-tile origin/direction interval bounds.
+
+    ox/oy/oz may be 0-dim tensors (shared-origin primary rays) or padded
+    (R,) planes (per-ray shadow origins). Returns (omin, omax, dmin,
+    dmax), each (T, 3) f32. act (optional, (R,) bool) restricts the
+    bounds to live rays, so parked rays cannot widen a tile's cone."""
+    def bounds(v):
+        if v.dim() == 0:
+            b = v.expand(dx.shape[0] // tile_r)
+            return b, b
+        return _tile_minmax(v, tile_r, act)
+
+    oxm, oxM = bounds(ox)
+    oym, oyM = bounds(oy)
+    ozm, ozM = bounds(oz)
+    dxm, dxM = _tile_minmax(dx, tile_r, act)
+    dym, dyM = _tile_minmax(dy, tile_r, act)
+    dzm, dzM = _tile_minmax(dz, tile_r, act)
+    omin = torch.stack([oxm, oym, ozm], dim=1)
+    omax = torch.stack([oxM, oyM, ozM], dim=1)
+    dmin = torch.stack([dxm, dym, dzm], dim=1)
+    dmax = torch.stack([dxM, dyM, dzM], dim=1)
+    return omin, omax, dmin, dmax

@@ -1,0 +1,161 @@
+"""Renderer: the analogue of the reference's `State` (src/lib.rs:223-257).
+
+The Renderer owns the SceneData on one device and the frame function;
+per frame the host sends only the (35,) camera vector, and the
+framebuffer stays on the device until presented. update()/render()/
+resize() mirror State::update/render/resize (src/lib.rs:994,1012,772),
+with the reference's resize aspect-lag bug fixed (the new size sets the
+aspect), as in the JAX package.
+
+The device is explicit: Renderer(cfg, device="cuda") renders on the
+card and raises when there is none; device="cpu" runs the same frame
+through the kernels' plain PyTorch versions.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+
+import numpy as np
+import torch
+
+from ..config import SceneConfig
+from ..core.camera import Camera
+from ..core.controls import CircleCameraController
+from ..core.scene import Scene
+from ..io.image_out import encode_u8_device, write_png
+from ..ops.megakernel import check_supported, render_megakernel
+
+_ROADMAP = "not ported to the PyTorch/CUDA package yet; see ROADMAP.md"
+
+
+def resolve_device(device) -> torch.device:
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device!r} requested but CUDA is not "
+                           "available")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {device!r}")
+    return dev
+
+
+class Renderer:
+    def __init__(self, config: SceneConfig, backend: str = "auto", *,
+                 device):
+        self.device = resolve_device(device)
+        self.backend = self._pick_backend(backend)
+        rc = config.render
+        if rc.pt_bounces > 0:
+            raise NotImplementedError(f"path tracing is {_ROADMAP}")
+        if rc.variant not in ("split", "fused", "auto"):
+            raise ValueError(f"unknown frame variant {rc.variant!r}")
+        if rc.variant == "fused":
+            raise NotImplementedError(f"the fused frame is {_ROADMAP}")
+        # "auto" times split against fused in the JAX package; with only
+        # the split frame ported it renders split
+        self.config = config
+        self.scene = Scene.build(config)
+        self.data = self.scene.data.to(self.device)
+        check_supported(self.data, accel=rc.accel, mip=rc.mip,
+                        normal_mapping=self._normal_mapping)
+        self.camera = Camera.from_config(
+            config.camera, aspect=rc.width / rc.height)
+        self.controller = CircleCameraController(speed=0.2)
+        self.width = rc.width
+        self.height = rc.height
+        self.frame_count = 0
+        self._last = None
+        self._events = None
+        self._last_frame_ms = float("nan")
+
+    @property
+    def _normal_mapping(self) -> bool:
+        return any(m.normal_mapping for m in self.config.meshes)
+
+    @staticmethod
+    def _pick_backend(backend: str) -> str:
+        if backend in ("auto", "megakernel"):
+            return "megakernel"
+        raise NotImplementedError(f"backend {backend!r} is {_ROADMAP}")
+
+    def _frame(self, uni):
+        rc = self.config.render
+        return render_megakernel(
+            self.data, uni, width=self.width, height=self.height,
+            near=rc.kernel_near, far=rc.kernel_far,
+            background=tuple(self.config.background), shadows=rc.shadows,
+            quantize=rc.quantize_rgba8,
+            normal_mapping=self._normal_mapping,
+            accel=rc.accel, mip=rc.mip)
+
+    # --- State::update (src/lib.rs:994-1010) ---
+    def update(self):
+        self.controller.update_camera(self.camera)
+
+    # --- State::render (src/lib.rs:1012-1230) ---
+    def render(self, block: bool = False):
+        """Returns the device-resident (color, depth) tensors.
+        block=True waits for the frame (torch.cuda.synchronize)."""
+        uni = self.camera.uniforms().flat()
+        if self.device.type == "cuda":
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            color, depth = self._frame(uni)
+            end.record()
+            self._events = (start, end)
+            if block:
+                torch.cuda.synchronize(self.device)
+        else:
+            t0 = time.perf_counter()
+            color, depth = self._frame(uni)
+            self._events = None
+            self._last_frame_ms = (time.perf_counter() - t0) * 1e3
+        self.frame_count += 1
+        self._last = (color, depth)
+        return color, depth
+
+    @property
+    def last_frame_ms(self) -> float:
+        """Time of the latest frame: CUDA events around it on the card
+        (waits for the frame to finish), the host clock on the CPU."""
+        if self._events is not None:
+            start, end = self._events
+            end.synchronize()
+            self._last_frame_ms = start.elapsed_time(end)
+            self._events = None
+        return self._last_frame_ms
+
+    # --- State::resize (src/lib.rs:772-989) ---
+    def resize(self, width: int, height: int):
+        if width <= 0 or height <= 0:
+            return  # the reference also ignores degenerate sizes
+        self.width, self.height = width, height
+        self.camera.aspect = width / height
+        self.config = dataclasses.replace(
+            self.config, render=dataclasses.replace(
+                self.config.render, width=width, height=height))
+
+    # --- presentation (screenquad.wgsl analogue) ---
+    def _latest_color(self):
+        if self._last is None:
+            self.render()
+        return self._last[0]
+
+    def present_image(self, srgb: bool = True) -> np.ndarray:
+        """(H,W,3) u8 top-down image of the latest frame, encoded on the
+        device so only the u8 image crosses to the host."""
+        img = encode_u8_device(self._latest_color(), srgb=srgb)
+        return img.cpu().numpy()[::-1]
+
+    def save_png(self, path: str, srgb: bool = True):
+        write_png(path, self._latest_color(), srgb=srgb)
+
+    # --- metrics ---
+    @property
+    def mrays_per_s(self) -> float:
+        ms = self.last_frame_ms
+        if not np.isfinite(ms):
+            return float("nan")
+        return (self.width * self.height) / (ms * 1e-3) / 1e6

@@ -1,0 +1,283 @@
+"""PyTorch port: the split frame's plain-tensor glue against the JAX
+package, bit for bit.
+
+The JAX side runs jitted, as inside its frame program, in a separate
+interpreter with XLA's CPU code generation capped below FMA
+(test_torch_host.jax_reference says why). Everything here must then be
+EXACTLY equal: rays, face packs, origin terms, cull masks, schedules,
+the winner expansion and the texel gather.
+"""
+
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from rust_wgpu_raytracing_tpu import config as jcfg
+from rust_wgpu_raytracing_tpu_torch.core.camera import Camera
+from rust_wgpu_raytracing_tpu_torch.core.scene import Scene
+from rust_wgpu_raytracing_tpu_torch.ops import megakernel as P
+from rust_wgpu_raytracing_tpu_torch.ops.composite import to_nonlinear_depth
+from rust_wgpu_raytracing_tpu_torch.ops.shade import quantize_rgba8
+from test_torch_host import (cube_config, jax_reference, port_config,
+                             terrain_config, textured_config,
+                             write_textured_assets)
+
+RAY_SIZES = [(64, 64), (96, 64), (1920, 1080), (100, 30)]
+W, H = 96, 64
+
+
+def shadow_rays(n, seed=3):
+    """Per-ray-origin shadow wavefront like the frame's: origins over the
+    terrain toward the light, about one ray in five parked (origin 1e9,
+    zero direction), `act` marking the live ones."""
+    rng = np.random.default_rng(seed)
+    o = rng.uniform([-1.2, -1.2, -3.4], [1.2, 1.2, -2.6],
+                    (n, 3)).astype(np.float32)
+    ldir = -np.array([6.0, -1.0, 1.0], np.float32)
+    d = (ldir / np.linalg.norm(ldir)) + rng.normal(0, 0.05, (n, 3))
+    d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+    act = rng.uniform(size=n) < 0.8
+    o[~act] = 1e9
+    d[~act] = 0.0
+    return o.T.copy(), d.T.copy(), act
+
+
+def jax_glue(out, assets):
+    import jax
+    import jax.numpy as jnp
+
+    import rust_wgpu_raytracing_tpu.ops.megakernel as J
+    from rust_wgpu_raytracing_tpu.core.camera import Camera as JCamera
+    from rust_wgpu_raytracing_tpu.core.camera import CameraUniforms as JU
+    from rust_wgpu_raytracing_tpu.core.scene import Scene as JScene
+    from rust_wgpu_raytracing_tpu.ops.composite import to_nonlinear_depth
+    from rust_wgpu_raytracing_tpu.ops.shade import quantize_rgba8
+
+    os.environ["RWRT_ASSETS"] = assets
+    res = {}
+    cfg = terrain_config(jcfg)
+    for w, h in RAY_SIZES:
+        uni = jnp.asarray(JCamera.from_config(cfg.camera, w / h)
+                          .uniforms().flat())
+        shape = J._pick_tile_shape(w, h)
+        if shape is not None:
+            th, tw, rh = shape
+            fn = jax.jit(lambda u: J.raygen_planar_tiled(
+                w, rh, JU.unflat(u), total_height=h, tile_h=th, tile_w=tw))
+        else:
+            fn = jax.jit(lambda u: J.raygen_planar(w, h, JU.unflat(u)))
+        res[f"ray_{w}x{h}"] = np.stack([np.asarray(a) for a in fn(uni)])
+
+    data = JScene.build(cfg).data
+    uni = JCamera.from_config(cfg.camera, W / H).uniforms()
+    origin = jnp.asarray(uni.origin)
+    res["fpack"] = jax.jit(J.pack_face_columns)(data)
+    res["oterm"] = jax.jit(J.pack_origin_cols)(data, origin)
+    f = data.tri_p0.shape[0]
+    bf = J._natural_block_f(data, f)
+    rays = [J._pad1(jnp.asarray(a), 1024) for a in res[f"ray_{W}x{H}"]]
+    for accel in ("brute", "cull"):
+        def sched(d, o, x, y, z, accel=accel):
+            mask, nw = J._mask_words(d, accel, o[0], o[1], o[2], x, y, z,
+                                     1024, bf, f)
+            return (mask,) + J._vmem_sched(d, mask, nw, o[0], o[1], o[2],
+                                           x, y, z, 1024, f, bf)
+        mask, tlb, order, texit = jax.jit(sched)(data, origin, *rays)
+        res[f"mask_{accel}"] = mask
+        res[f"tlb_{accel}"] = tlb[:, 0]
+        res[f"order_{accel}"] = order[:, 0]
+        res[f"texit_{accel}"] = texit
+    res["cull_mask"] = jax.jit(lambda d, o, x, y, z: J.tile_cull_mask(
+        d, o[0], o[1], o[2], x, y, z, 1024))(data, origin, *rays)
+
+    so, sd, act = shadow_rays(3000)
+
+    def shadow_sched(d, o, dd, a):
+        o = [J._pad1(v, 1024) for v in o]
+        dd = [J._pad1(v, 1024) for v in dd]
+        a = J._pad1(a.astype(jnp.float32), 1024)
+        mask, nw = J._mask_words(d, "cull", *o, *dd, 1024, bf, f)
+        return (mask,) + J._vmem_sched(d, mask, nw, *o, *dd, 1024, f, bf,
+                                       act=(a > 0))
+    out_s = jax.jit(shadow_sched)(data, tuple(jnp.asarray(so)),
+                                  tuple(jnp.asarray(sd)), jnp.asarray(act))
+    for k, v in zip(("mask", "tlb", "order", "texit"), out_s):
+        res[f"shadow_{k}"] = v[:, 0] if k in ("tlb", "order") else v
+
+    # winner expansion from the kernel's own (t, face), on a table small
+    # enough for the one-hot fetch (cube) and one that gathers (terrain)
+    for name, c in (("cube", cube_config(jcfg)), ("terrain", cfg)):
+        d = JScene.build(c).data
+        u = JCamera.from_config(c.camera, 1.0).uniforms()
+        dirs = jax.jit(lambda v: J.raygen_planar(64, 64, JU.unflat(v)))(
+            jnp.asarray(u.flat()))
+        gb, _ = J.gbuffer_pallas(d, jnp.asarray(u.origin), *dirs,
+                                 with_spheres=True, interpret=True)
+        for k in gb._fields:
+            if getattr(gb, k) is not None:
+                res[f"gb_{name}_{k}"] = getattr(gb, k)
+
+    td = JScene.build(textured_config(jcfg)).data
+    rng = np.random.default_rng(5)
+    u = rng.uniform(-0.3, 1.4, 4096).astype(np.float32)
+    v = rng.uniform(-0.3, 1.4, 4096).astype(np.float32)
+    mat = np.zeros(4096, np.float32)
+    base = J._mat_const(td, mat, lambda k: td.mat_tex_base[k])
+    hh = J._mat_const(td, mat, lambda k: td.mat_tex_h[k])
+    ww = J._mat_const(td, mat, lambda k: td.mat_tex_w[k])
+    taps, fx, fy = jax.jit(J.gather_packed_taps)(td.tex_packed, base, hh,
+                                                 ww, u, v)
+    res.update(tap_u=u, tap_v=v, taps=taps, tap_fx=fx, tap_fy=fy)
+
+    x = rng.uniform(-0.5, 1.5, 100000).astype(np.float32)
+    t = rng.uniform(0.005, 150.0, 100000).astype(np.float32)
+    res.update(qx=x, q=jax.jit(quantize_rgba8)(x), dt=t,
+               depth=jax.jit(to_nonlinear_depth)(t))
+    np.savez(out, **{k: np.asarray(v) for k, v in res.items()})
+
+
+@pytest.fixture(scope="module")
+def assets(tmp_path_factory):
+    root = tmp_path_factory.mktemp("assets")
+    write_textured_assets(str(root))
+    return str(root)
+
+
+@pytest.fixture(scope="module")
+def ref(tmp_path_factory, assets):
+    return jax_reference("test_torch_glue", "jax_glue",
+                         tmp_path_factory.mktemp("glue"), assets=assets)
+
+
+@pytest.fixture(scope="module")
+def frame():
+    cfg = port_config(terrain_config(jcfg))
+    data = Scene.build(cfg).data
+    uni = Camera.from_config(cfg.camera, W / H).uniforms()
+    return data, uni, torch.from_numpy(uni.origin)
+
+
+def rays_for(w, h):
+    cfg = port_config(terrain_config(jcfg))
+    uni = Camera.from_config(cfg.camera, w / h).uniforms()
+    shape = P._pick_tile_shape(w, h)
+    if shape is None:
+        return P.raygen_planar(w, h, uni, device="cpu")
+    th, tw, rh = shape
+    return P.raygen_planar_tiled(w, rh, uni, device="cpu", total_height=h,
+                                 tile_h=th, tile_w=tw)
+
+
+def padded_rays(w=W, h=H):
+    return [P._pad1(a, 1024) for a in rays_for(w, h)]
+
+
+def eq(got, want):
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("w,h", RAY_SIZES)
+def test_raygen_matches_jax(ref, w, h):
+    eq(torch.stack(rays_for(w, h)), ref[f"ray_{w}x{h}"])
+
+
+@pytest.mark.parametrize("w,h", [(64, 64), (96, 64), (1920, 1080),
+                                 (100, 30), (640, 8), (128, 1), (33, 17)])
+def test_pick_tile_shape_matches_jax(w, h):
+    from rust_wgpu_raytracing_tpu.ops.megakernel import _pick_tile_shape
+
+    assert P._pick_tile_shape(w, h) == _pick_tile_shape(w, h)
+
+
+def test_face_and_origin_packs_match_jax(ref, frame):
+    data, _, origin = frame
+    eq(P.pack_face_columns(data), ref["fpack"])
+    eq(P.pack_origin_cols(data, origin), ref["oterm"])
+
+
+@pytest.mark.parametrize("accel", ["brute", "cull"])
+def test_mask_words_and_schedule_match_jax(ref, frame, accel):
+    data, _, origin = frame
+    f = data.padded_faces
+    bf = P._natural_block_f(data, f)
+    rays = padded_rays()
+    o = (origin[0], origin[1], origin[2])
+    mask, nw = P._mask_words(data, accel, *o, *rays, 1024, bf, f)
+    eq(mask, ref[f"mask_{accel}"])
+    tlb, order, texit = P._vmem_sched(data, mask, nw, *o, *rays, 1024, f, bf)
+    eq(tlb, ref[f"tlb_{accel}"])
+    eq(order, ref[f"order_{accel}"])
+    eq(texit, ref[f"texit_{accel}"])
+
+
+def test_tile_cull_mask_matches_jax(ref, frame):
+    data, _, origin = frame
+    eq(P.tile_cull_mask(data, origin[0], origin[1], origin[2],
+                        *padded_rays(), 1024), ref["cull_mask"])
+
+
+def test_shadow_schedule_matches_jax(ref, frame):
+    data, _, _ = frame
+    f = data.padded_faces
+    bf = P._natural_block_f(data, f)
+    so, sd, act = shadow_rays(3000)
+    o = [P._pad1(torch.from_numpy(v), 1024) for v in so]
+    d = [P._pad1(torch.from_numpy(v), 1024) for v in sd]
+    a = P._pad1(torch.from_numpy(act).float(), 1024)
+    mask, nw = P._mask_words(data, "cull", *o, *d, 1024, bf, f)
+    eq(mask, ref["shadow_mask"])
+    tlb, order, texit = P._vmem_sched(data, mask, nw, *o, *d, 1024, f, bf,
+                                      act=a > 0)
+    eq(tlb, ref["shadow_tlb"])
+    eq(order, ref["shadow_order"])
+    eq(texit, ref["shadow_texit"])
+
+
+@pytest.mark.parametrize("name", ["cube", "terrain"])
+def test_expand_tf_gbuffer_matches_jax(ref, name):
+    jc = cube_config(jcfg) if name == "cube" else terrain_config(jcfg)
+    cfg = port_config(jc)
+    data = Scene.build(cfg).data
+    uni = Camera.from_config(cfg.camera, 1.0).uniforms()
+    origin = torch.from_numpy(uni.origin)
+    dirs = P.raygen_planar(64, 64, uni, device="cpu")
+    t = torch.from_numpy(ref[f"gb_{name}_t"])
+    face = torch.from_numpy(ref[f"gb_{name}_face"])
+    assert torch.isfinite(t).any() and not torch.isfinite(t).all()
+    gb = P.expand_tf_gbuffer(data, t, face, *dirs,
+                             P.pack_origin_cols(data, origin))
+    for k in gb._fields:
+        eq(getattr(gb, k), ref[f"gb_{name}_{k}"])
+
+
+def test_gather_packed_taps_matches_jax(ref, assets, monkeypatch):
+    monkeypatch.setenv("RWRT_ASSETS", assets)
+    data = Scene.build(port_config(textured_config(jcfg))).data
+    mat = torch.zeros(4096)
+    base = P._mat_const(data, mat, lambda k: data.mat_tex_base[k])
+    hh = P._mat_const(data, mat, lambda k: data.mat_tex_h[k])
+    ww = P._mat_const(data, mat, lambda k: data.mat_tex_w[k])
+    assert base.dtype == torch.int32
+    taps, fx, fy = P.gather_packed_taps(
+        data.tex_packed, base, hh, ww, torch.from_numpy(ref["tap_u"]),
+        torch.from_numpy(ref["tap_v"]))
+    eq(taps, ref["taps"].view(np.int16))
+    eq(fx, ref["tap_fx"])
+    eq(fy, ref["tap_fy"])
+
+
+def test_quantize_and_depth_match_jax(ref):
+    eq(quantize_rgba8(torch.from_numpy(ref["qx"])), ref["q"])
+    eq(to_nonlinear_depth(torch.from_numpy(ref["dt"])), ref["depth"])
+
+
+def test_tiled_to_image_inverts_tile_order():
+    th, tw, rh = P._pick_tile_shape(96, 64)
+    idx = torch.arange(96 * rh, dtype=torch.int32)
+    img = P.tiled_to_image(idx, 96, rh, th, tw)
+    # tile-major ray order: ray k of tile t lands at its screen pixel
+    assert int(img[0, 0]) == 0 and int(img[0, 31]) == 31
+    assert int(img[1, 0]) == 32 and int(img[0, 32]) == th * tw
+    assert sorted(img.reshape(-1).tolist()) == list(range(96 * rh))

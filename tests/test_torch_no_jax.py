@@ -1,0 +1,64 @@
+"""PyTorch port: it runs where JAX cannot be imported, and no file of the
+port imports JAX or the JAX package."""
+
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parents[1]
+PORT = REPO / "rust_wgpu_raytracing_tpu_torch"
+
+_RENDER_WITHOUT_JAX = r"""
+import sys
+sys.modules["jax"] = None  # any import of jax now raises ImportError
+sys.modules["rust_wgpu_raytracing_tpu"] = None
+sys.path.insert(0, {repo!r})
+import numpy as np
+import rust_wgpu_raytracing_tpu_torch as pt
+from rust_wgpu_raytracing_tpu_torch.__main__ import main
+from rust_wgpu_raytracing_tpu_torch.io.image_out import read_png
+
+cfg = pt.SceneConfig(
+    spheres=pt.config.reference_scene().spheres,
+    meshes=(pt.MeshConfig(obj_path="builtin:terrain:23",
+                          translation=(0.0, 0.0, -3.0),
+                          light_direction=(6.0, -1.0, 1.0)),),
+    camera=pt.CameraConfig(eye=(0.0, -2.0, -1.0), target=(0.0, 0.0, -3.2)),
+    render=pt.RenderConfig(width=32, height=32, shadows=True))
+r = pt.Renderer(cfg, device="cpu")
+color, depth = r.render(block=True)
+assert tuple(color.shape) == (32, 32, 3) and bool((depth < 1).any())
+with open({cfg_path!r}, "w") as fh:
+    fh.write(cfg.to_json())
+assert main(["--scene", {cfg_path!r}, "--width", "32", "--height", "24",
+             "--shadows", "--frames", "2", "--device", "cpu",
+             "--out", {png!r}]) == 0
+assert read_png({png!r}).shape == (24, 32, 3)
+assert not [m for m, mod in sys.modules.items() if mod is not None and (
+    m == "jax" or m.startswith("jax.") or m.startswith("jaxlib")
+    or m.split(".")[0] == "rust_wgpu_raytracing_tpu")]
+print("rendered without jax")
+"""
+
+
+def test_port_renders_without_jax(tmp_path):
+    code = _RENDER_WITHOUT_JAX.format(repo=str(REPO),
+                                      cfg_path=str(tmp_path / "scene.json"),
+                                      png=str(tmp_path / "frame.png"))
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-4000:]
+    assert "rendered without jax" in res.stdout
+
+
+def test_no_port_file_imports_jax():
+    pattern = re.compile(
+        r"^\s*(import\s+jax\b|from\s+jax\b|import\s+rust_wgpu_raytracing_tpu\b"
+        r"(?!_torch)|from\s+rust_wgpu_raytracing_tpu(\.|\s)(?!.*_torch))",
+        re.MULTILINE)
+    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    assert len(files) > 20
+    offenders = [str(f.relative_to(REPO)) for f in files
+                 if pattern.search(f.read_text())]
+    assert offenders == []

@@ -1,0 +1,93 @@
+"""PyTorch port: Scene.build against the JAX package, field by field.
+
+Scene.build is NumPy in both packages up to the closing conversion, so
+every field the port keeps must be BIT-identical to the JAX field (the
+u16 texel pool compared through its int16 view).
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from rust_wgpu_raytracing_tpu import config as jcfg
+from rust_wgpu_raytracing_tpu.core.scene import Scene as JScene
+from rust_wgpu_raytracing_tpu_torch.core.scene import (Scene, SceneData,
+                                                       scene_data_from_numpy)
+from test_torch_host import (cube_config, port_config, terrain_config,
+                             textured_config, write_textured_assets)
+
+CONFIGS = {
+    "cube_spheres": lambda: cube_config(jcfg),
+    "terrain23_spheres": lambda: terrain_config(jcfg, grid=23),
+    "terrain91": lambda: terrain_config(jcfg, grid=91, spheres=False),
+    "spheres_only": lambda: jcfg.SceneConfig(
+        spheres=jcfg.reference_scene().spheres),
+}
+
+
+def port_fields():
+    return [f.name for f in dataclasses.fields(SceneData)
+            if f.name not in ("num_faces", "num_spheres")]
+
+
+def assert_same_scene(port: SceneData, jax_data):
+    for name in port_fields():
+        got = getattr(port, name).numpy()
+        want = np.asarray(getattr(jax_data, name))
+        if want.dtype == np.uint16:
+            want = want.view(np.int16)
+        assert got.dtype == want.dtype, name
+        np.testing.assert_array_equal(got, want, err_msg=name)
+    assert port.num_faces == jax_data.num_faces
+    assert port.num_spheres == jax_data.num_spheres
+
+
+@pytest.mark.parametrize("name", sorted(CONFIGS))
+def test_scene_build_matches_jax(name):
+    cfg = CONFIGS[name]()
+    assert_same_scene(Scene.build(port_config(cfg)).data,
+                      JScene.build(cfg).data)
+
+
+def test_textured_scene_matches_jax(tmp_path, monkeypatch):
+    write_textured_assets(str(tmp_path))
+    monkeypatch.setenv("RWRT_ASSETS", str(tmp_path))
+    cfg = textured_config(jcfg)
+    port = Scene.build(port_config(cfg)).data
+    assert_same_scene(port, JScene.build(cfg).data)
+    # a real texture: the pool holds more than the solid white texel
+    assert port.tex_packed.shape[1] > 16
+    assert int(port.mat_tex_base.max()) >= 0
+
+
+def test_scene_data_from_numpy_carries_jax_scene():
+    cfg = CONFIGS["terrain23_spheres"]()
+    jd = JScene.build(cfg).data
+    fields = {f.name: np.asarray(getattr(jd, f.name))
+              for f in dataclasses.fields(jd)
+              if not f.metadata.get("static")}
+    carried = scene_data_from_numpy(fields, num_faces=jd.num_faces,
+                                    num_spheres=jd.num_spheres)
+    assert_same_scene(carried, jd)
+
+
+def test_scene_data_from_numpy_roundtrip():
+    data = Scene.build(port_config(CONFIGS["cube_spheres"]())).data
+    fields = {k: v.numpy() for k, v in data.tensors().items()}
+    back = scene_data_from_numpy(fields, num_faces=data.num_faces,
+                                 num_spheres=data.num_spheres)
+    for k, v in data.tensors().items():
+        assert torch.equal(getattr(back, k), v), k
+    assert back.padded_faces == data.padded_faces
+
+
+def test_smoke_scene_sizes():
+    """The 1080p smoke scene's mesh: the largest the all-on-chip path
+    takes (just under STREAM_FACES), in 32-face cull blocks."""
+    data = Scene.build(port_config(terrain_config(jcfg, grid=91))).data
+    assert data.num_faces == 2 * 90 ** 2 == 16200
+    assert data.padded_faces == 16256
+    assert data.blk_lo.shape[0] == 508
+    assert data.to("cpu").gpack.shape == (37, 16256)
