@@ -3,27 +3,48 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path — Renderer(cfg, device="cuda") rendering the
-shadowed split frame at 1920x1080 — and checks it:
+Drives the port's main path — Renderer(cfg, device="cuda") with the
+default variant="auto", which times the fused frame against the split
+frame and keeps the faster, at 1920x1080 with shadows — and each frame
+program on its own, and checks them:
 
 1. environment: the card (nvidia-smi name and power limit), torch and
    CUDA versions, nvcc, whether triton imports;
 2. build: the CUDA kernels from rust_wgpu_raytracing_tpu_torch/csrc
-   (nvcc, one shared library, into the git-ignored build/kernels/);
-3. each kernel (closest hit, texshade, any-hit) against its plain
-   PyTorch version on the card, on the very arguments the 1080p frame
-   gives it (texshade also on seeded random u16 taps, since the smoke
-   mesh's texture is solid white): (t, face), the sphere planes and the
-   occlusion exactly equal, texshade within 0 ulp;
-4. the frame: 3 warm-up + 12 frames through the Renderer with the orbit
-   key held, every kernel's launch counter above zero over that run,
-   the last frame against the same frame composed from the plain
-   versions (at most 1 linear u8 level, >= 99.9% exact; bit-exact is
-   expected), and a 160x160 terrain frame against the committed golden
+   (one nvcc per source, in parallel, linked into one shared library in
+   the git-ignored build/kernels/);
+3. each kernel against its plain PyTorch version on the card, on the
+   very arguments the 1080p frames give it: closest hit, texshade and
+   any-hit from the split frame, the frame kernel (sched branch) from
+   the fused frame, at the smoke and the dense view; the frame kernel's
+   nm branch and the texture filter from the normal-mapped fused frame,
+   the texture filter also from the normal-mapped split frame and on
+   seeded random u16 taps (texshade too: the smoke mesh's texture is
+   solid white). Every plane equal by value (texshade and the texture
+   filter within 0 ulp). The frame kernel's in-kernel shadow branch
+   against the sched branch: occlusion equal, unquantized frames equal;
+4. the paths through the Renderer, each run with the launch counters
+   set to 0 just before it and read just after, each needing every
+   kernel it uses launched (and the fused path none of the closest-hit
+   sweep, the split path none of the frame kernel): auto (3 warm-up +
+   12 frames with the orbit key held; variant_ms and variant_chosen
+   printed), fused and split (3 warm-up + 12 frames each: medians and
+   Mrays/s), and a normal-mapped heightfield built at run time (map_Kd
+   and map_Bump PNGs from a numpy seed, written with the port's stdlib
+   PNG writer) rendered fused without shadows and split with shadows.
+   Each last frame against the same frame composed from the plain
+   versions, bitwise; fused against split at the same camera (the count
+   of differing quantized subpixels printed, the frame bar held: at most
+   1 linear u8 level, >= 99.9% exact); the 160x160 terrain frame through
+   both programs against the committed golden
    tests/goldens/terrain_shadows.png at the same bar;
-5. timing with CUDA events: median ms per frame and Mrays/s
-   (Renderer.mrays_per_s), each kernel's time beside its plain version's
-   at the frame's shapes.
+5. timing with CUDA events: each kernel's time beside its plain
+   version's at the frame's shapes, and back-to-back frames of each
+   program (the fused frame in both shadow modes) at both views.
+
+`python3 chip_smoke.py --profile` runs only phases 1-2 and then
+profiles 5 frames of each program at the smoke view with torch.profiler
+(device kernels per frame, device time, busy share, top operators).
 
 The scene: the reference's two spheres and the procedural terrain
 builtin:terrain:91 (16,200 faces, the largest mesh the all-on-chip path
@@ -39,19 +60,23 @@ import os
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 
 WIDTH, HEIGHT = 1920, 1080
 WARMUP, FRAMES = 3, 12
+SMOKE_EYE, SMOKE_TARGET = (0.0, -2.0, -1.0), (0.0, 0.0, -3.2)
+DENSE_EYE, DENSE_TARGET = (0.0, -0.3, -2.2), (0.0, 0.0, -3.0)
+NM_GRID = 91  # vertices per side: 2 * 90^2 = 16,200 faces
 
 
 def say(msg: str) -> None:
     print(msg, flush=True)
 
 
-def smoke_config():
+def smoke_config(variant: str = "auto"):
     from rust_wgpu_raytracing_tpu_torch.config import (
         CameraConfig, MeshConfig, RenderConfig, SceneConfig, reference_scene)
 
@@ -60,9 +85,75 @@ def smoke_config():
         meshes=(MeshConfig(obj_path="builtin:terrain:91",
                            translation=(0.0, 0.0, -3.0),
                            light_direction=(6.0, -1.0, 1.0)),),
-        camera=CameraConfig(eye=(0.0, -2.0, -1.0), target=(0.0, 0.0, -3.2)),
+        camera=CameraConfig(eye=SMOKE_EYE, target=SMOKE_TARGET),
         render=RenderConfig(width=WIDTH, height=HEIGHT, shadows=True,
-                            accel="cull"))
+                            accel="cull", variant=variant))
+
+
+def write_nm_assets(root: str) -> str:
+    """A heightfield grid OBJ (NM_GRID^2 vertices with vt and vn) and its
+    MTL with a map_Kd and a map_Bump PNG, all from a numpy seed, written
+    into root with the port's stdlib PNG encoder. Returns the OBJ name."""
+    from rust_wgpu_raytracing_tpu_torch.io.image_out import encode_png
+
+    rng = np.random.default_rng(20261016)
+    n = NM_GRID
+    u = np.linspace(0.0, 1.0, n)
+    gx, gy = np.meshgrid(u, u, indexing="xy")
+    x, y = (gx - 0.5) * 2.0, (gy - 0.5) * 2.0
+    k = rng.uniform(2.0, 9.0, (4, 2))
+    ph = rng.uniform(0.0, 6.3, 4)
+    amp = np.array([0.12, 0.06, 0.03, 0.015])
+    z = sum(a * np.sin(kx * x + ky * y + p)
+            for a, (kx, ky), p in zip(amp, k, ph))
+    dzx = sum(a * kx * np.cos(kx * x + ky * y + p)
+              for a, (kx, ky), p in zip(amp, k, ph))
+    dzy = sum(a * ky * np.cos(kx * x + ky * y + p)
+              for a, (kx, ky), p in zip(amp, k, ph))
+    nrm = np.stack([-dzx, -dzy, np.ones_like(z)], -1)
+    nrm /= np.linalg.norm(nrm, axis=-1, keepdims=True)
+    lines = ["mtllib nm_grid.mtl", "o grid"]
+    lines += [f"v {a:.6f} {b:.6f} {c:.6f}"
+              for a, b, c in zip(x.ravel(), y.ravel(), z.ravel())]
+    lines += [f"vt {a * 4.0:.6f} {b * 4.0:.6f}"
+              for a, b in zip(gx.ravel(), gy.ravel())]
+    lines += [f"vn {a:.6f} {b:.6f} {c:.6f}" for a, b, c in nrm.reshape(-1, 3)]
+    lines.append("usemtl gridmat")
+    for j in range(n - 1):
+        for i in range(n - 1):
+            a = j * n + i + 1
+            b, c, d = a + 1, a + n + 1, a + n
+            lines.append(f"f {a}/{a}/{a} {b}/{b}/{b} {c}/{c}/{c}")
+            lines.append(f"f {a}/{a}/{a} {c}/{c}/{c} {d}/{d}/{d}")
+    with open(os.path.join(root, "nm_grid.obj"), "w") as fh:
+        fh.write("\n".join(lines) + "\n")
+    with open(os.path.join(root, "nm_grid.mtl"), "w") as fh:
+        fh.write("newmtl gridmat\nKa 0.08 0.08 0.08\nKd 0.8 0.8 0.8\n"
+                 "Ks 0.4 0.4 0.4\nNs 32\nmap_Kd nm_kd.png\n"
+                 "map_Bump nm_bump.png\n")
+    kd = rng.integers(40, 256, (64, 64, 3), dtype=np.uint8)
+    tn = rng.normal([0.0, 0.0, 1.0], [0.3, 0.3, 0.1], (64, 64, 3))
+    tn /= np.linalg.norm(tn, axis=-1, keepdims=True)
+    bump = np.round((tn * 0.5 + 0.5) * 255.0).astype(np.uint8)
+    for name, img in (("nm_kd.png", kd), ("nm_bump.png", bump)):
+        with open(os.path.join(root, name), "wb") as fh:
+            fh.write(encode_png(img))
+    return "nm_grid.obj"
+
+
+def nm_config(shadows: bool, variant: str = "auto"):
+    from rust_wgpu_raytracing_tpu_torch.config import (
+        CameraConfig, MeshConfig, RenderConfig, SceneConfig, reference_scene)
+
+    return SceneConfig(
+        spheres=reference_scene().spheres,
+        meshes=(MeshConfig(obj_path="nm_grid.obj",
+                           translation=(0.0, 0.0, -3.0),
+                           light_direction=(6.0, -1.0, 1.0),
+                           normal_mapping=True),),
+        camera=CameraConfig(eye=DENSE_EYE, target=DENSE_TARGET),
+        render=RenderConfig(width=WIDTH, height=HEIGHT, shadows=shadows,
+                            accel="cull", variant=variant))
 
 
 def card_line() -> str:
@@ -157,9 +248,35 @@ def main() -> int:
         f"{time.perf_counter() - t0:.1f} s (flags: {' '.join(build.NVCC_FLAGS)})")
 
     from rust_wgpu_raytracing_tpu_torch import Renderer
+
+    if "--profile" in sys.argv[1:]:
+        from rust_wgpu_raytracing_tpu_torch.runtime.profiler import \
+            profile_frames
+
+        for variant in ("fused", "split"):
+            rv = Renderer(smoke_config(variant), device="cuda")
+            rv.controller.process_key("d", True)
+            prof = profile_frames(rv)
+            top = prof.pop("top")
+            say(f"[profile] {card}: {variant} frame {json.dumps(prof)}")
+            for name, count, ms in top:
+                say(f"[profile]   {variant}: {name} x{count} {ms:.3f} ms")
+        return 0
+
+    from rust_wgpu_raytracing_tpu_torch.config import (CameraConfig,
+                                                       MeshConfig,
+                                                       RenderConfig,
+                                                       SceneConfig)
+    from rust_wgpu_raytracing_tpu_torch.core.camera import Camera
     from rust_wgpu_raytracing_tpu_torch.ops import kernels as K
-    from rust_wgpu_raytracing_tpu_torch.ops.megakernel import \
-        render_megakernel
+    from rust_wgpu_raytracing_tpu_torch.ops.fusedframe import \
+        render_frame_fused
+    from rust_wgpu_raytracing_tpu_torch.ops.megakernel import (
+        render_megakernel, winner_occlusion)
+
+    names = [f.__name__ for f in K.KERNELS]
+    plain = dict(zip(names, K.PLAIN))
+    wrapper = dict(zip(names, K.KERNELS))
 
     cfg = smoke_config()
     rc = cfg.render
@@ -169,173 +286,295 @@ def main() -> int:
         f"{r.data.num_spheres} spheres, {r.data.blk_lo.shape[0]} face "
         f"blocks; built in {time.perf_counter() - t0:.1f} s")
 
-    def frame(uni, kernels):
+    def frame(data, uni, kernels, fused, shadows=True, nm=False, **kw):
         return render_megakernel(
-            r.data, uni, width=r.width, height=r.height, near=rc.kernel_near,
+            data, uni, width=WIDTH, height=HEIGHT, near=rc.kernel_near,
             far=rc.kernel_far, background=tuple(cfg.background),
-            shadows=rc.shadows, quantize=rc.quantize_rgba8, accel=rc.accel,
-            kernels=kernels)
+            shadows=shadows, quantize=kw.pop("quantize", rc.quantize_rgba8),
+            accel=rc.accel, fused=fused, normal_mapping=nm, kernels=kernels,
+            **kw)
 
-    # --- 3. each kernel against its plain version at the frame's shapes ----
-    plain = dict(zip((f.__name__ for f in K.KERNELS), K.PLAIN))
-    wrapper = {f.__name__: f for f in K.KERNELS}
-
-    def capture(uni):
+    def capture(data, uni, **kw):
         """Render one frame, recording every kernel call's arguments."""
         captured = {}
 
         def recorder(fn):
-            def call(*args, **kw):
-                captured[fn.__name__] = (args, kw)
-                return fn(*args, **kw)
+            def call(*args, **kwargs):
+                captured[fn.__name__] = (args, kwargs)
+                return fn(*args, **kwargs)
             return call
 
-        frame(uni, K.KernelSet(*(recorder(f) for f in K.KERNELS)))
+        frame(data, uni, K.KernelSet(*(recorder(f) for f in K.KERNELS)),
+              **kw)
         torch.cuda.synchronize()
-        # the smoke mesh is textured solid white (every tap 65535), which
-        # makes texshade's mix trivial: check it on seeded random u16
-        # taps at the frame's shapes too
-        args, kw = captured["texshade"]
-        rng = np.random.default_rng(20261016)
-        taps = rng.integers(0, 65536, tuple(args[0].shape), dtype=np.uint16)
-        captured["texshade"] = (args, kw, (torch.from_numpy(
-            taps.view(np.int16)).cuda(),) + tuple(args[1:]))
         return captured
 
-    def check_against_plain(view, captured):
-        """Each kernel bitwise against its plain version on the captured
-        arguments; returns {kernel: max_abs_err}."""
-        errs = {}
-        for name in ("closest_hit", "texshade", "anyhit"):
-            args, kw = captured[name][:2]
-            runs = [("", args)]
-            if name == "texshade":
-                runs.append((" (random taps)", captured[name][2]))
-            for tag, a in runs:
-                got = wrapper[name](*a, **kw)
-                want = plain[name](*a, **kw)
-                torch.cuda.synchronize()
-                if name == "closest_hit":
-                    got, want = (got[0], got[1], *got[2]), \
-                        (want[0], want[1], *want[2])
-                    planes = "t, face, st, sid, snx, sny, snz"
-                elif name == "texshade":
-                    planes = "pr, pg, pb"
-                else:
-                    got, want, planes = (got,), (want,), "occ"
-                err = max(max_abs_err(x, y) for x, y in zip(got, want))
-                exact = all(torch.equal(x, y) for x, y in zip(got, want))
-                if name == "texshade":
-                    gap = max(ulp_gap(x, y) for x, y in zip(got, want))
-                    ok, bar = gap <= 0, f"max gap {gap} ulp (bound 0 ulp)"
-                else:
-                    ok, bar = exact, "exact equality required"
-                shape = "x".join(map(str, a[0].shape))
-                say(f"[kernel] {view}: {name}{tag} {'OK' if ok else 'MISMATCH'}"
-                    f" vs plain on ({planes}), first arg {shape}; "
-                    f"max_abs_err {err!r}; bitwise {exact}; {bar}")
-                if not ok:
-                    raise AssertionError(
-                        f"{name}{tag} disagrees with its plain version")
-                errs[name] = max(errs.get(name, 0.0), err)
-            if name == "closest_hit":
-                hits = int(torch.isfinite(got[0]).sum())
-                say(f"[kernel] {view}: {hits} of {got[0].numel()} rays hit "
-                    f"the mesh, {int(torch.isfinite(got[2]).sum())} a "
-                    f"sphere; {float(torch.isfinite(a[0]).sum(1).float().mean()):.1f}"
-                    f" of {a[0].shape[1]} face blocks admitted per tile")
-            if name == "anyhit":
-                say(f"[kernel] {view}: {int(a[8].sum())} active shadow rays,"
-                    f" {int((got[0] > 0).sum())} occluded")
-        return errs
+    def random_taps(args):
+        """The captured arguments with the taps replaced by seeded random
+        u16 (a solid texture makes the mix trivial)."""
+        rng = np.random.default_rng(20261016)
+        taps = rng.integers(0, 65536, tuple(args[0].shape), dtype=np.uint16)
+        dev = args[0].device
+        return (torch.from_numpy(taps.view(np.int16)).to(dev),) + \
+            tuple(args[1:])
 
-    from rust_wgpu_raytracing_tpu_torch.core.camera import Camera
-    from rust_wgpu_raytracing_tpu_torch.config import CameraConfig
+    planes_of = {"closest_hit": "t, face, st, sid, snx, sny, snz",
+                 "texshade": "pr, pg, pb", "anyhit": "occ",
+                 "texfilter": "r, g, b"}
 
-    captured = capture(r.camera.uniforms().flat())
-    errs = check_against_plain("smoke view", captured)
-    # a dense view of the same scene (the terrain fills ~60% of the
-    # frame): many more hits, visited blocks and shadow rays per tile
+    def flat(name, out):
+        if name == "closest_hit":
+            return (out[0], out[1], *out[2])
+        return (out,) if name == "anyhit" else tuple(out)
+
+    errs = {}
+
+    def check(view, name, args, kw, tag=""):
+        got = flat(name, wrapper[name](*args, **kw))
+        want = flat(name, plain[name](*args, **kw))
+        torch.cuda.synchronize()
+        err = max(max_abs_err(x, y) for x, y in zip(got, want))
+        exact = all(torch.equal(x, y) for x, y in zip(got, want))
+        if name in ("texshade", "texfilter"):
+            gap = max(ulp_gap(x, y) for x, y in zip(got, want))
+            ok, bar = gap <= 0, f"max gap {gap} ulp (bound 0 ulp)"
+        else:
+            ok, bar = exact, "every plane equal by value required"
+        planes = planes_of.get(name, f"{len(got)} planes, mode "
+                                     f"{kw.get('mode')}")
+        shape = "x".join(map(str, args[0].shape))
+        say(f"[kernel] {view}: {name}{tag} {'OK' if ok else 'MISMATCH'} vs "
+            f"plain on ({planes}), first arg {shape}; max_abs_err {err!r}; "
+            f"bitwise {exact}; {bar}")
+        if not ok:
+            raise AssertionError(f"{name}{tag} disagrees with its plain "
+                                 f"version at the {view}")
+        errs[name] = max(errs.get(name, 0.0), err)
+        return got
+
+    # --- 3. each kernel against its plain version at the frame's shapes ----
+    smoke_uni = r.camera.uniforms().flat()
     dense_uni = Camera.from_config(CameraConfig(
-        eye=(0.0, -0.3, -2.2), target=(0.0, 0.0, -3.0)),
-        WIDTH / HEIGHT).uniforms().flat()
-    dense = capture(dense_uni)
-    for k, v in check_against_plain("dense view", dense).items():
-        errs[k] = max(errs[k], v)
+        eye=DENSE_EYE, target=DENSE_TARGET), WIDTH / HEIGHT).uniforms().flat()
+    split_args, fused_args = {}, {}
+    for view, uni in (("smoke view", smoke_uni), ("dense view", dense_uni)):
+        cap = capture(r.data, uni, fused=False)
+        split_args[view] = cap
+        for name in ("closest_hit", "texshade", "anyhit"):
+            args, kw = cap[name]
+            got = check(view, name, args, kw)
+            if name == "closest_hit":
+                say(f"[kernel] {view}: {int(torch.isfinite(got[0]).sum())} "
+                    f"of {got[0].numel()} rays hit the mesh, "
+                    f"{int(torch.isfinite(got[2]).sum())} a sphere; "
+                    f"{float(torch.isfinite(args[0]).sum(1).float().mean()):.1f}"
+                    f" of {args[0].shape[1]} face blocks admitted per tile")
+            if name == "anyhit":
+                say(f"[kernel] {view}: {int(args[8].sum())} active shadow "
+                    f"rays, {int((got[0] > 0).sum())} occluded")
+            if name == "texshade":
+                check(view, name, random_taps(args), kw, " (random taps)")
+        cap = capture(r.data, uni, fused=True)
+        fused_args[view] = cap
+        args, kw = cap["frame"]
+        sched = check(view, "frame", args, kw)
+        ink = check(view, "frame", args, dict(kw, mode="inkernel"),
+                    " (in-kernel shadows)")
+        dx, dy, dz = args[3:6]
+        # the sched branch's occlusion, traced as the fused frame's tail
+        # traces it
+        occ_sched = winner_occlusion(
+            r.data, args[2][:3], dx, dy, dz,
+            (sched[1] > 0.0) & (sched[15] > 0.0), *sched[8:15]).float()
+        torch.cuda.synchronize()
+        same_occ = torch.equal(occ_sched, ink[2])
+        f_s, _ = frame(r.data, uni, K.KERNELS, True, quantize=False)
+        f_i, _ = render_frame_fused(
+            r.data, uni, width=WIDTH, height=HEIGHT, near=rc.kernel_near,
+            far=rc.kernel_far, background=tuple(cfg.background),
+            shadows=True, quantize=False, accel=rc.accel,
+            shadow_mode="inkernel")
+        same_frame = torch.equal(f_s, f_i)
+        say(f"[kernel] {view}: frame in-kernel shadows vs sched: occ equal "
+            f"{same_occ} ({int((ink[2] > 0).sum())} occluded of "
+            f"{int((sched[15] > 0).sum())} relevant), unquantized frames "
+            f"equal {same_frame}")
+        if not (same_occ and same_frame):
+            raise AssertionError("in-kernel shadows disagree with sched")
 
-    # --- 4. the frame through the Renderer (the user's entry point) -------
-    K.reset_launch_counts()
-    r.controller.process_key("d", True)  # hold the orbit key
-    times = []
-    for i in range(WARMUP + FRAMES):
-        r.update()
-        color, depth = r.render(block=True)
-        if i >= WARMUP:
-            times.append(r.last_frame_ms)
-    launches = K.launch_counts()
-    say(f"[frame] launches over {WARMUP + FRAMES} frames: {launches}")
-    if not all(launches[f.__name__] > 0 for f in K.KERNELS):
-        raise AssertionError(f"a kernel of the path never launched: "
-                             f"{launches}")
-    if tuple(color.shape) != (HEIGHT, WIDTH, 3) or \
-            not bool(torch.isfinite(color).all()):
-        raise AssertionError(f"bad frame: shape {tuple(color.shape)}")
-    ref_color, _ = frame(r.camera.uniforms().flat(), K.PLAIN)
-    dmax, exact_frac, bitwise = frame_bar(color, ref_color)
-    say(f"[frame] 1080p frame vs plain-composed frame: max linear u8 delta "
-        f"{dmax}, exact {exact_frac:.6f}, bitwise {bitwise}; mean colour "
-        f"{float(color.mean()):.5f}, "
+    # the normal-mapped heightfield, built at run time
+    asset_dir = tempfile.mkdtemp(prefix="rt_nm_")
+    os.environ["RWRT_ASSETS"] = asset_dir
+    write_nm_assets(asset_dir)
+    nm_r = Renderer(nm_config(shadows=False), device="cuda")
+    say(f"[scene] nm heightfield: {nm_r.data.num_faces} faces (padded "
+        f"{nm_r.data.padded_faces}), bump pool "
+        f"{tuple(nm_r.data.tex_packed_bump.shape)}, diffuse pool "
+        f"{tuple(nm_r.data.tex_packed.shape)}")
+    nm_uni = nm_r.camera.uniforms().flat()
+    cap = capture(nm_r.data, nm_uni, fused=True, shadows=False, nm=True)
+    args, kw = cap["frame"]
+    check("nm view", "frame", args, kw)
+    nm_taps = cap["texfilter"][0]
+    check("nm view", "texfilter", *cap["texfilter"])
+    check("nm view", "texfilter", random_taps(nm_taps), {}, " (random taps)")
+    check("nm view", "texshade", *cap["texshade"])
+    cap = capture(nm_r.data, nm_uni, fused=False, shadows=True, nm=True)
+    check("nm view, split with shadows", "texfilter", *cap["texfilter"])
+
+    # --- 4. the paths through the Renderer --------------------------------
+    def drive(label, renderer, need, absent=(), frames=FRAMES):
+        """Reset the counters, render WARMUP + frames with the orbit key
+        held, read the counters; returns (times, launches, last frame)."""
+        K.reset_launch_counts()
+        renderer.controller.process_key("d", True)
+        times = []
+        for i in range(WARMUP + frames):
+            renderer.update()
+            color, depth = renderer.render(block=True)
+            if i >= WARMUP:
+                times.append(renderer.last_frame_ms)
+        launches = K.launch_counts()
+        say(f"[path] {label}: launches over {WARMUP + frames} frames: "
+            f"{launches}")
+        missing = [k for k in need if launches[k] == 0]
+        extra = [k for k in absent if launches[k] != 0]
+        if missing or extra:
+            raise AssertionError(f"{label}: kernels of the path never "
+                                 f"launched {missing}, kernels off the path "
+                                 f"launched {extra}")
+        if tuple(color.shape) != (renderer.height, renderer.width, 3) or \
+                not bool(torch.isfinite(color).all()):
+            raise AssertionError(f"{label}: bad frame {tuple(color.shape)}")
+        return sorted(times), launches, color, depth
+
+    def against_plain(label, renderer, color, nm=False):
+        fused = renderer.variant_chosen == "fused"
+        ref, _ = frame(renderer.data, renderer.camera.uniforms().flat(),
+                       K.PLAIN, fused, shadows=renderer.config.render.shadows,
+                       nm=nm)
+        dmax, exact, bitwise = frame_bar(color, ref)
+        say(f"[frame] {label}: vs plain-composed frame: max linear u8 "
+            f"delta {dmax}, exact {exact:.6f}, bitwise {bitwise}")
+        if not bitwise:
+            raise AssertionError(f"{label} differs from its plain-composed "
+                                 f"frame")
+
+    path_launches = {}
+    auto = Renderer(smoke_config("auto"), device="cuda")
+    times, path_launches["auto"], color, depth = drive(
+        "auto (main path)", auto,
+        ("frame", "closest_hit", "texshade", "anyhit"))
+    say(f"[path] auto: variant_ms {auto.variant_ms}, variant_chosen "
+        f"{auto.variant_chosen!r}")
+    against_plain("auto", auto, color)
+    say(f"[frame] auto: mean colour {float(color.mean()):.5f}, "
         f"{float((depth < 1).float().mean()):.4f} of pixels hit")
-    if dmax > 1 or exact_frac < 0.999:
-        raise AssertionError("frame disagrees with the plain-composed frame")
 
-    from rust_wgpu_raytracing_tpu_torch.config import (MeshConfig,
-                                                       RenderConfig,
-                                                       SceneConfig)
+    medians = {}
+    for variant, need, absent in (
+            ("fused", ("frame", "texshade", "anyhit"), ("closest_hit",)),
+            ("split", ("closest_hit", "texshade", "anyhit"), ("frame",))):
+        rv = Renderer(smoke_config(variant), device="cuda")
+        times, path_launches[variant], color, _ = drive(variant, rv, need,
+                                                        absent)
+        med = times[len(times) // 2]
+        medians[variant] = med
+        say(f"[timing] {card}: {WIDTH}x{HEIGHT} shadowed {variant} frame, "
+            f"median {med:.3f} ms/frame over {FRAMES} frames (CUDA events; "
+            f"min {times[0]:.3f}, max {times[-1]:.3f}), "
+            f"{WIDTH * HEIGHT / (med * 1e-3) / 1e6:.1f} Mrays/s")
+        against_plain(variant, rv, color)
+
+    for view, uni in (("smoke view", smoke_uni), ("dense view", dense_uni)):
+        fc, fd = frame(r.data, uni, K.KERNELS, True)
+        sc, sd = frame(r.data, uni, K.KERNELS, False)
+        dmax, exact, bitwise = frame_bar(fc, sc)
+        say(f"[frame] {view}: fused vs split: {int((fc != sc).sum())} of "
+            f"{fc.numel()} quantized subpixels differ, max linear u8 delta "
+            f"{dmax}, exact {exact:.6f}, bitwise {bitwise}; depth equal "
+            f"{bool(torch.equal(fd, sd))}")
+        if dmax > 1 or exact < 0.999:
+            raise AssertionError("fused frame disagrees with the split frame")
+
+    nm_fused = Renderer(nm_config(shadows=False, variant="fused"),
+                        device="cuda")
+    _, path_launches["nm"], color, depth = drive(
+        "nm fused, no shadows", nm_fused, ("frame", "texfilter", "texshade"),
+        ("closest_hit",), frames=3)
+    say(f"[frame] nm: variant_chosen {nm_fused.variant_chosen!r}, mean "
+        f"colour {float(color.mean()):.5f}, "
+        f"{float((depth < 1).float().mean()):.4f} of pixels hit")
+    against_plain("nm fused", nm_fused, color, nm=True)
+    nm_split = Renderer(nm_config(shadows=True), device="cuda")
+    _, path_launches["nm_shadows"], color, _ = drive(
+        "nm split, shadows", nm_split,
+        ("closest_hit", "texfilter", "texshade", "anyhit"), ("frame",),
+        frames=3)
+    if nm_split.variant_chosen != "split":
+        raise AssertionError("nm with shadows must render split")
+    against_plain("nm split with shadows", nm_split, color, nm=True)
+
     from rust_wgpu_raytracing_tpu_torch.io.image_out import (
         framebuffer_to_image, read_png)
 
-    golden_cfg = SceneConfig(
-        meshes=(MeshConfig(obj_path="builtin:terrain:23",
-                           translation=(0.0, 0.0, -3.0),
-                           light_direction=(6.0, -1.0, 1.0)),),
-        camera=CameraConfig(eye=(0.0, -2.0, -1.0), target=(0.0, 0.0, -3.2)),
-        render=RenderConfig(width=160, height=160, shadows=True))
-    g, _ = Renderer(golden_cfg, device="cuda").render(block=True)
     golden = read_png(os.path.join(os.path.dirname(os.path.abspath(
         __file__)), "tests", "goldens", "terrain_shadows.png"))
+    img = torch.from_numpy(golden[::-1].copy()).to(torch.int64)
     # golden holds the sRGB encode of linear u8 levels: compare levels
     # through the same encode (a level off is a neighbour's code)
-    levels = u8(g).cpu()
-    enc = {k: framebuffer_to_image(levels.new_full((1, 1, 3), k).numpy()
-                                   / 255.0)[0, 0, 0] for k in range(256)}
-    lut = torch.tensor([int(enc[k]) for k in range(256)])
-    img = torch.from_numpy(golden[::-1].copy()).to(torch.int64)
-    levels = levels.long()
-    exact_g = lut[levels] == img
-    near_g = exact_g | (lut[(levels - 1).clamp(0, 255)] == img) | \
-        (lut[(levels + 1).clamp(0, 255)] == img)
-    say(f"[frame] 160x160 terrain frame vs committed golden: exact "
-        f"{float(exact_g.float().mean()):.6f}, within 1 level "
-        f"{bool(near_g.all())}")
-    if not bool(near_g.all()) or float(exact_g.float().mean()) < 0.999:
-        raise AssertionError("terrain frame disagrees with its golden")
+    enc = [int(framebuffer_to_image(np.full((1, 1, 3), k / 255.0,
+                                            np.float32))[0, 0, 0])
+           for k in range(256)]
+    lut = torch.tensor(enc)
+    for variant in ("fused", "split"):
+        golden_cfg = SceneConfig(
+            meshes=(MeshConfig(obj_path="builtin:terrain:23",
+                               translation=(0.0, 0.0, -3.0),
+                               light_direction=(6.0, -1.0, 1.0)),),
+            camera=CameraConfig(eye=SMOKE_EYE, target=SMOKE_TARGET),
+            render=RenderConfig(width=160, height=160, shadows=True,
+                                variant=variant))
+        g, _ = Renderer(golden_cfg, device="cuda").render(block=True)
+        levels = u8(g).cpu().long()
+        exact_g = lut[levels] == img
+        near_g = exact_g | (lut[(levels - 1).clamp(0, 255)] == img) | \
+            (lut[(levels + 1).clamp(0, 255)] == img)
+        say(f"[frame] 160x160 terrain frame ({variant}) vs committed golden: "
+            f"exact {float(exact_g.float().mean()):.6f}, within 1 level "
+            f"{bool(near_g.all())}")
+        if not bool(near_g.all()) or float(exact_g.float().mean()) < 0.999:
+            raise AssertionError("terrain frame disagrees with its golden")
 
     # --- 5. timing --------------------------------------------------------
-    times.sort()
-    med = times[len(times) // 2]
-    mrays = WIDTH * HEIGHT / (med * 1e-3) / 1e6
-    say(f"[timing] {card}: {WIDTH}x{HEIGHT} shadowed split frame, median "
-        f"{med:.3f} ms/frame over {FRAMES} frames (CUDA events; min "
-        f"{times[0]:.3f}, max {times[-1]:.3f}), {mrays:.1f} Mrays/s")
-    dense_ms = time_ms(lambda: frame(dense_uni, K.KERNELS), 10)
-    say(f"[timing] {card}: dense view {WIDTH}x{HEIGHT} shadowed split "
-        f"frame {dense_ms:.3f} ms/frame (mean of 10, CUDA events)")
+    def inkernel_frame(uni):
+        return render_frame_fused(
+            r.data, uni, width=WIDTH, height=HEIGHT, near=rc.kernel_near,
+            far=rc.kernel_far, background=tuple(cfg.background),
+            shadows=True, accel=rc.accel, shadow_mode="inkernel")
+
+    for view, uni in (("smoke view", smoke_uni), ("dense view", dense_uni)):
+        for label, fn in (
+                ("fused", lambda: frame(r.data, uni, K.KERNELS, True)),
+                ("fused in-kernel shadows", lambda: inkernel_frame(uni)),
+                ("split", lambda: frame(r.data, uni, K.KERNELS, False))):
+            say(f"[timing] {card}: {view} {WIDTH}x{HEIGHT} shadowed {label} "
+                f"frame {time_ms(fn, 10):.3f} ms/frame (mean of 10 "
+                f"back-to-back, CUDA events)")
+    timed = {
+        "closest_hit": (split_args["smoke view"]["closest_hit"],
+                        split_args["dense view"]["closest_hit"]),
+        "texshade": ((random_taps(split_args["smoke view"]["texshade"][0]),
+                      {}), None),
+        "anyhit": (split_args["smoke view"]["anyhit"],
+                   split_args["dense view"]["anyhit"]),
+        "frame": (fused_args["smoke view"]["frame"],
+                  fused_args["dense view"]["frame"]),
+        "texfilter": ((nm_taps, {}), None),
+    }
     results = {}
-    for name in ("closest_hit", "texshade", "anyhit"):
-        # texshade on the random taps: the solid-white ones are trivial
-        args = captured[name][2 if name == "texshade" else 0]
-        kw = captured[name][1]
+    for name, (main_call, dense_call) in timed.items():
+        args, kw = main_call
 
         def run_kernel():
             return wrapper[name](*args, **kw)
@@ -349,25 +588,39 @@ def main() -> int:
         p2 = time_ms(run_plain, 2)
         results[name] = dict(max_abs_err=errs[name], ms=(k1 + k2) / 2,
                              plain_ms=(p1 + p2) / 2)
-        dargs = dense[name][2 if name == "texshade" else 0]
-        dms = time_ms(lambda: wrapper[name](*dargs, **kw), 20)
-        say(f"[timing] {card}: {name} {results[name]['ms']:.4f} ms "
-            f"(kernel) vs {results[name]['plain_ms']:.4f} ms (plain "
-            f"PyTorch) at the smoke frame's arguments; kernel {dms:.4f} ms "
-            f"at the dense view's")
+        msg = (f"[timing] {card}: {name} {results[name]['ms']:.4f} ms "
+               f"(kernel) vs {results[name]['plain_ms']:.4f} ms (plain "
+               f"PyTorch) at the {'nm' if name == 'texfilter' else 'smoke'} "
+               f"frame's arguments")
+        if dense_call is not None:
+            dms = time_ms(lambda: wrapper[name](*dense_call[0],
+                                                **dense_call[1]), 20)
+            msg += f"; kernel {dms:.4f} ms at the dense view's"
+        say(msg)
+    say(f"[timing] {card}: medians fused {medians['fused']:.3f} ms, split "
+        f"{medians['split']:.3f} ms")
 
+    # each kernel's launches from the first path run that uses it
+    launches = {}
+    for path in ("auto", "nm"):
+        for name, count in path_launches[path].items():
+            if count and name not in launches:
+                launches[name] = count
     base = "rust_wgpu_raytracing_tpu_torch/csrc/"
     replaces = {
         "closest_hit": "rust_wgpu_raytracing_tpu/ops/megakernel.py:382",
         "texshade": "rust_wgpu_raytracing_tpu/ops/megakernel.py:2540",
         "anyhit": "rust_wgpu_raytracing_tpu/ops/megakernel.py:612",
+        "frame": "rust_wgpu_raytracing_tpu/ops/fusedframe.py:152",
+        "texfilter": "rust_wgpu_raytracing_tpu/ops/megakernel.py:2490",
     }
     say(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": f"{base}{name}.cu",
          "replaces": replaces[name], "launches": launches[name],
          "max_abs_err": results[name]["max_abs_err"],
          "ms": results[name]["ms"], "plain_ms": results[name]["plain_ms"]}
-        for name in ("closest_hit", "texshade", "anyhit")]}))
+        for name in names]}))
+    shutil.rmtree(asset_dir, ignore_errors=True)
     say(card)
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -22,11 +22,14 @@ torch's uint16 supports few operations, so the pool keeps the same BITS
 in an int16 tensor: the texshade kernel reads them as unsigned short,
 and texshade_plain widens with `& 0xFFFF` after the int32 cast.
 
+The bump pool (normal mapping) is a second pool of the same layout,
+built from the materials' map_Bump images loaded raw (not
+sRGB-decoded); mat_bump_base is -1 for a material without one.
+
 Not carried over from the JAX SceneData (their consumers are later
-slices, see ROADMAP.md): the LBVH pack (accel="bvh"), the bump pool and
-tangent-space tables (normal mapping), the mip pyramid, the streaming
-record `spack` (meshes above STREAM_FACES), the f32 texture stack (the
-oracle) and the unused material columns.
+slices, see ROADMAP.md): the LBVH pack (accel="bvh"), the mip pyramid,
+the streaming record `spack` (meshes above STREAM_FACES), the f32
+texture stack (the oracle) and the unused material columns.
 """
 
 from __future__ import annotations
@@ -145,6 +148,13 @@ class SceneData:
     mat_tex_base: torch.Tensor  # (M,) i32 texel offset of the diffuse map
     mat_tex_h: torch.Tensor  # (M,) f32
     mat_tex_w: torch.Tensor  # (M,) f32
+
+    # --- bump texel pool (normal mapping), same layout ---
+    tex_packed_bump: torch.Tensor  # (12, Nb) int16 holding u16 bits
+    mat_bump: torch.Tensor  # (M,) i32 bump texture index, -1 = none
+    mat_bump_base: torch.Tensor  # (M,) i32 texel offset, -1 = none
+    mat_bump_h: torch.Tensor  # (M,) f32
+    mat_bump_w: torch.Tensor  # (M,) f32
 
     # (GPACK_ROWS, F) f32 winner-attribute table
     gpack: torch.Tensor
@@ -359,10 +369,12 @@ class Scene:
             blk_hi = np.full((nb, 3), -np.inf, np.float32)
             gpack_np = np.zeros((GPACK_ROWS, 0), np.float32)
 
-        # ---- diffuse textures (sRGB-decoded), deduplicated by path ----
+        # ---- textures (diffuse sRGB-decoded, bump maps raw),
+        # deduplicated by (path, srgb) ----
         textures: List[TextureData] = []
         tex_cache: dict = {}
         mat_tex: List[int] = []
+        mat_bump: List[int] = []
 
         def tex_id(key, loader):
             if key not in tex_cache:
@@ -378,22 +390,43 @@ class Scene:
             else:
                 mat_tex.append(tex_id(("__solid_white__", True),
                                       lambda: solid_texture((1.0,) * 3)))
+        for mat in materials:
+            if mat.map_bump:
+                path = resolve_asset(mat.map_bump)
+                mat_bump.append(tex_id(
+                    (path, False),
+                    lambda p=path: load_texture_file(p, srgb=False)))
+            else:
+                mat_bump.append(-1)
 
-        base_d = {}
-        chunks = []
-        off = 0
-        for t_id in sorted(set(mat_tex)):
-            t = textures[t_id]
-            base_d[t_id] = off
-            chunks.append(_pack_neighborhoods(t.rgb_linear))
-            off += t.height * t.width
-        pool_d = np.ascontiguousarray(np.concatenate(chunks, axis=0).T)
+        def build_pool(tex_ids):
+            base = {}
+            chunks = []
+            off = 0
+            for t_id in tex_ids:
+                t = textures[t_id]
+                base[t_id] = off
+                chunks.append(_pack_neighborhoods(t.rgb_linear))
+                off += t.height * t.width
+            pool = (np.concatenate(chunks, axis=0) if chunks
+                    else np.zeros((1, 12), np.uint16))
+            return np.ascontiguousarray(pool.T), base
+
+        pool_d, base_d = build_pool(sorted(set(mat_tex)))
+        pool_b, base_b = build_pool(sorted(set(b for b in mat_bump
+                                               if b >= 0)))
 
         # i32 base offsets: exact at any pool size (f32 loses integers
         # past 2^24 texels — see ops/megakernel.py _mat_const)
         m_tex_base = np.array([base_d[t] for t in mat_tex], np.int32)
         m_tex_h = np.array([textures[t].height for t in mat_tex], np.float32)
         m_tex_w = np.array([textures[t].width for t in mat_tex], np.float32)
+        m_bump_base = np.array([base_b[b] if b >= 0 else -1
+                                for b in mat_bump], np.int32)
+        m_bump_h = np.array([textures[b].height if b >= 0 else 1
+                             for b in mat_bump], np.float32)
+        m_bump_w = np.array([textures[b].width if b >= 0 else 1
+                             for b in mat_bump], np.float32)
 
         def tens(a):
             return torch.from_numpy(np.ascontiguousarray(a))
@@ -427,6 +460,11 @@ class Scene:
             mat_tex_base=tens(m_tex_base),
             mat_tex_h=tens(m_tex_h),
             mat_tex_w=tens(m_tex_w),
+            tex_packed_bump=tens(pool_b.view(np.int16)),
+            mat_bump=tens(np.array(mat_bump, np.int32)),
+            mat_bump_base=tens(m_bump_base),
+            mat_bump_h=tens(m_bump_h),
+            mat_bump_w=tens(m_bump_w),
             gpack=tens(gpack_np),
             num_faces=num_faces,
             num_spheres=len(spheres),

@@ -15,7 +15,8 @@
 // for rays that are inactive or already occluded (their result cannot
 // change), and stops the walk once no live ray's root exit reaches the
 // next block (bound -1 when every ray is occluded or inactive).
-// Expressions follow _ah_block term for term; -fmad=false.
+// Expressions follow _ah_block term for term (rt_common.cuh
+// anyhit_block, shared with frame.cu); -fmad=false.
 #include "rt_common.cuh"
 
 namespace {
@@ -68,28 +69,7 @@ anyhit_kernel(const float* __restrict__ tlb, const int* __restrict__ order,
     __syncthreads();
     stage_faces(faces, fpack, fpack_cols, dc, ci, block_f);
     __syncthreads();
-    for (int j = 0; j < block_f; ++j) {
-      const float* g = faces + j * STAGE_COLS;
-#pragma unroll
-      for (int k = 0; k < RPT; ++k) {
-        // occ = max(occ, hit * act): nothing to gain once occ >= act
-        if (!(ract[k] > 0.0f && occ[k] < ract[k])) continue;
-        const float x = rdx[k], y = rdy[k], z = rdz[k];
-        const float u = rox[k], v = roy[k], w = roz[k];
-        const float ndotd = g[0] * x + g[1] * y + g[2] * z;
-        const float ndoto = g[0] * u + g[1] * v + g[2] * w;
-        const float t = -(ndoto + g[12]) / ndotd;
-        const float h0 = (g[3] * u + g[4] * v + g[5] * w - g[13]) +
-                         t * (g[3] * x + g[4] * y + g[5] * z);
-        const float h1 = (g[6] * u + g[7] * v + g[8] * w - g[14]) +
-                         t * (g[6] * x + g[7] * y + g[8] * z);
-        const float h2 = (g[9] * u + g[10] * v + g[11] * w - g[15]) +
-                         t * (g[9] * x + g[10] * y + g[11] * z);
-        const bool hit = fabsf(ndotd) >= K_EPSILON && t >= 1e-3f &&
-                         h0 >= 0.0f && h1 >= 0.0f && h2 >= 0.0f;
-        if (hit) occ[k] = fmaxf(occ[k], ract[k]);
-      }
-    }
+    anyhit_block(faces, block_f, rdx, rdy, rdz, rox, roy, roz, ract, occ);
     if ((p + 1) % REFRESH == 0) b = bound();
   }
 

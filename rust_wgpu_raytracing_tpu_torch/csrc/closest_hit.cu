@@ -16,9 +16,10 @@
 // The design keeps each ray's (t, face) in registers for the whole
 // walk, stages each visited block's 16 plane columns once into shared
 // memory for all 1024 rays of the tile, and stops the front-to-back walk
-// early (rt_common.cuh). Expressions follow _ch_block_tv and the sphere
-// tail term for term; compiled with -fmad=false so every product
-// rounds, as in the plain PyTorch version.
+// early (rt_common.cuh sweep_closest, shared with frame.cu).
+// Expressions follow _ch_block_tv and the sphere tail term for term;
+// compiled with -fmad=false so every product rounds, as in the plain
+// PyTorch version.
 #include "rt_common.cuh"
 
 namespace {
@@ -50,49 +51,9 @@ closest_hit_kernel(const float* __restrict__ tlb, const int* __restrict__ order,
     ry[k] = dy[r];
     rz[k] = dz[r];
     cap[k] = texit[r];
-    bt[k] = INFINITY;
-    bf[k] = 0;
   }
-
-  auto bound = [&]() {
-    float m = -INFINITY;
-#pragma unroll
-    for (int k = 0; k < RPT; ++k) m = fmaxf(m, fminf(bt[k], cap[k]));
-    return block_max(m, red);
-  };
-
-  const float* tl = tlb + (size_t)tile * nb;
-  const int* ord = order + (size_t)tile * nb;
-  float b = bound();
-  for (int p = 0; p < nb; ++p) {
-    const int ci = ord[p];
-    if (!(tl[ci] <= b)) break;  // uniform: every thread reads the same values
-    __syncthreads();            // the previous block's planes are consumed
-    stage_faces(faces, fpack, fpack_cols, oterm, ci, block_f);
-    __syncthreads();
-    const int face_base = ci * block_f;
-    for (int j = 0; j < block_f; ++j) {
-      const float* g = faces + j * STAGE_COLS;
-      const int fid = face_base + j;
-#pragma unroll
-      for (int k = 0; k < RPT; ++k) {
-        const float ndotd = g[0] * rx[k] + g[1] * ry[k] + g[2] * rz[k];
-        const float t = g[12] / ndotd;
-        const float h0 = g[13] + t * (g[3] * rx[k] + g[4] * ry[k] + g[5] * rz[k]);
-        const float h1 = g[14] + t * (g[6] * rx[k] + g[7] * ry[k] + g[8] * rz[k]);
-        const float h2 = g[15] + t * (g[9] * rx[k] + g[10] * ry[k] + g[11] * rz[k]);
-        // NaN (padding faces: 0/0) fails every comparison -> rejected
-        const bool valid = fabsf(ndotd) >= K_EPSILON && t >= 0.0f &&
-                           h0 >= 0.0f && h1 >= 0.0f && h2 >= 0.0f;
-        const float tm = valid ? t : INFINITY;
-        if (tm < bt[k] || (tm == bt[k] && fid < bf[k])) {
-          bt[k] = tm;
-          bf[k] = fid;
-        }
-      }
-    }
-    if ((p + 1) % REFRESH == 0) b = bound();
-  }
+  sweep_closest(tlb + (size_t)tile * nb, order + (size_t)tile * nb, nb, block_f,
+                fpack, fpack_cols, oterm, rx, ry, rz, cap, bt, bf, faces, red);
 
 #pragma unroll
   for (int k = 0; k < RPT; ++k) {

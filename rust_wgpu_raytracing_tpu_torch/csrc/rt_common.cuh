@@ -1,6 +1,7 @@
-// Shared pieces of the ray-tracing kernels (closest_hit.cu, anyhit.cu).
+// Shared pieces of the ray-tracing kernels (closest_hit.cu, anyhit.cu,
+// frame.cu).
 //
-// Both sweep kernels walk one 1024-ray schedule tile per CUDA block:
+// The sweep kernels walk one 1024-ray schedule tile per CUDA block:
 // 256 threads x 4 rays each, rays r = tile*1024 + threadIdx.x + k*256 so
 // that neighbouring threads load neighbouring floats. The per-tile face
 // blocks are visited in the order the host schedule gives (ascending
@@ -50,6 +51,94 @@ __device__ __forceinline__ void stage_faces(float* dst, const float* pack,
     const int c = i % STAGE_COLS;
     const size_t row = (size_t)ci * block_f + f;
     dst[i] = c < 12 ? pack[row * pack_cols + c] : extra[row * 8 + (c - 12)];
+  }
+}
+
+// The closest-hit (t, face) sweep of one tile for shared-origin rays
+// (JAX _ch_block's plane math and lexicographic merge): for each of the
+// thread's RPT rays, the smallest t over the admitted faces and, on a
+// tie, the smallest face id; misses keep t = +inf, face = 0. `faces`
+// holds MAX_BLOCK_F * STAGE_COLS floats of shared memory (planes from
+// fpack, origin terms from oterm), `red` THREADS/32 floats.
+__device__ __forceinline__ void sweep_closest(
+    const float* __restrict__ tl, const int* __restrict__ ord, int nb,
+    int block_f, const float* __restrict__ fpack, int fpack_cols,
+    const float* __restrict__ oterm, const float (&rx)[RPT],
+    const float (&ry)[RPT], const float (&rz)[RPT], const float (&cap)[RPT],
+    float (&bt)[RPT], int (&bf)[RPT], float* faces, float* red) {
+#pragma unroll
+  for (int k = 0; k < RPT; ++k) {
+    bt[k] = INFINITY;
+    bf[k] = 0;
+  }
+  auto bound = [&]() {
+    float m = -INFINITY;
+#pragma unroll
+    for (int k = 0; k < RPT; ++k) m = fmaxf(m, fminf(bt[k], cap[k]));
+    return block_max(m, red);
+  };
+  float b = bound();
+  for (int p = 0; p < nb; ++p) {
+    const int ci = ord[p];
+    if (!(tl[ci] <= b)) break;  // uniform: every thread reads the same values
+    __syncthreads();            // the previous block's planes are consumed
+    stage_faces(faces, fpack, fpack_cols, oterm, ci, block_f);
+    __syncthreads();
+    const int face_base = ci * block_f;
+    for (int j = 0; j < block_f; ++j) {
+      const float* g = faces + j * STAGE_COLS;
+      const int fid = face_base + j;
+#pragma unroll
+      for (int k = 0; k < RPT; ++k) {
+        const float ndotd = g[0] * rx[k] + g[1] * ry[k] + g[2] * rz[k];
+        const float t = g[12] / ndotd;
+        const float h0 = g[13] + t * (g[3] * rx[k] + g[4] * ry[k] + g[5] * rz[k]);
+        const float h1 = g[14] + t * (g[6] * rx[k] + g[7] * ry[k] + g[8] * rz[k]);
+        const float h2 = g[15] + t * (g[9] * rx[k] + g[10] * ry[k] + g[11] * rz[k]);
+        // NaN (padding faces: 0/0) fails every comparison -> rejected
+        const bool valid = fabsf(ndotd) >= K_EPSILON && t >= 0.0f &&
+                           h0 >= 0.0f && h1 >= 0.0f && h2 >= 0.0f;
+        const float tm = valid ? t : INFINITY;
+        if (tm < bt[k] || (tm == bt[k] && fid < bf[k])) {
+          bt[k] = tm;
+          bf[k] = fid;
+        }
+      }
+    }
+    if ((p + 1) % REFRESH == 0) b = bound();
+  }
+}
+
+// The any-hit test of one staged face block (JAX _ah_block) for rays
+// with per-ray origins: occ = max(occ, act) where an active ray hits a
+// face at t >= 1e-3. `faces` as staged by stage_faces from (fpack, dc).
+// Rays that are inactive or already occluded skip the arithmetic: their
+// result cannot change.
+__device__ __forceinline__ void anyhit_block(
+    const float* faces, int block_f, const float (&rdx)[RPT],
+    const float (&rdy)[RPT], const float (&rdz)[RPT], const float (&rox)[RPT],
+    const float (&roy)[RPT], const float (&roz)[RPT], const float (&ract)[RPT],
+    float (&occ)[RPT]) {
+  for (int j = 0; j < block_f; ++j) {
+    const float* g = faces + j * STAGE_COLS;
+#pragma unroll
+    for (int k = 0; k < RPT; ++k) {
+      if (!(ract[k] > 0.0f && occ[k] < ract[k])) continue;
+      const float x = rdx[k], y = rdy[k], z = rdz[k];
+      const float u = rox[k], v = roy[k], w = roz[k];
+      const float ndotd = g[0] * x + g[1] * y + g[2] * z;
+      const float ndoto = g[0] * u + g[1] * v + g[2] * w;
+      const float t = -(ndoto + g[12]) / ndotd;
+      const float h0 = (g[3] * u + g[4] * v + g[5] * w - g[13]) +
+                       t * (g[3] * x + g[4] * y + g[5] * z);
+      const float h1 = (g[6] * u + g[7] * v + g[8] * w - g[14]) +
+                       t * (g[6] * x + g[7] * y + g[8] * z);
+      const float h2 = (g[9] * u + g[10] * v + g[11] * w - g[15]) +
+                       t * (g[9] * x + g[10] * y + g[11] * z);
+      const bool hit = fabsf(ndotd) >= K_EPSILON && t >= 1e-3f &&
+                       h0 >= 0.0f && h1 >= 0.0f && h2 >= 0.0f;
+      if (hit) occ[k] = fmaxf(occ[k], ract[k]);
+    }
   }
 }
 

@@ -12,14 +12,13 @@
 // coalesced pass: every input is read once, the three output planes are
 // written once, nothing is staged. The taps arrive as int16 holding the
 // u16 bits and are read as unsigned short. Operation order follows
-// _texshade_kernel; -fmad=false.
-#include <cuda_runtime.h>
+// _texshade_kernel; -fmad=false. The tap decode and the bilinear mix
+// are texel.cuh's, shared with texfilter.cu.
+#include "texel.cuh"
 
 namespace {
 
 constexpr int THREADS = 256;
-// the JAX kernel's f32 constant: (1.0 / 65535.0) rounded to float
-constexpr float TAP_SCALE = (float)(1.0 / 65535.0);
 
 __global__ void __launch_bounds__(THREADS)
 texshade_kernel(const unsigned short* __restrict__ taps,
@@ -34,17 +33,13 @@ texshade_kernel(const unsigned short* __restrict__ taps,
        i += gridDim.x * THREADS) {
     const float fx = fx_p[i], fy = fy_p[i], lam = lam_p[i], spec = spec_p[i];
     float tap[12];
-#pragma unroll
-    for (int k = 0; k < 12; ++k)
-      tap[k] = (float)(int)taps[(size_t)k * n + i] * TAP_SCALE;
+    rt::load_taps(taps, n, i, tap);
     const float* amb[3] = {ar, ag, ab};
     const float* spc[3] = {sr, sg, sb};
     float* out[3] = {pr, pg, pb};
 #pragma unroll
     for (int ch = 0; ch < 3; ++ch) {
-      const float top = tap[ch] * (1.0f - fx) + tap[3 + ch] * fx;
-      const float bot = tap[6 + ch] * (1.0f - fx) + tap[9 + ch] * fx;
-      const float tex = top * (1.0f - fy) + bot * fy;
+      const float tex = rt::bilinear(tap, ch, fx, fy);
       out[ch][i] = (amb[ch][i] + tex * lam) + spc[ch][i] * spec;
     }
   }

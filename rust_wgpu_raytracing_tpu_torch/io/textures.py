@@ -8,9 +8,11 @@ sampling. Here a texture is decoded once, linearized on the host and
 kept as a (H,W,3) f32 array; core/scene.py packs it into the u16 texel
 pool that ops/megakernel.py gathers from.
 
-PIL is imported only when an image file is actually loaded: scenes
-without image textures (solid colours, the builtin meshes) run without
-PIL installed.
+8-bit RGB/RGBA PNGs (non-interlaced) decode with the standard-library
+reader io/image_out.read_png, so a textured, bump-mapped scene loads
+where PIL is not installed. Every other image format imports PIL when
+it is loaded (ImportError without it); scenes without image textures
+never import it.
 """
 
 from __future__ import annotations
@@ -20,6 +22,9 @@ from dataclasses import dataclass
 import numpy as np
 
 from ..core.math3d import srgb_to_linear
+from .image_out import read_png
+
+_PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 
 
 @dataclass(frozen=True)
@@ -46,15 +51,29 @@ def load_texture_file(path: str, srgb: bool = True) -> TextureData:
     treat as sRGB (so kernel-visible values are linearized). The alpha
     channel is dropped — the reference never uses texture alpha.
     """
-    from PIL import Image
+    if _is_plain_png(path):
+        rgb_u8 = read_png(path)
+    else:
+        from PIL import Image
 
-    with Image.open(path) as im:
-        rgba = np.asarray(im.convert("RGBA"), dtype=np.uint8)
-    rgb_u8 = rgba[..., :3]
+        with Image.open(path) as im:
+            rgba = np.asarray(im.convert("RGBA"), dtype=np.uint8)
+        rgb_u8 = rgba[..., :3]
     rgb = rgb_u8.astype(np.float32) / 255.0
     if srgb:
         rgb = srgb_to_linear(rgb)
     return TextureData(name=path, rgb_linear=rgb.astype(np.float32), rgb_u8=rgb_u8)
+
+
+def _is_plain_png(path: str) -> bool:
+    """True for an 8-bit RGB or RGBA, non-interlaced PNG (what read_png
+    decodes): signature, then the IHDR chunk's bit depth (byte 24),
+    colour type (25) and interlace method (28)."""
+    with open(path, "rb") as fh:
+        head = fh.read(29)
+    return (len(head) == 29 and head[:8] == _PNG_SIGNATURE
+            and head[12:16] == b"IHDR" and head[24] == 8
+            and head[25] in (2, 6) and head[28] == 0)
 
 
 def solid_texture(color, size: int = 4, name: str = "solid") -> TextureData:

@@ -1,0 +1,186 @@
+"""The fused frame: one frame kernel per 1024-ray tile, then a short tail.
+
+Counterpart of the JAX package's ops/fusedframe.render_frame_fused, the
+frame render_megakernel draws by default on an eligible scene (a mesh
+of at most STREAM_FACES faces, and not normal mapping with shadows).
+The frame kernel (kernels.frame, K4) runs the closest-hit sweep, the
+winner's shading attributes, the sphere passes, the Blinn-Phong
+factors and the composite in one launch; the tail gathers the texels
+once and shades them (K2), traces the winner shadow wavefront with the
+scheduled any-hit kernel (K3, shadow_mode "sched"), perturbs the
+normal through the bump sample (K6, normal mapping), selects the
+colours, quantizes and de-tiles.
+
+shadow_mode: "sched" (and "auto") emits the winner's shadow-ray inputs
+and traces them with K3 over the split frame's per-tile schedule;
+"inkernel" traces them inside the frame kernel over the static
+near-to-far cluster order. Both give the same occlusion bit for bit.
+
+The frame equals the split frame bit for bit at the quantized frame:
+its Blinn-Phong specular is the JAX kernel's multiply chain `pow32`,
+within 25 ulp of the split frame's pow, so unquantized colours differ
+in the last bits on a few pixels (the JAX package's frames do the same).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..core.camera import CameraUniforms
+from ..core.scene import SceneData
+from .kernels import KERNELS, KernelSet
+from .kernels.common import TILE_R
+from .megakernel import (_mask_words, _mat_const, _pad1, _pick_tile_shape,
+                         _vmem_sched, blinn_phong_planar, gather_packed_taps,
+                         pack_face_columns, pack_origin_cols, perturb_normal,
+                         present_planar, raygen_planar, raygen_planar_tiled,
+                         winner_occlusion)
+from .rounding import sqrt
+
+F32_INF = float("inf")
+SHADOW_MODES = ("auto", "sched", "inkernel")
+
+
+def frame_const(scene: SceneData, origin: torch.Tensor) -> torch.Tensor:
+    """The frame kernel's const vector (kernels/frame.py docstring):
+    origin, root AABB, 13 floats per sphere, the material lights, the
+    cluster AABBs (empty clusters +inf / -inf) and the static
+    near-to-far cluster order along material 0's light, as floats. The
+    order only decides how early the in-kernel shadow loop meets
+    occluders: any order gives the same frame."""
+    finite = torch.isfinite(scene.blk_lo) & torch.isfinite(scene.blk_hi)
+    blo = torch.where(finite, scene.blk_lo, F32_INF)
+    bhi = torch.where(finite, scene.blk_hi, -F32_INF)
+    parts = [origin.reshape(3), blo.amin(dim=0), bhi.amax(dim=0)]
+    if scene.num_spheres:
+        parts.append(torch.cat(
+            [scene.sphere_center, scene.sphere_radius[:, None],
+             scene.sphere_color, scene.sphere_coeff, scene.sphere_light],
+            dim=1).reshape(-1))
+    parts.append(scene.mat_light.reshape(-1))
+    parts.append(torch.cat([blo, bhi], dim=1).reshape(-1))
+    ld = scene.mat_light[0]
+    ln = sqrt((ld * ld).sum())
+    sdir = -ld / torch.where(ln > 0, ln, 1.0)
+    proj = ((blo + bhi) * 0.5 * sdir[None, :]).sum(dim=1)
+    proj = torch.where(torch.isfinite(proj), proj, F32_INF)  # empty last
+    parts.append(torch.argsort(proj, stable=True).to(torch.float32))
+    return torch.cat(parts).contiguous()
+
+
+def render_frame_fused(scene: SceneData, uni_flat, *, width: int,
+                       height: int, near: float = 0.01, far: float = 100.0,
+                       background=(0.0, 0.0, 0.0), shadows: bool = False,
+                       quantize: bool = True, accel: str = "cull",
+                       normal_mapping: bool = False,
+                       shadow_mode: str = "auto",
+                       kernels: KernelSet = KERNELS):
+    """One fused frame (module docstring). Returns (color (H,W,3) f32,
+    depth (H,W) f32), bit for bit the JAX package's render_frame_fused
+    under the same rounding rules. Normal mapping excludes shadows here
+    (the shadow gate needs the perturbed normal): render_megakernel
+    sends that case to the split frame."""
+    if normal_mapping and shadows:
+        raise ValueError("the fused frame has no normal mapping with "
+                         "shadows; render it with fused=False")
+    if shadow_mode not in SHADOW_MODES:
+        raise ValueError(f"shadow_mode {shadow_mode!r}, expected one of "
+                         f"{SHADOW_MODES}")
+    device = scene.tri_n.device
+    uni = CameraUniforms.unflat(np.asarray(
+        uni_flat.cpu() if isinstance(uni_flat, torch.Tensor) else uni_flat,
+        np.float32))
+    origin = torch.as_tensor(uni.origin, dtype=torch.float32, device=device)
+
+    shape = _pick_tile_shape(width, height)
+    if shape is not None:
+        tile_h, tile_w, render_h = shape
+        dx, dy, dz = raygen_planar_tiled(width, render_h, uni, device=device,
+                                         total_height=height, tile_h=tile_h,
+                                         tile_w=tile_w)
+    else:
+        dx, dy, dz = raygen_planar(width, height, uni, device=device)
+
+    f = scene.padded_faces
+    nb = scene.blk_lo.shape[0]
+    block_f = f // nb
+    ns = scene.num_spheres
+    nmat = scene.mat_ambient.shape[0]
+    nrays = dx.shape[0]
+    dxp, dyp, dzp = (_pad1(v, TILE_R) for v in (dx, dy, dz))
+
+    fpack = pack_face_columns(scene)
+    oterm = pack_origin_cols(scene, origin)
+    dc = torch.cat([scene.tri_d[:, None], scene.tri_c,
+                    torch.zeros((f, 4), dtype=torch.float32, device=device)],
+                   dim=1)
+    o = (origin[0], origin[1], origin[2])
+    mask, nwords = _mask_words(scene, accel, *o, dxp, dyp, dzp, TILE_R,
+                               block_f, f)
+    tlb, order, texit = _vmem_sched(scene, mask, nwords, *o, dxp, dyp, dzp,
+                                    TILE_R, f, block_f)
+
+    use_sched = shadows and shadow_mode != "inkernel"
+    if normal_mapping:
+        mode = "nm"
+    elif not shadows:
+        mode = "none"
+    else:
+        mode = "sched" if use_sched else "inkernel"
+    outs = kernels.frame(tlb, order, frame_const(scene, origin), dxp, dyp,
+                         dzp, texit, fpack, oterm, dc, ns=ns, nmat=nmat,
+                         block_f=block_f, near=near, far=far, mode=mode)
+    outs = [p[:nrays] for p in outs]
+    depth, kind, occ, uvx, uvy, mat, lam, spec = outs[:8]
+
+    # ---- tail: one texture gather + shade, shadows, final select ----
+    def mc(getter):
+        return _mat_const(scene, mat, getter)
+
+    amb = [mc(lambda k, c=c: scene.mat_ambient[k, c]) for c in range(3)]
+    spc = [mc(lambda k, c=c: scene.mat_specular[k, c]) for c in range(3)]
+
+    lam_mesh, spec_mesh = lam, spec
+    if normal_mapping:
+        nx, ny, nz = perturb_normal(scene, mat, *outs[8:20], uvx,
+                                    1.0 - uvy, kernels=kernels)
+        light = [mc(lambda k, c=c: scene.mat_light[k, c]) for c in range(3)]
+        lam_mesh, spec_mesh = blinn_phong_planar(nx, ny, nz, dx, dy, dz,
+                                                 light)
+
+    taps, fxw, fyw = gather_packed_taps(
+        scene.tex_packed, mc(lambda k: scene.mat_tex_base[k]),
+        mc(lambda k: scene.mat_tex_h[k]), mc(lambda k: scene.mat_tex_w[k]),
+        uvx, 1.0 - uvy)
+    mr, mg, mb = kernels.texshade(taps, fxw, fyw, lam_mesh, spec_mesh,
+                                  *amb, *spc)
+
+    if use_sched:
+        # the split frame's shadow pass on the winner planes
+        w_rel = outs[15]
+        occ = winner_occlusion(scene, origin, dx, dy, dz,
+                               (kind > 0.0) & (w_rel > 0.0), *outs[8:15],
+                               accel=accel, kernels=kernels).to(torch.float32)
+
+    cr, cg, cb = (torch.full((nrays,), float(np.float32(v)),
+                             dtype=torch.float32, device=device)
+                  for v in background)
+    shadowed = (kind > 0.0) & (occ > 0.0)
+    for s in range(ns):
+        sel = kind == float(s + 1)
+        col = scene.sphere_color[s]
+        co = scene.sphere_coeff[s]
+        shade = co[0] + co[1] * lam
+        pr = col[0] * shade + co[2] * spec
+        pg = col[1] * shade + co[2] * spec
+        pb = col[2] * shade + co[2] * spec
+        cr = torch.where(sel, torch.where(shadowed, col[0] * co[0], pr), cr)
+        cg = torch.where(sel, torch.where(shadowed, col[1] * co[0], pg), cg)
+        cb = torch.where(sel, torch.where(shadowed, col[2] * co[0], pb), cb)
+    mesh_sel = kind == float(ns + 1)
+    cr = torch.where(mesh_sel, torch.where(shadowed, amb[0], mr), cr)
+    cg = torch.where(mesh_sel, torch.where(shadowed, amb[1], mg), cg)
+    cb = torch.where(mesh_sel, torch.where(shadowed, amb[2], mb), cb)
+    return present_planar(cr, cg, cb, depth, width=width, height=height,
+                          shape=shape, quantize=quantize)

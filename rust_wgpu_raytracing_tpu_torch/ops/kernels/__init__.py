@@ -6,9 +6,11 @@ version and a launch counter.
 | K1 | closest_hit | csrc/closest_hit.cu | ops/megakernel.py _make_closest_hit_kernel |
 | K2 | texshade | csrc/texshade.cu | ops/megakernel.py _texshade_kernel |
 | K3 | anyhit | csrc/anyhit.cu | ops/megakernel.py _make_anyhit_kernel |
+| K4 | frame | csrc/frame.cu | ops/fusedframe.py _make_frame_kernel |
+| K6 | texfilter | csrc/texfilter.cu | ops/megakernel.py _texfilter_kernel |
 
 A wrapper launches its kernel for CUDA tensors and runs its plain
-version for CPU tensors. The frame takes a KernelSet, so a caller can
+version for CPU tensors. The frames take a KernelSet, so a caller can
 compose the same frame from the plain versions on the card (PLAIN) to
 check the kernels against it.
 """
@@ -19,6 +21,8 @@ from typing import Callable, NamedTuple
 
 from .anyhit import anyhit, anyhit_plain
 from .closest_hit import closest_hit, closest_hit_plain
+from .frame import frame, frame_plain
+from .texfilter import texfilter, texfilter_plain
 from .texshade import texshade, texshade_plain
 
 
@@ -26,10 +30,13 @@ class KernelSet(NamedTuple):
     closest_hit: Callable
     anyhit: Callable
     texshade: Callable
+    frame: Callable
+    texfilter: Callable
 
 
-KERNELS = KernelSet(closest_hit, anyhit, texshade)
-PLAIN = KernelSet(closest_hit_plain, anyhit_plain, texshade_plain)
+KERNELS = KernelSet(closest_hit, anyhit, texshade, frame, texfilter)
+PLAIN = KernelSet(closest_hit_plain, anyhit_plain, texshade_plain,
+                  frame_plain, texfilter_plain)
 
 
 def launch_counts() -> dict:

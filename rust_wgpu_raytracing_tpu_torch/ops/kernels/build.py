@@ -1,6 +1,7 @@
 """Build and load the port's CUDA kernels.
 
-All kernel sources under csrc/ compile with ONE nvcc command into one
+Every kernel source under csrc/ compiles with its own nvcc process, all
+started together, and one more nvcc call links the objects into one
 shared library with a plain C interface, loaded with ctypes (no
 PyTorch headers, so the build takes seconds). The library lands in
 build/kernels/ at the repository root (git-ignored), named by a hash of
@@ -31,7 +32,7 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-              "-std=c++17", "-fmad=false", "-shared", "-Xcompiler", "-fPIC"]
+              "-std=c++17", "-fmad=false", "-Xcompiler", "-fPIC"]
 
 _VOIDP = ctypes.c_void_p
 _INT = ctypes.c_int
@@ -43,6 +44,9 @@ _SIGNATURES = {
     + [_VOIDP] * 7 + [_VOIDP],
     "rt_anyhit": [_VOIDP] * 12 + [_INT] * 4 + [_VOIDP] + [_VOIDP],
     "rt_texshade": [_VOIDP] * 11 + [_INT] + [_VOIDP] * 3 + [_VOIDP],
+    "rt_frame": [_VOIDP] * 10 + [_INT] * 6 + [_FLOAT] * 2 + [_VOIDP]
+    + [_VOIDP],
+    "rt_texfilter": [_VOIDP] * 3 + [_INT] + [_VOIDP] + [_VOIDP],
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -76,22 +80,46 @@ def library_path() -> str:
 
 def build(verbose: bool = False) -> str:
     """Compile csrc/*.cu into the shared library (if not built yet) and
-    return its path. Raises on a compiler error, with its output."""
+    return its path: one nvcc per source, in parallel, then one link.
+    Raises on a compiler error, with its output."""
     path = library_path()
     if os.path.exists(path):
         return path
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{path}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *[s for s in sources() if s.endswith(".cu")]]
+    tag = f"{os.getpid()}.tmp"
+    nvcc = _nvcc()
+    extra = ["--ptxas-options=-v"] if verbose else []
+    jobs = []
+    for src in (s for s in sources() if s.endswith(".cu")):
+        obj = os.path.join(BUILD_DIR, f"{os.path.basename(src)}.{tag}.o")
+        cmd = [nvcc, *extra, *NVCC_FLAGS, "-c", "-o", obj, src]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    logs = []
+    failed = None
+    for cmd, _, proc in jobs:
+        log = proc.communicate()[0]
+        logs.append(log)
+        if proc.returncode != 0 and failed is None:
+            failed = (proc.returncode, cmd, log)
+    objs = [obj for _, obj, _ in jobs]
+    try:
+        if failed is not None:
+            raise RuntimeError(f"nvcc failed ({failed[0]}):\n"
+                               f"{' '.join(failed[1])}\n{failed[2]}")
+        tmp = f"{path}.{tag}"
+        cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({res.returncode}):\n"
+                               f"{' '.join(cmd)}\n{res.stdout}{res.stderr}")
+    finally:
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
     if verbose:
-        cmd.insert(1, "--ptxas-options=-v")
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                           f"{' '.join(cmd)}\n{res.stdout}{res.stderr}")
-    if verbose:
-        print(res.stdout + res.stderr, flush=True)
+        print("".join(logs) + res.stdout + res.stderr, flush=True)
     os.replace(tmp, path)  # atomic: a concurrent build never sees half a file
     return path
 

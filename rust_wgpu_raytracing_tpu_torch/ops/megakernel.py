@@ -1,12 +1,16 @@
-"""The split shadowed frame: PyTorch glue around the three CUDA kernels.
+"""The frame program: PyTorch glue around the CUDA kernels.
 
-Counterpart of the JAX package's ops/megakernel.py for
-`render_megakernel(fused=False)` on meshes of at most STREAM_FACES
-faces. Each function keeps its JAX name (the kernel launch sites are
-`gbuffer` for JAX's gbuffer_pallas, `anyhit_rays` for anyhit_pallas and
-`kernels.texshade` for _texshade_pallas). Everything per ray is planar:
-separate (R,) tensors per component, rays ordered by 32x32 screen tiles
-so that each 1024-ray schedule tile is a compact screen block.
+Counterpart of the JAX package's ops/megakernel.py on meshes of at most
+STREAM_FACES faces. render_megakernel draws the split frame here
+(fused=False) and dispatches to ops/fusedframe.render_frame_fused
+where the JAX package does (fused=None on an eligible scene). Each
+function keeps its JAX name (the kernel launch sites are `gbuffer` for
+JAX's gbuffer_pallas, `anyhit_rays` for anyhit_pallas,
+`kernels.texshade` for _texshade_pallas and `sample_packed_texture`'s
+`kernels.texfilter` for _texfilter_pallas). Everything per ray is
+planar: separate (R,) tensors per component, rays ordered by 32x32
+screen tiles so that each 1024-ray schedule tile is a compact screen
+block.
 
 Float semantics. Every expression keeps the JAX operation order, and
 every product and sum rounds on its own (no fused multiply-add; the
@@ -14,14 +18,17 @@ kernels are compiled with -fmad=false). Where the JAX code divides by
 a compile-time constant, XLA's algebraic simplifier multiplies by the
 constant's f32 reciprocal instead; the port writes that multiply out
 (`_rcp`), so the rays, masks and schedules are bit-identical to the
-JAX package's under the same rounding rules.
+JAX package's under the same rounding rules. Squares are written as
+products (XLA lowers `x ** 2` to `x * x`); the Blinn-Phong `hdotn **
+32.0` stays torch's pow, within 1 ulp of XLA's, with its denormal
+results flushed to zero as XLA and the TPU flush them (rounding.ftz).
 
-Not ported here (see ROADMAP.md): the fused frame kernel, accel="bvh",
-normal mapping, mip sampling, path tracing, meshes above STREAM_FACES
-(streaming kernels), row-slab sharding and gp staging. The one-hot
-matrix-unit winner fetch of expand_tf_gbuffer is a TPU device that
-yields the same values as the plain gather used here, and the
-measurement flags RT_TEX_ROW_GATHER / RT_AH_PERRAY do not exist.
+Not ported here (see ROADMAP.md): accel="bvh", mip sampling, path
+tracing, meshes above STREAM_FACES (streaming kernels), row-slab
+sharding and gp staging. The one-hot matrix-unit winner fetch of
+expand_tf_gbuffer is a TPU device that yields the same values as the
+plain gather used here, and the measurement flags RT_TEX_ROW_GATHER /
+RT_AH_PERRAY do not exist.
 """
 
 from __future__ import annotations
@@ -32,10 +39,10 @@ import numpy as np
 import torch
 
 from ..core.camera import CameraUniforms
-from ..core.scene import (GP_G1, GP_G2, GP_INVD, GP_MAT, GP_N, GP_UN, GP_UV,
-                          STREAM_FACES, SceneData)
+from ..core.scene import (GP_G1, GP_G2, GP_INVD, GP_MAT, GP_N, GP_TAN,
+                          GP_UN, GP_UV, GP_VN, STREAM_FACES, SceneData)
 from .composite import to_nonlinear_depth
-from .rounding import sqrt
+from .rounding import ftz, sqrt
 from .kernels import KERNELS, KernelSet
 from .kernels.common import TILE_R
 from .shade import quantize_rgba8
@@ -53,6 +60,11 @@ def _rcp(c) -> float:
     return float(np.float32(1.0) / np.float32(c))
 
 
+def _f32(c) -> float:
+    """A Python constant as the f32 value JAX's weak typing gives it."""
+    return float(np.float32(c))
+
+
 class GBuffer(NamedTuple):
     """Planar per-ray intersection + shading inputs, all (R,)."""
 
@@ -67,6 +79,16 @@ class GBuffer(NamedTuple):
     ny: torch.Tensor
     nz: torch.Tensor
     mat: torch.Tensor  # material id as f32
+    # normal-mapping extras (None unless requested with with_nm=True)
+    vnx: Optional[torch.Tensor] = None  # interpolated vertex normal
+    vny: Optional[torch.Tensor] = None
+    vnz: Optional[torch.Tensor] = None
+    tx: Optional[torch.Tensor] = None  # per-face tangent
+    ty: Optional[torch.Tensor] = None
+    tz: Optional[torch.Tensor] = None
+    bx: Optional[torch.Tensor] = None  # per-face bitangent
+    by: Optional[torch.Tensor] = None
+    bz: Optional[torch.Tensor] = None
 
 
 def pack_face_columns(scene: SceneData) -> torch.Tensor:
@@ -110,12 +132,13 @@ def pack_origin_cols(scene: SceneData, origin: torch.Tensor) -> torch.Tensor:
 
 
 def expand_tf_gbuffer(scene: SceneData, t, face, dx, dy, dz,
-                      oterm) -> GBuffer:
+                      oterm, with_nm: bool = False) -> GBuffer:
     """Resolve the G-buffer from the sweep's (t, face): ONE gather of the
     winner faces' gpack columns, then h1/h2/ndotd and the shading
     attributes recomputed with the kernels' own expressions on the
     winner's values, with the frame's exact origin-term floats `oterm`.
-    Miss rays (t == inf) zero every attribute."""
+    with_nm adds the interpolated vertex normal and the face's tangent
+    frame. Miss rays (t == inf) zero every attribute."""
     gp = scene.gpack
     idx = face.clamp(0, gp.shape[1] - 1).long()
     a = gp.index_select(1, idx)  # (GPACK_ROWS, R)
@@ -138,9 +161,19 @@ def expand_tf_gbuffer(scene: SceneData, t, face, dx, dy, dz,
     w_n = 1.0 - u_n - v_n
     uvx = u_n * a[GP_UV] + v_n * a[GP_UV + 2] + w_n * a[GP_UV + 4]
     uvy = u_n * a[GP_UV + 1] + v_n * a[GP_UV + 3] + w_n * a[GP_UV + 5]
+    nm = {}
+    if with_nm:
+        for ax, (vk, tk, bk) in enumerate(
+                zip(("vnx", "vny", "vnz"), ("tx", "ty", "tz"),
+                    ("bx", "by", "bz"))):
+            nm[vk] = m(u_n * a[GP_VN + ax] + v_n * a[GP_VN + 3 + ax]
+                       + w_n * a[GP_VN + 6 + ax])
+            nm[tk] = m(a[GP_TAN + ax])
+            nm[bk] = m(a[GP_TAN + 3 + ax])
     return GBuffer(t=t, face=face, u=m(u_n), v=m(v_n), nd=m(nd),
                    uvx=m(uvx), uvy=m(uvy), nx=m(a[GP_UN]),
-                   ny=m(a[GP_UN + 1]), nz=m(a[GP_UN + 2]), mat=m(a[GP_MAT]))
+                   ny=m(a[GP_UN + 1]), nz=m(a[GP_UN + 2]), mat=m(a[GP_MAT]),
+                   **nm)
 
 
 def _pad1(x, tile, fill=0.0):
@@ -266,13 +299,13 @@ def _sphere_pack(scene: SceneData, origin: torch.Tensor) -> torch.Tensor:
 
 
 def gbuffer(scene: SceneData, origin, dx, dy, dz, *, accel: str = "cull",
-            near: float = 0.01, far: float = 100.0,
+            near: float = 0.01, far: float = 100.0, with_nm: bool = False,
             kernels: KernelSet = KERNELS):
     """Closest-hit G-buffer for shared-origin planar rays dx/dy/dz (R,),
     spheres fused (JAX: gbuffer_pallas(..., with_spheres=True), VMEM
     branch). Returns (GBuffer, sph) with sph = (t, id_f32, nx, ny, nz)
     of the winning sphere per ray, or None for a scene without
-    spheres."""
+    spheres. with_nm fills the G-buffer's normal-mapping planes."""
     f = scene.padded_faces
     block_f = _natural_block_f(scene, f)
     nrays = dx.shape[0]
@@ -292,7 +325,7 @@ def gbuffer(scene: SceneData, origin, dx, dy, dz, *, accel: str = "cull",
     if sph is not None:
         sph = tuple(p[:nrays] for p in sph)
     gb = expand_tf_gbuffer(scene, t, face, dx[:nrays], dy[:nrays],
-                           dz[:nrays], oterm)
+                           dz[:nrays], oterm, with_nm=with_nm)
     return gb, sph
 
 
@@ -438,15 +471,16 @@ def sphere_pass_planar(scene, i, origin, dx, dy, dz):
 
 
 def blinn_phong_planar(nx, ny, nz, dx, dy, dz, light):
-    """Shared planar Blinn-Phong factors: returns (lambert, spec_pow32)."""
+    """Shared planar Blinn-Phong factors: returns (lambert, spec_pow32).
+    The power is torch's pow, within 1 ulp of XLA's, its denormal
+    results flushed as the JAX package's are (rounding.py)."""
     lx, ly, lz = _norm3(light[0], light[1], light[2])
     lam = (-(nx * lx + ny * ly + nz * lz)).clamp_min(0.0)
     hx, hy, hz = -lx - dx, -ly - dy, -lz - dz
     hl = sqrt(hx * hx + hy * hy + hz * hz)
     hl = torch.where(hl > 0, hl, 1.0)
     hdotn = ((hx * nx + hy * ny + hz * nz) / hl).clamp_min(0.0)
-    spec = hdotn ** 32.0
-    return lam, spec
+    return lam, ftz(hdotn ** 32.0)
 
 
 def gather_packed_taps(pool, base, hw_h, hw_w, u, v):
@@ -466,6 +500,53 @@ def gather_packed_taps(pool, base, hw_h, hw_w, u, v):
                        (hw_h - 1.0).to(torch.int32))
     flat = base.to(torch.int32) + y0 * hw_w.to(torch.int32) + x0
     return pool.index_select(1, flat.long()), fx, fy
+
+
+def sample_packed_texture(pool, base, hw_h, hw_w, u, v, *,
+                          kernels: KernelSet = KERNELS):
+    """ONE narrow gather + the bilinear filter kernel: (r, g, b) (R,)
+    f32 from the packed pool at (u, v) (v already flipped), with the
+    clamp-to-edge semantics of gather_packed_taps."""
+    taps, fx, fy = gather_packed_taps(pool, base, hw_h, hw_w, u, v)
+    return kernels.texfilter(taps, fx, fy)
+
+
+def perturb_normal(scene: SceneData, mat, nx, ny, nz, vnxp, vnyp, vnzp,
+                   tx, ty, tz, bx, by, bz, tex_u, tex_v, *,
+                   kernels: KernelSet = KERNELS):
+    """The normal-mapping block (JAX ops/megakernel.py:2933-2964, and
+    the fused tail ops/fusedframe.py:674-708, float for float): the
+    flipped geometric normal n is replaced by the interpolated vertex
+    normal aligned with it (where there is one), then perturbed by the
+    material's map_Bump sample in the face's tangent frame (where the
+    material has a map and the frame is sound). Returns (nx, ny, nz)."""
+    vl2 = vnxp * vnxp + vnyp * vnyp + vnzp * vnzp
+    has_vn = vl2 > _f32(1e-12)
+    inv = 1.0 / sqrt(torch.where(has_vn, vl2, 1.0))
+    vnx, vny, vnz = vnxp * inv, vnyp * inv, vnzp * inv
+    sgn = torch.where(vnx * nx + vny * ny + vnz * nz < 0.0, -1.0, 1.0)
+    nx = torch.where(has_vn, vnx * sgn, nx)
+    ny = torch.where(has_vn, vny * sgn, ny)
+    nz = torch.where(has_vn, vnz * sgn, nz)
+
+    bump_base = _mat_const(scene, mat, lambda k: scene.mat_bump_base[k])
+    has_bump = bump_base >= 0
+    b_h = _mat_const(scene, mat, lambda k: scene.mat_bump_h[k])
+    b_w = _mat_const(scene, mat, lambda k: scene.mat_bump_w[k])
+    br, bg, bb = sample_packed_texture(
+        scene.tex_packed_bump, bump_base.clamp_min(0), b_h, b_w,
+        tex_u, tex_v, kernels=kernels)
+    ntx, nty, ntz = 2.0 * br - 1.0, 2.0 * bg - 1.0, 2.0 * bb - 1.0
+    frame_ok = tx * tx + ty * ty + tz * tz > _f32(1e-12)
+    px = ntx * tx + nty * bx + ntz * nx
+    py = ntx * ty + nty * by + ntz * ny
+    pz = ntx * tz + nty * bz + ntz * nz
+    plen = sqrt(px * px + py * py + pz * pz)
+    use = has_bump & frame_ok & (plen > _f32(1e-12))
+    plen_s = torch.where(plen > _f32(1e-12), plen, 1.0)
+    return (torch.where(use, px / plen_s, nx),
+            torch.where(use, py / plen_s, ny),
+            torch.where(use, pz / plen_s, nz))
 
 
 def _mat_const(scene: SceneData, mat_f32, getter):
@@ -518,15 +599,37 @@ def _spheres_occlude_planar(scene, px, py, pz, dx, dy, dz, t_min=1e-3):
     return occ
 
 
+def winner_occlusion(scene: SceneData, origin, dx, dy, dz, relevant, w_t,
+                     w_nx, w_ny, w_nz, w_lx, w_ly, w_lz, *,
+                     accel: str = "cull", kernels: KernelSet = KERNELS):
+    """The single deferred shadow pass of the visible surface (both
+    frames): a shadow ray from each relevant pixel's winning hit point,
+    offset 1e-3 along its normal, toward its light; the other rays are
+    parked (far origin, zero direction) so the tile cull drops them.
+    Returns (R,) bool: occluded by the mesh (the any-hit kernel) or by a
+    sphere."""
+    ll = sqrt(w_lx * w_lx + w_ly * w_ly + w_lz * w_lz)
+    ll = torch.where(ll > 0, ll, 1.0)
+    park = 1e9
+    sdx = torch.where(relevant, -w_lx / ll, 0.0)
+    sdy = torch.where(relevant, -w_ly / ll, 0.0)
+    sdz = torch.where(relevant, -w_lz / ll, 0.0)
+    ts = torch.where(relevant, w_t, 0.0)
+    px = torch.where(relevant, origin[0] + dx * ts + w_nx * 1e-3, park)
+    py = torch.where(relevant, origin[1] + dy * ts + w_ny * 1e-3, park)
+    pz = torch.where(relevant, origin[2] + dz * ts + w_nz * 1e-3, park)
+    occ = torch.zeros(relevant.shape, dtype=torch.bool,
+                      device=relevant.device)
+    if scene.num_faces > 0:
+        occ = anyhit_rays(scene, px, py, pz, sdx, sdy, sdz, relevant,
+                          accel=accel, kernels=kernels)
+    return occ | _spheres_occlude_planar(scene, px, py, pz, sdx, sdy, sdz)
+
+
 def check_supported(scene: SceneData, *, accel: str = "cull",
-                    fused: Optional[bool] = None,
-                    normal_mapping: bool = False, mip: bool = False) -> None:
-    """Raise NotImplementedError for what the split frame of this port
-    does not render yet (never silently render something else)."""
-    if fused:
-        raise NotImplementedError(f"the fused frame is {_ROADMAP}")
-    if normal_mapping:
-        raise NotImplementedError(f"normal mapping is {_ROADMAP}")
+                    mip: bool = False) -> None:
+    """Raise NotImplementedError for what this port does not render yet
+    (never silently render something else)."""
     if mip:
         raise NotImplementedError(f"mip sampling is {_ROADMAP}")
     if accel == "bvh":
@@ -539,23 +642,52 @@ def check_supported(scene: SceneData, *, accel: str = "cull",
             f"kernels) are {_ROADMAP}")
 
 
+def fused_eligible(scene: SceneData, *, shadows: bool,
+                   normal_mapping: bool) -> bool:
+    """Whether the fused frame can draw this scene (JAX
+    ops/megakernel.py:2747-2748): a mesh whose face pack stays on chip,
+    and not normal mapping with shadows (the shadow gate needs the
+    perturbed normal, which only the split frame has)."""
+    return (scene.num_faces > 0 and scene.padded_faces <= STREAM_FACES
+            and not (normal_mapping and shadows))
+
+
 def render_megakernel(scene: SceneData, uni_flat, *, width: int, height: int,
                       near: float = 0.01, far: float = 100.0,
                       background=(0.0, 0.0, 0.0), shadows: bool = False,
                       quantize: bool = True, normal_mapping: bool = False,
                       accel: str = "cull", fused: Optional[bool] = None,
                       mip: bool = False, kernels: KernelSet = KERNELS):
-    """One split frame on the scene's device: planar raygen -> closest-hit
-    kernel (spheres fused) -> one-gather texture shade kernel ->
-    composite -> shadow any-hit kernel. Returns (color (H,W,3) f32,
-    depth (H,W) f32), bit for bit the JAX package's
-    render_megakernel(fused=False) under the same rounding rules.
+    """One frame on the scene's device. Returns (color (H,W,3) f32,
+    depth (H,W) f32).
 
-    fused=None picks the split frame (the only one ported so far);
+    fused=None picks the fused frame (ops/fusedframe.py) for every
+    eligible scene and the split frame otherwise, as the JAX package
+    does; fused=True on an ineligible scene raises ValueError. The split
+    frame: planar raygen -> closest-hit kernel (spheres fused) ->
+    [normal mapping] -> one-gather texture shade kernel -> composite ->
+    shadow any-hit kernel, bit for bit the JAX package's
+    render_megakernel(fused=False) under the same rounding rules.
     `kernels` selects the kernel implementations (PLAIN composes the
     frame from the plain PyTorch versions)."""
-    check_supported(scene, accel=accel, fused=fused,
-                    normal_mapping=normal_mapping, mip=mip)
+    check_supported(scene, accel=accel, mip=mip)
+    eligible = fused_eligible(scene, shadows=shadows,
+                              normal_mapping=normal_mapping)
+    if fused is None:
+        fused = eligible
+    if fused:
+        if not eligible:
+            raise ValueError(
+                "the fused frame needs a mesh of at most STREAM_FACES faces "
+                "and no normal mapping with shadows; use fused=False")
+        from .fusedframe import render_frame_fused
+
+        return render_frame_fused(
+            scene, uni_flat, width=width, height=height, near=near,
+            far=far, background=background, shadows=shadows,
+            quantize=quantize, accel=accel, normal_mapping=normal_mapping,
+            kernels=kernels)
+
     device = scene.tri_n.device
     uni = CameraUniforms.unflat(np.asarray(
         uni_flat.cpu() if isinstance(uni_flat, torch.Tensor) else uni_flat,
@@ -609,7 +741,8 @@ def render_megakernel(scene: SceneData, uni_flat, *, width: int, height: int,
     sph_out = None
     if has_mesh:
         gb, sph_out = gbuffer(scene, origin, dx, dy, dz, accel=accel,
-                              near=near, far=far, kernels=kernels)
+                              near=near, far=far, with_nm=normal_mapping,
+                              kernels=kernels)
 
     # --- sphere passes, in config order (src/lib.rs:1106-1148) ---
     if sph_out is not None:
@@ -681,6 +814,12 @@ def render_megakernel(scene: SceneData, uni_flat, *, width: int, height: int,
         tex_u = gb.uvx
         tex_v = 1.0 - gb.uvy  # V-flip (triangle_list/compute.wgsl:223)
 
+        if normal_mapping:
+            nx, ny, nz = perturb_normal(
+                scene, gb.mat, nx, ny, nz, gb.vnx, gb.vny, gb.vnz,
+                gb.tx, gb.ty, gb.tz, gb.bx, gb.by, gb.bz, tex_u, tex_v,
+                kernels=kernels)
+
         # per-pixel light dir can vary by material (reference quirk:
         # per-kernel light dirs) — resolve via M-way select
         lightx = _mat_const(scene, gb.mat, lambda k: scene.mat_light[k, 0])
@@ -714,26 +853,12 @@ def render_megakernel(scene: SceneData, uni_flat, *, width: int, height: int,
     if shadows:
         (w_ar, w_ag, w_ab, w_t, w_nx, w_ny, w_nz,
          w_lx, w_ly, w_lz, w_rel) = state[4:]
-        ll = sqrt(w_lx * w_lx + w_ly * w_ly + w_lz * w_lz)
-        ll = torch.where(ll > 0, ll, 1.0)
         # trace only pixels whose shading the occlusion bit can change:
         # where lam == 0 and spec == 0 the lit and shadowed colours are
-        # bitwise equal, so the ray is parked (far origin, zero
-        # direction) and the tile cull drops it
-        relevant = covered & w_rel
-        park = 1e9
-        sdx = torch.where(relevant, -w_lx / ll, 0.0)
-        sdy = torch.where(relevant, -w_ly / ll, 0.0)
-        sdz = torch.where(relevant, -w_lz / ll, 0.0)
-        ts = torch.where(relevant, w_t, 0.0)
-        px = torch.where(relevant, origin[0] + dx * ts + w_nx * 1e-3, park)
-        py = torch.where(relevant, origin[1] + dy * ts + w_ny * 1e-3, park)
-        pz = torch.where(relevant, origin[2] + dz * ts + w_nz * 1e-3, park)
-        occ = torch.zeros(r, dtype=torch.bool, device=device)
-        if has_mesh:
-            occ = anyhit_rays(scene, px, py, pz, sdx, sdy, sdz, relevant,
-                              accel=accel, kernels=kernels)
-        occ = occ | _spheres_occlude_planar(scene, px, py, pz, sdx, sdy, sdz)
+        # bitwise equal
+        occ = winner_occlusion(scene, origin, dx, dy, dz, covered & w_rel,
+                               w_t, w_nx, w_ny, w_nz, w_lx, w_ly, w_lz,
+                               accel=accel, kernels=kernels)
         shadowed = covered & occ
         cr = torch.where(shadowed, w_ar, cr)
         cg = torch.where(shadowed, w_ag, cg)

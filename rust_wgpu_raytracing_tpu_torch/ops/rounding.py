@@ -5,14 +5,28 @@ being IEEE-rounded. torch's vectorized CPU sqrt is not (about 1 result
 in 130 lands one ulp off), so on the CPU the square root is taken in
 f64 and rounded once to f32, which is exact for sqrt. CUDA's sqrtf is
 correctly rounded, and the kernels use it.
+
+The JAX package's f32 arithmetic flushes denormal results to zero (the
+TPU has no denormals, and XLA's CPU backend runs with flush-to-zero);
+torch and CUDA (built without -ftz) keep them. The frame's one source
+of denormals is the Blinn-Phong specular power (N.H)^32 of a small
+N.H, so the port flushes that result with `ftz`.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+FLT_MIN = float(np.finfo(np.float32).tiny)  # smallest normal f32
 
 
 def sqrt(x: torch.Tensor) -> torch.Tensor:
     if x.device.type == "cpu":
         return torch.sqrt(x.to(torch.float64)).to(x.dtype)
     return torch.sqrt(x)
+
+
+def ftz(x: torch.Tensor) -> torch.Tensor:
+    """x with denormal values flushed to zero."""
+    return torch.where(x.abs() < FLT_MIN, 0.0, x)

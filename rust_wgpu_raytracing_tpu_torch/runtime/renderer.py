@@ -10,6 +10,14 @@ aspect), as in the JAX package.
 The device is explicit: Renderer(cfg, device="cuda") renders on the
 card and raises when there is none; device="cpu" runs the same frame
 through the kernels' plain PyTorch versions.
+
+RenderConfig.variant picks the frame program as in the JAX package:
+"split" and "fused" are fixed choices ("fused" raises ValueError on a
+scene the fused frame cannot draw); "auto" renders split where the
+fused frame is not eligible and otherwise times both at the first
+render() (1 warm-up, then 8 frames each; CUDA events on the card, the
+host clock on the CPU) and keeps the faster. variant_chosen and
+variant_ms record the outcome.
 """
 
 from __future__ import annotations
@@ -25,7 +33,8 @@ from ..core.camera import Camera
 from ..core.controls import CircleCameraController
 from ..core.scene import Scene
 from ..io.image_out import encode_u8_device, write_png
-from ..ops.megakernel import check_supported, render_megakernel
+from ..ops.megakernel import (check_supported, fused_eligible,
+                              render_megakernel)
 
 _ROADMAP = "not ported to the PyTorch/CUDA package yet; see ROADMAP.md"
 
@@ -48,17 +57,26 @@ class Renderer:
         rc = config.render
         if rc.pt_bounces > 0:
             raise NotImplementedError(f"path tracing is {_ROADMAP}")
+        self.config = config
         if rc.variant not in ("split", "fused", "auto"):
             raise ValueError(f"unknown frame variant {rc.variant!r}")
-        if rc.variant == "fused":
-            raise NotImplementedError(f"the fused frame is {_ROADMAP}")
-        # "auto" times split against fused in the JAX package; with only
-        # the split frame ported it renders split
-        self.config = config
+        if rc.variant == "fused" and (
+                rc.mip or (self._normal_mapping and rc.shadows)):
+            raise ValueError("variant='fused' needs a frame without mip "
+                             "and without normal mapping with shadows; "
+                             "use 'split' or 'auto'")
         self.scene = Scene.build(config)
         self.data = self.scene.data.to(self.device)
-        check_supported(self.data, accel=rc.accel, mip=rc.mip,
-                        normal_mapping=self._normal_mapping)
+        check_supported(self.data, accel=rc.accel, mip=rc.mip)
+        eligible = fused_eligible(self.data, shadows=rc.shadows,
+                                  normal_mapping=self._normal_mapping)
+        if rc.variant == "fused" and not eligible:
+            raise ValueError("variant='fused' needs a mesh of at most "
+                             "STREAM_FACES faces; use 'split' or 'auto'")
+        self.variant_ms = {}
+        self.variant_chosen = None  # decided at the first render for auto
+        if rc.variant != "auto" or not eligible:
+            self.variant_chosen = "fused" if rc.variant == "fused" else "split"
         self.camera = Camera.from_config(
             config.camera, aspect=rc.width / rc.height)
         self.controller = CircleCameraController(speed=0.2)
@@ -79,7 +97,7 @@ class Renderer:
             return "megakernel"
         raise NotImplementedError(f"backend {backend!r} is {_ROADMAP}")
 
-    def _frame(self, uni):
+    def _frame(self, uni, variant=None):
         rc = self.config.render
         return render_megakernel(
             self.data, uni, width=self.width, height=self.height,
@@ -87,7 +105,36 @@ class Renderer:
             background=tuple(self.config.background), shadows=rc.shadows,
             quantize=rc.quantize_rgba8,
             normal_mapping=self._normal_mapping,
-            accel=rc.accel, mip=rc.mip)
+            accel=rc.accel, fused=(variant or self.variant_chosen) == "fused",
+            mip=rc.mip)
+
+    def _time_frames(self, fn, n: int = 8, warmup: int = 1) -> float:
+        """Mean ms per frame of fn over n frames after warmup frames:
+        CUDA events on the card, the host clock on the CPU."""
+        for _ in range(warmup):
+            fn()
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(n):
+                fn()
+            end.record()
+            end.synchronize()
+            return start.elapsed_time(end) / n
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        return (time.perf_counter() - t0) * 1e3 / n
+
+    def _autotune(self, uni) -> None:
+        """variant="auto": time split and fused on this frame, keep the
+        faster."""
+        self.variant_ms = {
+            name: self._time_frames(lambda name=name: self._frame(uni, name))
+            for name in ("split", "fused")}
+        self.variant_chosen = min(self.variant_ms, key=self.variant_ms.get)
 
     # --- State::update (src/lib.rs:994-1010) ---
     def update(self):
@@ -98,6 +145,8 @@ class Renderer:
         """Returns the device-resident (color, depth) tensors.
         block=True waits for the frame (torch.cuda.synchronize)."""
         uni = self.camera.uniforms().flat()
+        if self.variant_chosen is None:
+            self._autotune(uni)
         if self.device.type == "cuda":
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)

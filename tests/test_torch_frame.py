@@ -61,7 +61,7 @@ def port_frame(cfg, accel=None):
     uni = Camera.from_config(cfg.camera, rc.width / rc.height).uniforms()
     color, depth = render_megakernel(
         data, uni.flat(), width=rc.width, height=rc.height,
-        shadows=rc.shadows, accel=accel or rc.accel)
+        shadows=rc.shadows, accel=accel or rc.accel, fused=False)
     return color, depth
 
 
@@ -161,7 +161,9 @@ def test_present_and_save_png(tmp_path):
 
 
 @pytest.mark.parametrize("change,exc", [
-    (dict(variant="fused"), NotImplementedError),
+    # the fused frame is ported; with mip it raises ValueError, the
+    # variant check coming before the unported mip's NotImplementedError
+    (dict(variant="fused", mip=True), ValueError),
     (dict(accel="bvh"), NotImplementedError),
     (dict(mip=True), NotImplementedError),
     (dict(pt_bounces=1), NotImplementedError),
@@ -180,8 +182,11 @@ def test_unported_scenes_raise():
     import dataclasses as dc
 
     cfg = port_config(terrain_config(jcfg, width=32, height=32))
+    # normal mapping is ported; with mip sampling (unported) it raises
+    # the mip NotImplementedError
     nm = dc.replace(cfg, meshes=(dc.replace(cfg.meshes[0],
-                                            normal_mapping=True),))
+                                            normal_mapping=True),),
+                    render=dc.replace(cfg.render, mip=True))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Renderer(nm, device="cpu")
     big = dc.replace(cfg, meshes=(dc.replace(cfg.meshes[0],

@@ -106,15 +106,17 @@ def jax_glue(out, assets):
     for k, v in zip(("mask", "tlb", "order", "texit"), out_s):
         res[f"shadow_{k}"] = v[:, 0] if k in ("tlb", "order") else v
 
-    # winner expansion from the kernel's own (t, face), on a table small
-    # enough for the one-hot fetch (cube) and one that gathers (terrain)
+    # winner expansion (with the normal-mapping planes) from the kernel's
+    # own (t, face), on a table small enough for the one-hot fetch (cube)
+    # and one that gathers (terrain)
     for name, c in (("cube", cube_config(jcfg)), ("terrain", cfg)):
         d = JScene.build(c).data
         u = JCamera.from_config(c.camera, 1.0).uniforms()
         dirs = jax.jit(lambda v: J.raygen_planar(64, 64, JU.unflat(v)))(
             jnp.asarray(u.flat()))
         gb, _ = J.gbuffer_pallas(d, jnp.asarray(u.origin), *dirs,
-                                 with_spheres=True, interpret=True)
+                                 with_spheres=True, with_nm=True,
+                                 interpret=True)
         for k in gb._fields:
             if getattr(gb, k) is not None:
                 res[f"gb_{name}_{k}"] = getattr(gb, k)
@@ -247,8 +249,8 @@ def test_expand_tf_gbuffer_matches_jax(ref, name):
     face = torch.from_numpy(ref[f"gb_{name}_face"])
     assert torch.isfinite(t).any() and not torch.isfinite(t).all()
     gb = P.expand_tf_gbuffer(data, t, face, *dirs,
-                             P.pack_origin_cols(data, origin))
-    for k in gb._fields:
+                             P.pack_origin_cols(data, origin), with_nm=True)
+    for k in gb._fields:  # the normal-mapping planes included
         eq(getattr(gb, k), ref[f"gb_{name}_{k}"])
 
 

@@ -32,6 +32,12 @@ TESTS = REPO / "tests"
 # XLA's CPU code generation capped below FMA: see jax_reference()
 REFERENCE_XLA_FLAGS = "--xla_cpu_max_isa=SSE4_2"
 
+# The suite runs in several worker processes on one host; at the tests'
+# small sizes torch's CPU ops gain little from more intra-op threads,
+# and a full pool per worker oversubscribes the cores. Every result is
+# the same at any thread count (the reductions used are exact).
+torch.set_num_threads(min(2, torch.get_num_threads()))
+
 
 # ---------------------------------------------------------------------------
 # shared helpers
@@ -91,36 +97,62 @@ def cube_config(cfg_mod, width=64, height=64, shadows=False):
                                     shadows=shadows))
 
 
-def write_textured_assets(root) -> str:
+def write_textured_assets(root, bump: bool = False) -> str:
     """Write a textured quad-on-a-box OBJ + MTL + 8x8 PNG into `root`
-    and return the OBJ's name (resolve through $RWRT_ASSETS=root)."""
-    from PIL import Image
+    and return the OBJ's name (resolve through $RWRT_ASSETS=root).
+    bump=True writes bump_box.obj instead: the same box with smooth
+    vertex normals and a material that adds a seeded 8x8 map_Bump PNG.
+    The PNGs are written with the port's stdlib encoder, so this runs
+    where PIL is not installed."""
+    from rust_wgpu_raytracing_tpu_torch.io.image_out import encode_png
+
+    def save(img, name):
+        with open(os.path.join(root, name), "wb") as fh:
+            fh.write(encode_png(img))
 
     rng = np.random.default_rng(7)
-    Image.fromarray(rng.integers(0, 256, (8, 8, 3), dtype=np.uint8)).save(
-        os.path.join(root, "checker.png"))
-    with open(os.path.join(root, "box.mtl"), "w") as fh:
-        fh.write("newmtl boxmat\nKa 0.1 0.1 0.1\nKd 0.8 0.8 0.8\n"
-                 "Ks 0.3 0.3 0.3\nNs 32\nmap_Kd checker.png\n")
+    save(rng.integers(0, 256, (8, 8, 3), dtype=np.uint8), "checker.png")
+    stem = "bump_box" if bump else "box"
+    mtl = ("newmtl boxmat\nKa 0.1 0.1 0.1\nKd 0.8 0.8 0.8\n"
+           "Ks 0.3 0.3 0.3\nNs 32\nmap_Kd checker.png\n")
+    if bump:
+        # tangent-space normals leaning around +z, as a bump map holds them
+        nrm = rng.normal([0.0, 0.0, 1.0], [0.35, 0.35, 0.1], (8, 8, 3))
+        nrm /= np.linalg.norm(nrm, axis=2, keepdims=True)
+        save(np.round((nrm * 0.5 + 0.5) * 255).astype(np.uint8), "bump.png")
+        mtl += "map_Bump bump.png\n"
+    with open(os.path.join(root, f"{stem}.mtl"), "w") as fh:
+        fh.write(mtl)
     pos = [(-1, -1, -1), (1, -1, -1), (1, 1, -1), (-1, 1, -1),
            (-1, -1, 1), (1, -1, 1), (1, 1, 1), (-1, 1, 1)]
     quads = [(1, 2, 3, 4), (5, 8, 7, 6), (1, 5, 6, 2), (2, 6, 7, 3),
              (3, 7, 8, 4), (5, 1, 4, 8)]
-    lines = ["mtllib box.mtl", "o box"]
+    lines = [f"mtllib {stem}.mtl", "o box"]
     lines += [f"v {x * 0.8} {y * 0.8} {z * 0.8 - 3.5}" for x, y, z in pos]
     lines += ["vt 0 0", "vt 1.7 0", "vt 1.7 1.3", "vt 0 1.3"]
+    if bump:
+        lines += [f"vn {x} {y} {z}" for x, y, z in pos]
     lines += ["usemtl boxmat"]
-    lines += [f"f {a}/1 {b}/2 {c}/3 {d}/4" for a, b, c, d in quads]
-    with open(os.path.join(root, "box.obj"), "w") as fh:
+    if bump:
+        lines += [f"f {a}/1/{a} {b}/2/{b} {c}/3/{c} {d}/4/{d}"
+                  for a, b, c, d in quads]
+    else:
+        lines += [f"f {a}/1 {b}/2 {c}/3 {d}/4" for a, b, c, d in quads]
+    with open(os.path.join(root, f"{stem}.obj"), "w") as fh:
         fh.write("\n".join(lines) + "\n")
-    return "box.obj"
+    return f"{stem}.obj"
 
 
-def textured_config(cfg_mod, width=64, height=64, shadows=True):
+def textured_config(cfg_mod, width=64, height=64, shadows=True,
+                    bump=False):
+    """The box of write_textured_assets with the reference spheres;
+    bump=True: the bump-mapped box with normal mapping on."""
     return cfg_mod.SceneConfig(
         spheres=cfg_mod.reference_scene().spheres,
-        meshes=(cfg_mod.MeshConfig(obj_path="box.obj",
-                                   light_direction=(1.0, -2.0, -1.0)),),
+        meshes=(cfg_mod.MeshConfig(obj_path="bump_box.obj" if bump
+                                   else "box.obj",
+                                   light_direction=(1.0, -2.0, -1.0),
+                                   normal_mapping=bump),),
         camera=cfg_mod.CameraConfig(eye=(0.4, 0.6, 0.5),
                                     target=(0.0, 0.0, -3.5)),
         render=cfg_mod.RenderConfig(width=width, height=height,

@@ -91,3 +91,77 @@ def test_smoke_scene_sizes():
     assert data.padded_faces == 16256
     assert data.blk_lo.shape[0] == 508
     assert data.to("cpu").gpack.shape == (37, 16256)
+
+
+@pytest.fixture
+def bump_scene(tmp_path, monkeypatch):
+    write_textured_assets(str(tmp_path), bump=True)
+    monkeypatch.setenv("RWRT_ASSETS", str(tmp_path))
+    return textured_config(jcfg, bump=True)
+
+
+BUMP_FIELDS = ("tex_packed_bump", "mat_bump", "mat_bump_base", "mat_bump_h",
+               "mat_bump_w")
+
+
+def test_bump_pool_matches_jax(bump_scene):
+    """The normal-mapping fields: the raw (not sRGB-decoded) bump pool and
+    its i32 base offsets, against JAX Scene.build."""
+    port = Scene.build(port_config(bump_scene)).data
+    jd = JScene.build(bump_scene).data
+    assert_same_scene(port, jd)
+    assert port.tex_packed_bump.shape == (12, 64)  # the 8x8 map
+    assert port.mat_bump_base.dtype == torch.int32
+    assert port.mat_bump_base.tolist() == [0]
+    assert port.mat_bump_h.tolist() == [8.0]
+    assert not torch.equal(port.tex_packed_bump, port.tex_packed[:, :64])
+
+
+def test_scene_without_bump_maps_has_empty_pool():
+    port = Scene.build(port_config(CONFIGS["cube_spheres"]())).data
+    assert port.tex_packed_bump.shape == (12, 1)
+    assert set(port.mat_bump_base.tolist()) == {-1}
+    assert set(port.mat_bump.tolist()) == {-1}
+
+
+def test_scene_data_from_numpy_carries_bump_pool(bump_scene):
+    jd = JScene.build(bump_scene).data
+    fields = {f.name: np.asarray(getattr(jd, f.name))
+              for f in dataclasses.fields(jd)
+              if not f.metadata.get("static")}
+    carried = scene_data_from_numpy(fields, num_faces=jd.num_faces,
+                                    num_spheres=jd.num_spheres)
+    for name in BUMP_FIELDS:
+        want = np.asarray(getattr(jd, name))
+        if want.dtype == np.uint16:
+            want = want.view(np.int16)
+        np.testing.assert_array_equal(getattr(carried, name).numpy(), want)
+
+
+def test_png_textures_load_without_pil(tmp_path, monkeypatch):
+    """8-bit RGB and RGBA PNGs decode with the stdlib reader; any other
+    image still needs PIL."""
+    import sys
+
+    from PIL import Image
+
+    from rust_wgpu_raytracing_tpu_torch.io.textures import load_texture_file
+
+    rng = np.random.default_rng(3)
+    rgba = rng.integers(0, 256, (5, 7, 4), dtype=np.uint8)
+    Image.fromarray(rgba).save(tmp_path / "a.png")
+    Image.fromarray(rgba[..., :3]).save(tmp_path / "b.png")
+    Image.fromarray(rgba[..., 0]).save(tmp_path / "gray.png")
+    with_pil = {n: load_texture_file(str(tmp_path / n))
+                for n in ("a.png", "b.png")}
+    monkeypatch.setitem(sys.modules, "PIL", None)  # PIL absent
+    for name in ("a.png", "b.png"):
+        t = load_texture_file(str(tmp_path / name))
+        np.testing.assert_array_equal(t.rgb_u8, rgba[..., :3])
+        np.testing.assert_array_equal(t.rgb_linear,
+                                      with_pil[name].rgb_linear)
+    raw = load_texture_file(str(tmp_path / "b.png"), srgb=False)
+    np.testing.assert_array_equal(
+        raw.rgb_linear, rgba[..., :3].astype(np.float32) / 255.0)
+    with pytest.raises(ImportError):
+        load_texture_file(str(tmp_path / "gray.png"))
