@@ -38,13 +38,36 @@ program on its own, and checks them:
    1 linear u8 level, >= 99.9% exact); the 160x160 terrain frame through
    both programs against the committed golden
    tests/goldens/terrain_shadows.png at the same bar;
-5. timing with CUDA events: each kernel's time beside its plain
-   version's at the frame's shapes, and back-to-back frames of each
-   program (the fused frame in both shadow modes) at both views.
+5. the progressive path tracer (BASELINE config 4's path at the
+   heightfield: 4 bounces, 1920x1080): the per-ray closest hit (K7) and
+   the fused extend+shadow sweep (K8) against their plain versions on
+   the bounce-1 wavefront of a traced sample, the any-hit kernel on the
+   last bounce's act-aware arguments, K8 against K7 + K3 on the same
+   rays (t, face, occ equal), one sample through the kernels against
+   the same sample composed from the plain versions (bitwise), the
+   compacted bounce loop (run with room for every live tile) and
+   compact_cap='auto' (the branch it took printed) against the full
+   loop (bitwise), and Renderer(pt_spp=64) on the card: 3 warm-up
+   samples, then samples up to 64 with the orbit key released, its
+   launch counts (closest_hit, extend_shadow, anyhit and texfilter
+   launched; frame and texshade not) and host syncs, its first sample
+   equal to the kernel-run sample, the median ms per sample, the time
+   to 64 samples and paths/s;
+6. timing with CUDA events: each kernel's time beside its plain
+   version's at the path's shapes, and back-to-back frames of each
+   program (the fused frame in both shadow modes) at both views. The
+   kernels line gives each kernel's least possible time on the card
+   (bound_ms: the larger of its bytes over 3.35 TB/s and its FP32
+   operations over 67 TFLOP/s, counted at the timed arguments; see
+   kernel_work for what is counted). 67 TFLOP/s counts a fused
+   multiply-add as two operations; the kernels build with -fmad=false,
+   so every multiply and add issues alone, and the text line also
+   gives the operations bound at that issue rate (33.5 T/s).
 
 `python3 chip_smoke.py --profile` runs only phases 1-2 and then
-profiles 5 frames of each program at the smoke view with torch.profiler
-(device kernels per frame, device time, busy share, top operators).
+profiles 5 frames of each frame program at the smoke view and 5
+samples of the path tracer with torch.profiler (device kernels per
+frame, device time, busy share, host syncs per frame, top operators).
 
 The scene: the reference's two spheres and the procedural terrain
 builtin:terrain:91 (16,200 faces, the largest mesh the all-on-chip path
@@ -70,6 +93,20 @@ WARMUP, FRAMES = 3, 12
 SMOKE_EYE, SMOKE_TARGET = (0.0, -2.0, -1.0), (0.0, 0.0, -3.2)
 DENSE_EYE, DENSE_TARGET = (0.0, -0.3, -2.2), (0.0, 0.0, -3.0)
 NM_GRID = 91  # vertices per side: 2 * 90^2 = 16,200 faces
+PT_BOUNCES, PT_SPP, PT_SEED = 4, 64, 0
+# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, FP32 (non-tensor) op/s
+HBM_BYTES_S, FP32_OPS_S = 3.35e12, 67e12
+# the FP32 issue rate without FMA pairing (one mul or add per lane-cycle)
+FP32_UNFUSED_S = FP32_OPS_S / 2
+# FP32 operations (mul, add, sub, div) of one (face, ray) test: the
+# shared-origin plane test (K1, K4: N.d 5, t 1, three edges 7 each) and
+# the per-ray-origin one (K3, K7, K8: N.d 5, N.o 5, t 2, three edges 13).
+# A divide counts as one operation, though the card runs the correctly
+# rounded divide as a sequence of several instructions.
+OPS_SHARED, OPS_PERRAY = 27, 51
+# per-ray FP32 operations of the texture kernels (12 tap scales, 3
+# bilinear mixes of 9; texshade adds the 4-op Blinn-Phong per channel)
+OPS_TEXFILTER, OPS_TEXSHADE = 39, 51
 
 
 def say(msg: str) -> None:
@@ -156,6 +193,18 @@ def nm_config(shadows: bool, variant: str = "auto"):
                             accel="cull", variant=variant))
 
 
+def pt_config():
+    """The heightfield of write_nm_assets, path-traced: normal mapping
+    off, the two reference spheres, the dense view's camera, 4 bounces,
+    PT_SPP samples."""
+    import dataclasses as dc
+
+    cfg = nm_config(shadows=False)
+    mesh = dc.replace(cfg.meshes[0], normal_mapping=False)
+    return dc.replace(cfg, meshes=(mesh,), render=dc.replace(
+        cfg.render, pt_bounces=PT_BOUNCES, pt_spp=PT_SPP, seed=PT_SEED))
+
+
 def card_line() -> str:
     smi = shutil.which("nvidia-smi")
     if smi is None:
@@ -197,6 +246,98 @@ def max_abs_err(a, b) -> float:
     same = a == b
     d = torch.where(same, torch.zeros_like(a), (a - b).abs())
     return float(d.max())
+
+
+def tensor_bytes(xs) -> int:
+    import torch
+
+    return sum(x.numel() * x.element_size() for x in xs
+               if isinstance(x, torch.Tensor))
+
+
+def mask_bits(words, nb: int):
+    """(tiles,) count of the set bits below block nb of packed
+    (tiles * nwords,) mask words."""
+    import torch
+
+    n_tiles = words.shape[0] // -(-nb // 32)
+    w = words.to(torch.int64) & 0xFFFFFFFF
+    bits = (w[:, None] >> torch.arange(32, device=w.device)) & 1
+    return bits.reshape(n_tiles, -1)[:, :nb].sum(1)
+
+
+def walk_pairs(tlb, ray_bound, lanes, floor=None) -> int:
+    """(block, lane) visits a front-to-back walk of the schedule needs:
+    in each tile the admitted blocks (finite entry bound tlb (tiles,
+    nb)) whose bound is at most the tile's largest ray_bound (R,), at
+    least `floor` (tiles,) of them, times the tile's lanes (R,) bool
+    that take the test."""
+    import torch
+
+    n_tiles = tlb.shape[0]
+    reach = ray_bound.view(n_tiles, -1).amax(1)
+    blocks = (torch.isfinite(tlb) & (tlb <= reach[:, None])).sum(1)
+    if floor is not None:
+        blocks = torch.maximum(blocks, floor)
+    return int((blocks * lanes.view(n_tiles, -1).sum(1)).sum())
+
+
+def kernel_work(name, args, kw, outs, mesh_t=None):
+    """(bytes, FP32 operations) of one call at these arguments: every
+    input read once and every output written once; the face tests these
+    rays need, or the texture kernels' per-ray mix. The sweeps count
+    the lanes that can take a test (a direction that is not zero; for
+    the any-hit tests, an active ray) over the blocks their walk must
+    visit: the closest-hit walks (K1, K4, K7) up to the tile's largest
+    min(t, root exit) among its rays (mesh_t: K4's mesh t, which its
+    outputs do not hold), the any-hit walk (K3) up to the largest root
+    exit among its active rays that end unoccluded (at least one block
+    where an active ray ends occluded), and K8, which has no early
+    exit, every set bit of each half's mask (the closest-hit half over
+    its aimed lanes, the shadow half over the active ones)."""
+    import torch
+
+    moved = tensor_bytes(args) + tensor_bytes(outs)
+    bf = kw.get("block_f", 1)
+
+    def aimed(dx, dy, dz):
+        return (dx != 0) | (dy != 0) | (dz != 0)
+
+    # closest-hit sweeps: (index of dx, index of texit, operations/test)
+    sweeps = {"closest_hit": (2, 5, OPS_SHARED), "frame": (3, 6, OPS_SHARED),
+              "closest_hit_perray": (2, 8, OPS_PERRAY)}
+    if name in sweeps:
+        d0, te, per = sweeps[name]
+        t = mesh_t if name == "frame" else outs[0]
+        pairs = walk_pairs(args[0], torch.minimum(t, args[te]),
+                           aimed(*args[d0:d0 + 3]))
+        ops = pairs * bf * per
+    elif name == "anyhit":
+        act, texit, occ = args[8] > 0, args[9], outs[0]
+        open_ = act & (occ == 0)
+        n_tiles = args[0].shape[0]
+        hit_any = (act & (occ > 0)).view(n_tiles, -1).any(1).long()
+        pairs = walk_pairs(args[0], torch.where(open_, texit, -1.0), act,
+                           floor=hit_any)
+        ops = pairs * bf * OPS_PERRAY
+    elif name == "extend_shadow":
+        nb = args[15].shape[0] // bf
+        ext = aimed(*args[2:5]).view(-1, 1024).sum(1)
+        act = (args[14] > 0).view(-1, 1024).sum(1)
+        pairs = int((mask_bits(args[0], nb) * ext
+                     + mask_bits(args[1], nb) * act).sum())
+        ops = pairs * bf * OPS_PERRAY
+    else:
+        per = OPS_TEXFILTER if name == "texfilter" else OPS_TEXSHADE
+        ops = args[1].numel() * per
+    return moved, ops
+
+
+def bound(moved: int, ops: int, ops_s: float = FP32_OPS_S):
+    """(bound_ms, bound_by): the least time the card could take."""
+    t_bytes, t_ops = moved / HBM_BYTES_S, ops / ops_s
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
 
 
 def time_ms(fn, reps: int) -> float:
@@ -253,14 +394,35 @@ def main() -> int:
         from rust_wgpu_raytracing_tpu_torch.runtime.profiler import \
             profile_frames
 
-        for variant in ("fused", "split"):
-            rv = Renderer(smoke_config(variant), device="cuda")
+        asset_dir = tempfile.mkdtemp(prefix="rt_nm_")
+        os.environ["RWRT_ASSETS"] = asset_dir
+        write_nm_assets(asset_dir)
+        for variant in ("fused", "split", "pathtrace"):
+            if variant == "pathtrace":
+                # orbit key held: every profiled frame is one fresh sample
+                rv = Renderer(pt_config(), device="cuda")
+            else:
+                rv = Renderer(smoke_config(variant), device="cuda")
             rv.controller.process_key("d", True)
             prof = profile_frames(rv)
             top = prof.pop("top")
             say(f"[profile] {card}: {variant} frame {json.dumps(prof)}")
             for name, count, ms in top:
                 say(f"[profile]   {variant}: {name} x{count} {ms:.3f} ms")
+        from rust_wgpu_raytracing_tpu_torch.ops import kernels as K
+        from rust_wgpu_raytracing_tpu_torch.ops.pathtrace import (
+            PRNGKey, render_pathtrace)
+        from rust_wgpu_raytracing_tpu_torch.runtime.profiler import count_ops
+
+        ops = count_ops(lambda ks: render_pathtrace(
+            rv.data, rv.camera.uniforms().flat(), PRNGKey(PT_SEED),
+            width=WIDTH, height=HEIGHT, bounces=PT_BOUNCES,
+            compact_cap="auto", kernels=ks), K.KERNELS)
+        say(f"[profile] pathtrace: torch operations per sample "
+            f"{sum(ops.values())} (kernels "
+            f"{ {k: v for k, v in ops.items() if k.startswith('kernel')} }"
+            f"); top {ops.most_common(8)}")
+        shutil.rmtree(asset_dir, ignore_errors=True)
         return 0
 
     from rust_wgpu_raytracing_tpu_torch.config import (CameraConfig,
@@ -294,20 +456,25 @@ def main() -> int:
             accel=rc.accel, fused=fused, normal_mapping=nm, kernels=kernels,
             **kw)
 
-    def capture(data, uni, **kw):
-        """Render one frame, recording every kernel call's arguments."""
-        captured = {}
+    def record(run):
+        """run(kernels) with every kernel call's arguments recorded:
+        {name: [(args, kwargs), ...]} in call order."""
+        calls = {}
 
         def recorder(fn):
             def call(*args, **kwargs):
-                captured[fn.__name__] = (args, kwargs)
+                calls.setdefault(fn.__name__, []).append((args, kwargs))
                 return fn(*args, **kwargs)
             return call
 
-        frame(data, uni, K.KernelSet(*(recorder(f) for f in K.KERNELS)),
-              **kw)
+        run(K.KernelSet(*(recorder(f) for f in K.KERNELS)))
         torch.cuda.synchronize()
-        return captured
+        return calls
+
+    def capture(data, uni, **kw):
+        """Render one frame; each kernel's arguments at its last call."""
+        calls = record(lambda ks: frame(data, uni, ks, **kw))
+        return {name: c[-1] for name, c in calls.items()}
 
     def random_taps(args):
         """The captured arguments with the taps replaced by seeded random
@@ -320,7 +487,8 @@ def main() -> int:
 
     planes_of = {"closest_hit": "t, face, st, sid, snx, sny, snz",
                  "texshade": "pr, pg, pb", "anyhit": "occ",
-                 "texfilter": "r, g, b"}
+                 "texfilter": "r, g, b", "closest_hit_perray": "t, face",
+                 "extend_shadow": "t, face, occ"}
 
     def flat(name, out):
         if name == "closest_hit":
@@ -546,7 +714,141 @@ def main() -> int:
         if not bool(near_g.all()) or float(exact_g.float().mean()) < 0.999:
             raise AssertionError("terrain frame disagrees with its golden")
 
-    # --- 5. timing --------------------------------------------------------
+    # --- 5. the progressive path tracer -----------------------------------
+    from rust_wgpu_raytracing_tpu_torch.ops import megakernel as MK
+    from rust_wgpu_raytracing_tpu_torch.ops.pathtrace import (
+        PRNGKey, fold_in, render_pathtrace)
+
+    pt_cfg = pt_config()
+    pt_r = Renderer(pt_cfg, device="cuda")
+    pt_data = pt_r.data
+    pt_uni = pt_r.camera.uniforms().flat()
+    pt_key = fold_in(PRNGKey(PT_SEED), 0)  # the Renderer's first sample
+
+    def trace(kernels, compact_cap="auto"):
+        return render_pathtrace(
+            pt_data, pt_uni, pt_key, width=WIDTH, height=HEIGHT,
+            bounces=PT_BOUNCES, spp=1, background=tuple(pt_cfg.background),
+            compact_cap=compact_cap, kernels=kernels)
+
+    compacted = render_pathtrace.compacted
+    pt_frame = None
+
+    def first_sample(ks):
+        nonlocal pt_frame
+        pt_frame = trace(ks)
+
+    calls = record(first_sample)
+    branch = ("compacted" if render_pathtrace.compacted > compacted
+              else "full")
+    say(f"[pt] heightfield {pt_data.num_faces} faces + "
+        f"{pt_data.num_spheres} spheres, {WIDTH}x{HEIGHT}, {PT_BOUNCES} "
+        f"bounces, one sample: kernel calls "
+        f"{ {k: len(v) for k, v in calls.items()} }; compact_cap='auto' "
+        f"took the {branch} loop")
+    es_args, es_kw = calls["extend_shadow"][0]  # the bounce-1 wavefront
+    ah_args, ah_kw = calls["anyhit"][-1]  # the last bounce's shadow rays
+    d, o = es_args[2:5], es_args[5:8]
+    sd, so, act = es_args[8:11], es_args[11:14], es_args[14]
+    # K7 and K3 on the same rays, through their own glue
+    k7_args, k7_kw = record(lambda ks: MK.gbuffer_perray(
+        pt_data, *o, *d, kernels=ks))["closest_hit_perray"][0]
+    k3_args, k3_kw = record(lambda ks: MK.anyhit_rays(
+        pt_data, *so, *sd, act > 0, kernels=ks))["anyhit"][0]
+    k8 = check("pt bounce 1", "extend_shadow", es_args, es_kw)
+    k7 = check("pt bounce 1", "closest_hit_perray", k7_args, k7_kw)
+    check("pt last bounce", "anyhit", ah_args, ah_kw, " (act-aware mask)")
+    k3 = wrapper["anyhit"](*k3_args, **k3_kw)
+    torch.cuda.synchronize()
+    fused_ok = [torch.equal(k8[0], k7[0]), torch.equal(k8[1], k7[1]),
+                torch.equal(k8[2], k3)]
+    nb = es_args[15].shape[0] // es_kw["block_f"]
+    say(f"[pt] bounce 1: {int(torch.isfinite(k8[0]).sum())} of "
+        f"{k8[0].numel()} extension rays hit, {int((k8[2] > 0).sum())} of "
+        f"{int(act.sum())} active shadow rays occluded; admitted (tile, "
+        f"block) pairs: K8 closest-hit {int(mask_bits(es_args[0], nb).sum())}"
+        f", K8 shadow {int(mask_bits(es_args[1], nb).sum())}, K7 "
+        f"{int(torch.isfinite(k7_args[0]).sum())}; last bounce: "
+        f"{int(ah_args[8].sum())} active shadow rays, K3 pairs "
+        f"{int(torch.isfinite(ah_args[0]).sum())}")
+    say(f"[pt] K8 vs K7 + K3 on the bounce-1 rays: t equal {fused_ok[0]}, "
+        f"face equal {fused_ok[1]}, occ equal {fused_ok[2]}")
+    if not all(fused_ok):
+        raise AssertionError("the fused extend+shadow kernel disagrees with "
+                             "the per-ray closest hit + any-hit kernels")
+    pt_plain = trace(K.PLAIN)
+    pt_full = trace(K.KERNELS, compact_cap=None)
+    # room for every tile: the compacted loop runs whatever is live
+    compacted = render_pathtrace.compacted
+    pt_compact = trace(K.KERNELS, compact_cap=2 * WIDTH * HEIGHT)
+    ran_compact = render_pathtrace.compacted == compacted + 1
+    torch.cuda.synchronize()
+    same_plain = torch.equal(pt_frame, pt_plain)
+    same_full = torch.equal(pt_frame, pt_full)
+    same_compact = torch.equal(pt_compact, pt_full)
+    say(f"[pt] one sample through the kernels vs composed from the plain "
+        f"versions: bitwise {same_plain} (max_abs_err "
+        f"{max_abs_err(pt_frame, pt_plain)!r}); compact_cap='auto' "
+        f"({branch}) vs the full loop: bitwise {same_full}; the compacted "
+        f"loop (ran {ran_compact}) vs the full loop: bitwise "
+        f"{same_compact} (max_abs_err {max_abs_err(pt_compact, pt_full)!r})"
+        f"; radiance sum {float(pt_frame.sum()):.3f}, mean "
+        f"{float(pt_frame.mean()):.5f}")
+    if not (same_plain and same_full and same_compact and ran_compact):
+        raise AssertionError("path-traced sample differs from its plain, "
+                             "full-loop or compacted twin")
+
+    # the Renderer: samples accumulate up to pt_spp, orbit key released
+    from rust_wgpu_raytracing_tpu_torch.runtime.profiler import host_syncs
+
+    K.reset_launch_counts()
+    pt_times, first = [], None
+    with host_syncs() as syncs:
+        t0 = time.perf_counter()
+        while pt_r.spp_done < PT_SPP:
+            pt_r.update()
+            color, _ = pt_r.render(block=True)
+            if first is None:
+                first = color.clone()
+            if pt_r.spp_done > WARMUP:
+                pt_times.append(pt_r.last_frame_ms)
+        torch.cuda.synchronize()
+        pt_wall = time.perf_counter() - t0
+    path_launches["pt"] = K.launch_counts()
+    say(f"[path] path tracer, {PT_SPP} samples: launches "
+        f"{path_launches['pt']}, host syncs {len(syncs)} (torch's sync "
+        f"debug mode, render(block=True)'s synchronize not counted)")
+    missing = [k for k in ("closest_hit", "extend_shadow", "anyhit",
+                           "texfilter") if path_launches["pt"][k] == 0]
+    extra = [k for k in ("frame", "texshade", "closest_hit_perray")
+             if path_launches["pt"][k] != 0]
+    again, _ = pt_r.render(block=True)
+    if missing or extra or not pt_r.pt_converged:
+        raise AssertionError(f"path tracer: kernels never launched "
+                             f"{missing}, kernels off the path launched "
+                             f"{extra}, converged {pt_r.pt_converged}")
+    if tuple(color.shape) != (HEIGHT, WIDTH, 3) or not bool(
+            torch.isfinite(color).all()) or float(color.min()) < 0:
+        raise AssertionError(f"path tracer: bad frame {tuple(color.shape)}")
+    same_first = torch.equal(first, pt_frame)
+    say(f"[pt] Renderer: first sample equal to the kernel-run sample "
+        f"{same_first}; after {pt_r.spp_done} samples mean colour "
+        f"{float(color.mean()):.5f}; re-presented at the target "
+        f"{torch.equal(again, color)}")
+    if not (same_first and torch.equal(again, color)):
+        raise AssertionError("the Renderer's path-traced frames are wrong")
+    pt_times.sort()
+    pt_med = pt_times[len(pt_times) // 2]
+    say(f"[timing] {card}: path tracer {WIDTH}x{HEIGHT}, {PT_BOUNCES} "
+        f"bounces: median {pt_med:.3f} ms per sample over "
+        f"{len(pt_times)} samples after {WARMUP} warm-up (CUDA events; min "
+        f"{pt_times[0]:.3f}, max {pt_times[-1]:.3f}), {PT_SPP} samples in "
+        f"{pt_wall:.3f} s (host clock, warm-up included), "
+        f"{WIDTH * HEIGHT / (pt_med * 1e-3) / 1e6:.3f} Mpaths/s at the "
+        f"median, {WIDTH * HEIGHT * PT_SPP / pt_wall / 1e6:.3f} Mpaths/s "
+        f"over the {PT_SPP} samples")
+
+    # --- 6. timing --------------------------------------------------------
     def inkernel_frame(uni):
         return render_frame_fused(
             r.data, uni, width=WIDTH, height=HEIGHT, near=rc.kernel_near,
@@ -571,10 +873,16 @@ def main() -> int:
         "frame": (fused_args["smoke view"]["frame"],
                   fused_args["dense view"]["frame"]),
         "texfilter": ((nm_taps, {}), None),
+        "closest_hit_perray": ((k7_args, k7_kw), None),
+        "extend_shadow": ((es_args, es_kw), None),
     }
+    where = {"texfilter": "the nm frame's", "closest_hit_perray":
+             "the path tracer's bounce-1", "extend_shadow":
+             "the path tracer's bounce-1"}
     results = {}
     for name, (main_call, dense_call) in timed.items():
         args, kw = main_call
+        reps = 1 if name in ("closest_hit_perray", "extend_shadow") else 2
 
         def run_kernel():
             return wrapper[name](*args, **kw)
@@ -582,16 +890,32 @@ def main() -> int:
         def run_plain():
             return plain[name](*args, **kw)
         # turns: plain, kernel, kernel, plain
-        p1 = time_ms(run_plain, 2)
+        p1 = time_ms(run_plain, reps)
         k1 = time_ms(run_kernel, 20)
         k2 = time_ms(run_kernel, 20)
-        p2 = time_ms(run_plain, 2)
+        p2 = time_ms(run_plain, reps)
+        mesh_t = None
+        if name == "frame":
+            # the frame's sweep is K1's: its mesh t, from K1 on these rays
+            mesh_t = wrapper["closest_hit"](
+                args[0], args[1], *args[3:9], args[2][:3].contiguous(),
+                block_f=kw["block_f"])[0]
+        moved, ops = kernel_work(name, args, kw, flat(name, run_kernel()),
+                                 mesh_t)
+        bound_ms, bound_by = bound(moved, ops)
+        unfused_ms, _ = bound(moved, ops, FP32_UNFUSED_S)
         results[name] = dict(max_abs_err=errs[name], ms=(k1 + k2) / 2,
-                             plain_ms=(p1 + p2) / 2)
+                             plain_ms=(p1 + p2) / 2, bound_ms=bound_ms,
+                             bound_by=bound_by)
+        at = where.get(name, "the smoke frame's")
         msg = (f"[timing] {card}: {name} {results[name]['ms']:.4f} ms "
                f"(kernel) vs {results[name]['plain_ms']:.4f} ms (plain "
-               f"PyTorch) at the {'nm' if name == 'texfilter' else 'smoke'} "
-               f"frame's arguments")
+               f"PyTorch) at {at} "
+               f"arguments; bound {bound_ms:.4f} ms by {bound_by} ({moved} "
+               f"bytes, {ops} FP32 operations), "
+               f"{100 * bound_ms / results[name]['ms']:.1f}% of it; "
+               f"{unfused_ms:.4f} ms at the unfused issue rate, "
+               f"{100 * unfused_ms / results[name]['ms']:.1f}% of it")
         if dense_call is not None:
             dms = time_ms(lambda: wrapper[name](*dense_call[0],
                                                 **dense_call[1]), 20)
@@ -602,7 +926,7 @@ def main() -> int:
 
     # each kernel's launches from the first path run that uses it
     launches = {}
-    for path in ("auto", "nm"):
+    for path in ("auto", "nm", "pt"):
         for name, count in path_launches[path].items():
             if count and name not in launches:
                 launches[name] = count
@@ -613,12 +937,18 @@ def main() -> int:
         "anyhit": "rust_wgpu_raytracing_tpu/ops/megakernel.py:612",
         "frame": "rust_wgpu_raytracing_tpu/ops/fusedframe.py:152",
         "texfilter": "rust_wgpu_raytracing_tpu/ops/megakernel.py:2490",
+        "closest_hit_perray":
+            "rust_wgpu_raytracing_tpu/ops/megakernel.py:580",
+        "extend_shadow": "rust_wgpu_raytracing_tpu/ops/megakernel.py:688",
     }
+    # no single PyTorch call computes any of these functions (the sweeps,
+    # the packed-tap texture mixes): library_ms is null throughout
     say(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": f"{base}{name}.cu",
-         "replaces": replaces[name], "launches": launches[name],
-         "max_abs_err": results[name]["max_abs_err"],
-         "ms": results[name]["ms"], "plain_ms": results[name]["plain_ms"]}
+         "replaces": replaces[name], "launches": launches.get(name, 0),
+         **{k: results[name][k] for k in ("max_abs_err", "ms", "plain_ms",
+                                          "bound_ms", "bound_by")},
+         "library_ms": None}
         for name in names]}))
     shutil.rmtree(asset_dir, ignore_errors=True)
     say(card)

@@ -4,7 +4,8 @@
         --device cuda --frames 10 --out frame.png
 
 Scene selection: --scene reference|cube|<config.json> (the JSON schema
-is SceneConfig.to_json). The loop is a plain update(); render() per
+is SceneConfig.to_json; render.pt_bounces > 0 in it path-traces, one
+sample per frame up to render.pt_spp). The loop is a plain update(); render() per
 frame; the window and server shells are later slices (ROADMAP.md).
 """
 
@@ -38,8 +39,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--variant", default=None,
                    choices=("split", "fused", "auto"),
                    help="frame program (RenderConfig.variant)")
-    p.add_argument("--device", required=True,
-                   help="torch device to render on: 'cuda' or 'cpu'")
+    p.add_argument("--device", default="cuda",
+                   help="torch device to render on: 'cuda' (default) or "
+                        "'cpu'")
     return p
 
 

@@ -1,5 +1,5 @@
 // Shared pieces of the ray-tracing kernels (closest_hit.cu, anyhit.cu,
-// frame.cu).
+// frame.cu, closest_hit_perray.cu, extend_shadow.cu).
 //
 // The sweep kernels walk one 1024-ray schedule tile per CUDA block:
 // 256 threads x 4 rays each, rays r = tile*1024 + threadIdx.x + k*256 so
@@ -54,18 +54,19 @@ __device__ __forceinline__ void stage_faces(float* dst, const float* pack,
   }
 }
 
-// The closest-hit (t, face) sweep of one tile for shared-origin rays
-// (JAX _ch_block's plane math and lexicographic merge): for each of the
-// thread's RPT rays, the smallest t over the admitted faces and, on a
-// tie, the smallest face id; misses keep t = +inf, face = 0. `faces`
-// holds MAX_BLOCK_F * STAGE_COLS floats of shared memory (planes from
-// fpack, origin terms from oterm), `red` THREADS/32 floats.
-__device__ __forceinline__ void sweep_closest(
+// The closest-hit (t, face) sweep of one tile (JAX _merge_tf's
+// lexicographic merge): for each of the thread's RPT rays, the smallest
+// t over the admitted faces and, on a tie, the smallest face id; misses
+// keep t = +inf, face = 0. `test(g, k)` returns ray k's t for the staged
+// face g, +inf where it misses. `extra` (row stride 8) supplies staged
+// columns 12-15. `faces` holds MAX_BLOCK_F * STAGE_COLS floats of shared
+// memory, `red` THREADS/32 floats.
+template <class Test>
+__device__ __forceinline__ void sweep_closest_by(
     const float* __restrict__ tl, const int* __restrict__ ord, int nb,
     int block_f, const float* __restrict__ fpack, int fpack_cols,
-    const float* __restrict__ oterm, const float (&rx)[RPT],
-    const float (&ry)[RPT], const float (&rz)[RPT], const float (&cap)[RPT],
-    float (&bt)[RPT], int (&bf)[RPT], float* faces, float* red) {
+    const float* __restrict__ extra, const float (&cap)[RPT],
+    float (&bt)[RPT], int (&bf)[RPT], float* faces, float* red, Test test) {
 #pragma unroll
   for (int k = 0; k < RPT; ++k) {
     bt[k] = INFINITY;
@@ -82,7 +83,7 @@ __device__ __forceinline__ void sweep_closest(
     const int ci = ord[p];
     if (!(tl[ci] <= b)) break;  // uniform: every thread reads the same values
     __syncthreads();            // the previous block's planes are consumed
-    stage_faces(faces, fpack, fpack_cols, oterm, ci, block_f);
+    stage_faces(faces, fpack, fpack_cols, extra, ci, block_f);
     __syncthreads();
     const int face_base = ci * block_f;
     for (int j = 0; j < block_f; ++j) {
@@ -90,15 +91,7 @@ __device__ __forceinline__ void sweep_closest(
       const int fid = face_base + j;
 #pragma unroll
       for (int k = 0; k < RPT; ++k) {
-        const float ndotd = g[0] * rx[k] + g[1] * ry[k] + g[2] * rz[k];
-        const float t = g[12] / ndotd;
-        const float h0 = g[13] + t * (g[3] * rx[k] + g[4] * ry[k] + g[5] * rz[k]);
-        const float h1 = g[14] + t * (g[6] * rx[k] + g[7] * ry[k] + g[8] * rz[k]);
-        const float h2 = g[15] + t * (g[9] * rx[k] + g[10] * ry[k] + g[11] * rz[k]);
-        // NaN (padding faces: 0/0) fails every comparison -> rejected
-        const bool valid = fabsf(ndotd) >= K_EPSILON && t >= 0.0f &&
-                           h0 >= 0.0f && h1 >= 0.0f && h2 >= 0.0f;
-        const float tm = valid ? t : INFINITY;
+        const float tm = test(g, k);
         if (tm < bt[k] || (tm == bt[k] && fid < bf[k])) {
           bt[k] = tm;
           bf[k] = fid;
@@ -107,6 +100,55 @@ __device__ __forceinline__ void sweep_closest(
     }
     if ((p + 1) % REFRESH == 0) b = bound();
   }
+}
+
+// The shared-origin face test (JAX _ch_block_tv): staged columns 12-15
+// are the frame's origin terms [t_num, hc0, hc1, hc2] from oterm.
+__device__ __forceinline__ float shared_origin_t(const float* g, float x,
+                                                float y, float z) {
+  const float ndotd = g[0] * x + g[1] * y + g[2] * z;
+  const float t = g[12] / ndotd;
+  const float h0 = g[13] + t * (g[3] * x + g[4] * y + g[5] * z);
+  const float h1 = g[14] + t * (g[6] * x + g[7] * y + g[8] * z);
+  const float h2 = g[15] + t * (g[9] * x + g[10] * y + g[11] * z);
+  // NaN (padding faces: 0/0) fails every comparison -> rejected
+  const bool valid = fabsf(ndotd) >= K_EPSILON && t >= 0.0f && h0 >= 0.0f &&
+                     h1 >= 0.0f && h2 >= 0.0f;
+  return valid ? t : INFINITY;
+}
+
+// The per-ray-origin face test (JAX _chp_block_tv and _ah_block, term
+// for term): staged columns 12-15 are the plane constants [d, c0, c1,
+// c2] from dc. Sets t and returns whether the ray (origin u, v, w;
+// direction x, y, z) hits the face at t >= 1e-3.
+__device__ __forceinline__ bool perray_hit(const float* g, float x, float y,
+                                           float z, float u, float v, float w,
+                                           float& t) {
+  const float ndotd = g[0] * x + g[1] * y + g[2] * z;
+  const float ndoto = g[0] * u + g[1] * v + g[2] * w;
+  t = -(ndoto + g[12]) / ndotd;
+  const float h0 = (g[3] * u + g[4] * v + g[5] * w - g[13]) +
+                   t * (g[3] * x + g[4] * y + g[5] * z);
+  const float h1 = (g[6] * u + g[7] * v + g[8] * w - g[14]) +
+                   t * (g[6] * x + g[7] * y + g[8] * z);
+  const float h2 = (g[9] * u + g[10] * v + g[11] * w - g[15]) +
+                   t * (g[9] * x + g[10] * y + g[11] * z);
+  return fabsf(ndotd) >= K_EPSILON && t >= 1e-3f && h0 >= 0.0f &&
+         h1 >= 0.0f && h2 >= 0.0f;
+}
+
+// The shared-origin sweep of K1 and K4 (rays rx, ry, rz; origin terms
+// from oterm).
+__device__ __forceinline__ void sweep_closest(
+    const float* __restrict__ tl, const int* __restrict__ ord, int nb,
+    int block_f, const float* __restrict__ fpack, int fpack_cols,
+    const float* __restrict__ oterm, const float (&rx)[RPT],
+    const float (&ry)[RPT], const float (&rz)[RPT], const float (&cap)[RPT],
+    float (&bt)[RPT], int (&bf)[RPT], float* faces, float* red) {
+  sweep_closest_by(tl, ord, nb, block_f, fpack, fpack_cols, oterm, cap, bt,
+                   bf, faces, red, [&](const float* g, int k) {
+                     return shared_origin_t(g, rx[k], ry[k], rz[k]);
+                   });
 }
 
 // The any-hit test of one staged face block (JAX _ah_block) for rays
@@ -124,20 +166,9 @@ __device__ __forceinline__ void anyhit_block(
 #pragma unroll
     for (int k = 0; k < RPT; ++k) {
       if (!(ract[k] > 0.0f && occ[k] < ract[k])) continue;
-      const float x = rdx[k], y = rdy[k], z = rdz[k];
-      const float u = rox[k], v = roy[k], w = roz[k];
-      const float ndotd = g[0] * x + g[1] * y + g[2] * z;
-      const float ndoto = g[0] * u + g[1] * v + g[2] * w;
-      const float t = -(ndoto + g[12]) / ndotd;
-      const float h0 = (g[3] * u + g[4] * v + g[5] * w - g[13]) +
-                       t * (g[3] * x + g[4] * y + g[5] * z);
-      const float h1 = (g[6] * u + g[7] * v + g[8] * w - g[14]) +
-                       t * (g[6] * x + g[7] * y + g[8] * z);
-      const float h2 = (g[9] * u + g[10] * v + g[11] * w - g[15]) +
-                       t * (g[9] * x + g[10] * y + g[11] * z);
-      const bool hit = fabsf(ndotd) >= K_EPSILON && t >= 1e-3f &&
-                       h0 >= 0.0f && h1 >= 0.0f && h2 >= 0.0f;
-      if (hit) occ[k] = fmaxf(occ[k], ract[k]);
+      float t;
+      if (perray_hit(g, rdx[k], rdy[k], rdz[k], rox[k], roy[k], roz[k], t))
+        occ[k] = fmaxf(occ[k], ract[k]);
     }
   }
 }

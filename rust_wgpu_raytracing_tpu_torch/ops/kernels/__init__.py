@@ -1,4 +1,4 @@
-"""The frame's hand-written CUDA kernels, each with its plain PyTorch
+"""The port's hand-written CUDA kernels, each with its plain PyTorch
 version and a launch counter.
 
 | kernel | wrapper | CUDA source | replaces (JAX package) |
@@ -8,11 +8,13 @@ version and a launch counter.
 | K3 | anyhit | csrc/anyhit.cu | ops/megakernel.py _make_anyhit_kernel |
 | K4 | frame | csrc/frame.cu | ops/fusedframe.py _make_frame_kernel |
 | K6 | texfilter | csrc/texfilter.cu | ops/megakernel.py _texfilter_kernel |
+| K7 | closest_hit_perray | csrc/closest_hit_perray.cu | ops/megakernel.py _make_closest_hit_perray_kernel |
+| K8 | extend_shadow | csrc/extend_shadow.cu | ops/megakernel.py _make_fused_extend_shadow_kernel |
 
 A wrapper launches its kernel for CUDA tensors and runs its plain
-version for CPU tensors. The frames take a KernelSet, so a caller can
-compose the same frame from the plain versions on the card (PLAIN) to
-check the kernels against it.
+version for CPU tensors. The frames and the path tracer take a
+KernelSet, so a caller can compose the same frame from the plain
+versions on the card (PLAIN) to check the kernels against it.
 """
 
 from __future__ import annotations
@@ -21,6 +23,8 @@ from typing import Callable, NamedTuple
 
 from .anyhit import anyhit, anyhit_plain
 from .closest_hit import closest_hit, closest_hit_plain
+from .closest_hit_perray import closest_hit_perray, closest_hit_perray_plain
+from .extend_shadow import extend_shadow, extend_shadow_plain
 from .frame import frame, frame_plain
 from .texfilter import texfilter, texfilter_plain
 from .texshade import texshade, texshade_plain
@@ -32,11 +36,15 @@ class KernelSet(NamedTuple):
     texshade: Callable
     frame: Callable
     texfilter: Callable
+    closest_hit_perray: Callable
+    extend_shadow: Callable
 
 
-KERNELS = KernelSet(closest_hit, anyhit, texshade, frame, texfilter)
+KERNELS = KernelSet(closest_hit, anyhit, texshade, frame, texfilter,
+                    closest_hit_perray, extend_shadow)
 PLAIN = KernelSet(closest_hit_plain, anyhit_plain, texshade_plain,
-                  frame_plain, texfilter_plain)
+                  frame_plain, texfilter_plain, closest_hit_perray_plain,
+                  extend_shadow_plain)
 
 
 def launch_counts() -> dict:

@@ -65,29 +65,44 @@ def anyhit_plain(tlb, order, dx, dy, dz, ox, oy, oz, act, texit, fpack, dc,
                  *, block_f: int):
     """Plain PyTorch version of anyhit (same arguments, same results)."""
     del order, texit  # an OR does not depend on visit order or termination
+    return anyhit_blocks(admitted_tiles(tlb), dx, dy, dz, ox, oy, oz, act,
+                         fpack, dc, block_f)
+
+
+def perray_plane_test(g, d, x, y, z, u, v, w):
+    """(t, hit) of the faces g (BF, >=12) with plane constants d (BF, 8)
+    against rays with directions x, y, z and origins u, v, w (each
+    (n,)): JAX _chp_block_tv / _ah_block term for term, t >= 1e-3."""
+    def c(m, k):
+        return m[:, k:k + 1]
+
+    ndotd = c(g, 0) * x + c(g, 1) * y + c(g, 2) * z
+    ndoto = c(g, 0) * u + c(g, 1) * v + c(g, 2) * w
+    tt = -(ndoto + c(d, 0)) / ndotd
+
+    def edge(k, col):
+        og = c(g, k) * u + c(g, k + 1) * v + c(g, k + 2) * w - c(d, col)
+        dg = c(g, k) * x + c(g, k + 1) * y + c(g, k + 2) * z
+        return og + tt * dg
+
+    hit = ((ndotd.abs() >= K_EPSILON) & (tt >= 1e-3) & (edge(3, 1) >= 0.0)
+           & (edge(6, 2) >= 0.0) & (edge(9, 3) >= 0.0))
+    return tt, hit
+
+
+def anyhit_blocks(tiles_of_block, dx, dy, dz, ox, oy, oz, act, fpack, dc,
+                  block_f: int):
+    """occ (R,) f32: for each face block j, the any-hit test of the rays
+    of tiles_of_block[j] (an index tensor, or None for no tile)."""
     occ = torch.zeros_like(dx)
-    for j, tiles in enumerate(admitted_tiles(tlb)):
+    for j, tiles in enumerate(tiles_of_block):
         if tiles is None:
             continue
         x, y, z, u, v, w, a = (block_rows(p, tiles)
                                for p in (dx, dy, dz, ox, oy, oz, act))
-        g = fpack[j * block_f:(j + 1) * block_f]
-        d = dc[j * block_f:(j + 1) * block_f]
-
-        def c(m, k):
-            return m[:, k:k + 1]
-
-        ndotd = c(g, 0) * x + c(g, 1) * y + c(g, 2) * z
-        ndoto = c(g, 0) * u + c(g, 1) * v + c(g, 2) * w
-        tt = -(ndoto + c(d, 0)) / ndotd
-
-        def edge(k, col):
-            og = c(g, k) * u + c(g, k + 1) * v + c(g, k + 2) * w - c(d, col)
-            dg = c(g, k) * x + c(g, k + 1) * y + c(g, k + 2) * z
-            return og + tt * dg
-
-        hit = ((ndotd.abs() >= K_EPSILON) & (tt >= 1e-3) & (edge(3, 1) >= 0.0)
-               & (edge(6, 2) >= 0.0) & (edge(9, 3) >= 0.0))
+        _, hit = perray_plane_test(fpack[j * block_f:(j + 1) * block_f],
+                                   dc[j * block_f:(j + 1) * block_f],
+                                   x, y, z, u, v, w)
         any_hit = torch.where(hit, 1.0, 0.0).amax(dim=0) * a
         occ.view(-1, TILE_R)[tiles] = torch.maximum(
             block_rows(occ, tiles), any_hit).view(-1, TILE_R)

@@ -47,6 +47,10 @@ _SIGNATURES = {
     "rt_frame": [_VOIDP] * 10 + [_INT] * 6 + [_FLOAT] * 2 + [_VOIDP]
     + [_VOIDP],
     "rt_texfilter": [_VOIDP] * 3 + [_INT] + [_VOIDP] + [_VOIDP],
+    "rt_closest_hit_perray": [_VOIDP] * 11 + [_INT] * 4 + [_VOIDP] * 2
+    + [_VOIDP],
+    "rt_extend_shadow": [_VOIDP] * 17 + [_INT] * 5 + [_VOIDP] * 3
+    + [_VOIDP],
 }
 
 _lib: Optional[ctypes.CDLL] = None

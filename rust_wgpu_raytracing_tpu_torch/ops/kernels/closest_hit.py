@@ -88,8 +88,6 @@ def closest_hit_plain(tlb, order, dx, dy, dz, texit, fpack, oterm, sph, *,
     r = dx.shape[0]
     t = torch.full((r,), F32_INF, dtype=torch.float32, device=dx.device)
     face = torch.zeros(r, dtype=torch.int32, device=dx.device)
-    lane = torch.arange(block_f, dtype=torch.int32,
-                        device=dx.device)[:, None]
     for j, tiles in enumerate(admitted_tiles(tlb)):
         if tiles is None:
             continue
@@ -107,22 +105,31 @@ def closest_hit_plain(tlb, order, dx, dy, dz, texit, fpack, oterm, sph, *,
         h2 = c(o, 3) + tt * (c(g, 9) * x + c(g, 10) * y + c(g, 11) * z)
         valid = ((ndotd.abs() >= K_EPSILON) & (tt >= 0.0) & (h0 >= 0.0)
                  & (h1 >= 0.0) & (h2 >= 0.0))
-        tm = torch.where(valid, tt, F32_INF)
-        # block winner: min t, first face in block order on ties
-        tmin = tm.amin(dim=0)
-        idx = torch.where(tm == tmin, lane, INT_MAX).amin(dim=0)
-        new_face = idx + j * block_f
-        prev_t = block_rows(t, tiles)
-        prev_f = block_rows(face, tiles)
-        better = (tmin < prev_t) | ((tmin == prev_t) & (new_face < prev_f))
-        t.view(-1, TILE_R)[tiles] = torch.where(
-            better, tmin, prev_t).view(-1, TILE_R)
-        face.view(-1, TILE_R)[tiles] = torch.where(
-            better, new_face, prev_f).view(-1, TILE_R)
+        merge_block(t, face, tiles, torch.where(valid, tt, F32_INF),
+                    j * block_f)
     n_sph = (sph.shape[0] - 3) // 4
     if n_sph == 0:
         return t, face, None
     return t, face, _sphere_winner(sph, n_sph, dx, dy, dz, near, far)
+
+
+def merge_block(t, face, tiles, tm, face_base: int) -> None:
+    """Merge one face block's per-(face, ray) t (tm (BF, n), +inf where
+    a face misses) into the (t, face) planes at the rays of `tiles`, in
+    place: the block winner is the min t, the first face in block order
+    on ties, and it replaces the incumbent by the lexicographic (t, face)
+    rule (misses keep t=inf, face=0)."""
+    lane = torch.arange(tm.shape[0], dtype=torch.int32,
+                        device=tm.device)[:, None]
+    tmin = tm.amin(dim=0)
+    new_face = torch.where(tm == tmin, lane, INT_MAX).amin(dim=0) + face_base
+    prev_t = block_rows(t, tiles)
+    prev_f = block_rows(face, tiles)
+    better = (tmin < prev_t) | ((tmin == prev_t) & (new_face < prev_f))
+    t.view(-1, TILE_R)[tiles] = torch.where(
+        better, tmin, prev_t).view(-1, TILE_R)
+    face.view(-1, TILE_R)[tiles] = torch.where(
+        better, new_face, prev_f).view(-1, TILE_R)
 
 
 def _sphere_winner(sph, n_sph, dx, dy, dz, near, far):

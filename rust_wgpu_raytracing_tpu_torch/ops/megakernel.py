@@ -5,9 +5,10 @@ STREAM_FACES faces. render_megakernel draws the split frame here
 (fused=False) and dispatches to ops/fusedframe.render_frame_fused
 where the JAX package does (fused=None on an eligible scene). Each
 function keeps its JAX name (the kernel launch sites are `gbuffer` for
-JAX's gbuffer_pallas, `anyhit_rays` for anyhit_pallas,
-`kernels.texshade` for _texshade_pallas and `sample_packed_texture`'s
-`kernels.texfilter` for _texfilter_pallas). Everything per ray is
+JAX's gbuffer_pallas, `gbuffer_perray` for gbuffer_perray_pallas,
+`extend_shadow_rays` for extend_shadow_pallas, `anyhit_rays` for
+anyhit_pallas, `kernels.texshade` for _texshade_pallas and
+`sample_packed_texture`'s `kernels.texfilter` for _texfilter_pallas). Everything per ray is
 planar: separate (R,) tensors per component, rays ordered by 32x32
 screen tiles so that each 1024-ray schedule tile is a compact screen
 block.
@@ -23,8 +24,9 @@ products (XLA lowers `x ** 2` to `x * x`); the Blinn-Phong `hdotn **
 32.0` stays torch's pow, within 1 ulp of XLA's, with its denormal
 results flushed to zero as XLA and the TPU flush them (rounding.ftz).
 
-Not ported here (see ROADMAP.md): accel="bvh", mip sampling, path
-tracing, meshes above STREAM_FACES (streaming kernels), row-slab
+Not ported here (see ROADMAP.md): accel="bvh", mip sampling, meshes
+above STREAM_FACES (the streaming kernels K9-K11, and with them the
+reordered two-kernel fallback of extend_shadow_pallas), row-slab
 sharding and gp staging. The one-hot matrix-unit winner fetch of
 expand_tf_gbuffer is a TPU device that yields the same values as the
 plain gather used here, and the measurement flags RT_TEX_ROW_GATHER /
@@ -39,8 +41,9 @@ import numpy as np
 import torch
 
 from ..core.camera import CameraUniforms
-from ..core.scene import (GP_G1, GP_G2, GP_INVD, GP_MAT, GP_N, GP_TAN,
-                          GP_UN, GP_UV, GP_VN, STREAM_FACES, SceneData)
+from ..core.scene import (GP_C1, GP_C2, GP_G1, GP_G2, GP_INVD, GP_MAT,
+                          GP_N, GP_TAN, GP_UN, GP_UV, GP_VN, STREAM_FACES,
+                          SceneData)
 from .composite import to_nonlinear_depth
 from .rounding import ftz, sqrt
 from .kernels import KERNELS, KernelSet
@@ -132,13 +135,17 @@ def pack_origin_cols(scene: SceneData, origin: torch.Tensor) -> torch.Tensor:
 
 
 def expand_tf_gbuffer(scene: SceneData, t, face, dx, dy, dz,
-                      oterm, with_nm: bool = False) -> GBuffer:
+                      oterm=None, with_nm: bool = False,
+                      oxyz=None) -> GBuffer:
     """Resolve the G-buffer from the sweep's (t, face): ONE gather of the
     winner faces' gpack columns, then h1/h2/ndotd and the shading
     attributes recomputed with the kernels' own expressions on the
-    winner's values, with the frame's exact origin-term floats `oterm`.
-    with_nm adds the interpolated vertex normal and the face's tangent
-    frame. Miss rays (t == inf) zero every attribute."""
+    winner's values. Shared-origin rays pass the frame's exact
+    origin-term floats `oterm`; per-ray-origin rays (bounces) pass
+    oxyz=(ox, oy, oz), and the origin terms are recomputed per ray as
+    the per-ray sweep computes them. with_nm adds the interpolated
+    vertex normal and the face's tangent frame. Miss rays (t == inf)
+    zero every attribute."""
     gp = scene.gpack
     idx = face.clamp(0, gp.shape[1] - 1).long()
     a = gp.index_select(1, idx)  # (GPACK_ROWS, R)
@@ -151,8 +158,15 @@ def expand_tf_gbuffer(scene: SceneData, t, face, dx, dy, dz,
     nd = a[GP_N] * dx + a[GP_N + 1] * dy + a[GP_N + 2] * dz
     g1d = a[GP_G1] * dx + a[GP_G1 + 1] * dy + a[GP_G1 + 2] * dz
     g2d = a[GP_G2] * dx + a[GP_G2 + 1] * dy + a[GP_G2 + 2] * dz
-    og = oterm[:, 2:4].index_select(0, idx)
-    o1, o2 = og[:, 0], og[:, 1]
+    if oxyz is not None:  # per-ray origins: _chp_block_tv's h-planes
+        ox, oy, oz = oxyz
+        o1 = (a[GP_G1] * ox + a[GP_G1 + 1] * oy + a[GP_G1 + 2] * oz
+              - a[GP_C1])
+        o2 = (a[GP_G2] * ox + a[GP_G2 + 1] * oy + a[GP_G2 + 2] * oz
+              - a[GP_C2])
+    else:
+        og = oterm[:, 2:4].index_select(0, idx)
+        o1, o2 = og[:, 0], og[:, 1]
     h1 = o1 + ts * g1d
     h2 = o2 + ts * g2d
 
@@ -300,12 +314,14 @@ def _sphere_pack(scene: SceneData, origin: torch.Tensor) -> torch.Tensor:
 
 def gbuffer(scene: SceneData, origin, dx, dy, dz, *, accel: str = "cull",
             near: float = 0.01, far: float = 100.0, with_nm: bool = False,
-            kernels: KernelSet = KERNELS):
-    """Closest-hit G-buffer for shared-origin planar rays dx/dy/dz (R,),
-    spheres fused (JAX: gbuffer_pallas(..., with_spheres=True), VMEM
-    branch). Returns (GBuffer, sph) with sph = (t, id_f32, nx, ny, nz)
-    of the winning sphere per ray, or None for a scene without
-    spheres. with_nm fills the G-buffer's normal-mapping planes."""
+            with_spheres: bool = True, kernels: KernelSet = KERNELS):
+    """Closest-hit G-buffer for shared-origin planar rays dx/dy/dz (R,)
+    (JAX: gbuffer_pallas, VMEM branch). Returns (GBuffer, sph). With
+    with_spheres the scene's spheres are fused into the sweep and sph
+    = (t, id_f32, nx, ny, nz) of the winning sphere per ray; sph is
+    None for a scene without spheres or with with_spheres=False (the
+    path tracer runs sphere_pass_planar per sphere instead). with_nm
+    fills the G-buffer's normal-mapping planes."""
     f = scene.padded_faces
     block_f = _natural_block_f(scene, f)
     nrays = dx.shape[0]
@@ -318,9 +334,11 @@ def gbuffer(scene: SceneData, origin, dx, dy, dz, *, accel: str = "cull",
                                TILE_R, block_f, f)
     tlb, order, texit = _vmem_sched(scene, mask, nwords, o0, o1, o2,
                                     dx, dy, dz, TILE_R, f, block_f)
+    sph_pack = (_sphere_pack(scene, origin) if with_spheres
+                else origin.reshape(3).contiguous())
     t, face, sph = kernels.closest_hit(
-        tlb, order, dx, dy, dz, texit, fpack, oterm,
-        _sphere_pack(scene, origin), block_f=block_f, near=near, far=far)
+        tlb, order, dx, dy, dz, texit, fpack, oterm, sph_pack,
+        block_f=block_f, near=near, far=far)
     t, face = t[:nrays], face[:nrays]
     if sph is not None:
         sph = tuple(p[:nrays] for p in sph)
@@ -329,10 +347,23 @@ def gbuffer(scene: SceneData, origin, dx, dy, dz, *, accel: str = "cull",
     return gb, sph
 
 
+def _plane_consts(scene: SceneData) -> torch.Tensor:
+    """(F, 8) [d, c0, c1, c2, 0...]: the per-ray-origin sweeps' dc."""
+    f = scene.tri_d.shape[0]
+    return torch.cat([scene.tri_d[:, None], scene.tri_c,
+                      torch.zeros((f, 4), dtype=torch.float32,
+                                  device=scene.tri_d.device)], dim=1)
+
+
 def anyhit_rays(scene: SceneData, ox, oy, oz, dx, dy, dz, active, *,
-                accel: str = "cull", kernels: KernelSet = KERNELS):
+                accel: str = "cull", act_cull: bool = False,
+                kernels: KernelSet = KERNELS):
     """Planar any-hit (JAX: anyhit_pallas, VMEM branch): (R,) bool
-    occlusion for per-ray origins; only `active` rays are tested."""
+    occlusion for per-ray origins; only `active` rays are tested.
+    act_cull folds `active` into the tile cull mask's ray bounds (the
+    path tracer's last-bounce shadow wavefront, mostly dead lanes); the
+    occlusion is the same either way, the mask and the sweep's work are
+    not."""
     f = scene.padded_faces
     block_f = _natural_block_f(scene, f)
     nrays = dx.shape[0]
@@ -340,17 +371,77 @@ def anyhit_rays(scene: SceneData, ox, oy, oz, dx, dy, dz, active, *,
     act = _pad1(active.to(torch.float32), TILE_R)
     dxp, dyp, dzp, oxp, oyp, ozp = args
     mask, nwords = _mask_words(scene, accel, oxp, oyp, ozp,
-                               dxp, dyp, dzp, TILE_R, block_f, f)
+                               dxp, dyp, dzp, TILE_R, block_f, f,
+                               act=(act > 0) if act_cull else None)
     fpack = pack_face_columns(scene)
-    dc = torch.cat([scene.tri_d[:, None], scene.tri_c,
-                    torch.zeros((f, 4), dtype=torch.float32,
-                                device=dxp.device)], dim=1)  # (F, 8)
+    dc = _plane_consts(scene)
     tlb, order, texit = _vmem_sched(scene, mask, nwords,
                                     oxp, oyp, ozp, dxp, dyp, dzp,
                                     TILE_R, f, block_f, act=(act > 0))
     occ = kernels.anyhit(tlb, order, *args, act, texit, fpack, dc,
                          block_f=block_f)
     return occ[:nrays] > 0.0
+
+
+def gbuffer_perray(scene: SceneData, ox, oy, oz, dx, dy, dz, *,
+                   accel: str = "cull",
+                   kernels: KernelSet = KERNELS) -> GBuffer:
+    """Closest-hit G-buffer for per-ray-origin planar rays (JAX:
+    gbuffer_perray_pallas, VMEM branch): the closest-hit kernel K7 over
+    the flat cull mask and its front-to-back schedule, then the
+    G-buffer expanded with per-ray origin terms. Terminated paths carry
+    zero directions; they cannot hit."""
+    f = scene.padded_faces
+    block_f = _natural_block_f(scene, f)
+    nrays = dx.shape[0]
+    planes = [_pad1(a, TILE_R) for a in (dx, dy, dz, ox, oy, oz)]
+    dxp, dyp, dzp, oxp, oyp, ozp = planes
+    mask, nwords = _mask_words(scene, accel, oxp, oyp, ozp,
+                               dxp, dyp, dzp, TILE_R, block_f, f)
+    tlb, order, texit = _vmem_sched(scene, mask, nwords,
+                                    oxp, oyp, ozp, dxp, dyp, dzp,
+                                    TILE_R, f, block_f)
+    t, face = kernels.closest_hit_perray(
+        tlb, order, *planes, texit, pack_face_columns(scene),
+        _plane_consts(scene), block_f=block_f)
+    return expand_tf_gbuffer(scene, t[:nrays], face[:nrays], dx, dy, dz,
+                             oxyz=(ox, oy, oz))
+
+
+def extend_shadow_rays(scene: SceneData, ox, oy, oz, dx, dy, dz,
+                       sox, soy, soz, sdx, sdy, sdz, active, *,
+                       accel: str = "cull", kernels: KernelSet = KERNELS):
+    """The path tracer's fused per-bounce sweep (JAX:
+    extend_shadow_pallas, VMEM branch): closest hit of the extension
+    rays (ox.., dx..) and any-hit occlusion of the shadow rays (sox..,
+    sdx.., active) in one launch of kernel K8. Returns (GBuffer,
+    occluded (R,) bool).
+
+    Both wavefronts' cull masks take act-aware tile bounds: `active` is
+    the live set of both ray sets (extension rays of dead paths park
+    far away with zero directions; inactive shadow rays are act-gated
+    in the kernel), so one parked ray cannot open its tile's bounds to
+    the whole scene. The kernel walks the union of the two masks and
+    gates each half by its own bit."""
+    f = scene.padded_faces
+    block_f = _natural_block_f(scene, f)
+    nrays = dx.shape[0]
+    planes = [_pad1(a, TILE_R) for a in (dx, dy, dz, ox, oy, oz,
+                                         sdx, sdy, sdz, sox, soy, soz)]
+    act = _pad1(active.to(torch.float32), TILE_R)
+    (dxp, dyp, dzp, oxp, oyp, ozp,
+     sdxp, sdyp, sdzp, soxp, soyp, sozp) = planes
+    actb = act > 0
+    words_a, _ = _mask_words(scene, accel, oxp, oyp, ozp, dxp, dyp, dzp,
+                             TILE_R, block_f, f, act=actb)
+    words_b, _ = _mask_words(scene, accel, soxp, soyp, sozp,
+                             sdxp, sdyp, sdzp, TILE_R, block_f, f, act=actb)
+    t, face, occ = kernels.extend_shadow(
+        words_a, words_b, *planes, act, pack_face_columns(scene),
+        _plane_consts(scene), block_f=block_f)
+    gb = expand_tf_gbuffer(scene, t[:nrays], face[:nrays], dx, dy, dz,
+                           oxyz=(ox, oy, oz))
+    return gb, occ[:nrays] > 0.0
 
 
 def _ray_matrix(uni: CameraUniforms):
@@ -370,17 +461,38 @@ def _directions(m, const, xr, yr):
     return dx * inv_l, dy * inv_l, dz * inv_l
 
 
+def ndc_planes(width, rows, total_height, tile_h=None, tile_w=None, *,
+               device):
+    """Pixel-centre NDC coordinates (xr, yr), (R,) f32 each, of a
+    width x rows grid: W-major scanlines, or (tile_h x tile_w)-pixel
+    screen tiles when tile_h is given (rows % tile_h == 0, width % tile_w
+    == 0). NDC y divides by total_height (the true image height), so
+    padding rows lie beyond the frame and visible pixels keep their
+    rays."""
+    if tile_h is None:
+        x = torch.arange(width, dtype=torch.float32, device=device)
+        y = torch.arange(rows, dtype=torch.float32, device=device)
+        x_nds = (2.0 * (x + 0.5)) * _rcp(width) - 1.0
+        y_nds = (2.0 * (y + 0.5)) * _rcp(total_height) - 1.0
+        return x_nds.repeat(rows), y_nds.repeat_interleave(width)
+    tsz = tile_h * tile_w
+    tiles_x = width // tile_w
+    ridx = torch.arange(width * rows, dtype=torch.int32, device=device)
+    tile = ridx // tsz
+    within = ridx % tsz
+    py = (tile // tiles_x) * tile_h + within // tile_w
+    px = (tile % tiles_x) * tile_w + within % tile_w
+    xr = (2.0 * (px.to(torch.float32) + 0.5)) * _rcp(width) - 1.0
+    yr = (2.0 * (py.to(torch.float32) + 0.5)) * _rcp(total_height) - 1.0
+    return xr, yr
+
+
 def raygen_planar(width, height, uni: CameraUniforms, *, device):
     """Planar pixelToRay (sphere/compute.wgsl:87-101): returns dx, dy, dz
     (R,) f32 flat W-major (texel row 0 first)."""
     m, const = _ray_matrix(uni)
-    x = torch.arange(width, dtype=torch.float32, device=device)
-    y = torch.arange(height, dtype=torch.float32, device=device)
-    x_nds = (2.0 * (x + 0.5)) * _rcp(width) - 1.0
-    y_nds = (2.0 * (y + 0.5)) * _rcp(height) - 1.0
-    xr = x_nds.repeat(height)  # (R,) W-major
-    yr = y_nds.repeat_interleave(width)
-    return _directions(m, const, xr, yr)
+    return _directions(m, const, *ndc_planes(width, height, height,
+                                             device=device))
 
 
 def raygen_planar_tiled(width, height, uni: CameraUniforms, *, device,
@@ -393,18 +505,9 @@ def raygen_planar_tiled(width, height, uni: CameraUniforms, *, device,
     uses total_height (the true image height) so visible pixels' rays
     equal the untiled ones. Reassemble outputs with tiled_to_image()."""
     m, const = _ray_matrix(uni)
-    th = total_height or height
-    r = width * height
-    tsz = tile_h * tile_w
-    tiles_x = width // tile_w
-    ridx = torch.arange(r, dtype=torch.int32, device=device)
-    tile = ridx // tsz
-    within = ridx % tsz
-    py = (tile // tiles_x) * tile_h + within // tile_w
-    px = (tile % tiles_x) * tile_w + within % tile_w
-    xr = (2.0 * (px.to(torch.float32) + 0.5)) * _rcp(width) - 1.0
-    yr = (2.0 * (py.to(torch.float32) + 0.5)) * _rcp(th) - 1.0
-    return _directions(m, const, xr, yr)
+    return _directions(m, const, *ndc_planes(
+        width, height, total_height or height, tile_h, tile_w,
+        device=device))
 
 
 def tiled_to_image(plane, width, height, tile_h: int = 8,
@@ -638,8 +741,8 @@ def check_supported(scene: SceneData, *, accel: str = "cull",
         raise ValueError(f"unknown accel {accel!r}")
     if scene.padded_faces > STREAM_FACES:
         raise NotImplementedError(
-            f"meshes above STREAM_FACES={STREAM_FACES} faces (streaming "
-            f"kernels) are {_ROADMAP}")
+            f"meshes above STREAM_FACES={STREAM_FACES} faces (the "
+            f"streaming kernels K9-K11) are {_ROADMAP}")
 
 
 def fused_eligible(scene: SceneData, *, shadows: bool,

@@ -3,18 +3,93 @@
 profile_frames drives a Renderer for a few frames under torch.profiler
 and returns what PERF.md's section 5 reads: device kernels launched per
 frame, device kernel time per frame, the device's busy share of the
-host wall time, and the top operators by device time. The numbers come
+host wall time, the host syncs per frame the frame program takes (the
+operations torch's sync debug mode reports as synchronizing, counted by
+host_syncs; render(block=True)'s own synchronize is not one of them)
+and the top operators by device time. For the path tracer a frame is one
+sample per pixel (profile before the accumulation reaches pt_spp). The numbers come
 from the card's own trace (CUPTI), so the function raises on a Renderer
 that is not on a CUDA device.
 
     python3 chip_smoke.py --profile   # the smoke scene, fused and split
+
+count_ops counts the torch operations a call dispatches, with each
+kernel call as one: the host's launches, on any device (on the CPU,
+where there is no trace, it is the only way to see them).
 """
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import time
+import warnings
 
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+
+from ..ops.kernels import KernelSet
+
+# aten operations that only make views or metadata (no device kernel)
+_VIEW_OPS = frozenset((
+    "aten.alias", "aten.as_strided", "aten.detach", "aten.expand",
+    "aten.lift_fresh", "aten.permute", "aten.select", "aten.slice",
+    "aten.split", "aten.squeeze", "aten.t", "aten.unbind",
+    "aten.unsqueeze", "aten.view", "aten._unsafe_view"))
+
+
+class _OpCounter(TorchDispatchMode):
+    def __init__(self):
+        super().__init__()
+        self.counts = collections.Counter()
+        self.paused = False
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        name = str(func.overloadpacket)
+        if not self.paused and name not in _VIEW_OPS:
+            self.counts[name] += 1
+        return func(*args, **(kwargs or {}))
+
+
+def count_ops(fn, kernels: KernelSet) -> collections.Counter:
+    """Run fn(kernels') and count the non-view torch operations it
+    dispatches by aten name; each call of a `kernels` member counts once,
+    as "kernel <name>", and the operations inside it not at all. Scalars
+    a frame makes on the host (aten.scalar_tensor) are counted too."""
+    counter = _OpCounter()
+
+    def as_one(fn_k):
+        def call(*args, **kwargs):
+            counter.paused = True
+            try:
+                return fn_k(*args, **kwargs)
+            finally:
+                counter.paused = False
+                counter.counts[f"kernel {fn_k.__name__}"] += 1
+        return call
+
+    with counter:
+        fn(KernelSet(*(as_one(f) for f in kernels)))
+    return counter.counts
+
+
+@contextlib.contextmanager
+def host_syncs():
+    """Count the synchronizing CUDA operations run inside the block
+    (torch.cuda.set_sync_debug_mode("warn"): a device-to-host copy, a
+    nonzero, an item...). Yields a list whose len() is the count when
+    the block ends. torch.cuda.synchronize itself is not counted."""
+    seen = []
+    prev = torch.cuda.get_sync_debug_mode()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            yield seen
+        finally:
+            torch.cuda.set_sync_debug_mode(prev)
+    seen.extend(w for w in caught
+                if "synchronizing" in str(w.message))
 
 
 def _busy_us(intervals) -> float:
@@ -42,7 +117,8 @@ def profile_frames(renderer, frames: int = 5, warmup: int = 3,
         renderer.render(block=True)
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
+    with host_syncs() as syncs, \
+            torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         for _ in range(frames):
             renderer.update()
@@ -60,6 +136,7 @@ def profile_frames(renderer, frames: int = 5, warmup: int = 3,
                                    for e in kernels) / frames / 1e3,
         "busy_share": busy / wall_us,
         "wall_ms_per_frame": wall_us / frames / 1e3,
+        "host_syncs_per_frame": len(syncs) / frames,
         "top": [(a.key, a.count, a.self_device_time_total / 1e3)
                 for a in rows[:top] if a.self_device_time_total > 0],
     }

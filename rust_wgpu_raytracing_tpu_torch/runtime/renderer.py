@@ -7,9 +7,19 @@ resize() mirror State::update/render/resize (src/lib.rs:994,1012,772),
 with the reference's resize aspect-lag bug fixed (the new size sets the
 aspect), as in the JAX package.
 
-The device is explicit: Renderer(cfg, device="cuda") renders on the
-card and raises when there is none; device="cpu" runs the same frame
-through the kernels' plain PyTorch versions.
+The Renderer renders on the card by default (device="cuda", which
+raises when there is none); device="cpu" runs the same frame through
+the kernels' plain PyTorch versions.
+
+RenderConfig.pt_bounces > 0 switches to progressive path tracing
+(ops/pathtrace.py), as in the JAX package: each render() adds one
+sample per pixel to a running sum and presents the mean, up to
+RenderConfig.pt_spp samples (<= 0: unbounded); once the target is
+reached render() re-presents the finished mean; update() restarts the
+accumulation when the camera moved, and so does resize(). The key of
+sample n is fold_in(PRNGKey(RenderConfig.seed), n). RenderConfig.accel
+and mip do not apply to it: its sweeps always cull, as in the JAX
+package.
 
 RenderConfig.variant picks the frame program as in the JAX package:
 "split" and "fused" are fixed choices ("fused" raises ValueError on a
@@ -35,6 +45,7 @@ from ..core.scene import Scene
 from ..io.image_out import encode_u8_device, write_png
 from ..ops.megakernel import (check_supported, fused_eligible,
                               render_megakernel)
+from ..ops.pathtrace import PRNGKey, fold_in, render_pathtrace
 
 _ROADMAP = "not ported to the PyTorch/CUDA package yet; see ROADMAP.md"
 
@@ -51,32 +62,39 @@ def resolve_device(device) -> torch.device:
 
 class Renderer:
     def __init__(self, config: SceneConfig, backend: str = "auto", *,
-                 device):
+                 device="cuda"):
         self.device = resolve_device(device)
         self.backend = self._pick_backend(backend)
         rc = config.render
-        if rc.pt_bounces > 0:
-            raise NotImplementedError(f"path tracing is {_ROADMAP}")
         self.config = config
-        if rc.variant not in ("split", "fused", "auto"):
-            raise ValueError(f"unknown frame variant {rc.variant!r}")
-        if rc.variant == "fused" and (
-                rc.mip or (self._normal_mapping and rc.shadows)):
-            raise ValueError("variant='fused' needs a frame without mip "
-                             "and without normal mapping with shadows; "
-                             "use 'split' or 'auto'")
+        self.pathtrace = rc.pt_bounces > 0
+        self._accum = None
+        self._spp_done = 0
+        if not self.pathtrace:
+            if rc.variant not in ("split", "fused", "auto"):
+                raise ValueError(f"unknown frame variant {rc.variant!r}")
+            if rc.variant == "fused" and (
+                    rc.mip or (self._normal_mapping and rc.shadows)):
+                raise ValueError("variant='fused' needs a frame without "
+                                 "mip and without normal mapping with "
+                                 "shadows; use 'split' or 'auto'")
         self.scene = Scene.build(config)
         self.data = self.scene.data.to(self.device)
-        check_supported(self.data, accel=rc.accel, mip=rc.mip)
-        eligible = fused_eligible(self.data, shadows=rc.shadows,
-                                  normal_mapping=self._normal_mapping)
-        if rc.variant == "fused" and not eligible:
-            raise ValueError("variant='fused' needs a mesh of at most "
-                             "STREAM_FACES faces; use 'split' or 'auto'")
         self.variant_ms = {}
         self.variant_chosen = None  # decided at the first render for auto
-        if rc.variant != "auto" or not eligible:
-            self.variant_chosen = "fused" if rc.variant == "fused" else "split"
+        if self.pathtrace:
+            check_supported(self.data)  # PT always culls, as in JAX
+        else:
+            check_supported(self.data, accel=rc.accel, mip=rc.mip)
+            eligible = fused_eligible(self.data, shadows=rc.shadows,
+                                      normal_mapping=self._normal_mapping)
+            if rc.variant == "fused" and not eligible:
+                raise ValueError("variant='fused' needs a mesh of at most "
+                                 "STREAM_FACES faces; use 'split' or "
+                                 "'auto'")
+            if rc.variant != "auto" or not eligible:
+                self.variant_chosen = ("fused" if rc.variant == "fused"
+                                       else "split")
         self.camera = Camera.from_config(
             config.camera, aspect=rc.width / rc.height)
         self.controller = CircleCameraController(speed=0.2)
@@ -99,6 +117,8 @@ class Renderer:
 
     def _frame(self, uni, variant=None):
         rc = self.config.render
+        if self.pathtrace:
+            return self._pathtrace_frame(uni)
         return render_megakernel(
             self.data, uni, width=self.width, height=self.height,
             near=rc.kernel_near, far=rc.kernel_far,
@@ -107,6 +127,26 @@ class Renderer:
             normal_mapping=self._normal_mapping,
             accel=rc.accel, fused=(variant or self.variant_chosen) == "fused",
             mip=rc.mip)
+
+    def _pathtrace_frame(self, uni):
+        """One progressive sample (JAX runtime/renderer.py PT frame):
+        returns (mean radiance (H, W, 3), depth of ones)."""
+        rc = self.config.render
+        depth = torch.ones((self.height, self.width), dtype=torch.float32,
+                           device=self.device)
+        target = rc.pt_spp if rc.pt_spp > 0 else None
+        if self._accum is not None and target is not None \
+                and self._spp_done >= target:
+            return self._accum / self._spp_done, depth
+        key = fold_in(PRNGKey(rc.seed), self._spp_done)
+        spp = 1 if target is None else min(target - self._spp_done, 1)
+        self._accum = render_pathtrace(
+            self.data, uni, key, width=self.width, height=self.height,
+            bounces=rc.pt_bounces, spp=spp,
+            background=tuple(self.config.background), accum=self._accum,
+            compact_cap="auto")
+        self._spp_done += spp
+        return self._accum / self._spp_done, depth
 
     def _time_frames(self, fn, n: int = 8, warmup: int = 1) -> float:
         """Mean ms per frame of fn over n frames after warmup frames:
@@ -138,14 +178,22 @@ class Renderer:
 
     # --- State::update (src/lib.rs:994-1010) ---
     def update(self):
+        before = self.camera.eye.copy()
         self.controller.update_camera(self.camera)
+        if self._accum is not None and not np.array_equal(
+                before, self.camera.eye):
+            self._reset_accumulation()  # camera moved
+
+    def _reset_accumulation(self):
+        self._accum = None
+        self._spp_done = 0
 
     # --- State::render (src/lib.rs:1012-1230) ---
     def render(self, block: bool = False):
         """Returns the device-resident (color, depth) tensors.
         block=True waits for the frame (torch.cuda.synchronize)."""
         uni = self.camera.uniforms().flat()
-        if self.variant_chosen is None:
+        if self.variant_chosen is None and not self.pathtrace:
             self._autotune(uni)
         if self.device.type == "cuda":
             start = torch.cuda.Event(enable_timing=True)
@@ -185,6 +233,7 @@ class Renderer:
         self.config = dataclasses.replace(
             self.config, render=dataclasses.replace(
                 self.config.render, width=width, height=height))
+        self._reset_accumulation()
 
     # --- presentation (screenquad.wgsl analogue) ---
     def _latest_color(self):
@@ -202,6 +251,18 @@ class Renderer:
         write_png(path, self._latest_color(), srgb=srgb)
 
     # --- metrics ---
+    @property
+    def spp_done(self) -> int:
+        """Accumulated path-tracing samples per pixel (0 outside PT)."""
+        return self._spp_done
+
+    @property
+    def pt_converged(self) -> bool:
+        """True once the accumulation reached RenderConfig.pt_spp (as in
+        the JAX package, also for an unbounded accumulation, pt_spp <= 0)."""
+        rc = self.config.render
+        return self.pathtrace and self.spp_done >= rc.pt_spp
+
     @property
     def mrays_per_s(self) -> float:
         ms = self.last_frame_ms

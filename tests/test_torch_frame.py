@@ -166,16 +166,26 @@ def test_present_and_save_png(tmp_path):
     (dict(variant="fused", mip=True), ValueError),
     (dict(accel="bvh"), NotImplementedError),
     (dict(mip=True), NotImplementedError),
-    (dict(pt_bounces=1), NotImplementedError),
+    # path tracing is ported on meshes the chip holds; the streamed
+    # kernels K9-K11 are not
+    (dict(pt_bounces=1, obj_path="builtin:terrain:92"),
+     NotImplementedError),
     (dict(variant="bogus"), ValueError),
 ])
 def test_unported_options_raise(change, exc):
     import dataclasses as dc
 
     cfg = port_config(terrain_config(jcfg, width=32, height=32))
+    change = dict(change)
+    obj = change.pop("obj_path", None)
+    if obj is not None:
+        cfg = dc.replace(cfg, meshes=(dc.replace(cfg.meshes[0],
+                                                 obj_path=obj),))
     cfg = dc.replace(cfg, render=dc.replace(cfg.render, **change))
-    with pytest.raises(exc):
+    with pytest.raises(exc) as raised:
         Renderer(cfg, device="cpu")
+    if obj is not None:
+        assert "K9-K11" in str(raised.value)
 
 
 def test_unported_scenes_raise():
@@ -198,9 +208,14 @@ def test_unported_scenes_raise():
 
 
 def test_device_is_explicit():
+    """The device defaults to the card; a caller asks for the CPU
+    explicitly, and the card raises where there is none."""
+    import inspect
+
     cfg = port_config(terrain_config(jcfg, width=32, height=32))
-    with pytest.raises(TypeError):
-        Renderer(cfg)  # no default device
+    assert inspect.signature(Renderer).parameters["device"].default == "cuda"
     if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            Renderer(cfg)
         with pytest.raises(RuntimeError, match="CUDA"):
             Renderer(cfg, device="cuda")

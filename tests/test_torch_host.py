@@ -159,6 +159,54 @@ def textured_config(cfg_mod, width=64, height=64, shadows=True,
                                     shadows=shadows))
 
 
+def write_heightfield_assets(root, n: int = 17, seed: int = 29) -> str:
+    """Write a textured heightfield (n x n vertices with vt, a seeded
+    16x16 map_Kd) into `root` and return the OBJ's name: a concave,
+    textured surface, so bounce rays hit it again (resolve through
+    $RWRT_ASSETS=root)."""
+    from rust_wgpu_raytracing_tpu_torch.io.image_out import encode_png
+
+    rng = np.random.default_rng(seed)
+    u = np.linspace(0.0, 1.0, n)
+    gx, gy = np.meshgrid(u, u, indexing="xy")
+    x, y = (gx - 0.5) * 2.0, (gy - 0.5) * 2.0
+    z = 0.35 * np.sin(3.1 * x + 0.4) * np.cos(2.3 * y - 0.2)
+    lines = ["mtllib field.mtl", "o field"]
+    lines += [f"v {a:.6f} {b:.6f} {c:.6f}"
+              for a, b, c in zip(x.ravel(), y.ravel(), z.ravel())]
+    lines += [f"vt {a * 3.0:.6f} {b * 3.0:.6f}"
+              for a, b in zip(gx.ravel(), gy.ravel())]
+    lines.append("usemtl fieldmat")
+    for j in range(n - 1):
+        for i in range(n - 1):
+            a = j * n + i + 1
+            b, c, d = a + 1, a + n + 1, a + n
+            lines.append(f"f {a}/{a} {b}/{b} {c}/{c}")
+            lines.append(f"f {a}/{a} {c}/{c} {d}/{d}")
+    with open(os.path.join(root, "field.obj"), "w") as fh:
+        fh.write("\n".join(lines) + "\n")
+    with open(os.path.join(root, "field.mtl"), "w") as fh:
+        fh.write("newmtl fieldmat\nKa 0.08 0.08 0.08\nKd 0.8 0.8 0.8\n"
+                 "Ks 0.3 0.3 0.3\nNs 32\nmap_Kd field.png\n")
+    kd = rng.integers(40, 256, (16, 16, 3), dtype=np.uint8)
+    with open(os.path.join(root, "field.png"), "wb") as fh:
+        fh.write(encode_png(kd))
+    return "field.obj"
+
+
+def heightfield_config(cfg_mod, width=64, height=32, spheres=True):
+    """The heightfield of write_heightfield_assets seen from above at a
+    slant, with the reference spheres."""
+    return cfg_mod.SceneConfig(
+        spheres=cfg_mod.reference_scene().spheres if spheres else (),
+        meshes=(cfg_mod.MeshConfig(obj_path="field.obj",
+                                   translation=(0.0, 0.0, -3.0),
+                                   light_direction=(6.0, -1.0, 1.0)),),
+        camera=cfg_mod.CameraConfig(eye=(0.0, -1.6, -1.4),
+                                    target=(0.0, 0.0, -3.1)),
+        render=cfg_mod.RenderConfig(width=width, height=height))
+
+
 def port_config(jax_cfg):
     """The port's SceneConfig equal to a JAX SceneConfig (via JSON)."""
     return pcfg.SceneConfig.from_json(jax_cfg.to_json())

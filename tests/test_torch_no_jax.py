@@ -1,5 +1,6 @@
-"""PyTorch port: it runs where JAX cannot be imported, and no file of the
-port imports JAX or the JAX package."""
+"""PyTorch port: it runs where JAX cannot be imported (the frame, the CLI
+and the path tracer), and no file of the port imports JAX or the JAX
+package."""
 
 import re
 import subprocess
@@ -35,6 +36,14 @@ assert main(["--scene", {cfg_path!r}, "--width", "32", "--height", "24",
              "--shadows", "--frames", "2", "--device", "cpu",
              "--out", {png!r}]) == 0
 assert read_png({png!r}).shape == (24, 32, 3)
+import dataclasses as dc
+pt_cfg = dc.replace(cfg, render=dc.replace(cfg.render, pt_bounces=2,
+                                           pt_spp=2))
+r = pt.Renderer(pt_cfg, device="cpu")
+for _ in range(3):
+    color, _ = r.render(block=True)
+assert r.spp_done == 2 and bool(np.isfinite(color.numpy()).all())
+assert float(color.sum()) > 0
 assert not [m for m, mod in sys.modules.items() if mod is not None and (
     m == "jax" or m.startswith("jax.") or m.startswith("jaxlib")
     or m.split(".")[0] == "rust_wgpu_raytracing_tpu")]
