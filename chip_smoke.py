@@ -62,12 +62,29 @@ program on its own, and checks them:
    kernel_work for what is counted). 67 TFLOP/s counts a fused
    multiply-add as two operations; the kernels build with -fmad=false,
    so every multiply and add issues alone, and the text line also
-   gives the operations bound at that issue rate (33.5 T/s).
+   gives the operations bound at that issue rate (33.5 T/s);
+7. streaming scale (meshes above STREAM_FACES, the JAX package's
+   bench_configs.py configs 6 and 8 on builtin:terrain:512, 522,242
+   faces): the 1080p shadowed frame through Renderer(device="cuda")
+   under cull and then bvh (3 warm-up + 5 frames, orbit key held;
+   median, Mrays/s, peak device memory; launch counts: the streamed
+   sweeps K9 and K11 and K2, K5 under bvh only, none of K1, K3, K4),
+   cull frame == bvh frame bitwise, the bvh words a superset of the flat
+   scan's; K5 on the whole frame and K9, K11 on 8 of its batches (the
+   one with the most admitted blocks among them) against their plain
+   versions; the kernel-run frame (cull, bvh) against the plain-composed
+   one on builtin:terrain:128 at 640x360; the 540p 3-bounce path tracer
+   through the Renderer (1 warm-up + 3 samples; K9, K10, K11, K6
+   launched, K1, K7, K8 not), K10 and K11 on 8 batches of its bounce-1
+   wavefront against plain, one terrain:128 320x180 sample against the
+   plain-composed one; each new kernel's time, plain time and bound.
 
 `python3 chip_smoke.py --profile` runs only phases 1-2 and then
-profiles 5 frames of each frame program at the smoke view and 5
-samples of the path tracer with torch.profiler (device kernels per
-frame, device time, busy share, host syncs per frame, top operators).
+profiles 5 frames of each frame program at the smoke view, 5 samples
+of the path tracer, and 5 frames / samples of the streamed cells
+(stream-1080p-terrain512 under cull, pt-540p-terrain512) with
+torch.profiler (device kernels per frame, device time, busy share,
+host syncs per frame, top operators).
 
 The scene: the reference's two spheres and the procedural terrain
 builtin:terrain:91 (16,200 faces, the largest mesh the all-on-chip path
@@ -104,6 +121,19 @@ FP32_UNFUSED_S = FP32_OPS_S / 2
 # A divide counts as one operation, though the card runs the correctly
 # rounded divide as a sequence of several instructions.
 OPS_SHARED, OPS_PERRAY = 27, 51
+# FP32 operations of one slab test of a tile's cone against a box (K5:
+# per axis two subtractions, two products, a max and a min) and of a
+# tile's cone terms (six reciprocals)
+OPS_BOX, OPS_CONE = 18, 6
+# the streamed cells: the JAX package's bench_configs.py configs 6 (the
+# shadowed frame, cull and bvh) and 8 (the path tracer), builtin:terrain:512
+STREAM_GRID, STREAM_EYE, STREAM_TARGET = 512, (0.0, -0.4, -1.2), \
+    (0.0, 0.0, -3.0)
+STREAM_FRAMES, PTS_W, PTS_H, PTS_BOUNCES, PTS_SAMPLES = 5, 960, 540, 3, 3
+# the plain-composed checks at streaming scale: builtin:terrain:128
+# (32,258 faces, 32 superblocks; the JAX package's __graft_entry__.py
+# streaming scene)
+CHECK_GRID = 128
 # per-ray FP32 operations of the texture kernels (12 tap scales, 3
 # bilinear mixes of 9; texshade adds the 4-op Blinn-Phong per channel)
 OPS_TEXFILTER, OPS_TEXSHADE = 39, 51
@@ -203,6 +233,36 @@ def pt_config():
     mesh = dc.replace(cfg.meshes[0], normal_mapping=False)
     return dc.replace(cfg, meshes=(mesh,), render=dc.replace(
         cfg.render, pt_bounces=PT_BOUNCES, pt_spp=PT_SPP, seed=PT_SEED))
+
+
+def stream_config(accel: str = "cull", grid=None, width=None, height=None):
+    """bench_configs.py config 6 with its low sun: builtin:terrain:512 at
+    (0,0,-3), light (6,-1,1), no spheres, the close camera, shadows, at
+    1920x1080 (None: STREAM_GRID, WIDTH, HEIGHT)."""
+    from rust_wgpu_raytracing_tpu_torch.config import (
+        CameraConfig, MeshConfig, RenderConfig, SceneConfig)
+
+    grid, width, height = (grid or STREAM_GRID, width or WIDTH,
+                           height or HEIGHT)
+    return SceneConfig(
+        meshes=(MeshConfig(obj_path=f"builtin:terrain:{grid}",
+                           translation=(0.0, 0.0, -3.0),
+                           light_direction=(6.0, -1.0, 1.0)),),
+        camera=CameraConfig(eye=STREAM_EYE, target=STREAM_TARGET),
+        render=RenderConfig(width=width, height=height, shadows=True,
+                            accel=accel))
+
+
+def pt_stream_config(grid=None, width=None, height=None):
+    """bench_configs.py config 8: config 6's scene path-traced at
+    960x540 (None: PTS_W, PTS_H), 3 bounces, seed 0."""
+    import dataclasses as dc
+
+    cfg = stream_config(grid=grid, width=width or PTS_W,
+                        height=height or PTS_H)
+    return dc.replace(cfg, render=dc.replace(
+        cfg.render, shadows=False, pt_bounces=PTS_BOUNCES, pt_spp=PT_SPP,
+        seed=PT_SEED))
 
 
 def card_line() -> str:
@@ -320,6 +380,34 @@ def kernel_work(name, args, kw, outs, mesh_t=None):
         pairs = walk_pairs(args[0], torch.where(open_, texit, -1.0), act,
                            floor=hit_any)
         ops = pairs * bf * OPS_PERRAY
+    elif name in ("stream_closest_hit", "stream_closest_hit_perray"):
+        perray = name == "stream_closest_hit_perray"
+        te = args[9] if perray else args[6]
+        reach = torch.minimum(outs[0], te).view(-1, 1024).amax(1)
+        pairs, staged = stream_walk(args[0], args[2], reach,
+                                    aimed(*args[3:6]).view(-1, 1024).sum(1))
+        ops = pairs * 32 * (OPS_PERRAY if perray else OPS_SHARED)
+        moved = tensor_bytes(args[:7 + 3 * perray]) + tensor_bytes(outs) \
+            + staged * 32 * 16 * 4
+    elif name == "stream_anyhit":
+        act, texit, occ = args[9] > 0, args[10], outs[0]
+        open_ = act & (occ == 0)
+        reach = torch.where(open_, texit, -1.0).view(-1, 1024).amax(1)
+        hit_any = (act & (occ > 0)).view(-1, 1024).any(1).long()
+        pairs, staged = stream_walk(args[0], args[2], reach,
+                                    act.view(-1, 1024).sum(1), hit_any)
+        ops = pairs * 32 * OPS_PERRAY
+        moved = tensor_bytes(args[:11]) + tensor_bytes(outs) \
+            + staged * 32 * 16 * 4
+    elif name == "hier_cull":
+        from rust_wgpu_raytracing_tpu_torch.ops.kernels.hier_cull import (
+            _cone, box_test)
+
+        sup, _, bounds = args
+        n_tiles = bounds.shape[1]
+        entered = int(box_test(sup, _cone(bounds)).sum())
+        ops = (n_tiles * sup.shape[0] + entered * 32) * OPS_BOX \
+            + n_tiles * OPS_CONE
     elif name == "extend_shadow":
         nb = args[15].shape[0] // bf
         ext = aimed(*args[2:5]).view(-1, 1024).sum(1)
@@ -331,6 +419,37 @@ def kernel_work(name, args, kw, outs, mesh_t=None):
         per = OPS_TEXFILTER if name == "texfilter" else OPS_TEXSHADE
         ops = args[1].numel() * per
     return moved, ops
+
+
+def stream_walk(mask3, tlb3, reach, lanes, floor=None):
+    """((block, lane) tests, distinct blocks staged) of a streamed walk:
+    each subtile visits the set bits of its words whose entry bound is
+    finite and at most the subtile's reach (n_sub,), at least `floor`
+    blocks, over its `lanes` (n_sub,) taking the test."""
+    import torch
+
+    nsub, n_super = mask3.shape[1] - 1, mask3.shape[2]
+    words = mask3[:, :nsub].reshape(-1, n_super).to(torch.int64)
+    tl = tlb3[:, :nsub].reshape(-1, n_super)
+    ok = torch.isfinite(tl) & (tl <= reach[:, None])
+    bits = ((words[:, :, None] >> torch.arange(32, device=words.device)) & 1
+            ).bool() & ok[:, :, None]
+    blocks = bits.sum((1, 2))
+    if floor is not None:
+        blocks = torch.maximum(blocks, floor)
+    return int((blocks * lanes).sum()), int(bits.any(0).sum())
+
+
+def stream_blocks(mask3, tlb3):
+    """(n_sub,) blocks each subtile's schedule admits: the set bits of its
+    words whose entry bound is finite."""
+    import torch
+
+    nsub, n_super = mask3.shape[1] - 1, mask3.shape[2]
+    words = mask3[:, :nsub].reshape(-1, n_super).to(torch.int64)
+    ok = torch.isfinite(tlb3[:, :nsub].reshape(-1, n_super))
+    bits = (words[:, :, None] >> torch.arange(32, device=words.device)) & 1
+    return (bits.sum(2) * ok).sum(1)
 
 
 def bound(moved: int, ops: int, ops_s: float = FP32_OPS_S):
@@ -353,6 +472,259 @@ def time_ms(fn, reps: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def stream_phase(card, K, Renderer, drive, record, check, results, errs,
+                 path_launches, flat, say):
+    """Phase 7, streaming scale: the stream-1080p-terrain512 frame under
+    cull and bvh and the pt-540p-terrain512 path tracer through the
+    Renderer (launch counts, medians, peak memory), K5/K9/K10/K11 against
+    their plain versions on the paths' own arguments, the kernel-run
+    frame and sample against the plain-composed ones at terrain:128, and
+    the new kernels' times beside their bounds into `results`."""
+    import torch
+
+    from rust_wgpu_raytracing_tpu_torch.core.camera import Camera
+    from rust_wgpu_raytracing_tpu_torch.core.scene import Scene
+    from rust_wgpu_raytracing_tpu_torch.ops.megakernel import \
+        render_megakernel
+    from rust_wgpu_raytracing_tpu_torch.ops.pathtrace import (
+        PRNGKey, fold_in, render_pathtrace)
+
+    wrapper = {f.__name__: f for f in K.KERNELS}
+    plain = {f.__name__: p for f, p in zip(K.KERNELS, K.PLAIN)}
+    gib = 2.0 ** 30
+
+    def frame_of(data, uni, accel, kernels, width=WIDTH, height=HEIGHT):
+        return render_megakernel(data, uni, width=width, height=height,
+                                 shadows=True, accel=accel, fused=False,
+                                 kernels=kernels)
+
+    # (a) the frame through the Renderer, cull then bvh
+    colors, calls = {}, {}
+    for accel in ("cull", "bvh"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        rv = Renderer(stream_config(accel), device="cuda")
+        built = time.perf_counter() - t0
+        need = ["stream_closest_hit", "stream_anyhit", "texshade"]
+        absent = ["closest_hit", "anyhit", "frame", "closest_hit_perray",
+                  "extend_shadow"]
+        (need if accel == "bvh" else absent).append("hier_cull")
+        times, path_launches[f"stream_{accel}"], color, depth = drive(
+            f"stream-1080p-terrain512 {accel}", rv, need, absent,
+            frames=STREAM_FRAMES)
+        peak = torch.cuda.max_memory_allocated()
+        med = times[len(times) // 2]
+        data = rv.data
+        say(f"[stream] terrain:{STREAM_GRID}: {data.num_faces} faces "
+            f"(padded {data.padded_faces}, {data.padded_faces // 1024} "
+            f"superblocks, {data.blk_lo.shape[0]} clusters), record "
+            f"{tuple(data.spack.shape)}, Renderer built in {built:.1f} s; "
+            f"variant {rv.variant_chosen!r}; "
+            f"{float((depth < 1).float().mean()):.4f} of pixels hit")
+        say(f"[timing] {card}: stream-1080p-terrain512 {accel}, "
+            f"{WIDTH}x{HEIGHT} shadowed split frame: median {med:.3f} ms "
+            f"over {STREAM_FRAMES} frames after {WARMUP} warm-up (CUDA "
+            f"events; min {times[0]:.3f}, max {times[-1]:.3f}), "
+            f"{WIDTH * HEIGHT / (med * 1e-3) / 1e6:.1f} Mrays/s; peak "
+            f"device memory {peak / gib:.3f} GiB "
+            f"(max_memory_allocated, scene included)")
+        colors[accel] = color
+        uni = rv.camera.uniforms().flat()
+        calls[accel] = record(lambda ks: frame_of(data, uni, accel, ks))
+        if accel == "cull":
+            del rv
+    if not torch.equal(colors["cull"], colors["bvh"]):
+        raise AssertionError("streamed cull and bvh frames differ")
+    flat_w = calls["cull"]["stream_closest_hit"][0][0][0][:, :-1]
+    hier_w = calls["bvh"]["stream_closest_hit"][0][0][0][:, :-1]
+    missing = int(((flat_w & ~hier_w) != 0).sum())
+
+    def per_tile(words):
+        w = words.reshape(-1, words.shape[-1]).to(torch.int64)
+        return float(((w[:, :, None] >> torch.arange(32, device=w.device))
+                      & 1).sum((1, 2)).float().mean())
+    say(f"[stream] cull frame == bvh frame bitwise: True; primary mask "
+        f"words: bvh a superset of the flat scan ({missing} flat words "
+        f"not covered); admitted clusters per tile: flat "
+        f"{per_tile(flat_w):.2f}, bvh {per_tile(hier_w):.2f}, of "
+        f"{data.blk_lo.shape[0]}")
+    if missing:
+        raise AssertionError("bvh words miss flat-scan bits")
+
+    # (b) the kernels against their plain versions on the frame's arguments
+    check("stream frame, bvh primary", "hier_cull",
+          *calls["bvh"]["hier_cull"][0])
+
+    def subset_check(view, name, args, kw, n_batches=8):
+        """The kernel on all batches against the plain version on
+        n_batches of them (the most admitted blocks among them)."""
+        mask3 = args[0]
+        nb, nsub = mask3.shape[0], mask3.shape[1] - 1
+        adm = stream_blocks(mask3, args[2]).view(nb, nsub).sum(1)
+        top = int(adm.argmax())
+        spread = [int(i) for i in np.linspace(0, nb - 1, n_batches)]
+        pick = sorted({top} | set([i for i in spread
+                                   if i != top][:n_batches - 1]))
+        sel = torch.tensor(pick, device=mask3.device)
+        r = nb * nsub * 1024
+
+        def take(a):
+            if a.dim() == 1 and a.shape[0] == r:
+                return a.view(nb, -1).index_select(0, sel).reshape(-1)
+            return a
+        sub = [a.index_select(0, sel) for a in args[:3]] + \
+            [take(a) for a in args[3:]]
+        got = flat(name, wrapper[name](*args, **kw))
+        want = flat(name, plain[name](*sub, **kw))
+        torch.cuda.synchronize()
+        got = [g.view(nb, -1).index_select(0, sel).reshape(-1) for g in got]
+        err = max(max_abs_err(x, y) for x, y in zip(got, want))
+        exact = all(torch.equal(x, y) for x, y in zip(got, want))
+        say(f"[kernel] {view}: {name} {'OK' if exact else 'MISMATCH'} vs "
+            f"plain on {len(sel)} of {nb} batches ({len(sel) * nsub} "
+            f"subtiles, the batch with the most admitted blocks ({int(adm[top])}"
+            f") among them), the kernel run on all {nb}; max_abs_err "
+            f"{err!r}; bitwise {exact}")
+        if not exact:
+            raise AssertionError(f"{name} disagrees with its plain version")
+        errs[name] = max(errs.get(name, 0.0), err)
+        return sub, f"plain on {len(sel)} of {nb} batches"
+
+    k9_args, k9_kw = calls["cull"]["stream_closest_hit"][0]
+    k11_args, k11_kw = calls["cull"]["stream_anyhit"][0]
+    k9_sub = subset_check("stream frame, cull", "stream_closest_hit",
+                          k9_args, k9_kw)
+    k11_sub = subset_check("stream frame, cull (shadow wavefront)",
+                           "stream_anyhit", k11_args, k11_kw)
+    say(f"[stream] frame: {int(torch.isfinite(wrapper['stream_closest_hit'](*k9_args)[0]).sum())}"
+        f" of {k9_args[3].numel()} rays hit; {int((k11_args[9] > 0).sum())}"
+        f" active shadow rays; admitted blocks per subtile: K9 "
+        f"{float(stream_blocks(k9_args[0], k9_args[2]).float().mean()):.1f}"
+        f", K11 {float(stream_blocks(k11_args[0], k11_args[2]).float().mean()):.1f}")
+    del calls["bvh"]["stream_closest_hit"], calls["bvh"]["stream_anyhit"]
+
+    # (c) the kernel-run frame against the plain-composed one, terrain:128
+    cfg = stream_config(grid=CHECK_GRID, width=640, height=360)
+    small = Scene.build(cfg).data.to("cuda")
+    uni = Camera.from_config(cfg.camera, 640 / 360).uniforms().flat()
+    for accel in ("cull", "bvh"):
+        a, _ = frame_of(small, uni, accel, K.KERNELS, 640, 360)
+        b, _ = frame_of(small, uni, accel, K.PLAIN, 640, 360)
+        dmax, exact, bitwise = frame_bar(a, b)
+        say(f"[frame] terrain:{CHECK_GRID} ({small.num_faces} faces, "
+            f"{small.padded_faces // 1024} superblocks) 640x360 {accel}: "
+            f"kernels vs plain-composed frame bitwise {bitwise} (max linear "
+            f"u8 delta {dmax}, exact {exact:.6f}, mean colour "
+            f"{float(a.mean()):.5f})")
+        if not bitwise:
+            raise AssertionError("streamed frame differs from its plain twin")
+
+    # (d) the path tracer
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    rp = Renderer(pt_stream_config(), device="cuda")
+    K.reset_launch_counts()
+    pt_times = []
+    for i in range(1 + PTS_SAMPLES):
+        rp.update()
+        color, _ = rp.render(block=True)
+        if i >= 1:
+            pt_times.append(rp.last_frame_ms)
+    path_launches["pt_stream"] = K.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    say(f"[path] pt-540p-terrain512: launches over {1 + PTS_SAMPLES} "
+        f"samples: {path_launches['pt_stream']}")
+    need = ("stream_closest_hit", "stream_closest_hit_perray",
+            "stream_anyhit", "texfilter")
+    absent = ("closest_hit", "closest_hit_perray", "extend_shadow",
+              "anyhit", "frame", "texshade", "hier_cull")
+    missing = [k for k in need if path_launches["pt_stream"][k] == 0]
+    extra = [k for k in absent if path_launches["pt_stream"][k] != 0]
+    if missing or extra or not bool(torch.isfinite(color).all()) or \
+            tuple(color.shape) != (PTS_H, PTS_W, 3):
+        raise AssertionError(f"streamed path tracer: never launched "
+                             f"{missing}, off the path launched {extra}")
+    pt_times.sort()
+    med = pt_times[len(pt_times) // 2]
+    say(f"[timing] {card}: pt-540p-terrain512 ({PTS_W}x{PTS_H}, "
+        f"{PTS_BOUNCES} bounces): median {med:.3f} ms per sample over "
+        f"{PTS_SAMPLES} samples after 1 warm-up (CUDA events; min "
+        f"{pt_times[0]:.3f}, max {pt_times[-1]:.3f}), "
+        f"{PTS_W * PTS_H / (med * 1e-3) / 1e6:.4f} Mpaths/s; peak device "
+        f"memory {peak / gib:.3f} GiB; mean radiance "
+        f"{float(color.mean()):.5f}")
+    pt_uni = rp.camera.uniforms().flat()
+    pt_calls = record(lambda ks: render_pathtrace(
+        rp.data, pt_uni, fold_in(PRNGKey(PT_SEED), 0), width=PTS_W,
+        height=PTS_H, bounces=PTS_BOUNCES, spp=1, compact_cap="auto",
+        kernels=ks))
+    say(f"[pt] streamed sample: kernel calls "
+        f"{ {k: len(v) for k, v in pt_calls.items()} }")
+    k10_args, k10_kw = pt_calls["stream_closest_hit_perray"][0]
+    k11b_args, k11b_kw = pt_calls["stream_anyhit"][0]
+    k10_sub = subset_check("pt bounce 1 (extension rays)",
+                           "stream_closest_hit_perray", k10_args, k10_kw)
+    subset_check("pt bounce 1 (shadow rays of bounce 0)", "stream_anyhit",
+                 k11b_args, k11b_kw)
+    say(f"[pt] bounce 1: {int((k10_args[3] != 0).sum())} aimed extension "
+        f"rays, admitted blocks per subtile K10 "
+        f"{float(stream_blocks(k10_args[0], k10_args[2]).float().mean()):.1f}"
+        f", K11 {float(stream_blocks(k11b_args[0], k11b_args[2]).float().mean()):.1f}")
+    del rp, pt_calls
+    pcfg = pt_stream_config(CHECK_GRID, 320, 180)
+    pdata = Scene.build(pcfg).data.to("cuda")
+    puni = Camera.from_config(pcfg.camera, 320 / 180).uniforms().flat()
+    samples = [render_pathtrace(pdata, puni, fold_in(PRNGKey(PT_SEED), 0),
+                                width=320, height=180, bounces=PTS_BOUNCES,
+                                spp=1, compact_cap="auto", kernels=ks)
+               for ks in (K.KERNELS, K.PLAIN)]
+    same = torch.equal(samples[0], samples[1])
+    say(f"[pt] terrain:{CHECK_GRID} 320x180, {PTS_BOUNCES} bounces: one "
+        f"sample through the kernels vs composed from the plain versions: "
+        f"bitwise {same} (max_abs_err "
+        f"{max_abs_err(samples[0], samples[1])!r}); radiance sum "
+        f"{float(samples[0].sum()):.3f}")
+    if not same:
+        raise AssertionError("streamed sample differs from its plain twin")
+
+    # (e) timing at the paths' arguments, turns plain, kernel, kernel, plain
+    timed = {"hier_cull": (calls["bvh"]["hier_cull"][0],
+                           (None, "plain on the same arguments"),
+                           "the bvh frame's primary cull"),
+             "stream_closest_hit": ((k9_args, k9_kw), k9_sub,
+                                    "the cull frame's primary sweep"),
+             "stream_anyhit": ((k11_args, k11_kw), k11_sub,
+                               "the cull frame's shadow sweep"),
+             "stream_closest_hit_perray": ((k10_args, k10_kw), k10_sub,
+                                           "the PT's bounce-1 sweep")}
+    for name, ((args, kw), (sub, where), at) in timed.items():
+        p_args = sub if sub is not None else args
+
+        def run_kernel():
+            return wrapper[name](*args, **kw)
+
+        def run_plain():
+            return plain[name](*p_args, **kw)
+        p1 = time_ms(run_plain, 1)
+        k1 = time_ms(run_kernel, 10)
+        k2 = time_ms(run_kernel, 10)
+        p2 = time_ms(run_plain, 1)
+        moved, ops = kernel_work(name, args, kw, flat(name, run_kernel()))
+        bound_ms, bound_by = bound(moved, ops)
+        unfused_ms, _ = bound(moved, ops, FP32_UNFUSED_S)
+        ms = (k1 + k2) / 2
+        results[name] = dict(max_abs_err=errs[name], ms=ms,
+                             plain_ms=(p1 + p2) / 2, bound_ms=bound_ms,
+                             bound_by=bound_by)
+        say(f"[timing] {card}: {name} {ms:.4f} ms (kernel, {k1:.4f} / "
+            f"{k2:.4f}) vs {results[name]['plain_ms']:.4f} ms ({where}) at "
+            f"{at}'s arguments; bound {bound_ms:.4f} ms by {bound_by} "
+            f"({moved} bytes, {ops} FP32 operations), "
+            f"{100 * bound_ms / ms:.1f}% of it; {unfused_ms:.4f} ms at the "
+            f"unfused issue rate, {100 * unfused_ms / ms:.1f}% of it")
 
 
 def main() -> int:
@@ -397,12 +769,15 @@ def main() -> int:
         asset_dir = tempfile.mkdtemp(prefix="rt_nm_")
         os.environ["RWRT_ASSETS"] = asset_dir
         write_nm_assets(asset_dir)
-        for variant in ("fused", "split", "pathtrace"):
+        for variant in ("fused", "split", "pathtrace", "stream",
+                        "pt_stream"):
+            # orbit key held: every profiled PT frame is one fresh sample
+            cfg = {"pathtrace": pt_config, "stream": stream_config,
+                   "pt_stream": pt_stream_config}.get(
+                       variant, lambda: smoke_config(variant))()
+            rv = Renderer(cfg, device="cuda")
             if variant == "pathtrace":
-                # orbit key held: every profiled frame is one fresh sample
-                rv = Renderer(pt_config(), device="cuda")
-            else:
-                rv = Renderer(smoke_config(variant), device="cuda")
+                pt_rv = rv
             rv.controller.process_key("d", True)
             prof = profile_frames(rv)
             top = prof.pop("top")
@@ -415,7 +790,7 @@ def main() -> int:
         from rust_wgpu_raytracing_tpu_torch.runtime.profiler import count_ops
 
         ops = count_ops(lambda ks: render_pathtrace(
-            rv.data, rv.camera.uniforms().flat(), PRNGKey(PT_SEED),
+            pt_rv.data, pt_rv.camera.uniforms().flat(), PRNGKey(PT_SEED),
             width=WIDTH, height=HEIGHT, bounces=PT_BOUNCES,
             compact_cap="auto", kernels=ks), K.KERNELS)
         say(f"[profile] pathtrace: torch operations per sample "
@@ -488,12 +863,16 @@ def main() -> int:
     planes_of = {"closest_hit": "t, face, st, sid, snx, sny, snz",
                  "texshade": "pr, pg, pb", "anyhit": "occ",
                  "texfilter": "r, g, b", "closest_hit_perray": "t, face",
-                 "extend_shadow": "t, face, occ"}
+                 "extend_shadow": "t, face, occ", "hier_cull": "words",
+                 "stream_closest_hit": "t, face",
+                 "stream_closest_hit_perray": "t, face",
+                 "stream_anyhit": "occ"}
 
     def flat(name, out):
         if name == "closest_hit":
             return (out[0], out[1], *out[2])
-        return (out,) if name == "anyhit" else tuple(out)
+        return (out,) if name in ("anyhit", "stream_anyhit",
+                                  "hier_cull") else tuple(out)
 
     errs = {}
 
@@ -924,9 +1303,14 @@ def main() -> int:
     say(f"[timing] {card}: medians fused {medians['fused']:.3f} ms, split "
         f"{medians['split']:.3f} ms")
 
+    # --- 7. streaming scale -----------------------------------------------
+    stream_phase(card, K, Renderer, drive, record, check, results, errs,
+                 path_launches, flat, say)
+
     # each kernel's launches from the first path run that uses it
     launches = {}
-    for path in ("auto", "nm", "pt"):
+    for path in ("auto", "nm", "pt", "stream_cull", "stream_bvh",
+                 "pt_stream"):
         for name, count in path_launches[path].items():
             if count and name not in launches:
                 launches[name] = count
@@ -940,11 +1324,22 @@ def main() -> int:
         "closest_hit_perray":
             "rust_wgpu_raytracing_tpu/ops/megakernel.py:580",
         "extend_shadow": "rust_wgpu_raytracing_tpu/ops/megakernel.py:688",
+        "hier_cull": "rust_wgpu_raytracing_tpu/ops/traverse_pallas.py:159",
+        "stream_closest_hit":
+            "rust_wgpu_raytracing_tpu/ops/megakernel.py:1384",
+        "stream_closest_hit_perray":
+            "rust_wgpu_raytracing_tpu/ops/megakernel.py:1468",
+        "stream_anyhit": "rust_wgpu_raytracing_tpu/ops/megakernel.py:1532",
     }
+    source = {"stream_closest_hit": "stream_sweep",
+              "stream_closest_hit_perray": "stream_sweep",
+              "stream_anyhit": "stream_sweep"}
     # no single PyTorch call computes any of these functions (the sweeps,
-    # the packed-tap texture mixes): library_ms is null throughout
+    # the packed-tap texture mixes, the slab-test cull): library_ms is
+    # null throughout
     say(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": f"{base}{name}.cu",
+        {"name": name, "route": "cuda",
+         "source": f"{base}{source.get(name, name)}.cu",
          "replaces": replaces[name], "launches": launches.get(name, 0),
          **{k: results[name][k] for k in ("max_abs_err", "ms", "plain_ms",
                                           "bound_ms", "bound_by")},

@@ -26,10 +26,15 @@ The bump pool (normal mapping) is a second pool of the same layout,
 built from the materials' map_Bump images loaded raw (not
 sRGB-decoded); mat_bump_base is -1 for a material without one.
 
+The streaming record `spack` (meshes above STREAM_FACES) is built on the
+host as the JAX package builds it; the streamed sweep kernels read its
+plane columns and plane constants (ops/megakernel.py).
+
 Not carried over from the JAX SceneData (their consumers are later
-slices, see ROADMAP.md): the LBVH pack (accel="bvh"), the mip pyramid,
-the streaming record `spack` (meshes above STREAM_FACES), the f32
-texture stack (the oracle) and the unused material columns.
+slices, see ROADMAP.md): the LBVH pack (the JAX package's tests and its
+skip-pointer walk use it; accel="bvh" renders through the two-level
+cut, ops/hier_cull.py), the mip pyramid, the f32 texture stack (the
+oracle) and the unused material columns.
 """
 
 from __future__ import annotations
@@ -53,10 +58,20 @@ CULL_BLOCK = 32
 # faces); the kernels read the granularity off blk_lo's shape.
 SMALL_CULL_BLOCK = 8
 SMALL_CLUSTER_FACES = 4096
-# Streaming superblock and the all-on-chip limit: meshes above
-# STREAM_FACES take the JAX package's streaming kernels, not ported yet.
+# Streaming superblock (one packed mask word) and the all-on-chip limit:
+# meshes above STREAM_FACES pad to SUPER_F and take the streamed sweeps.
 SUPER_F = 32 * CULL_BLOCK
 STREAM_FACES = 16384
+
+# Streaming record layout, one 128-column f32 row per face (the JAX
+# package's, kept so the record carries across as it is):
+#   0-39   the static per-face columns (ops/megakernel.py pack_face_columns)
+#   40-43  [d, c0, c1, c2] plane constants (per-ray-origin sweeps)
+#   48-55  reserved for the shared-origin terms (the port's sweep reads
+#          them from the per-frame (F, 8) origin-term tensor instead)
+STREAM_COLS = 128
+SC_DC = 40
+SC_OT = 48
 
 # Winner-attribute table (GPACK_ROWS, F): rows resolved after the
 # (t, face) sweep by one gather (ops/megakernel.py expand_tf_gbuffer).
@@ -79,6 +94,31 @@ def _pad_rows(a: np.ndarray, n: int, fill=0) -> np.ndarray:
         return a
     pad = np.full((n - a.shape[0],) + a.shape[1:], fill, dtype=a.dtype)
     return np.concatenate([a, pad], axis=0)
+
+
+def _stream_pack_np(padded: int, n, d, g, c, inv_denom, uv3, vn3,
+                    face_mat, orig_ids, tangent, bitangent) -> np.ndarray:
+    """Host build of the (padded, STREAM_COLS) streaming face record,
+    the JAX package's _stream_pack_np: pack_face_columns' columns 0-39
+    plus the [d, c] plane constants at SC_DC. Padding faces are all-zero
+    rows."""
+    f = n.shape[0]
+    pack = np.zeros((padded, STREAM_COLS), np.float32)
+    nlen = np.linalg.norm(n, axis=1, keepdims=True)
+    un = np.where(nlen > 0, n / np.maximum(nlen, 1e-30), 0.0)
+    pack[:f, 0:3] = n
+    pack[:f, 3:12] = g.reshape(f, 9)
+    pack[:f, 12] = inv_denom
+    pack[:f, 13:16] = un
+    pack[:f, 16:22] = uv3.reshape(f, 6)
+    pack[:f, 22] = face_mat.astype(np.float32)
+    pack[:f, 23] = orig_ids.astype(np.float32)
+    pack[:f, 24:27] = tangent
+    pack[:f, 27:30] = bitangent
+    pack[:f, 30:39] = vn3.reshape(f, 9)
+    pack[:f, SC_DC] = d
+    pack[:f, SC_DC + 1:SC_DC + 4] = c
+    return pack
 
 
 def _gpack_sources_np(padded: int, n, g, c, inv_denom, uv3, vn3,
@@ -158,6 +198,10 @@ class SceneData:
 
     # (GPACK_ROWS, F) f32 winner-attribute table
     gpack: torch.Tensor
+
+    # (F, STREAM_COLS) f32 streaming record past STREAM_FACES faces,
+    # (0, STREAM_COLS) otherwise (ops/megakernel.py _stream_pack)
+    spack: torch.Tensor
 
     num_faces: int = 0
     num_spheres: int = 0
@@ -352,6 +396,12 @@ class Scene:
             gpack_np = _gpack_sources_np(padded, n, g, c, inv_denom,
                                          uv3, vn3, face_mat,
                                          tangent, bitangent)
+            if num_faces > STREAM_FACES:
+                spack_np = _stream_pack_np(padded, n, d, g, c, inv_denom,
+                                           uv3, vn3, face_mat, orig_ids,
+                                           tangent, bitangent)
+            else:
+                spack_np = np.zeros((0, STREAM_COLS), np.float32)
         else:
             p0 = np.zeros((0, 3), np.float32)
             n = np.zeros((0, 3), np.float32)
@@ -368,6 +418,7 @@ class Scene:
             blk_lo = np.full((nb, 3), np.inf, np.float32)
             blk_hi = np.full((nb, 3), -np.inf, np.float32)
             gpack_np = np.zeros((GPACK_ROWS, 0), np.float32)
+            spack_np = np.zeros((0, STREAM_COLS), np.float32)
 
         # ---- textures (diffuse sRGB-decoded, bump maps raw),
         # deduplicated by (path, srgb) ----
@@ -466,6 +517,7 @@ class Scene:
             mat_bump_h=tens(m_bump_h),
             mat_bump_w=tens(m_bump_w),
             gpack=tens(gpack_np),
+            spack=tens(spack_np),
             num_faces=num_faces,
             num_spheres=len(spheres),
         )

@@ -1,5 +1,5 @@
 // Shared pieces of the ray-tracing kernels (closest_hit.cu, anyhit.cu,
-// frame.cu, closest_hit_perray.cu, extend_shadow.cu).
+// frame.cu, closest_hit_perray.cu, extend_shadow.cu, stream_sweep.cu).
 //
 // The sweep kernels walk one 1024-ray schedule tile per CUDA block:
 // 256 threads x 4 rays each, rays r = tile*1024 + threadIdx.x + k*256 so
@@ -40,17 +40,18 @@ __device__ __forceinline__ float block_max(float v, float* red) {
 }
 
 // Stage columns 0-11 of `pack` (row stride pack_cols) and columns 0-3 of
-// `extra` (row stride 8) for faces [ci*block_f, (ci+1)*block_f) into
-// shared memory, STAGE_COLS floats per face.
+// `extra` (row stride extra_cols) for faces [ci*block_f, (ci+1)*block_f)
+// into shared memory, STAGE_COLS floats per face.
 __device__ __forceinline__ void stage_faces(float* dst, const float* pack,
                                             int pack_cols,
                                             const float* extra, int ci,
-                                            int block_f) {
+                                            int block_f, int extra_cols = 8) {
   for (int i = threadIdx.x; i < block_f * STAGE_COLS; i += THREADS) {
     const int f = i / STAGE_COLS;
     const int c = i % STAGE_COLS;
     const size_t row = (size_t)ci * block_f + f;
-    dst[i] = c < 12 ? pack[row * pack_cols + c] : extra[row * 8 + (c - 12)];
+    dst[i] = c < 12 ? pack[row * pack_cols + c]
+                    : extra[row * extra_cols + (c - 12)];
   }
 }
 

@@ -8,9 +8,12 @@ a per-tile interval slab test (ops/megakernel.py tile_cull_mask) can
 skip whole clusters. The test is conservative, so culled rendering is
 bit-identical to brute force.
 
-All steps are NumPy on the host and run once per scene build. The LBVH
-build over these clusters (accel="bvh") is not ported yet; see
-ROADMAP.md.
+All steps are NumPy on the host and run once per scene build.
+accel="bvh" culls with the two-level cut of the LBVH these Morton
+clusters imply (32 clusters to a superblock, ops/hier_cull.py), as the
+JAX package's renders do; its explicit LBVH build and skip-pointer
+walk (build_lbvh, linearize_bvh, bvh_walk_mask_words), which no JAX
+render path runs, are not ported (ROADMAP.md).
 """
 
 from __future__ import annotations

@@ -117,7 +117,7 @@ def render_frame_fused(scene: SceneData, uni_flat, *, width: int,
                    dim=1)
     o = (origin[0], origin[1], origin[2])
     mask, nwords = _mask_words(scene, accel, *o, dxp, dyp, dzp, TILE_R,
-                               block_f, f)
+                               block_f, f, kernels=kernels)
     tlb, order, texit = _vmem_sched(scene, mask, nwords, *o, dxp, dyp, dzp,
                                     TILE_R, f, block_f)
 

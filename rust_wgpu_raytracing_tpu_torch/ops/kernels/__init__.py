@@ -10,6 +10,10 @@ version and a launch counter.
 | K6 | texfilter | csrc/texfilter.cu | ops/megakernel.py _texfilter_kernel |
 | K7 | closest_hit_perray | csrc/closest_hit_perray.cu | ops/megakernel.py _make_closest_hit_perray_kernel |
 | K8 | extend_shadow | csrc/extend_shadow.cu | ops/megakernel.py _make_fused_extend_shadow_kernel |
+| K5 | hier_cull | csrc/hier_cull.cu | ops/traverse_pallas.py _make_smem_kernel |
+| K9 | stream_closest_hit | csrc/stream_sweep.cu | ops/megakernel.py _make_streaming_ch_slim_kernel |
+| K10 | stream_closest_hit_perray | csrc/stream_sweep.cu | ops/megakernel.py _make_streaming_chp_slim_kernel |
+| K11 | stream_anyhit | csrc/stream_sweep.cu | ops/megakernel.py _make_streaming_anyhit_kernel |
 
 A wrapper launches its kernel for CUDA tensors and runs its plain
 version for CPU tensors. The frames and the path tracer take a
@@ -26,6 +30,12 @@ from .closest_hit import closest_hit, closest_hit_plain
 from .closest_hit_perray import closest_hit_perray, closest_hit_perray_plain
 from .extend_shadow import extend_shadow, extend_shadow_plain
 from .frame import frame, frame_plain
+from .hier_cull import hier_cull, hier_cull_plain
+from .stream_sweep import (stream_anyhit, stream_anyhit_plain,
+                           stream_closest_hit,
+                           stream_closest_hit_perray,
+                           stream_closest_hit_perray_plain,
+                           stream_closest_hit_plain)
 from .texfilter import texfilter, texfilter_plain
 from .texshade import texshade, texshade_plain
 
@@ -38,13 +48,21 @@ class KernelSet(NamedTuple):
     texfilter: Callable
     closest_hit_perray: Callable
     extend_shadow: Callable
+    hier_cull: Callable
+    stream_closest_hit: Callable
+    stream_closest_hit_perray: Callable
+    stream_anyhit: Callable
 
 
 KERNELS = KernelSet(closest_hit, anyhit, texshade, frame, texfilter,
-                    closest_hit_perray, extend_shadow)
+                    closest_hit_perray, extend_shadow, hier_cull,
+                    stream_closest_hit, stream_closest_hit_perray,
+                    stream_anyhit)
 PLAIN = KernelSet(closest_hit_plain, anyhit_plain, texshade_plain,
                   frame_plain, texfilter_plain, closest_hit_perray_plain,
-                  extend_shadow_plain)
+                  extend_shadow_plain, hier_cull_plain,
+                  stream_closest_hit_plain, stream_closest_hit_perray_plain,
+                  stream_anyhit_plain)
 
 
 def launch_counts() -> dict:

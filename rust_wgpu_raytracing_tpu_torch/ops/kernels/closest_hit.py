@@ -85,10 +85,23 @@ def closest_hit_plain(tlb, order, dx, dy, dz, texit, fpack, oterm, sph, *,
     """Plain PyTorch version of closest_hit (same arguments, same
     results bit for bit)."""
     del order, texit  # visit order and termination cannot change a winner
+    t, face = closest_shared_blocks(admitted_tiles(tlb), dx, dy, dz, fpack,
+                                    oterm, block_f)
+    n_sph = (sph.shape[0] - 3) // 4
+    if n_sph == 0:
+        return t, face, None
+    return t, face, _sphere_winner(sph, n_sph, dx, dy, dz, near, far)
+
+
+def closest_shared_blocks(tiles_of_block, dx, dy, dz, fpack, oterm,
+                          block_f: int):
+    """(t, face): for each face block j, the shared-origin closest-hit
+    merge (JAX _ch_block_tv, origin terms from oterm (F, >=4)) over the
+    rays of tiles_of_block[j] (an index tensor, or None)."""
     r = dx.shape[0]
     t = torch.full((r,), F32_INF, dtype=torch.float32, device=dx.device)
     face = torch.zeros(r, dtype=torch.int32, device=dx.device)
-    for j, tiles in enumerate(admitted_tiles(tlb)):
+    for j, tiles in enumerate(tiles_of_block):
         if tiles is None:
             continue
         x, y, z = (block_rows(v, tiles) for v in (dx, dy, dz))
@@ -107,10 +120,7 @@ def closest_hit_plain(tlb, order, dx, dy, dz, texit, fpack, oterm, sph, *,
                  & (h1 >= 0.0) & (h2 >= 0.0))
         merge_block(t, face, tiles, torch.where(valid, tt, F32_INF),
                     j * block_f)
-    n_sph = (sph.shape[0] - 3) // 4
-    if n_sph == 0:
-        return t, face, None
-    return t, face, _sphere_winner(sph, n_sph, dx, dy, dz, near, far)
+    return t, face
 
 
 def merge_block(t, face, tiles, tm, face_base: int) -> None:

@@ -1,17 +1,28 @@
 """The frame program: PyTorch glue around the CUDA kernels.
 
-Counterpart of the JAX package's ops/megakernel.py on meshes of at most
-STREAM_FACES faces. render_megakernel draws the split frame here
-(fused=False) and dispatches to ops/fusedframe.render_frame_fused
-where the JAX package does (fused=None on an eligible scene). Each
-function keeps its JAX name (the kernel launch sites are `gbuffer` for
-JAX's gbuffer_pallas, `gbuffer_perray` for gbuffer_perray_pallas,
-`extend_shadow_rays` for extend_shadow_pallas, `anyhit_rays` for
-anyhit_pallas, `kernels.texshade` for _texshade_pallas and
-`sample_packed_texture`'s `kernels.texfilter` for _texfilter_pallas). Everything per ray is
+Counterpart of the JAX package's ops/megakernel.py. render_megakernel
+draws the split frame here (fused=False) and dispatches to
+ops/fusedframe.render_frame_fused where the JAX package does (fused=None
+on an eligible scene). Each function keeps its JAX name (the kernel
+launch sites are `gbuffer` for JAX's gbuffer_pallas, `gbuffer_perray`
+for gbuffer_perray_pallas, `extend_shadow_rays` for
+extend_shadow_pallas, `anyhit_rays` for anyhit_pallas,
+`kernels.texshade` for _texshade_pallas and `sample_packed_texture`'s
+`kernels.texfilter` for _texfilter_pallas; `_mask_words` runs the
+LBVH-cut cull of accel="bvh", ops/hier_cull.py). Everything per ray is
 planar: separate (R,) tensors per component, rays ordered by 32x32
 screen tiles so that each 1024-ray schedule tile is a compact screen
 block.
+
+Meshes above STREAM_FACES faces take the streamed branch of gbuffer,
+gbuffer_perray and anyhit_rays (stream=None decides as JAX's
+_should_stream does): rays pad to batches of STREAM_BATCH tiles, the
+mask words cover one 1024-face superblock each, and the sweep kernels
+K9-K11 walk each batch's words front to back (_stream_sched). The
+shadow wavefronts of such scenes are re-tiled by origin Morton code
+(anyhit_reordered), and the path tracer's bounce wavefront by origin
+Morton code and direction octant (_bounce_sort_perm) before its
+closest hit and shadow rays take two streamed sweeps.
 
 Float semantics. Every expression keeps the JAX operation order, and
 every product and sum rounds on its own (no fused multiply-add; the
@@ -24,13 +35,16 @@ products (XLA lowers `x ** 2` to `x * x`); the Blinn-Phong `hdotn **
 32.0` stays torch's pow, within 1 ulp of XLA's, with its denormal
 results flushed to zero as XLA and the TPU flush them (rounding.ftz).
 
-Not ported here (see ROADMAP.md): accel="bvh", mip sampling, meshes
-above STREAM_FACES (the streaming kernels K9-K11, and with them the
-reordered two-kernel fallback of extend_shadow_pallas), row-slab
-sharding and gp staging. The one-hot matrix-unit winner fetch of
-expand_tf_gbuffer is a TPU device that yields the same values as the
-plain gather used here, and the measurement flags RT_TEX_ROW_GATHER /
-RT_AH_PERRAY do not exist.
+Memory: JAX fuses the flat scan into one XLA loop; here its (tiles,
+clusters, 3) temporaries would take GBs at 1080p past 500k faces, so
+_mask_words scans a chunk of tiles at a time (the words are the same).
+
+Not ported here (see ROADMAP.md): mip sampling, row-slab sharding and
+gp staging, and the TPU measurement flags RT_PT_KREFINE (the top-K
+cluster refinement of the streamed bounce mask), RT_AH_PERRAY and
+RT_TEX_ROW_GATHER (all off by default in JAX). The one-hot matrix-unit
+winner fetch of expand_tf_gbuffer is a TPU device that yields the same
+values as the plain gather used here.
 """
 
 from __future__ import annotations
@@ -42,18 +56,24 @@ import torch
 
 from ..core.camera import CameraUniforms
 from ..core.scene import (GP_C1, GP_C2, GP_G1, GP_G2, GP_INVD, GP_MAT,
-                          GP_N, GP_TAN, GP_UN, GP_UV, GP_VN, STREAM_FACES,
-                          SceneData)
+                          GP_N, GP_TAN, GP_UN, GP_UV, GP_VN, SC_DC,
+                          STREAM_COLS, STREAM_FACES, SUPER_F, SceneData)
 from .composite import to_nonlinear_depth
+from .hier_cull import hier_cull_fits, hier_cull_words
 from .rounding import ftz, sqrt
 from .kernels import KERNELS, KernelSet
 from .kernels.common import TILE_R
 from .shade import quantize_rgba8
-from .traverse import (ray_root_exit, slab_interval_entry, slab_interval_ok,
-                       tile_ray_bounds)
+from .traverse import (perray_super_any, ray_root_exit, slab_interval_entry,
+                       slab_interval_ok, tile_ray_bounds)
 
 F32_INF = float("inf")
 BLOCK_F = 32
+# subtiles of 1024 rays per streamed batch (JAX STREAM_BATCH, its
+# RT_STREAM_BATCH default): they share one order row and stop row
+STREAM_BATCH = 8
+# (tile, cluster) pairs per step of the flat scan (see module docstring)
+CULL_CHUNK_PAIRS = 1 << 22
 
 _ROADMAP = "not ported to the PyTorch/CUDA package yet; see ROADMAP.md"
 
@@ -275,34 +295,158 @@ def _natural_block_f(scene: SceneData, f: int) -> int:
     return min(BLOCK_F, f)
 
 
-def tile_cull_mask(scene: SceneData, ox, oy, oz, dx, dy, dz, tile_r,
-                   act=None):
-    """(tiles, clusters) i32 conservative activity mask — the FLAT scan
-    (interval-arithmetic slab test of every tile's ray cone against every
-    cluster AABB)."""
-    omin, omax, dmin, dmax = tile_ray_bounds(ox, oy, oz, dx, dy, dz,
-                                             tile_r, act)
+def _cull_mask(scene: SceneData, omin, omax, dmin, dmax):
+    """(tiles, clusters) i32: the flat slab test of the tiles' cones
+    (bounds (T, 3) each) against every cluster AABB."""
     a = scene.blk_lo[None, :, :] - omax[:, None, :]  # (T,B,3)
     b = scene.blk_hi[None, :, :] - omin[:, None, :]
     ok = slab_interval_ok(a, b, dmin[:, None, :], dmax[:, None, :])
     return ok.to(torch.int32)
 
 
+def _should_stream(f: int, block_f: int) -> bool:
+    """JAX _should_stream: meshes above STREAM_FACES (padded to whole
+    superblocks) at the 32-face block take the streamed sweeps."""
+    return f > STREAM_FACES and f % SUPER_F == 0 and block_f == BLOCK_F
+
+
+def _stream_setup(scene: SceneData, stream: Optional[bool]):
+    """(stream, block_f) of a sweep (JAX's prologue of gbuffer_pallas and
+    co.): stream=None decides by _should_stream; a streamed sweep works
+    in 32-face blocks, so a fine-cluster scene forced onto it regroups
+    its mask to 32 faces."""
+    f = scene.padded_faces
+    block_f = _natural_block_f(scene, f)
+    if stream is None:
+        stream = _should_stream(f, block_f)
+    if stream and block_f != BLOCK_F:
+        if f % BLOCK_F:
+            raise ValueError(f"{f} faces: the streamed sweep needs whole "
+                             f"{BLOCK_F}-face blocks")
+        block_f = BLOCK_F
+    return stream, block_f
+
+
+def _stream_pack(scene: SceneData) -> torch.Tensor:
+    """The (F, STREAM_COLS) streaming record: SceneData.spack when the
+    scene has one (Scene.build past STREAM_FACES), else built from the
+    scene's tensors (a small scene forced onto the streamed path), as
+    JAX's _stream_pack / pack_stream_columns build it."""
+    f = scene.padded_faces
+    if scene.spack.shape[0] == f:
+        return scene.spack
+    dev = scene.tri_d.device
+    return torch.cat([pack_face_columns(scene), scene.tri_d[:, None],
+                      scene.tri_c,
+                      torch.zeros((f, STREAM_COLS - SC_DC - 4),
+                                  dtype=torch.float32, device=dev)], dim=1)
+
+
+def _super_aabbs(scene: SceneData, n_super: int):
+    """Cluster AABBs with padding turned into empty boxes, and their
+    per-superblock unions ((S, 3) each) (JAX _super_aabbs)."""
+    finite = torch.isfinite(scene.blk_lo) & torch.isfinite(scene.blk_hi)
+    blo = torch.where(finite, scene.blk_lo, F32_INF)
+    bhi = torch.where(finite, scene.blk_hi, -F32_INF)
+    slo = blo.reshape(n_super, -1, 3).amin(dim=1)
+    shi = bhi.reshape(n_super, -1, 3).amax(dim=1)
+    return blo, bhi, slo, shi
+
+
+def _stream_sched(scene: SceneData, mask, ox, oy, oz, dx, dy, dz,
+                  tile_r: int, nsub: int, n_super: int, act=None):
+    """Front-to-back schedule of the streamed sweeps (JAX _stream_sched).
+
+    Returns (tlb3 (NB, nsub+1, S) f32, order2 (NB, S) i32, texit (R,)):
+    per-(subtile, superblock word) entry-t lower bounds (+inf where the
+    subtile's word is empty), row nsub the batch minimum; the batch's
+    word order ascending in that minimum (a stable sort, as
+    jnp.argsort); the per-ray root-exit cap, -1 for zero directions."""
+    blo, bhi, slo, shi = _super_aabbs(scene, n_super)
+    omin, omax, dmin, dmax = tile_ray_bounds(ox, oy, oz, dx, dy, dz,
+                                             tile_r, act)
+    a = slo[None, :, :] - omax[:, None, :]  # (T,S,3)
+    b = shi[None, :, :] - omin[:, None, :]
+    _, t0 = slab_interval_entry(a, b, dmin[:, None, :], dmax[:, None, :])
+
+    n_tiles = dx.shape[0] // tile_r
+    m = mask.reshape(n_tiles, n_super)
+    tlb = torch.where(m != 0, t0, F32_INF)
+    g = tlb.reshape(n_tiles // nsub, nsub, n_super)
+    tmin = g.amin(dim=1)
+    tlb3 = torch.cat([g, tmin[:, None, :]], dim=1)
+    order2 = torch.argsort(tmin, dim=1, stable=True).to(torch.int32)
+
+    lo = blo.amin(dim=0)
+    hi = bhi.amax(dim=0)
+    texit = ray_root_exit(lo, hi, ox, oy, oz, dx, dy, dz)
+    live = (dx != 0.0) | (dy != 0.0) | (dz != 0.0)
+    texit = torch.where(live, texit, -1.0)
+    return tlb3.contiguous(), order2.contiguous(), texit
+
+
+def _stream_mask_rows(mask, n_tiles: int, nwords: int, nsub: int):
+    """(NB, nsub+1, nwords) i32: each batch's subtile mask rows and, as
+    row nsub, their union (the data of JAX _stream_mask_spec)."""
+    g = mask.reshape(n_tiles // nsub, nsub, nwords)
+    union = g[:, 0, :]
+    for k in range(1, nsub):
+        union = union | g[:, k, :]
+    return torch.cat([g, union[:, None, :]], dim=1).contiguous()
+
+
+def _stream_inputs(scene: SceneData, mask, nwords: int, ox, oy, oz,
+                   dx, dy, dz, act=None):
+    """(mask3, order2, tlb3, texit) of a streamed sweep over padded
+    rays (R a multiple of STREAM_BATCH tiles)."""
+    n_super = scene.padded_faces // SUPER_F
+    if nwords != n_super:
+        raise ValueError(f"{nwords} mask words per tile for {n_super} "
+                         f"superblocks")
+    mask3 = _stream_mask_rows(mask, dx.shape[0] // TILE_R, nwords,
+                              STREAM_BATCH)
+    tlb3, order2, texit = _stream_sched(scene, mask, ox, oy, oz, dx, dy, dz,
+                                        TILE_R, STREAM_BATCH, n_super, act)
+    return mask3, order2, tlb3, texit
+
+
+def tile_cull_mask(scene: SceneData, ox, oy, oz, dx, dy, dz, tile_r,
+                   act=None):
+    """(tiles, clusters) i32 conservative activity mask — the FLAT scan
+    (interval-arithmetic slab test of every tile's ray cone against every
+    cluster AABB)."""
+    return _cull_mask(scene, *tile_ray_bounds(ox, oy, oz, dx, dy, dz,
+                                              tile_r, act))
+
+
 def _mask_words(scene: SceneData, accel: str, ox, oy, oz, dx, dy, dz,
-                tile_r: int, block_f: int, f: int, act=None):
-    """Packed per-(tile, block) activity words: "brute" sets every bit,
-    "cull" runs the flat interval scan. Both are conservative, so the
-    frame is bit-identical across them."""
+                tile_r: int, block_f: int, f: int, act=None,
+                kernels: KernelSet = KERNELS):
+    """Packed per-(tile, block) activity words (JAX _mask_words):
+    "brute" sets every bit, "cull" runs the flat interval scan, "bvh"
+    the two-level LBVH-cut cull (kernel K5) where the JAX package runs
+    it (the cluster table matches the blocks and hier_cull_fits) and
+    the flat scan elsewhere. All are conservative, so the frame is
+    bit-identical across them."""
     n_tiles = dx.shape[0] // tile_r
     nb = f // block_f
     nwords = -(-nb // 32)
     if accel == "brute":
         return torch.full((n_tiles * nwords,), -1, dtype=torch.int32,
                           device=dx.device), nwords
-    if accel != "cull":
-        raise ValueError(f"accel {accel!r}: the port has brute and cull")
-    mask = tile_cull_mask(scene, ox, oy, oz, dx, dy, dz, tile_r, act)
-    return _pack_mask_bits(_regroup_mask(mask, f, block_f))
+    if accel not in ("cull", "bvh"):
+        raise ValueError(f"unknown accel {accel!r}")
+    bounds = tile_ray_bounds(ox, oy, oz, dx, dy, dz, tile_r, act)
+    if accel == "bvh" and scene.blk_lo.shape[0] == nb and \
+            hier_cull_fits(nb):
+        words = hier_cull_words(scene.blk_lo, scene.blk_hi, *bounds,
+                                nwords=nwords, kernels=kernels)
+        return words.reshape(-1), nwords
+    step = max(1, CULL_CHUNK_PAIRS // max(1, scene.blk_lo.shape[0]))
+    words = [_pack_mask_bits(_regroup_mask(
+        _cull_mask(scene, *(x[t0:t0 + step] for x in bounds)), f,
+        block_f))[0] for t0 in range(0, n_tiles, step)]
+    return torch.cat(words), nwords
 
 
 def _sphere_pack(scene: SceneData, origin: torch.Tensor) -> torch.Tensor:
@@ -314,31 +458,43 @@ def _sphere_pack(scene: SceneData, origin: torch.Tensor) -> torch.Tensor:
 
 def gbuffer(scene: SceneData, origin, dx, dy, dz, *, accel: str = "cull",
             near: float = 0.01, far: float = 100.0, with_nm: bool = False,
-            with_spheres: bool = True, kernels: KernelSet = KERNELS):
+            with_spheres: bool = True, stream: Optional[bool] = None,
+            kernels: KernelSet = KERNELS):
     """Closest-hit G-buffer for shared-origin planar rays dx/dy/dz (R,)
-    (JAX: gbuffer_pallas, VMEM branch). Returns (GBuffer, sph). With
-    with_spheres the scene's spheres are fused into the sweep and sph
-    = (t, id_f32, nx, ny, nz) of the winning sphere per ray; sph is
-    None for a scene without spheres or with with_spheres=False (the
-    path tracer runs sphere_pass_planar per sphere instead). with_nm
-    fills the G-buffer's normal-mapping planes."""
+    (JAX: gbuffer_pallas). Returns (GBuffer, sph). With with_spheres
+    the scene's spheres are fused into the sweep and sph = (t, id_f32,
+    nx, ny, nz) of the winning sphere per ray; sph is None for a scene
+    without spheres, with with_spheres=False (the path tracer runs
+    sphere_pass_planar per sphere instead) and on the streamed branch,
+    which fuses no spheres (the caller runs the per-sphere passes).
+    with_nm fills the G-buffer's normal-mapping planes. stream=None
+    takes the streamed sweep (K9) past STREAM_FACES faces, the
+    all-on-chip one (K1) below."""
     f = scene.padded_faces
-    block_f = _natural_block_f(scene, f)
+    stream, block_f = _stream_setup(scene, stream)
     nrays = dx.shape[0]
-    dx, dy, dz = (_pad1(v, TILE_R) for v in (dx, dy, dz))
+    pad_to = TILE_R * (STREAM_BATCH if stream else 1)
+    dx, dy, dz = (_pad1(v, pad_to) for v in (dx, dy, dz))
 
     oterm = pack_origin_cols(scene, origin)
-    fpack = pack_face_columns(scene)
     o0, o1, o2 = origin[0], origin[1], origin[2]
     mask, nwords = _mask_words(scene, accel, o0, o1, o2, dx, dy, dz,
-                               TILE_R, block_f, f)
-    tlb, order, texit = _vmem_sched(scene, mask, nwords, o0, o1, o2,
-                                    dx, dy, dz, TILE_R, f, block_f)
-    sph_pack = (_sphere_pack(scene, origin) if with_spheres
-                else origin.reshape(3).contiguous())
-    t, face, sph = kernels.closest_hit(
-        tlb, order, dx, dy, dz, texit, fpack, oterm, sph_pack,
-        block_f=block_f, near=near, far=far)
+                               TILE_R, block_f, f, kernels=kernels)
+    if stream:
+        mask3, order2, tlb3, texit = _stream_inputs(
+            scene, mask, nwords, o0, o1, o2, dx, dy, dz)
+        t, face = kernels.stream_closest_hit(
+            mask3, order2, tlb3, dx, dy, dz, texit, _stream_pack(scene),
+            oterm)
+        sph = None
+    else:
+        tlb, order, texit = _vmem_sched(scene, mask, nwords, o0, o1, o2,
+                                        dx, dy, dz, TILE_R, f, block_f)
+        sph_pack = (_sphere_pack(scene, origin) if with_spheres
+                    else origin.reshape(3).contiguous())
+        t, face, sph = kernels.closest_hit(
+            tlb, order, dx, dy, dz, texit, pack_face_columns(scene), oterm,
+            sph_pack, block_f=block_f, near=near, far=far)
     t, face = t[:nrays], face[:nrays]
     if sph is not None:
         sph = tuple(p[:nrays] for p in sph)
@@ -356,23 +512,35 @@ def _plane_consts(scene: SceneData) -> torch.Tensor:
 
 
 def anyhit_rays(scene: SceneData, ox, oy, oz, dx, dy, dz, active, *,
-                accel: str = "cull", act_cull: bool = False,
+                accel: str = "cull", act_cull: Optional[bool] = None,
+                stream: Optional[bool] = None,
                 kernels: KernelSet = KERNELS):
-    """Planar any-hit (JAX: anyhit_pallas, VMEM branch): (R,) bool
-    occlusion for per-ray origins; only `active` rays are tested.
-    act_cull folds `active` into the tile cull mask's ray bounds (the
-    path tracer's last-bounce shadow wavefront, mostly dead lanes); the
-    occlusion is the same either way, the mask and the sweep's work are
-    not."""
+    """Planar any-hit (JAX: anyhit_pallas): (R,) bool occlusion for
+    per-ray origins; only `active` rays are tested. act_cull folds
+    `active` into the tile cull mask's ray bounds (the path tracer's
+    last-bounce shadow wavefront, mostly dead lanes); None folds it on
+    the streamed branch only, as JAX's default. The occlusion is the
+    same either way, the mask and the sweep's work are not. stream as
+    for gbuffer (K11 streamed, K3 all on chip)."""
     f = scene.padded_faces
-    block_f = _natural_block_f(scene, f)
+    stream, block_f = _stream_setup(scene, stream)
+    if act_cull is None:
+        act_cull = stream
     nrays = dx.shape[0]
-    args = [_pad1(a, TILE_R) for a in (dx, dy, dz, ox, oy, oz)]
-    act = _pad1(active.to(torch.float32), TILE_R)
+    pad_to = TILE_R * (STREAM_BATCH if stream else 1)
+    args = [_pad1(a, pad_to) for a in (dx, dy, dz, ox, oy, oz)]
+    act = _pad1(active.to(torch.float32), pad_to)
     dxp, dyp, dzp, oxp, oyp, ozp = args
     mask, nwords = _mask_words(scene, accel, oxp, oyp, ozp,
                                dxp, dyp, dzp, TILE_R, block_f, f,
-                               act=(act > 0) if act_cull else None)
+                               act=(act > 0) if act_cull else None,
+                               kernels=kernels)
+    if stream:
+        mask3, order2, tlb3, texit = _stream_inputs(
+            scene, mask, nwords, oxp, oyp, ozp, dxp, dyp, dzp, act=act > 0)
+        occ = kernels.stream_anyhit(mask3, order2, tlb3, *args, act, texit,
+                                    _stream_pack(scene))
+        return occ[:nrays] > 0.0
     fpack = pack_face_columns(scene)
     dc = _plane_consts(scene)
     tlb, order, texit = _vmem_sched(scene, mask, nwords,
@@ -384,26 +552,42 @@ def anyhit_rays(scene: SceneData, ox, oy, oz, dx, dy, dz, active, *,
 
 
 def gbuffer_perray(scene: SceneData, ox, oy, oz, dx, dy, dz, *,
-                   accel: str = "cull",
+                   accel: str = "cull", stream: Optional[bool] = None,
                    kernels: KernelSet = KERNELS) -> GBuffer:
     """Closest-hit G-buffer for per-ray-origin planar rays (JAX:
-    gbuffer_perray_pallas, VMEM branch): the closest-hit kernel K7 over
-    the flat cull mask and its front-to-back schedule, then the
-    G-buffer expanded with per-ray origin terms. Terminated paths carry
-    zero directions; they cannot hit."""
+    gbuffer_perray_pallas): the closest-hit kernel over the cull mask
+    and its front-to-back schedule, then the G-buffer expanded with
+    per-ray origin terms. Terminated paths carry zero directions; they
+    cannot hit. stream as for gbuffer: the streamed branch (K10) keeps
+    zero-direction rays out of the tile bounds and first clears the
+    words no live ray's forward line meets (perray_super_any); the
+    all-on-chip branch runs K7."""
     f = scene.padded_faces
-    block_f = _natural_block_f(scene, f)
+    stream, block_f = _stream_setup(scene, stream)
     nrays = dx.shape[0]
-    planes = [_pad1(a, TILE_R) for a in (dx, dy, dz, ox, oy, oz)]
+    pad_to = TILE_R * (STREAM_BATCH if stream else 1)
+    planes = [_pad1(a, pad_to) for a in (dx, dy, dz, ox, oy, oz)]
     dxp, dyp, dzp, oxp, oyp, ozp = planes
+    live = ((dxp != 0.0) | (dyp != 0.0) | (dzp != 0.0)) if stream else None
     mask, nwords = _mask_words(scene, accel, oxp, oyp, ozp,
-                               dxp, dyp, dzp, TILE_R, block_f, f)
-    tlb, order, texit = _vmem_sched(scene, mask, nwords,
-                                    oxp, oyp, ozp, dxp, dyp, dzp,
-                                    TILE_R, f, block_f)
-    t, face = kernels.closest_hit_perray(
-        tlb, order, *planes, texit, pack_face_columns(scene),
-        _plane_consts(scene), block_f=block_f)
+                               dxp, dyp, dzp, TILE_R, block_f, f,
+                               act=live, kernels=kernels)
+    if stream:
+        _, _, slo, shi = _super_aabbs(scene, f // SUPER_F)
+        sup_ok = perray_super_any(slo, shi, oxp, oyp, ozp, dxp, dyp, dzp,
+                                  TILE_R, act=live)
+        mask = torch.where(sup_ok.reshape(-1), mask, 0)
+        mask3, order2, tlb3, texit = _stream_inputs(
+            scene, mask, nwords, oxp, oyp, ozp, dxp, dyp, dzp, act=live)
+        t, face = kernels.stream_closest_hit_perray(
+            mask3, order2, tlb3, *planes, texit, _stream_pack(scene))
+    else:
+        tlb, order, texit = _vmem_sched(scene, mask, nwords,
+                                        oxp, oyp, ozp, dxp, dyp, dzp,
+                                        TILE_R, f, block_f)
+        t, face = kernels.closest_hit_perray(
+            tlb, order, *planes, texit, pack_face_columns(scene),
+            _plane_consts(scene), block_f=block_f)
     return expand_tf_gbuffer(scene, t[:nrays], face[:nrays], dx, dy, dz,
                              oxyz=(ox, oy, oz))
 
@@ -422,9 +606,33 @@ def extend_shadow_rays(scene: SceneData, ox, oy, oz, dx, dy, dz,
     far away with zero directions; inactive shadow rays are act-gated
     in the kernel), so one parked ray cannot open its tile's bounds to
     the whole scene. The kernel walks the union of the two masks and
-    gates each half by its own bit."""
+    gates each half by its own bit.
+
+    Past STREAM_FACES (JAX's fallback of extend_shadow_pallas) the whole
+    wavefront is first sorted by origin Morton code and direction octant
+    (_bounce_sort_perm), the two ray sets take the streamed closest hit
+    (K10) and any-hit (K11) on the permuted planes, and one scatter puts
+    the results back in ray order: sorted tiles have cones the interval
+    cull can bound, where tiles of hemisphere samples admit every
+    cluster."""
     f = scene.padded_faces
     block_f = _natural_block_f(scene, f)
+    if _should_stream(f, block_f):
+        perm = _bounce_sort_perm(scene, ox, oy, oz, dx, dy, dz)
+        pv = _permute_planes([ox, oy, oz, dx, dy, dz, sox, soy, soz,
+                              sdx, sdy, sdz, active.to(torch.float32)], perm)
+        gb = gbuffer_perray(scene, *pv[0:6], accel=accel, kernels=kernels)
+        occ = anyhit_rays(scene, *pv[6:12], pv[12] > 0.0, accel=accel,
+                          kernels=kernels)
+        # one scatter back; face ids ride as f32 values (exact < 2^24)
+        back = _unpermute_planes(torch.stack(
+            [gb.t, gb.face.to(torch.float32), gb.u, gb.v, gb.nd, gb.uvx,
+             gb.uvy, gb.nx, gb.ny, gb.nz, gb.mat, occ.to(torch.float32)]),
+            perm)
+        gb = GBuffer(t=back[0], face=back[1].to(torch.int32), u=back[2],
+                     v=back[3], nd=back[4], uvx=back[5], uvy=back[6],
+                     nx=back[7], ny=back[8], nz=back[9], mat=back[10])
+        return gb, back[11] > 0.0
     nrays = dx.shape[0]
     planes = [_pad1(a, TILE_R) for a in (dx, dy, dz, ox, oy, oz,
                                          sdx, sdy, sdz, sox, soy, soz)]
@@ -433,15 +641,88 @@ def extend_shadow_rays(scene: SceneData, ox, oy, oz, dx, dy, dz,
      sdxp, sdyp, sdzp, soxp, soyp, sozp) = planes
     actb = act > 0
     words_a, _ = _mask_words(scene, accel, oxp, oyp, ozp, dxp, dyp, dzp,
-                             TILE_R, block_f, f, act=actb)
+                             TILE_R, block_f, f, act=actb, kernels=kernels)
     words_b, _ = _mask_words(scene, accel, soxp, soyp, sozp,
-                             sdxp, sdyp, sdzp, TILE_R, block_f, f, act=actb)
+                             sdxp, sdyp, sdzp, TILE_R, block_f, f, act=actb,
+                             kernels=kernels)
     t, face, occ = kernels.extend_shadow(
         words_a, words_b, *planes, act, pack_face_columns(scene),
         _plane_consts(scene), block_f=block_f)
     gb = expand_tf_gbuffer(scene, t[:nrays], face[:nrays], dx, dy, dz,
                            oxyz=(ox, oy, oz))
     return gb, occ[:nrays] > 0.0
+
+
+def _expand_bits(v):
+    """Spread the low 10 bits of v (int64 holding u32 values) to every
+    third bit (JAX _expand_bits_jnp; every mask is below 2^32, so the
+    u32 wrap-around never shows)."""
+    v = (v * 0x00010001) & 0xFF0000FF
+    v = (v * 0x00000101) & 0x0F00F00F
+    v = (v * 0x00000011) & 0xC30C30C3
+    v = (v * 0x00000005) & 0x49249249
+    return v
+
+
+def _origin_morton(scene: SceneData, ox, oy, oz):
+    """30-bit Morton codes (int64) of per-ray origins in the scene's
+    finite cluster-AABB extent (JAX _origin_morton); out-of-scene
+    sentinels clip to the last cell. The extent divides as a tensor, as
+    XLA divides by a traced value."""
+    finite = torch.isfinite(scene.blk_lo) & torch.isfinite(scene.blk_hi)
+    lo = torch.where(finite, scene.blk_lo, F32_INF).amin(dim=0)
+    hi = torch.where(finite, scene.blk_hi, -F32_INF).amax(dim=0)
+    ext = torch.clamp_min(hi - lo, _f32(1e-12))
+
+    def q(p, a):
+        return ((p - lo[a]) / ext[a] * 1023.0).clamp(0.0, 1023.0).to(
+            torch.int64)
+
+    return ((_expand_bits(q(ox, 0)) << 2) | (_expand_bits(q(oy, 1)) << 1)
+            | _expand_bits(q(oz, 2)))
+
+
+def _permute_planes(planes, perm):
+    """One permutation applied to many (R,) planes by one gather."""
+    return torch.stack(planes).index_select(1, perm)
+
+
+def _unpermute_planes(stacked, perm):
+    """Inverse of _permute_planes: one scatter back to ray order."""
+    out = torch.zeros_like(stacked)
+    out[:, perm] = stacked
+    return out
+
+
+def _bounce_sort_perm(scene: SceneData, ox, oy, oz, dx, dy, dz):
+    """(R,) permutation re-tiling a bounce wavefront for the interval
+    cull (JAX _bounce_sort_perm): the origin Morton code without its
+    lowest bit, with the direction sign octant spliced in at bit 14 —
+    a 32-bit key (a 33-bit one would alias scene halves in JAX's u32).
+    Stable, as jnp.argsort."""
+    m = _origin_morton(scene, ox, oy, oz) >> 1
+    octant = (((dx < 0.0).to(torch.int64) << 2)
+              | ((dy < 0.0).to(torch.int64) << 1)
+              | (dz < 0.0).to(torch.int64))
+    key = ((m >> 14) << 17) | (octant << 14) | (m & 0x3FFF)
+    return torch.argsort(key, stable=True)
+
+
+def anyhit_reordered(scene: SceneData, ox, oy, oz, dx, dy, dz, active, *,
+                     accel: str = "cull", kernels: KernelSet = KERNELS):
+    """anyhit_rays on the wavefront sorted by origin Morton code, the
+    results scattered back (JAX anyhit_reordered_pallas): shadow rays
+    of a screen tile start on surfaces spread in depth, and sorting
+    them by origin gives tiles thin enough for the cull. Parked rays
+    clip to the last cell and group together. Same per-ray results."""
+    perm = torch.argsort(_origin_morton(scene, ox, oy, oz), stable=True)
+    pv = _permute_planes([ox, oy, oz, dx, dy, dz,
+                          active.to(torch.float32)], perm)
+    occ = anyhit_rays(scene, *pv[0:6], pv[6] > 0.0, accel=accel,
+                      kernels=kernels)
+    out = torch.zeros_like(active)
+    out[perm] = occ
+    return out
 
 
 def _ray_matrix(uni: CameraUniforms):
@@ -709,8 +990,9 @@ def winner_occlusion(scene: SceneData, origin, dx, dy, dz, relevant, w_t,
     frames): a shadow ray from each relevant pixel's winning hit point,
     offset 1e-3 along its normal, toward its light; the other rays are
     parked (far origin, zero direction) so the tile cull drops them.
-    Returns (R,) bool: occluded by the mesh (the any-hit kernel) or by a
-    sphere."""
+    Returns (R,) bool: occluded by the mesh (the any-hit kernel; past
+    STREAM_FACES on the Morton-sorted wavefront, anyhit_reordered, as
+    JAX) or by a sphere."""
     ll = sqrt(w_lx * w_lx + w_ly * w_ly + w_lz * w_lz)
     ll = torch.where(ll > 0, ll, 1.0)
     park = 1e9
@@ -724,25 +1006,24 @@ def winner_occlusion(scene: SceneData, origin, dx, dy, dz, relevant, w_t,
     occ = torch.zeros(relevant.shape, dtype=torch.bool,
                       device=relevant.device)
     if scene.num_faces > 0:
-        occ = anyhit_rays(scene, px, py, pz, sdx, sdy, sdz, relevant,
-                          accel=accel, kernels=kernels)
+        ah = (anyhit_reordered
+              if _should_stream(scene.padded_faces, BLOCK_F)
+              else anyhit_rays)
+        occ = ah(scene, px, py, pz, sdx, sdy, sdz, relevant, accel=accel,
+                 kernels=kernels)
     return occ | _spheres_occlude_planar(scene, px, py, pz, sdx, sdy, sdz)
 
 
 def check_supported(scene: SceneData, *, accel: str = "cull",
                     mip: bool = False) -> None:
     """Raise NotImplementedError for what this port does not render yet
-    (never silently render something else)."""
+    (never silently render something else), ValueError for an unknown
+    accel."""
+    del scene  # every mesh size renders
     if mip:
         raise NotImplementedError(f"mip sampling is {_ROADMAP}")
-    if accel == "bvh":
-        raise NotImplementedError(f'accel="bvh" is {_ROADMAP}')
-    if accel not in ("brute", "cull"):
+    if accel not in ("brute", "cull", "bvh"):
         raise ValueError(f"unknown accel {accel!r}")
-    if scene.padded_faces > STREAM_FACES:
-        raise NotImplementedError(
-            f"meshes above STREAM_FACES={STREAM_FACES} faces (the "
-            f"streaming kernels K9-K11) are {_ROADMAP}")
 
 
 def fused_eligible(scene: SceneData, *, shadows: bool,

@@ -1,7 +1,7 @@
 """Path tracing with progressive accumulation (BASELINE config 4).
 
-Counterpart of the JAX package's ops/pathtrace.py on scenes of at most
-STREAM_FACES faces, function for function: diffuse global illumination
+Counterpart of the JAX package's ops/pathtrace.py, function for
+function: diffuse global illumination
 with next-event estimation toward each surface's directional light,
 cosine-weighted bounces, one jittered path per pixel and sample.
 
@@ -13,6 +13,11 @@ cosine-weighted bounces, one jittered path per pixel and sample.
   shadow rays, and the last bounce's shadow rays go to the any-hit
   kernel (K3, act-aware mask). Albedo is the texture filter kernel
   (K6). Terminated paths carry zero directions and far origins.
+- Meshes above STREAM_FACES take the streamed sweeps, as in JAX: the
+  primary pass K9, each bounce but the last the reordered pair of K10
+  (extension rays) and K11 (shadow rays) in extend_shadow_rays'
+  fallback, the last bounce's shadow rays anyhit_reordered (K11); and
+  compact_cap="auto" does not compact there.
 - Randomness replicates jax.random bit for bit (partitionable
   threefry-2x32, as JAX 0.9 runs it): keys are two u32 words held as
   Python ints on the host (PRNGKey, fold_in, split cost no device
@@ -35,8 +40,7 @@ them (rounding.ftz). cos and sin are torch's, within 1 ulp of XLA's
 package's.
 
 Not ported: row slabs (row0/total_height) and the gp hooks
-(chp_fn/es_fn/ah_fn) of the JAX function, and scenes above
-STREAM_FACES (check_supported raises; ROADMAP.md, K9-K11).
+(chp_fn/es_fn/ah_fn) of the JAX function (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -50,11 +54,11 @@ from ..core.camera import CameraUniforms
 from ..core.scene import SceneData
 from .kernels import KERNELS, KernelSet
 from .kernels.common import TILE_R
-from .megakernel import (GBuffer, _directions, _f32, _mat_const,
-                         _pick_tile_shape, _ray_matrix,
-                         _spheres_occlude_planar, anyhit_rays,
-                         check_supported, extend_shadow_rays, gbuffer,
-                         ndc_planes, sample_packed_texture,
+from .megakernel import (BLOCK_F, GBuffer, _directions, _f32, _mat_const,
+                         _pick_tile_shape, _ray_matrix, _should_stream,
+                         _spheres_occlude_planar, anyhit_reordered,
+                         anyhit_rays, check_supported, extend_shadow_rays,
+                         gbuffer, ndc_planes, sample_packed_texture,
                          sphere_pass_planar, tiled_to_image)
 from .rounding import ftz, sqrt
 
@@ -327,6 +331,10 @@ def _bounce_loop(scene: SceneData, gb, sph, ox, oy, oz, dx, dy, dz, active,
             gb_next, occ = extend_shadow_rays(
                 scene, nox, noy, noz, ndx, ndy, ndz, px, py, pz,
                 sdx, sdy, sdz, hit, kernels=kernels)
+        elif has_mesh and _should_stream(scene.padded_faces, BLOCK_F):
+            # streamed: the Morton-sorted wavefront (act-aware there)
+            occ = anyhit_reordered(scene, px, py, pz, sdx, sdy, sdz, hit,
+                                   kernels=kernels)
         elif has_mesh:
             # the last shadow wavefront is mostly dead lanes: fold the
             # activity into the cull mask (act_cull)
@@ -368,9 +376,9 @@ def render_pathtrace(scene: SceneData, uni_flat, key, *, width: int,
 
     compact_cap: None runs the bounce loop on every lane; "auto"
     compacts the post-primary hit wavefront when the frame holds at
-    least 8 tiles of 1024 rays and at most r // 8 lanes' worth of tiles
-    are live (the JAX package's choice); an int is an explicit capacity
-    in lanes. The frame is the same bits either way. The sweeps always
+    least 8 tiles of 1024 rays, at most r // 8 lanes' worth of tiles
+    are live and the mesh is not streamed (the JAX package's choice);
+    an int is an explicit capacity in lanes. The frame is the same bits either way. The sweeps always
     take the flat cull mask, as in the JAX package. `kernels` picks the
     kernel implementations (PLAIN composes the frame from the plain
     PyTorch versions)."""
@@ -387,8 +395,9 @@ def render_pathtrace(scene: SceneData, uni_flat, key, *, width: int,
     tr = TILE_R
 
     if compact_cap == "auto":
-        compact_cap = (r // 8) if (has_mesh and r % tr == 0
-                                   and r >= 8 * tr) else None
+        streamed = has_mesh and _should_stream(scene.padded_faces, BLOCK_F)
+        compact_cap = (r // 8) if (has_mesh and not streamed
+                                   and r % tr == 0 and r >= 8 * tr) else None
     loop_kw = dict(bounces=bounces, bg=bg, has_mesh=has_mesh, kernels=kernels)
 
     acc = [torch.zeros(r, dtype=torch.float32, device=device)

@@ -1,9 +1,13 @@
 """Tile-cone culling math shared by the cull mask and the visit schedule.
 
 Counterpart of the JAX package's ops/traverse.py (slab tests, root
-exit, per-tile ray bounds). Every expression keeps the JAX operation
-order, so the masks and schedules are bit-identical to the JAX ones.
-The LBVH walk (accel="bvh") is not ported yet; see ROADMAP.md.
+exit, per-tile ray bounds, the per-ray superblock admission of the
+streamed bounce sweep). Every expression keeps the JAX operation order,
+so the masks and schedules are bit-identical to the JAX ones.
+accel="bvh" renders through the two-level LBVH cut (ops/hier_cull.py,
+the JAX package's traverse_pallas); the skip-pointer walk
+bvh_walk_mask_words, which no JAX render path runs, is not ported (see
+ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -11,6 +15,8 @@ from __future__ import annotations
 import torch
 
 F32_INF = float("inf")
+# (ray, superblock) pairs per step of perray_super_any
+SUPER_ANY_PAIRS = 1 << 24
 
 
 def slab_interval_ok(a, b, dn, dp):
@@ -111,3 +117,51 @@ def tile_ray_bounds(ox, oy, oz, dx, dy, dz, tile_r, act=None):
     dmin = torch.stack([dxm, dym, dzm], dim=1)
     dmax = torch.stack([dxM, dyM, dzM], dim=1)
     return omin, omax, dmin, dmax
+
+
+def perray_super_any(slo, shi, ox, oy, oz, dx, dy, dz, tile_r: int,
+                     act=None):
+    """(T, S) bool exact per-ray union superblock admission (JAX
+    ops/traverse.py perray_super_any): tile t admits superblock s iff
+    some live ray of the tile has a forward line (t >= 0) that meets
+    s's AABB (slo/shi (S, 3)). Margins as JAX's: the exit inflated and
+    the entry deflated by ~100 ulps relative, sign-aware. Zero-direction
+    rays with their origin outside a slab self-cull; padding lanes need
+    `act`.
+
+    Each (ray, superblock) pair is independent, so the chunking (over
+    superblocks, at most SUPER_ANY_PAIRS pairs per step; JAX takes 64
+    superblocks) only bounds the temporaries: at 1080p x 511 superblocks
+    a 64-wide chunk would hold ~0.5 GB per temporary."""
+    r = dx.shape[0]
+    n_tiles = r // tile_r
+    s = slo.shape[0]
+    chunk = max(1, min(64, SUPER_ANY_PAIRS // max(r, 1)))
+    cols = []
+    for c0 in range(0, s, chunk):
+        c1 = min(s, c0 + chunk)
+        lo = slo[c0:c1]
+        hi = shi[c0:c1]
+        tn = torch.zeros((r, c1 - c0), dtype=torch.float32, device=dx.device)
+        tf = torch.full((r, c1 - c0), F32_INF, dtype=torch.float32,
+                        device=dx.device)
+        for a, (o, d) in enumerate(((ox, dx), (oy, dy), (oz, dz))):
+            o_ = o[:, None]
+            d_ = d[:, None]
+            d_safe = torch.where(d_ == 0.0, 1.0, d_)
+            ta = (lo[None, :, a] - o_) / d_safe
+            tb = (hi[None, :, a] - o_) / d_safe
+            na = torch.minimum(ta, tb)
+            fa = torch.maximum(ta, tb)
+            inside = (o_ >= lo[None, :, a]) & (o_ <= hi[None, :, a])
+            na = torch.where(d_ == 0.0,
+                             torch.where(inside, 0.0, F32_INF), na)
+            fa = torch.where(d_ == 0.0,
+                             torch.where(inside, F32_INF, -F32_INF), fa)
+            tn = torch.maximum(tn, na)
+            tf = torch.minimum(tf, fa)
+        ok = (tf + tf.abs() * 1e-5 + 1e-6) >= (tn * (1.0 - 1e-5) - 1e-6)
+        if act is not None:
+            ok = ok & act[:, None]
+        cols.append(ok.reshape(n_tiles, tile_r, c1 - c0).any(dim=1))
+    return torch.cat(cols, dim=1)

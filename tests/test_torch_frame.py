@@ -6,8 +6,9 @@ render_megakernel(fused=False, interpret=True) and its oracle
 render_oracle, at the frame bar of tests/test_goldens.py: at most 1
 linear u8 level, at least 99.9% of subpixels exact. The JAX side runs
 in this process as its own tests run it (XLA may contract float ops
-here, so the bar, not bit equality, is the contract). Inside the port
-every accel renders the same frame bit for bit.
+here, so the bar, not bit equality, is the contract; the streamed
+frames are held bitwise in tests/test_torch_hiercull.py). Inside the
+port every accel renders the same frame bit for bit.
 """
 
 import os
@@ -65,7 +66,7 @@ def port_frame(cfg, accel=None):
     return color, depth
 
 
-@pytest.mark.parametrize("accel", ["brute", "cull"])
+@pytest.mark.parametrize("accel", ["brute", "cull", "bvh"])
 @pytest.mark.parametrize("shadows", [False, True])
 @pytest.mark.parametrize("w,h", [(64, 64), (96, 64)])
 def test_frame_matches_jax(w, h, shadows, accel):
@@ -164,28 +165,39 @@ def test_present_and_save_png(tmp_path):
     # the fused frame is ported; with mip it raises ValueError, the
     # variant check coming before the unported mip's NotImplementedError
     (dict(variant="fused", mip=True), ValueError),
-    (dict(accel="bvh"), NotImplementedError),
     (dict(mip=True), NotImplementedError),
-    # path tracing is ported on meshes the chip holds; the streamed
-    # kernels K9-K11 are not
-    (dict(pt_bounces=1, obj_path="builtin:terrain:92"),
-     NotImplementedError),
+    (dict(accel="octree"), ValueError),
     (dict(variant="bogus"), ValueError),
 ])
 def test_unported_options_raise(change, exc):
     import dataclasses as dc
 
     cfg = port_config(terrain_config(jcfg, width=32, height=32))
-    change = dict(change)
-    obj = change.pop("obj_path", None)
-    if obj is not None:
-        cfg = dc.replace(cfg, meshes=(dc.replace(cfg.meshes[0],
-                                                 obj_path=obj),))
     cfg = dc.replace(cfg, render=dc.replace(cfg.render, **change))
-    with pytest.raises(exc) as raised:
+    with pytest.raises(exc):
         Renderer(cfg, device="cpu")
-    if obj is not None:
-        assert "K9-K11" in str(raised.value)
+
+
+@pytest.mark.parametrize("accel", ["cull", "bvh"])
+def test_streamed_renderer_matches_jax(accel):
+    """A mesh above STREAM_FACES (terrain:92, 16,562 faces) through the
+    Renderer: variant "auto" takes the split frame with the streamed
+    sweeps, under either cull, at the frame bar of the JAX frame."""
+    import dataclasses as dc
+
+    jc = terrain_config(jcfg, grid=92, width=64, height=64, accel=accel)
+    r = Renderer(port_config(jc), device="cpu")
+    assert r.variant_chosen == "split"
+    color, _ = r.render(block=True)
+    data = JScene.build(jc).data
+    uni = jnp.asarray(JCamera.from_config(jc.camera, 1.0).uniforms().flat())
+    mk, _ = jax_render(data, uni, width=64, height=64, shadows=True,
+                       interpret=True, fused=False, accel=accel)
+    assert_frame_bar(color, np.asarray(mk))
+    fused = dc.replace(r.config, render=dc.replace(r.config.render,
+                                                   variant="fused"))
+    with pytest.raises(ValueError, match="STREAM_FACES"):
+        Renderer(fused, device="cpu")
 
 
 def test_unported_scenes_raise():
@@ -199,10 +211,6 @@ def test_unported_scenes_raise():
                     render=dc.replace(cfg.render, mip=True))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Renderer(nm, device="cpu")
-    big = dc.replace(cfg, meshes=(dc.replace(cfg.meshes[0],
-                                             obj_path="builtin:terrain:92"),))
-    with pytest.raises(NotImplementedError, match="STREAM_FACES"):
-        Renderer(big, device="cpu")
     with pytest.raises(NotImplementedError):
         Renderer(cfg, backend="oracle", device="cpu")
 

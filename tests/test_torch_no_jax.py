@@ -44,6 +44,12 @@ for _ in range(3):
     color, _ = r.render(block=True)
 assert r.spp_done == 2 and bool(np.isfinite(color.numpy()).all())
 assert float(color.sum()) > 0
+big = dc.replace(cfg, meshes=(dc.replace(cfg.meshes[0],
+                                         obj_path="builtin:terrain:92"),),
+                 render=dc.replace(cfg.render, accel="bvh"))
+rb = pt.Renderer(big, device="cpu")
+color, depth = rb.render(block=True)
+assert rb.data.padded_faces > 16384 and bool((depth < 1).any())
 assert not [m for m, mod in sys.modules.items() if mod is not None and (
     m == "jax" or m.startswith("jax.") or m.startswith("jaxlib")
     or m.split(".")[0] == "rust_wgpu_raytracing_tpu")]
@@ -68,6 +74,10 @@ def test_no_port_file_imports_jax():
         re.MULTILINE)
     files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 20
+    # the modules of the streamed path and of accel="bvh" are covered
+    for mod in ("ops/hier_cull.py", "ops/kernels/hier_cull.py",
+                "ops/kernels/stream_sweep.py", "ops/traverse.py"):
+        assert PORT / mod in files, mod
     offenders = [str(f.relative_to(REPO)) for f in files
                  if pattern.search(f.read_text())]
     assert offenders == []

@@ -241,9 +241,83 @@ def test_renderer_unbounded_accumulation():
         assert bool(torch.isfinite(color).all())
 
 
-def test_pathtrace_refuses_streamed_scenes():
-    cfg = renderer_config()
-    big = dc.replace(cfg, meshes=(dc.replace(cfg.meshes[0],
-                                             obj_path="builtin:terrain:92"),))
-    with pytest.raises(NotImplementedError, match="K9-K11"):
-        Renderer(big, device="cpu")
+# the streamed path tracer: terrain:92 (past STREAM_FACES) under the
+# close camera of the JAX package's streamed PT benchmark (config 8)
+STREAM_CASES = {"stream_b0": 0, "stream_b2": 2}
+STREAM_W = 64
+
+
+def stream_config():
+    cfg = terrain_config(pcfg, grid=92, width=STREAM_W, height=STREAM_W,
+                         shadows=False)
+    return dc.replace(cfg, camera=pcfg.CameraConfig(
+        eye=(0.0, -0.4, -1.2), target=(0.0, 0.0, -3.0)))
+
+
+def jax_stream_pathtrace(out, name):
+    import jax
+
+    from rust_wgpu_raytracing_tpu.core.camera import Camera as JCamera
+    from rust_wgpu_raytracing_tpu.core.scene import Scene as JScene
+    from rust_wgpu_raytracing_tpu.ops.pathtrace import render_pathtrace
+
+    cfg = jax_config(stream_config())
+    data = JScene.build(cfg).data
+    uni = JCamera.from_config(cfg.camera, 1.0).uniforms().flat()
+    np.savez(out, sample=np.asarray(render_pathtrace(
+        data, uni, jax.random.PRNGKey(SEED), width=STREAM_W,
+        height=STREAM_W, bounces=STREAM_CASES[name], spp=1, background=BG,
+        interpret=True, compact_cap="auto")))
+
+
+@pytest.mark.parametrize("name", sorted(STREAM_CASES))
+def test_streamed_pathtrace_matches_jax(tmp_path, name):
+    """The path tracer past STREAM_FACES (K9 primary, the reordered K10 +
+    K11 bounces, K11 last-bounce shadows): bitwise without bounces,
+    within the trig gap with them. compact_cap="auto" does not compact
+    a streamed mesh, in either package."""
+    cfg = stream_config()
+    data = Scene.build(cfg).data
+    uni = Camera.from_config(cfg.camera, 1.0).uniforms().flat()
+    compacted = P.render_pathtrace.compacted
+    calls = {}
+
+    def counted(fn):
+        def call(*a, **kw):
+            calls[fn.__name__] = calls.get(fn.__name__, 0) + 1
+            return fn(*a, **kw)
+        return call
+    ks = K.KernelSet(*(counted(p) for p in K.PLAIN))
+    got = P.render_pathtrace(
+        data, uni, P.PRNGKey(SEED), width=STREAM_W, height=STREAM_W,
+        bounces=STREAM_CASES[name], spp=1, background=BG,
+        compact_cap="auto", kernels=ks)
+    assert P.render_pathtrace.compacted == compacted
+    want = jax_reference("test_torch_pathtrace", "jax_stream_pathtrace",
+                         tmp_path, name=name)["sample"]
+    assert want.max() > 0.05
+    bounces = STREAM_CASES[name]
+    assert calls["stream_closest_hit_plain"] == 1
+    assert calls.get("stream_closest_hit_perray_plain", 0) == bounces
+    assert calls["stream_anyhit_plain"] == bounces + 1
+    assert not {"closest_hit_plain", "extend_shadow_plain", "anyhit_plain",
+                "closest_hit_perray_plain"} & set(calls)
+    if bounces == 0:
+        np.testing.assert_array_equal(got.numpy().view(np.int32),
+                                      want.view(np.int32))
+    else:
+        assert_within_trig_gap(got, want)
+
+
+def test_renderer_path_traces_streamed_scenes():
+    """Renderer(pt_bounces > 0) on a mesh above STREAM_FACES accumulates
+    like any other (no refusal)."""
+    cfg = stream_config()
+    cfg = dc.replace(cfg, render=dc.replace(cfg.render, pt_bounces=1,
+                                            pt_spp=2, width=32, height=32))
+    r = Renderer(cfg, device="cpu")
+    assert r.data.padded_faces > 16384
+    for _ in range(3):
+        color, _ = r.render()
+    assert r.spp_done == 2 and r.pt_converged
+    assert bool(torch.isfinite(color).all()) and float(color.sum()) > 0

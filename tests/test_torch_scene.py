@@ -22,6 +22,8 @@ CONFIGS = {
     "cube_spheres": lambda: cube_config(jcfg),
     "terrain23_spheres": lambda: terrain_config(jcfg, grid=23),
     "terrain91": lambda: terrain_config(jcfg, grid=91, spheres=False),
+    # past STREAM_FACES: the streaming record spack is built too
+    "terrain92_spheres": lambda: terrain_config(jcfg, grid=92),
     "spheres_only": lambda: jcfg.SceneConfig(
         spheres=jcfg.reference_scene().spheres),
 }
@@ -71,6 +73,31 @@ def test_scene_data_from_numpy_carries_jax_scene():
     carried = scene_data_from_numpy(fields, num_faces=jd.num_faces,
                                     num_spheres=jd.num_spheres)
     assert_same_scene(carried, jd)
+
+
+def test_streamed_jax_scene_carried_renders_the_port_frame():
+    """A JAX scene above STREAM_FACES carried across (spack included)
+    renders the frame of the port's own Scene.build, bit for bit."""
+    from rust_wgpu_raytracing_tpu_torch.core.camera import Camera
+    from rust_wgpu_raytracing_tpu_torch.ops.megakernel import \
+        render_megakernel
+
+    cfg = terrain_config(jcfg, grid=92, width=48, height=32)
+    jd = JScene.build(cfg).data
+    assert jd.spack.shape == (jd.padded_faces, 128)
+    fields = {f.name: np.asarray(getattr(jd, f.name))
+              for f in dataclasses.fields(jd)
+              if not f.metadata.get("static")}
+    carried = scene_data_from_numpy(fields, num_faces=jd.num_faces,
+                                    num_spheres=jd.num_spheres)
+    own = Scene.build(port_config(cfg)).data
+    uni = Camera.from_config(port_config(cfg).camera,
+                             48 / 32).uniforms().flat()
+    frames = [render_megakernel(d, uni, width=48, height=32, shadows=True)
+              for d in (carried, own)]
+    assert torch.equal(frames[0][0], frames[1][0])
+    assert torch.equal(frames[0][1], frames[1][1])
+    assert bool((frames[0][1] < 1).any())
 
 
 def test_scene_data_from_numpy_roundtrip():
