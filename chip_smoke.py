@@ -12,7 +12,9 @@ program on its own, and checks them:
    CUDA versions, nvcc, whether triton imports;
 2. build: the CUDA kernels from rust_wgpu_raytracing_tpu_torch/csrc
    (one nvcc per source, in parallel, linked into one shared library in
-   the git-ignored build/kernels/);
+   the git-ignored build/kernels/); ptxas's registers and spills, and
+   the per-ray culled walks' (K8, K10) registers, shared memory and
+   blocks an SM;
 3. each kernel against its plain PyTorch version on the card, on the
    very arguments the 1080p frames give it: closest hit, texshade and
    any-hit from the split frame, the frame kernel (sched branch) from
@@ -41,9 +43,13 @@ program on its own, and checks them:
 5. the progressive path tracer (BASELINE config 4's path at the
    heightfield: 4 bounces, 1920x1080): the per-ray closest hit (K7) and
    the fused extend+shadow sweep (K8) against their plain versions on
-   the bounce-1 wavefront of a traced sample, the any-hit kernel on the
-   last bounce's act-aware arguments, K8 against K7 + K3 on the same
-   rays (t, face, occ equal), one sample through the kernels against
+   the bounce-1 wavefront of a traced sample (K8 also without its
+   boxes), the any-hit kernel on the last bounce's act-aware arguments,
+   K8 against K7 + K3 on the same rays (t, face, occ equal), K8's
+   admitted and entered (ray, block) pairs, K8 and K10 against their
+   plain versions on the seeded adversarial set (raycull.write_grid_mesh
+   x raycull.adversarial_rays, with and without boxes), one sample
+   through the kernels against
    the same sample composed from the plain versions (bitwise), the
    compacted bounce loop (run with room for every live tile) and
    compact_cap='auto' (the branch it took printed) against the full
@@ -75,9 +81,12 @@ program on its own, and checks them:
    versions; the kernel-run frame (cull, bvh) against the plain-composed
    one on builtin:terrain:128 at 640x360; the 540p 3-bounce path tracer
    through the Renderer (1 warm-up + 3 samples; K9, K10, K11, K6
-   launched, K1, K7, K8 not), K10 and K11 on 8 batches of its bounce-1
-   wavefront against plain, one terrain:128 320x180 sample against the
-   plain-composed one; each new kernel's time, plain time and bound.
+   launched, K1, K7, K8 not), K10 (with and without boxes) and K11 on 8
+   batches of its bounce-1 wavefront against plain, K10's admitted and
+   entered pairs, one terrain:128 320x180 sample against the
+   plain-composed one; each new kernel's time, plain time and bound
+   (K8 and K10 also the mask walk's bound and their walk's parts:
+   walk_parts).
 
 `python3 chip_smoke.py --profile` runs only phases 1-2 and then
 profiles 5 frames of each frame program at the smoke view, 5 samples
@@ -95,6 +104,7 @@ result. The last line is the result JSON.
 
 from __future__ import annotations
 
+import ctypes
 import json
 import os
 import shutil
@@ -125,6 +135,13 @@ OPS_SHARED, OPS_PERRAY = 27, 51
 # per axis two subtractions, two products, a max and a min) and of a
 # tile's cone terms (six reciprocals)
 OPS_BOX, OPS_CONE = 18, 6
+# FP32 operations of one per-ray box test of K8 and K10 (rt_common.cuh
+# ray_box_enter): per axis two subtractions, two products with 1/d, a
+# min, a max and the running max and min, 8; then the entry's product
+# and difference and the exit's product and two sums, 5. The ray's terms
+# (box_ray: p, q, 1/d) and the box's widening are made once per ray and
+# per box and not counted, nor are comparisons and absolute values.
+OPS_RAYBOX = 3 * 8 + 5
 # the streamed cells: the JAX package's bench_configs.py configs 6 (the
 # shadowed frame, cull and bvh) and 8 (the path tracer), builtin:terrain:512
 STREAM_GRID, STREAM_EYE, STREAM_TARGET = 512, (0.0, -0.4, -1.2), \
@@ -342,23 +359,83 @@ def walk_pairs(tlb, ray_bound, lanes, floor=None) -> int:
     return int((blocks * lanes.view(n_tiles, -1).sum(1)).sum())
 
 
-def kernel_work(name, args, kw, outs, mesh_t=None):
+def culled_walk(name, args, kw, outs):
+    """raycull.walk_counts of K8's two halves (closest hit, shadow) or of
+    K10, at these arguments and outputs: the pairs the per-ray culled
+    walk must test at least."""
+    import torch
+
+    from rust_wgpu_raytracing_tpu_torch.ops.kernels.raycull import (
+        mask_pairs, stream_pairs, walk_counts)
+
+    def aimed(dx, dy, dz):
+        return (dx != 0) | (dy != 0) | (dz != 0)
+    if name == "extend_shadow":
+        n_tiles = args[2].shape[0] // 1024
+        nb = args[15].shape[0] // kw["block_f"]
+        ext = walk_counts(mask_pairs(args[0], n_tiles, nb), args[17],
+                          args[18], *args[2:8], aimed(*args[2:5]),
+                          t_final=outs[0])
+        shadow = walk_counts(mask_pairs(args[1], n_tiles, nb), args[17],
+                             args[18], *args[8:14], args[14] > 0,
+                             occ=outs[2])
+        return ext, shadow
+    # K10: the words its walk visits, up to each subtile's reach
+    reach = torch.minimum(outs[0], args[9]).view(-1, 1024).amax(1)
+    return (walk_counts(stream_pairs(args[0], args[2], reach), args[11],
+                        args[12], *args[3:9], aimed(*args[3:6]),
+                        t_final=outs[0]),)
+
+
+def kernel_work(name, args, kw, outs, mesh_t=None, walk="culled"):
     """(bytes, FP32 operations) of one call at these arguments: every
     input read once and every output written once; the face tests these
     rays need, or the texture kernels' per-ray mix. The sweeps count
     the lanes that can take a test (a direction that is not zero; for
     the any-hit tests, an active ray) over the blocks their walk must
-    visit: the closest-hit walks (K1, K4, K7) up to the tile's largest
-    min(t, root exit) among its rays (mesh_t: K4's mesh t, which its
-    outputs do not hold), the any-hit walk (K3) up to the largest root
-    exit among its active rays that end unoccluded (at least one block
-    where an active ray ends occluded), and K8, which has no early
-    exit, every set bit of each half's mask (the closest-hit half over
-    its aimed lanes, the shadow half over the active ones)."""
+    visit: the closest-hit walks (K1, K4, K7, K9) up to the tile's
+    largest min(t, root exit) among its rays (mesh_t: K4's mesh t, which
+    its outputs do not hold), the any-hit walks (K3, K11) up to the
+    largest root exit among its active rays that end unoccluded (at least
+    one block where an active ray ends occluded).
+
+    K8 and K10 walk per ray (csrc/cull_walk.cuh), and their count
+    follows that walk (culled_walk, raycull.walk_counts): a box test
+    (OPS_RAYBOX) for every admitted (ray, block) pair of an aimed ray,
+    of an active shadow ray that ends unoccluded, and one per occluded
+    one; the face tests (block_f x OPS_PERRAY) of the pairs whose line
+    enters the block's box, for closest hit only where that entry lies
+    at or below the ray's final t, for any hit those of the rays that end
+    unoccluded and one block per occluded ray; the record rows of the
+    distinct blocks those pairs need, staged once. None of it can exceed
+    what the kernels do: they box-test every admitted pair of an aimed or
+    live ray (a shadow ray until it is occluded, so at least once), and
+    keep a pair whenever its entry lies at or below the ray's best t so
+    far, which never drops below the final t; an occluded ray needed at
+    least the block that occluded it. K10's walk skips the same words as
+    K9's (only words within the subtile's reach are counted).
+
+    walk="mask" counts K8 and K10 as the TPU kernels walk: every lane
+    that can take a test against every admitted block (K8 every set bit
+    of each half's mask, K10 the words up to each subtile's reach), the
+    bound the mask walk would have."""
     import torch
 
     moved = tensor_bytes(args) + tensor_bytes(outs)
     bf = kw.get("block_f", 1)
+    if walk == "culled" and name == "extend_shadow":
+        ext, shadow = culled_walk(name, args, kw, outs)
+        ops = (ext["box_tests"] + shadow["box_tests"]) * OPS_RAYBOX + (
+            ext["face_pairs"] + shadow["face_pairs"]) * bf * OPS_PERRAY
+        moved = tensor_bytes(args[:15] + args[17:]) + tensor_bytes(outs) \
+            + max(ext["blocks"], shadow["blocks"]) * bf * 16 * 4
+        return moved, ops
+    if walk == "culled" and name == "stream_closest_hit_perray":
+        (n,) = culled_walk(name, args, kw, outs)
+        ops = n["box_tests"] * OPS_RAYBOX + n["face_pairs"] * 32 * OPS_PERRAY
+        moved = tensor_bytes(args[:10] + args[11:]) + tensor_bytes(outs) \
+            + n["blocks"] * 32 * 16 * 4
+        return moved, ops
 
     def aimed(dx, dy, dz):
         return (dx != 0) | (dy != 0) | (dz != 0)
@@ -472,6 +549,85 @@ def time_ms(fn, reps: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def mask_walk_note(name, args, kw, outs, ms) -> str:
+    """The bound of the mask walk (the TPU kernels' walk, every lane of
+    every admitted block) at these arguments, as a note to a timing line."""
+    mw_ms, mw_by = bound(*kernel_work(name, args, kw, outs, walk="mask"))
+    return (f"; the mask walk's bound {mw_ms:.4f} ms by {mw_by}, "
+            f"{100 * mw_ms / ms:.1f}% of it")
+
+
+def walk_parts(name, args, kw, reps: int) -> str:
+    """Times of parts of K8's or K10's culled walk on these arguments, as
+    a note to a timing line: with boxes no ray enters (valid boxes at
+    1e6: the box tests and the chunk overheads alone, no face test) and,
+    for K8, each half alone (the other half's mask words zeroed)."""
+    import torch
+
+    from rust_wgpu_raytracing_tpu_torch.ops import kernels as K
+
+    fn = getattr(K, name)
+    n = 17 if name == "extend_shadow" else 11
+    far = torch.full_like(args[n], 1e6)
+    runs = {"boxes no ray enters": (*args[:n], far, far + 1.0)}
+    if name == "extend_shadow":
+        zero = torch.zeros_like(args[0])
+        runs["the closest-hit half alone"] = (args[0], zero, *args[2:])
+        runs["the shadow half alone"] = (zero, *args[1:])
+    return "; " + ", ".join(
+        f"{label} {time_ms(lambda a=a: fn(*a, **kw), reps):.4f} ms"
+        for label, a in runs.items())
+
+
+def raycull_phase(record, check, say):
+    """K8 and K10 against their plain versions on the seeded adversarial
+    set: raycull.write_grid_mesh's two meshes (8- and 32-face clusters,
+    faces in their boxes' planes, edges shared by blocks, NaN padding
+    faces and +inf padding boxes) under the five ray sets of
+    raycull.adversarial_rays, the arguments from the port's own glue on
+    the card (extend_shadow_rays, gbuffer_perray forced onto the streamed
+    sweep); every output equal, with the boxes and without."""
+    import torch
+
+    from rust_wgpu_raytracing_tpu_torch.config import (MeshConfig,
+                                                       RenderConfig,
+                                                       SceneConfig)
+    from rust_wgpu_raytracing_tpu_torch.core.scene import Scene
+    from rust_wgpu_raytracing_tpu_torch.ops import megakernel as MK
+    from rust_wgpu_raytracing_tpu_torch.ops.kernels.raycull import (
+        ADVERSARIAL_KINDS, adversarial_rays, write_grid_mesh)
+
+    root = tempfile.mkdtemp(prefix="rt_cull_")
+    before = os.environ.get("RWRT_ASSETS")
+    os.environ["RWRT_ASSETS"] = root
+    try:
+        for cells in (16, 48):
+            write_grid_mesh(os.path.join(root, f"grid{cells}.obj"), cells)
+            data = Scene.build(SceneConfig(
+                meshes=(MeshConfig(obj_path=f"grid{cells}.obj"),),
+                render=RenderConfig(width=64, height=32))).data.to("cuda")
+            for seed, kind in enumerate(ADVERSARIAL_KINDS):
+                o, d, so, sd, act = (torch.from_numpy(x).to("cuda") for x in
+                                     adversarial_rays(kind, cells, data.blk_lo,
+                                                      data.blk_hi, 500 + seed))
+                calls = record(lambda ks: (
+                    MK.extend_shadow_rays(data, *o, *d, *so, *sd, act,
+                                          kernels=ks),
+                    MK.gbuffer_perray(data, *o, *d, stream=True, kernels=ks)))
+                view = f"adversarial grid{cells} {kind}"
+                for name, n_args in (("extend_shadow", 17),
+                                     ("stream_closest_hit_perray", 11)):
+                    args, kw = calls[name][0]
+                    check(view, name, args, kw)
+                    check(view, name, args[:n_args], kw, " (no boxes)")
+    finally:
+        if before is None:
+            os.environ.pop("RWRT_ASSETS", None)
+        else:
+            os.environ["RWRT_ASSETS"] = before
+        shutil.rmtree(root, ignore_errors=True)
 
 
 def stream_phase(card, K, Renderer, drive, record, check, results, errs,
@@ -669,6 +825,16 @@ def stream_phase(card, K, Renderer, drive, record, check, results, errs,
                            "stream_closest_hit_perray", k10_args, k10_kw)
     subset_check("pt bounce 1 (shadow rays of bounce 0)", "stream_anyhit",
                  k11b_args, k11b_kw)
+    check("pt bounce 1 (extension rays), 8 batches",
+          "stream_closest_hit_perray", k10_sub[0][:11], k10_kw,
+          " (no boxes: every ray of an admitted block)")
+    (k10n,) = culled_walk("stream_closest_hit_perray", k10_args, k10_kw,
+                          flat("stream_closest_hit_perray", wrapper[
+                              "stream_closest_hit_perray"](*k10_args)))
+    say(f"[pt] K10 bounce 1, (ray, block) pairs in the words its walk "
+        f"visits: admitted {k10n['admitted']}, entered {k10n['entered']}, "
+        f"entered at or below the final t {k10n['face_pairs']} "
+        f"({k10n['blocks']} distinct blocks)")
     say(f"[pt] bounce 1: {int((k10_args[3] != 0).sum())} aimed extension "
         f"rays, admitted blocks per subtile K10 "
         f"{float(stream_blocks(k10_args[0], k10_args[2]).float().mean()):.1f}"
@@ -719,12 +885,15 @@ def stream_phase(card, K, Renderer, drive, record, check, results, errs,
         results[name] = dict(max_abs_err=errs[name], ms=ms,
                              plain_ms=(p1 + p2) / 2, bound_ms=bound_ms,
                              bound_by=bound_by)
+        note = mask_walk_note(name, args, kw, flat(name, run_kernel()), ms) \
+            + walk_parts(name, args, kw, 10) \
+            if name == "stream_closest_hit_perray" else ""
         say(f"[timing] {card}: {name} {ms:.4f} ms (kernel, {k1:.4f} / "
             f"{k2:.4f}) vs {results[name]['plain_ms']:.4f} ms ({where}) at "
             f"{at}'s arguments; bound {bound_ms:.4f} ms by {bound_by} "
             f"({moved} bytes, {ops} FP32 operations), "
             f"{100 * bound_ms / ms:.1f}% of it; {unfused_ms:.4f} ms at the "
-            f"unfused issue rate, {100 * unfused_ms / ms:.1f}% of it")
+            f"unfused issue rate, {100 * unfused_ms / ms:.1f}% of it{note}")
 
 
 def main() -> int:
@@ -759,6 +928,16 @@ def main() -> int:
     build.library()
     say(f"[build] {os.path.relpath(lib_path)} in "
         f"{time.perf_counter() - t0:.1f} s (flags: {' '.join(build.NVCC_FLAGS)})")
+    for name in ("extend_shadow", "stream_closest_hit_perray"):
+        out = (ctypes.c_int * 4)()
+        err = getattr(build.library(), f"rt_{name}_resources")(out)
+        if err:
+            raise RuntimeError(f"rt_{name}_resources: CUDA error {err}")
+        say(f"[build] {name} (per-ray culled walk): {out[0]} registers, "
+            f"{out[1]} bytes spilled a thread, {out[2]} bytes of shared "
+            f"memory a block, {out[3]} blocks an SM "
+            f"(cudaFuncGetAttributes, "
+            f"cudaOccupancyMaxActiveBlocksPerMultiprocessor)")
 
     from rust_wgpu_raytracing_tpu_torch import Renderer
 
@@ -1155,6 +1334,16 @@ def main() -> int:
     if not all(fused_ok):
         raise AssertionError("the fused extend+shadow kernel disagrees with "
                              "the per-ray closest hit + any-hit kernels")
+    check("pt bounce 1", "extend_shadow", es_args[:17], es_kw,
+          " (no boxes: every ray of an admitted block)")
+    ext, shadow = culled_walk("extend_shadow", es_args, es_kw, k8)
+    say(f"[pt] K8 bounce 1, (ray, block) pairs: closest hit admitted "
+        f"{ext['admitted']}, entered {ext['entered']}, entered at or below "
+        f"the final t {ext['face_pairs']} ({ext['blocks']} distinct blocks); "
+        f"shadow admitted {shadow['admitted']}, entered {shadow['entered']}, "
+        f"face-tested at least {shadow['face_pairs']} "
+        f"({shadow['blocks']} distinct blocks)")
+    raycull_phase(record, check, say)
     pt_plain = trace(K.PLAIN)
     pt_full = trace(K.KERNELS, compact_cap=None)
     # room for every tile: the compacted loop runs whatever is live
@@ -1299,6 +1488,10 @@ def main() -> int:
             dms = time_ms(lambda: wrapper[name](*dense_call[0],
                                                 **dense_call[1]), 20)
             msg += f"; kernel {dms:.4f} ms at the dense view's"
+        if name == "extend_shadow":
+            msg += mask_walk_note(name, args, kw, flat(name, run_kernel()),
+                                  results[name]["ms"])
+            msg += walk_parts(name, args, kw, 20)
         say(msg)
     say(f"[timing] {card}: medians fused {medians['fused']:.3f} ms, split "
         f"{medians['split']:.3f} ms")

@@ -1,0 +1,306 @@
+// The per-ray culled walk of K8 (extend_shadow.cu) and K10 (the per-ray
+// sweep of stream_sweep.cu): a tile's admitted face blocks are taken in
+// chunks of a few blocks, and each block's faces are tested only for the
+// rays whose own line enters the block's box (rt_common.cuh
+// ray_box_enter), a closest-hit ray only where that entry lies at or
+// below its best t so far.
+//
+// Why: a tile of incoherent bounce rays admits hundreds of blocks, but a
+// ray enters only a few of their boxes. The TPU kernels test every lane
+// against every admitted block (a 1024-lane vector gains nothing from
+// skipping lanes); a 32-lane warp does, once the (ray, block) pairs that
+// need a test are compacted. The outputs stay the unculled walk's, bit
+// for bit: the merges (a lexicographic (t, face) min, an OR) do not
+// depend on the order of visits, a ray whose line misses the widened box
+// cannot hit a face inside it, and no face t lies before its box's entry.
+//
+// One CUDA block of CT = 512 threads per 1024-ray tile. The rays live in
+// shared memory (struct of arrays), with the closest-hit winner packed as
+// one 64-bit key (float bits of t << 32 | face): every hit has t >= 1e-3
+// > 0, so the bits of t order as its value and the key's order is the
+// lexicographic (t, face) order; a miss keeps (+inf, 0). Per chunk:
+//  1. box phase: each thread box-tests its 2 rays against the chunk's
+//     blocks (bit s of a per-ray mask: the ray enters block s);
+//  2. a block-wide scan of the masks' popcounts numbers the (ray, block)
+//     pairs; the union of the masks says which blocks some pair needs;
+//  3. only those blocks are staged, column-major (one face per lane);
+//  4. the pairs are written to a list (at most CAP per round) and the
+//     warps take them: the lanes are the block's faces (G lanes per pair,
+//     G the power of two >= block_f, 32 / G pairs per warp). A
+//     closest-hit pair min-reduces t over its lanes, takes the first lane
+//     at that t (the lowest face id) by a ballot and merges its key into
+//     the ray's with a shared-memory atomicMin; a shadow pair ORs its
+//     lanes' hits into the ray's state (then the ray leaves the walk).
+#pragma once
+
+#include "rt_common.cuh"
+
+namespace rt {
+namespace cull {
+
+constexpr int CT = 512;               // threads of a culled walk's block
+constexpr int NW = CT / 32;           // warps
+constexpr int RPC = TILE_R / CT;      // rays per thread in the box phase
+constexpr int MAX_SLOTS = 32;         // blocks per chunk (a mask bit each)
+constexpr int STAGE_FACES = 256;      // faces staged per chunk
+// staged floats: slots(block_f) * 16 columns * (block_f + 1), at most
+// 32 * 16 * 9 (block_f 8); block_f 32 takes 8 * 16 * 33
+constexpr int STAGE_FLOATS = MAX_SLOTS * STAGE_COLS * 9;
+constexpr int CAP = 4096;             // (ray, block) pairs per round
+constexpr unsigned long long NO_HIT = 0x7f80000000000000ull;  // (+inf, 0)
+constexpr unsigned FULL = 0xffffffffu;
+
+// blocks per chunk: as many as fit STAGE_FACES, at most MAX_SLOTS
+__host__ __device__ constexpr int slots_for(int block_f) {
+  return STAGE_FACES / block_f < MAX_SLOTS ? STAGE_FACES / block_f
+                                           : MAX_SLOTS;
+}
+
+// one wavefront's rays, struct of arrays
+struct Rays {
+  float o[3][TILE_R];
+  float d[3][TILE_R];
+};
+
+// the blocks of one chunk and the block-wide scan's scratch
+struct Chunk {
+  int n;                     // slots in use
+  int blk[MAX_SLOTS];        // face block of each slot
+  int flag[MAX_SLOTS];       // bit 0: closest-hit half, bit 1: shadow half
+  float lo[MAX_SLOTS][3];    // the boxes, widened (widen_lo, widen_hi)
+  float hi[MAX_SLOTS][3];
+  int wsum[NW];
+  unsigned wneed[NW];
+  float red[NW];
+};
+
+// shared memory of a closest-hit walk; K8 adds the shadow rays
+struct Walk {
+  unsigned long long best[TILE_R];  // (t bits << 32 | face) per ray
+  Rays ext;                         // the closest-hit rays
+  float faces[STAGE_FLOATS];        // (slot, column, face), face stride bf+1
+  unsigned short list[CAP];         // pair: ray | slot << 10 | half << 15
+  Chunk ch;
+};
+
+// state of a shadow ray
+constexpr unsigned char S_OFF = 0, S_LIVE = 1, S_OCC = 2;
+
+__device__ __forceinline__ void load_rays(Rays& R, const float* dx,
+                                          const float* dy, const float* dz,
+                                          const float* ox, const float* oy,
+                                          const float* oz, size_t base) {
+  for (int i = threadIdx.x; i < TILE_R; i += CT) {
+    R.d[0][i] = dx[base + i];
+    R.d[1][i] = dy[base + i];
+    R.d[2][i] = dz[base + i];
+    R.o[0][i] = ox[base + i];
+    R.o[1][i] = oy[base + i];
+    R.o[2][i] = oz[base + i];
+  }
+}
+
+// Block-wide max of one float per thread of a CT-thread block; all
+// threads get it.
+__device__ __forceinline__ float walk_max(float v, float* red) {
+  for (int o = 16; o > 0; o >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(FULL, v, o));
+  __syncthreads();  // previous readers of red are done
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+  __syncthreads();
+  float m = red[0];
+  for (int w = 1; w < NW; ++w) m = fmaxf(m, red[w]);
+  return m;
+}
+
+// Slot s of the chunk takes face block blk with its half flags and its
+// widened box; a padding box (lo > hi) takes no half: no ray enters it.
+__device__ __forceinline__ void load_slot(Chunk& ch, int s, int blk, int flag,
+                                          const float* blo,
+                                          const float* bhi) {
+  bool box = true;
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    const float lo = blo[(size_t)blk * 3 + a], hi = bhi[(size_t)blk * 3 + a];
+    box = box && lo <= hi;
+    ch.lo[s][a] = widen_lo(lo);
+    ch.hi[s][a] = widen_hi(hi);
+  }
+  ch.blk[s] = blk;
+  ch.flag[s] = box ? flag : 0;
+}
+
+// Box-test one ray against the slots whose `want` flag is set: bit s of
+// the result = the ray enters slot s's box (at or below `cap`).
+__device__ __forceinline__ unsigned enter_mask(const Chunk& ch, int want,
+                                               const Rays& R, int i,
+                                               float cap) {
+  const BoxRay r = box_ray(R.o[0][i], R.o[1][i], R.o[2][i], R.d[0][i],
+                           R.d[1][i], R.d[2][i]);
+  unsigned m = 0;
+  for (int s = 0; s < ch.n; ++s) {
+    float e;
+    if ((ch.flag[s] & want) && ray_box_enter(ch.lo[s], ch.hi[s], r, e) &&
+        e <= cap)
+      m |= 1u << s;
+  }
+  return m;
+}
+
+// One chunk of the walk (ch filled and synchronised by the caller). The
+// closest-hit half tests the aimed rays of W.ext against the slots with
+// flag bit 0; with SHADOW, the live rays of `sh` (state S_LIVE) against
+// the slots with flag bit 1. Faces: columns 0-11 of `pack` (row stride
+// pack_cols) and 0-3 of `extra` (row stride extra_cols). Ends synchronised.
+template <bool SHADOW>
+__device__ void run_chunk(Walk& W, const Rays* sh, unsigned char* state,
+                          const float* __restrict__ pack, int pack_cols,
+                          const float* __restrict__ extra, int extra_cols,
+                          int block_f) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  Chunk& ch = W.ch;
+
+  // 1. box phase
+  unsigned em[RPC], sm[RPC];
+  int cnt = 0;
+  unsigned need = 0;
+#pragma unroll
+  for (int k = 0; k < RPC; ++k) {
+    const int i = tid + k * CT;
+    em[k] = 0;
+    sm[k] = 0;
+    if (W.ext.d[0][i] != 0.0f || W.ext.d[1][i] != 0.0f ||
+        W.ext.d[2][i] != 0.0f)
+      em[k] = enter_mask(ch, 1, W.ext, i,
+                         __uint_as_float((unsigned)(W.best[i] >> 32)));
+    if (SHADOW && state[i] == S_LIVE)
+      sm[k] = enter_mask(ch, 2, *sh, i, INFINITY);
+    cnt += __popc(em[k]) + __popc(sm[k]);
+    need |= em[k] | sm[k];
+  }
+
+  // 2. number the pairs: block-wide exclusive scan of cnt
+  int incl = cnt;
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(FULL, incl, o);
+    if (lane >= o) incl += y;
+  }
+  need = __reduce_or_sync(FULL, need);
+  if (lane == 31) ch.wsum[warp] = incl;
+  if (lane == 0) ch.wneed[warp] = need;
+  __syncthreads();
+  int first = incl - cnt, total = 0;
+  need = 0;
+  for (int w = 0; w < NW; ++w) {
+    const int v = ch.wsum[w];
+    total += v;
+    if (w < warp) first += v;
+    need |= ch.wneed[w];
+  }
+  if (total == 0) return;  // uniform
+
+  // 3. stage the blocks some pair needs, column-major
+  const int stride = block_f + 1;
+  for (unsigned m = need; m;) {
+    const int s = __ffs(m) - 1;
+    m &= m - 1u;
+    const size_t row0 = (size_t)ch.blk[s] * block_f;
+    for (int e = tid; e < block_f * STAGE_COLS; e += CT) {
+      const int j = e / STAGE_COLS, c = e % STAGE_COLS;
+      const size_t row = row0 + j;
+      W.faces[(s * STAGE_COLS + c) * stride + j] =
+          c < 12 ? pack[row * pack_cols + c]
+                 : extra[row * extra_cols + (c - 12)];
+    }
+  }
+
+  // 4. the pairs, CAP per round
+  int g = 1;
+  while (g < block_f) g <<= 1;
+  const int ppw = 32 / g, q = lane / g, j = lane % g;
+  const unsigned gmask = g == 32 ? FULL : ((1u << g) - 1u) << (q * g);
+  for (int base = 0; base < total; base += CAP) {
+    if (first < base + CAP && first + cnt > base) {
+      int idx = first;
+#pragma unroll
+      for (int k = 0; k < RPC; ++k) {
+        const int i = tid + k * CT;
+#pragma unroll
+        for (int half = 0; half < (SHADOW ? 2 : 1); ++half) {
+          for (unsigned m = half ? sm[k] : em[k]; m; m &= m - 1u, ++idx)
+            if (idx >= base && idx < base + CAP)
+              W.list[idx - base] = (unsigned short)(
+                  i | ((__ffs(m) - 1) << 10) | (half << 15));
+        }
+      }
+    }
+    __syncthreads();
+    const int npairs = min(CAP, total - base);
+    for (int p0 = warp * ppw; p0 < npairs; p0 += NW * ppw) {
+      const int p = p0 + q;
+      const bool have = p < npairs;
+      float tm = INFINITY;  // a closest-hit lane's t, +inf where it misses
+      bool hit = false;     // a shadow lane's hit
+      int i = 0, s = 0, half = 0;
+      if (have) {
+        const unsigned e = W.list[p];
+        i = e & 1023;
+        s = (e >> 10) & 31;
+        half = e >> 15;
+        if (j < block_f && !(SHADOW && half && state[i] != S_LIVE)) {
+          const Rays& R = (SHADOW && half) ? *sh : W.ext;
+          float t;
+          const bool v = perray_hit_cols(
+              W.faces + s * STAGE_COLS * stride + j, stride, R.d[0][i],
+              R.d[1][i], R.d[2][i], R.o[0][i], R.o[1][i], R.o[2][i], t);
+          if (half)
+            hit = v;
+          else if (v)
+            tm = t;
+        }
+      }
+      // the pair's winner: the least t over its lanes, on a tie the
+      // first lane (the lowest face id); a +inf t never beats (+inf, 0)
+      float tmin = tm;
+      for (int o = g >> 1; o > 0; o >>= 1)
+        tmin = fminf(tmin, __shfl_xor_sync(FULL, tmin, o));
+      const unsigned bits =
+          __ballot_sync(FULL, half ? hit : (tm == tmin && tmin < INFINITY)) &
+          gmask;
+      if (have && j == 0 && bits) {
+        if (half)
+          state[i] = S_OCC;
+        else
+          atomicMin(&W.best[i],
+                    ((unsigned long long)__float_as_uint(tmin) << 32) |
+                        (unsigned)(ch.blk[s] * block_f + __ffs(bits) - 1 -
+                                   q * g));
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// out[0..3] = registers a thread, spilled bytes a thread, dynamic shared
+// memory a block and blocks an SM at that memory, of a culled walk kernel
+// launched with `bytes` of dynamic shared memory.
+template <class Kernel>
+int resources(Kernel kernel, int bytes, int* out) {
+  cudaFuncAttributes a;
+  cudaError_t err = cudaFuncGetAttributes(&a, kernel);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  int ctas = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas, kernel, CT,
+                                                        bytes);
+  out[0] = a.numRegs;
+  out[1] = (int)a.localSizeBytes;
+  out[2] = bytes;
+  out[3] = ctas;
+  return (int)err;
+}
+
+}  // namespace cull
+}  // namespace rt

@@ -42,6 +42,25 @@ def stream_ptr(device: torch.device) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
+def box_args(blk_lo, blk_hi, nb: int):
+    """() without boxes, else (blk_lo, blk_hi) checked to be (nb, 3) f32
+    each; raises when only one is given."""
+    if blk_lo is None and blk_hi is None:
+        return ()
+    if blk_lo is None or blk_hi is None:
+        raise ValueError("blk_lo and blk_hi: give both or neither")
+    require(blk_lo, "blk_lo", torch.float32, (nb, 3))
+    require(blk_hi, "blk_hi", torch.float32, (nb, 3))
+    return blk_lo, blk_hi
+
+
+def open_boxes(nb: int, device):
+    """(lo, hi) (nb, 3): boxes that admit every ray (-inf, +inf)."""
+    lo = torch.full((nb, 3), -float("inf"), dtype=torch.float32,
+                    device=device)
+    return lo, -lo
+
+
 def admitted_tiles(tlb: torch.Tensor):
     """For each face block j, the tiles whose schedule admits it (finite
     entry bound) as an index tensor on tlb's device, or None. The plain

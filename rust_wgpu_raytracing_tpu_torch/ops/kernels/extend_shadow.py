@@ -13,6 +13,14 @@ whose words_a bit is set merges the extension rays' lexicographic
 bit is set ORs the active shadow rays' hits into occ (kernel K3's test).
 So the plain version is K7's block merge over the words_a tiles plus
 K3's over the words_b tiles.
+
+The kernel also takes the face blocks' boxes (blk_lo, blk_hi: the
+scene's cluster AABBs, one row per block) and tests a block's faces
+only for the rays whose own line enters its box, a closest-hit ray only
+where that entry lies at or below its best t so far (raycull.py models
+that walk). The results are the same bits, so the plain version ignores
+the boxes. Without boxes the kernel admits every ray of an admitted
+block.
 """
 
 from __future__ import annotations
@@ -22,7 +30,8 @@ import torch
 from .anyhit import anyhit_blocks
 from .build import check, library
 from .closest_hit_perray import closest_perray_blocks
-from .common import TILE_R, is_cuda_call, ptr, require, stream_ptr
+from .common import (TILE_R, box_args, is_cuda_call, open_boxes, ptr,
+                     require, stream_ptr)
 
 PLANES = ("dx", "dy", "dz", "ox", "oy", "oz",
           "sdx", "sdy", "sdz", "sox", "soy", "soz", "act")
@@ -51,26 +60,30 @@ def _check(words_a, words_b, planes, fpack, dc, block_f):
 
 
 def extend_shadow(words_a, words_b, dx, dy, dz, ox, oy, oz, sdx, sdy, sdz,
-                  sox, soy, soz, act, fpack, dc, *, block_f: int):
+                  sox, soy, soz, act, fpack, dc, blk_lo=None, blk_hi=None, *,
+                  block_f: int):
     """(t (R,) f32, face (R,) i32, occ (R,) f32) for R = tiles * 1024.
     words_a / words_b (tiles * nwords,) i32: bit k of word w of a tile =
     face block 32w + k admitted for the extension / shadow rays; dx..oz
     the extension rays, sdx..soz the shadow rays, act (R,) f32 1 for
-    shadow rays to test; fpack (F, >=12) and dc (F, 8) as for anyhit."""
+    shadow rays to test; fpack (F, >=12) and dc (F, 8) as for anyhit;
+    blk_lo / blk_hi (F / block_f, 3) f32 the blocks' boxes, or None."""
     planes = (dx, dy, dz, ox, oy, oz, sdx, sdy, sdz, sox, soy, soz, act)
     n_tiles, nb, nwords = _check(words_a, words_b, planes, fpack, dc,
                                  block_f)
-    if not is_cuda_call(words_a, words_b, *planes, fpack, dc):
+    boxes = box_args(blk_lo, blk_hi, nb)
+    if not is_cuda_call(words_a, words_b, *planes, fpack, dc, *boxes):
         return extend_shadow_plain(words_a, words_b, *planes, fpack, dc,
-                                   block_f=block_f)
+                                   *boxes, block_f=block_f)
+    lo, hi = boxes or open_boxes(nb, dx.device)
     r = dx.shape[0]
     t = torch.empty(r, dtype=torch.float32, device=dx.device)
     face = torch.empty(r, dtype=torch.int32, device=dx.device)
     occ = torch.empty(r, dtype=torch.float32, device=dx.device)
     err = library().rt_extend_shadow(
         ptr(words_a), ptr(words_b), *[ptr(p) for p in planes], ptr(fpack),
-        ptr(dc), n_tiles, nwords, nb, block_f, fpack.shape[1], ptr(t),
-        ptr(face), ptr(occ), stream_ptr(dx.device))
+        ptr(dc), ptr(lo), ptr(hi), n_tiles, nwords, nb, block_f,
+        fpack.shape[1], ptr(t), ptr(face), ptr(occ), stream_ptr(dx.device))
     check(err, "rt_extend_shadow")
     extend_shadow.launches += 1
     return t, face, occ
@@ -94,9 +107,12 @@ def mask_tiles(words, n_tiles: int, nb: int):
 
 
 def extend_shadow_plain(words_a, words_b, dx, dy, dz, ox, oy, oz, sdx, sdy,
-                        sdz, sox, soy, soz, act, fpack, dc, *, block_f: int):
+                        sdz, sox, soy, soz, act, fpack, dc, blk_lo=None,
+                        blk_hi=None, *, block_f: int):
     """Plain PyTorch version of extend_shadow (same arguments, same
-    results bit for bit)."""
+    results bit for bit): every ray of an admitted block, the boxes
+    unread."""
+    del blk_lo, blk_hi
     n_tiles = dx.shape[0] // TILE_R
     nb = fpack.shape[0] // block_f
     t, face = closest_perray_blocks(mask_tiles(words_a, n_tiles, nb),

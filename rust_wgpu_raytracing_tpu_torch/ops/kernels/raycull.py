@@ -1,0 +1,309 @@
+"""Plain models of the per-ray cluster culling in kernels K8 and K10.
+
+K8 (csrc/extend_shadow.cu) and K10 (csrc/stream_sweep.cu, the per-ray
+sweep) test a face block only against the rays whose own forward line
+enters the block's box (ops/traverse.ray_box_enter), and a closest-hit
+ray only where that entry lies at or below the ray's best t so far.
+Their outputs stay those of the unculled plain versions
+(extend_shadow_plain, stream_closest_hit_perray_plain), which compute
+the TPU kernels' function: a ray whose line misses a conservatively
+widened box cannot hit a face inside it, a face beyond the ray's best t
+cannot win, and both merges (a lexicographic (t, face) min and an OR)
+do not depend on the order of visits.
+
+This module walks the same (ray, block) pairs in plain PyTorch, so the
+CPU tests can hold the culled walk against the unculled versions bit for
+bit, counts the work the culled walk needs (`walk_counts`, read by
+chip_smoke.py's bounds), and makes the seeded adversarial inputs both
+hold the kernels to (`write_grid_mesh`, `adversarial_rays`). It is not
+on any render path.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ...core.scene import SC_DC
+from ..traverse import ray_box_enter
+from .anyhit import perray_plane_test
+from .common import INT_MAX, TILE_R
+from .extend_shadow import mask_tiles
+from .stream_sweep import BLOCK_F, admitted_subtiles
+
+F32_INF = float("inf")
+
+
+def _rays_of(tiles, n_rays):
+    """Global ray indices of the 1024-ray tiles `tiles`."""
+    lane = torch.arange(TILE_R, device=tiles.device)
+    return (tiles[:, None] * TILE_R + lane).reshape(-1)[:n_rays]
+
+
+def culled_closest(tiles_of_block, blo, bhi, dx, dy, dz, ox, oy, oz, fpack,
+                   dc, block_f: int):
+    """(t, face): the closest-hit merge of the culled walk. Blocks are
+    visited in index order (K8's word and bit order); block j tests only
+    the aimed rays of tiles_of_block[j] whose line enters box j with an
+    entry at or below their best t so far."""
+    r = dx.shape[0]
+    t = torch.full((r,), F32_INF, dtype=torch.float32, device=dx.device)
+    face = torch.zeros(r, dtype=torch.int32, device=dx.device)
+    for j, tiles in enumerate(tiles_of_block):
+        if tiles is None:
+            continue
+        idx = _rays_of(tiles, r)
+        x, y, z, u, v, w = (p[idx] for p in (dx, dy, dz, ox, oy, oz))
+        ok, entry = ray_box_enter(blo[j], bhi[j], u, v, w, x, y, z)
+        keep = ((x != 0.0) | (y != 0.0) | (z != 0.0)) & ok & (entry <= t[idx])
+        idx = idx[keep]
+        if idx.numel() == 0:
+            continue
+        rows = slice(j * block_f, (j + 1) * block_f)
+        tt, valid = perray_plane_test(fpack[rows], dc[rows], *(
+            p[idx] for p in (dx, dy, dz, ox, oy, oz)))
+        tm = torch.where(valid, tt, F32_INF)
+        tmin = tm.amin(dim=0)
+        lane = torch.arange(block_f, dtype=torch.int32,
+                            device=dx.device)[:, None]
+        new_face = torch.where(tm == tmin, lane, INT_MAX).amin(dim=0) \
+            + j * block_f
+        prev_t, prev_f = t[idx], face[idx]
+        better = (tmin < prev_t) | ((tmin == prev_t) & (new_face < prev_f))
+        t[idx] = torch.where(better, tmin, prev_t)
+        face[idx] = torch.where(better, new_face, prev_f)
+    return t, face
+
+
+def culled_anyhit(tiles_of_block, blo, bhi, dx, dy, dz, ox, oy, oz, act,
+                  fpack, dc, block_f: int):
+    """occ: the any-hit OR of the culled walk: block j tests only the
+    active rays of tiles_of_block[j] whose line enters box j."""
+    r = dx.shape[0]
+    occ = torch.zeros_like(dx)
+    for j, tiles in enumerate(tiles_of_block):
+        if tiles is None:
+            continue
+        idx = _rays_of(tiles, r)
+        ok, _ = ray_box_enter(blo[j], bhi[j], ox[idx], oy[idx], oz[idx],
+                              dx[idx], dy[idx], dz[idx])
+        idx = idx[ok & (act[idx] > 0.0)]
+        if idx.numel() == 0:
+            continue
+        rows = slice(j * block_f, (j + 1) * block_f)
+        _, hit = perray_plane_test(fpack[rows], dc[rows], *(
+            p[idx] for p in (dx, dy, dz, ox, oy, oz)))
+        occ[idx] = torch.maximum(occ[idx], torch.where(
+            hit.any(dim=0), act[idx], 0.0))
+    return occ
+
+
+def extend_shadow_culled(words_a, words_b, dx, dy, dz, ox, oy, oz, sdx, sdy,
+                         sdz, sox, soy, soz, act, fpack, dc, blk_lo, blk_hi,
+                         *, block_f: int):
+    """K8's culled walk in plain PyTorch: (t, face, occ) as
+    extend_shadow's, blk_lo/blk_hi (nb, 3) the face blocks' boxes."""
+    n_tiles = dx.shape[0] // TILE_R
+    nb = fpack.shape[0] // block_f
+    t, face = culled_closest(mask_tiles(words_a, n_tiles, nb), blk_lo,
+                             blk_hi, dx, dy, dz, ox, oy, oz, fpack, dc,
+                             block_f)
+    occ = culled_anyhit(mask_tiles(words_b, n_tiles, nb), blk_lo, blk_hi,
+                        sdx, sdy, sdz, sox, soy, soz, act, fpack, dc,
+                        block_f)
+    return t, face, occ
+
+
+def stream_perray_culled(mask3, order2, tlb3, dx, dy, dz, ox, oy, oz, texit,
+                         spack, blk_lo, blk_hi):
+    """K10's culled walk in plain PyTorch: (t, face) as
+    stream_closest_hit_perray's, blk_lo/blk_hi (F / 32, 3) the 32-face
+    blocks' boxes. Blocks in index order, not the kernel's word order:
+    the result does not depend on it."""
+    del order2, texit
+    return culled_closest(admitted_subtiles(mask3, tlb3), blk_lo, blk_hi,
+                          dx, dy, dz, ox, oy, oz, spack, spack[:, SC_DC:],
+                          BLOCK_F)
+
+
+def mask_pairs(words, n_tiles: int, nb: int):
+    """(tiles, blocks) (P,) int64: the (tile, block) pairs that packed
+    (tiles * nwords,) mask words admit."""
+    nwords = words.shape[0] // n_tiles
+    w = words.view(n_tiles, nwords).to(torch.int64) & 0xFFFFFFFF
+    c = torch.arange(nb, device=words.device)
+    bits = ((w[:, c >> 5] >> (c & 31)) & 1).bool()
+    tiles, blocks = bits.nonzero(as_tuple=True)
+    return tiles, blocks
+
+
+def stream_pairs(mask3, tlb3, reach=None):
+    """(subtiles, blocks) (P,) int64: the (subtile, 32-face block) pairs
+    the streamed schedule admits: the set bits of the words whose entry
+    bound is finite and, with reach (n_sub,) given, at most the
+    subtile's reach (the walk skips the others)."""
+    nsub, n_super = mask3.shape[1] - 1, mask3.shape[2]
+    words = mask3[:, :nsub].reshape(-1, n_super).to(torch.int64)
+    tl = tlb3[:, :nsub].reshape(-1, n_super)
+    ok = torch.isfinite(tl)
+    if reach is not None:
+        ok = ok & (tl <= reach[:, None])
+    bits = ((words[:, :, None] >> torch.arange(32, device=words.device))
+            & 1).bool() & ok[:, :, None]
+    tiles, word, bit = bits.nonzero(as_tuple=True)
+    return tiles, word * 32 + bit
+
+
+def walk_counts(pairs, blo, bhi, dx, dy, dz, ox, oy, oz, lanes,
+                t_final=None, occ=None, chunk: int = 4096) -> dict:
+    """What the culled walk over the admitted (tile, block) `pairs`
+    must do, as lower bounds of what K8 or K10 does (dict of ints):
+
+    - admitted: (ray, block) pairs of the mask walk over the `lanes`
+      (R,) bool that take a test (aimed rays, or active shadow rays);
+      the unculled walk face-tests every one of them;
+    - entered: those whose line enters the block's box;
+    - box_tests: the ray-box tests: closest hit (t_final given) every
+      admitted pair; any hit (occ given) every admitted pair of the
+      lanes that end unoccluded and one per occluded lane (a ray leaves
+      the walk once occluded);
+    - face_pairs: the pairs whose faces must be tested: closest hit,
+      the entered pairs whose entry lies at or below the ray's final t
+      (the walk's best t never drops below it, so it keeps at least
+      these); any hit, the entered pairs of the lanes that end
+      unoccluded and one per occluded lane;
+    - blocks: the distinct blocks those pairs need (each staged at
+      least once)."""
+    tiles, blocks = pairs
+    closest = t_final is not None
+    open_ = lanes if closest else lanes & (occ == 0)
+    lane = torch.arange(TILE_R, device=dx.device)
+    n = dict(admitted=0, entered=0, box_tests=0, face_pairs=0)
+    needed = torch.zeros(blo.shape[0], dtype=torch.bool, device=dx.device)
+    for c0 in range(0, tiles.shape[0], chunk):
+        tb, bb = tiles[c0:c0 + chunk], blocks[c0:c0 + chunk]
+        idx = tb[:, None] * TILE_R + lane
+        live = lanes[idx]
+        ok, entry = ray_box_enter(blo[bb][:, None, :], bhi[bb][:, None, :],
+                                  ox[idx], oy[idx], oz[idx],
+                                  dx[idx], dy[idx], dz[idx])
+        ent = ok & live
+        tested = ent & (entry <= t_final[idx]) if closest else \
+            ent & open_[idx]
+        n["admitted"] += int(live.sum())
+        n["entered"] += int(ent.sum())
+        n["box_tests"] += int(open_[idx].sum())
+        n["face_pairs"] += int(tested.sum())
+        needed[bb[tested.any(dim=1)]] = True
+    if not closest:
+        shut = int((lanes & (occ != 0)).sum())
+        n["box_tests"] += shut
+        n["face_pairs"] += shut
+    n["blocks"] = int(needed.sum())
+    return n
+
+
+# the ray sets of adversarial_rays
+ADVERSARIAL_KINDS = ("axis", "on_face", "inside", "in_plane", "grazing")
+
+
+def _grid_faces(v0, du, dv, n, m, verts, faces):
+    """An n x m quad grid from corner v0 along du, dv (two triangles a
+    quad), appended to verts / faces (1-based OBJ indices)."""
+    base = len(verts)
+    for j in range(m + 1):
+        for i in range(n + 1):
+            verts.append(v0 + du * (i / n) + dv * (j / m))
+    for j in range(m):
+        for i in range(n):
+            a = base + j * (n + 1) + i + 1
+            b, c, d = a + 1, a + n + 2, a + n + 1
+            faces += [(a, b, c), (a, c, d)]
+
+
+def write_grid_mesh(path: str, cells: int) -> None:
+    """An OBJ of flat, axis-aligned faces: a cells x cells grid in the
+    plane z = -3 over [-1.5, 1.5]^2, a 12 x 12 grid at z = -2.5 over
+    [-0.5, 0.5]^2 and an 8 x 8 wall in the plane x = 0.3125. Every face
+    lies in a plane of its cluster's box and grid lines are edges shared
+    by clusters. cells 16: 928 faces (8-face clusters); 48: 5,024
+    (32-face clusters); both pad to whole 1024-face superblocks."""
+    verts, faces = [], []
+    _grid_faces(np.array([-1.5, -1.5, -3.0]), np.array([3.0, 0, 0]),
+                np.array([0, 3.0, 0]), cells, cells, verts, faces)
+    _grid_faces(np.array([-0.5, -0.5, -2.5]), np.array([1.0, 0, 0]),
+                np.array([0, 1.0, 0]), 12, 12, verts, faces)
+    _grid_faces(np.array([0.3125, -1.0, -3.0]), np.array([0, 2.0, 0]),
+                np.array([0, 0, 1.0]), 8, 8, verts, faces)
+    lines = [f"v {x:.9g} {y:.9g} {z:.9g}" for x, y, z in verts]
+    lines += [f"f {a} {b} {c}" for a, b, c in faces]
+    with open(path, "w") as fh:
+        fh.write("\n".join(lines) + "\n")
+
+
+def _unit(v):
+    return (v / np.linalg.norm(v, axis=1, keepdims=True)).astype(np.float32)
+
+
+def adversarial_rays(kind: str, cells: int, blk_lo, blk_hi, seed: int,
+                     n: int = 2048):
+    """(o, d, so, sd) (3, n) f32 numpy each and act (n,) bool: one seeded
+    ray set of `kind` against write_grid_mesh(cells)'s scene, whose
+    cluster boxes are blk_lo / blk_hi. Kinds: "axis" (directions with one
+    or two zero components), "on_face" (origins on box faces), "inside"
+    (origins inside boxes), "in_plane" (rays in the grids' planes),
+    "grazing" (rays through grid vertices and points of grid lines, a
+    third from within 0.05: t ties between blocks). Shadow rays leave the
+    same origins, half straight up; 70% active; 15% of the extension rays
+    parked (origin 1e9, zero direction)."""
+    rng = np.random.default_rng(seed)
+    lo = np.asarray(blk_lo.cpu())
+    hi = np.asarray(blk_hi.cpu())
+    real = np.isfinite(lo).all(1)
+    lo, hi = lo[real], hi[real]
+    box = rng.integers(0, lo.shape[0], n)
+    d = _unit(rng.normal(size=(n, 3)))
+    if kind == "axis":
+        o = rng.uniform((-1.6, -1.6, -3.4), (1.6, 1.6, -1.8), (n, 3))
+        pattern = rng.integers(0, 4, n)
+        d[pattern == 0] = (0.0, 0.0, -1.0)
+        for axis in (0, 1, 2):
+            d[pattern == axis + 1, axis] = 0.0
+        d = _unit(d)
+    elif kind == "on_face":
+        o = rng.uniform(lo[box], hi[box])
+        axis = rng.integers(0, 3, n)
+        side = rng.uniform(size=n) < 0.5
+        o[np.arange(n), axis] = np.where(side, lo[box, axis], hi[box, axis])
+        d[rng.uniform(size=n) < 0.3, 2] = 0.0
+        d = _unit(d)
+    elif kind == "inside":
+        o = rng.uniform(lo[box], hi[box])
+    elif kind == "in_plane":
+        o = rng.uniform((-1.6, -1.6, 0.0), (1.6, 1.6, 0.0), (n, 3))
+        o[:, 2] = np.where(rng.uniform(size=n) < 0.5, -3.0, -2.5)
+        d[:, 2] = 0.0
+        d = _unit(d)
+    elif kind == "grazing":
+        k = rng.integers(0, cells + 1, (n, 2)) * (3.0 / cells) - 1.5
+        on_line = rng.uniform(size=n) < 0.5
+        k[on_line, 0] += rng.uniform(0, 3.0 / cells, on_line.sum())
+        target = np.stack([k[:, 0], k[:, 1], np.full(n, -3.0)], 1)
+        d[:, 2] = -np.abs(d[:, 2]) - 0.05
+        d = _unit(d)
+        s = np.where(rng.uniform(size=n) < 0.3, rng.uniform(2e-3, 5e-2, n),
+                     rng.uniform(0.2, 2.0, n))
+        o = target - d * s[:, None]
+    else:
+        raise ValueError(f"unknown ray set {kind!r}")
+    o = o.astype(np.float32)
+    so = o.copy()
+    sd = np.where(rng.uniform(size=(n, 1)) < 0.5,
+                  np.array([[0.0, 0.0, 1.0]], np.float32),
+                  _unit(rng.normal(size=(n, 3)) + (0.0, 0.0, 1.5)))
+    act = rng.uniform(size=n) < 0.7
+    parked = rng.uniform(size=n) < 0.15
+    o[parked] = 1e9
+    d[parked] = 0.0
+    return (o.T.copy(), d.T.copy(), so.T.copy(),
+            sd.astype(np.float32).T.copy(), act)

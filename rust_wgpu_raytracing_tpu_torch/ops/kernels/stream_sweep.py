@@ -9,7 +9,10 @@ its own launch counter:
   oterm;
 - `stream_closest_hit_perray` (K10, _make_streaming_chp_slim_kernel):
   the per-ray-origin winner at t >= 1e-3, plane constants from the
-  record's columns SC_DC..;
+  record's columns SC_DC..; it takes the 32-face blocks' boxes too and
+  tests a block only for the rays whose own line enters its box at or
+  below their best t so far (ops/kernels/raycull.py models it; the
+  plain version ignores the boxes: the results are the same bits);
 - `stream_anyhit` (K11, _make_streaming_anyhit_kernel): occ = 1 where
   an active ray hits a face at t >= 1e-3.
 
@@ -36,7 +39,8 @@ from .anyhit import anyhit_blocks
 from .build import check, library
 from .closest_hit import closest_shared_blocks
 from .closest_hit_perray import closest_perray_blocks
-from .common import TILE_R, is_cuda_call, ptr, require, stream_ptr
+from .common import (TILE_R, box_args, is_cuda_call, open_boxes, ptr,
+                     require, stream_ptr)
 
 BLOCK_F = 32  # faces per block; 32 blocks per superblock word
 
@@ -92,23 +96,27 @@ stream_closest_hit.launches = 0
 
 
 def stream_closest_hit_perray(mask3, order2, tlb3, dx, dy, dz, ox, oy, oz,
-                              texit, spack):
+                              texit, spack, blk_lo=None, blk_hi=None):
     """(t, face) for rays with per-ray origins ox/oy/oz (the path
-    tracer's bounce rays), as stream_closest_hit otherwise."""
+    tracer's bounce rays), as stream_closest_hit otherwise; blk_lo /
+    blk_hi (F / 32, 3) f32 the 32-face blocks' boxes, or None (every
+    ray of an admitted block tested)."""
     planes = (dx, dy, dz, ox, oy, oz, texit)
     n_sub, nsub, n_super = _check(
         mask3, order2, tlb3, planes, spack,
         ("dx", "dy", "dz", "ox", "oy", "oz", "texit"))
-    if not is_cuda_call(mask3, order2, tlb3, *planes, spack):
+    boxes = box_args(blk_lo, blk_hi, n_super * 32)
+    if not is_cuda_call(mask3, order2, tlb3, *planes, spack, *boxes):
         return stream_closest_hit_perray_plain(mask3, order2, tlb3, *planes,
-                                               spack)
+                                               spack, *boxes)
+    lo, hi = boxes or open_boxes(n_super * 32, dx.device)
     r = dx.shape[0]
     t = torch.empty(r, dtype=torch.float32, device=dx.device)
     face = torch.empty(r, dtype=torch.int32, device=dx.device)
     err = library().rt_stream_closest_hit_perray(
         ptr(mask3), ptr(order2), ptr(tlb3), *[ptr(p) for p in planes],
-        ptr(spack), n_sub, nsub, n_super, spack.shape[1], SC_DC, ptr(t),
-        ptr(face), stream_ptr(dx.device))
+        ptr(spack), ptr(lo), ptr(hi), n_sub, nsub, n_super, spack.shape[1],
+        SC_DC, ptr(t), ptr(face), stream_ptr(dx.device))
     check(err, "rt_stream_closest_hit_perray")
     stream_closest_hit_perray.launches += 1
     return t, face
@@ -167,9 +175,11 @@ def stream_closest_hit_plain(mask3, order2, tlb3, dx, dy, dz, texit, spack,
 
 
 def stream_closest_hit_perray_plain(mask3, order2, tlb3, dx, dy, dz, ox, oy,
-                                    oz, texit, spack):
-    """Plain PyTorch version of stream_closest_hit_perray."""
-    del order2, texit
+                                    oz, texit, spack, blk_lo=None,
+                                    blk_hi=None):
+    """Plain PyTorch version of stream_closest_hit_perray (the boxes
+    unread)."""
+    del order2, texit, blk_lo, blk_hi
     return closest_perray_blocks(admitted_subtiles(mask3, tlb3), dx, dy, dz,
                                  ox, oy, oz, spack, spack[:, SC_DC:], BLOCK_F)
 

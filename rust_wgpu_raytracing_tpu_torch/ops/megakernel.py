@@ -295,6 +295,18 @@ def _natural_block_f(scene: SceneData, f: int) -> int:
     return min(BLOCK_F, f)
 
 
+def _block_boxes(scene: SceneData, f: int, block_f: int):
+    """(lo, hi) (f // block_f, 3) f32: each face block's box, the union
+    of the cluster AABBs it holds (a block holds whole clusters: K8's
+    blocks are the clusters, K10's 32-face blocks hold one cluster or
+    four 8-face ones), for the per-ray culling of K8 and K10."""
+    k = block_f * scene.blk_lo.shape[0] // f  # clusters per block
+    if k == 1:
+        return scene.blk_lo, scene.blk_hi
+    return (scene.blk_lo.reshape(-1, k, 3).amin(dim=1),
+            scene.blk_hi.reshape(-1, k, 3).amax(dim=1))
+
+
 def _cull_mask(scene: SceneData, omin, omax, dmin, dmax):
     """(tiles, clusters) i32: the flat slab test of the tiles' cones
     (bounds (T, 3) each) against every cluster AABB."""
@@ -560,7 +572,8 @@ def gbuffer_perray(scene: SceneData, ox, oy, oz, dx, dy, dz, *,
     per-ray origin terms. Terminated paths carry zero directions; they
     cannot hit. stream as for gbuffer: the streamed branch (K10) keeps
     zero-direction rays out of the tile bounds and first clears the
-    words no live ray's forward line meets (perray_super_any); the
+    words no live ray's forward line meets (perray_super_any) and hands
+    K10 the blocks' boxes, which it tests per ray (_block_boxes); the
     all-on-chip branch runs K7."""
     f = scene.padded_faces
     stream, block_f = _stream_setup(scene, stream)
@@ -580,7 +593,8 @@ def gbuffer_perray(scene: SceneData, ox, oy, oz, dx, dy, dz, *,
         mask3, order2, tlb3, texit = _stream_inputs(
             scene, mask, nwords, oxp, oyp, ozp, dxp, dyp, dzp, act=live)
         t, face = kernels.stream_closest_hit_perray(
-            mask3, order2, tlb3, *planes, texit, _stream_pack(scene))
+            mask3, order2, tlb3, *planes, texit, _stream_pack(scene),
+            *_block_boxes(scene, f, block_f))
     else:
         tlb, order, texit = _vmem_sched(scene, mask, nwords,
                                         oxp, oyp, ozp, dxp, dyp, dzp,
@@ -605,8 +619,9 @@ def extend_shadow_rays(scene: SceneData, ox, oy, oz, dx, dy, dz,
     the live set of both ray sets (extension rays of dead paths park
     far away with zero directions; inactive shadow rays are act-gated
     in the kernel), so one parked ray cannot open its tile's bounds to
-    the whole scene. The kernel walks the union of the two masks and
-    gates each half by its own bit.
+    the whole scene. The kernel walks the union of the two masks, gates
+    each half by its own bit and tests a block's faces only for the rays
+    whose line enters its box (_block_boxes).
 
     Past STREAM_FACES (JAX's fallback of extend_shadow_pallas) the whole
     wavefront is first sorted by origin Morton code and direction octant
@@ -647,7 +662,8 @@ def extend_shadow_rays(scene: SceneData, ox, oy, oz, dx, dy, dz,
                              kernels=kernels)
     t, face, occ = kernels.extend_shadow(
         words_a, words_b, *planes, act, pack_face_columns(scene),
-        _plane_consts(scene), block_f=block_f)
+        _plane_consts(scene), *_block_boxes(scene, f, block_f),
+        block_f=block_f)
     gb = expand_tf_gbuffer(scene, t[:nrays], face[:nrays], dx, dy, dz,
                            oxyz=(ox, oy, oz))
     return gb, occ[:nrays] > 0.0

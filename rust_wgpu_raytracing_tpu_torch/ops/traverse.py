@@ -119,6 +119,61 @@ def tile_ray_bounds(ox, oy, oz, dx, dy, dz, tile_r, act=None):
     return omin, omax, dmin, dmax
 
 
+# the smallest normal f32: a direction component below it takes the
+# inside rule in ray_box_enter
+F32_MIN_NORMAL = 1.17549435e-38
+
+
+def ray_box_enter(lo, hi, ox, oy, oz, dx, dy, dz):
+    """Per-ray slab test of rays (o, d) against AABBs [lo, hi] (lo/hi
+    (..., 3), the ray planes broadcasting against lo[..., 0]): the plain
+    twin of csrc/rt_common.cuh box_ray + ray_box_enter, bit for bit.
+
+    Returns (ok bool, entry f32). ok: the ray's forward line (t >= 0)
+    meets the box widened in space on each axis: by |bound| * 1e-5 +
+    1e-6, and by the ray's |o| * 1e-5, folded into the origin (p = o +
+    |o| 1e-5 meets the low side, q = o - |o| 1e-5 the high side); then
+    perray_super_any's margins: the exit inflated by |t| * 1e-5 + 1e-6,
+    the entry deflated to entry = t_in * (1 - 1e-5) - 1e-6 (at most the
+    line's entry), a direction component below the smallest normal f32
+    admitted only where the origin lies inside the widened slab. The
+    slab parameters are products with 1/d. A box with lo > hi on some
+    axis (padding clusters: +inf, -inf) is never admitted. Minima and
+    maxima ignore a NaN operand, as CUDA's fminf / fmaxf do.
+
+    Why the box is widened: a face test (perray_hit) may accept a point
+    a rounding error outside its triangle, and its t may lie below the
+    line's entry into the exact box (cancellation in N.o + d for origins
+    near the plane). Both errors are spatial, ~1e-7 (|origin| + |point|);
+    perray_super_any's margins are in t and vanish for a ray nearly
+    parallel to a slab. The widening covers them by ~50x, so no hit is
+    culled and no winner lies before its block's entry. A component below
+    the smallest normal f32 would need t > 1e31 to cross the 1e-6
+    margin."""
+    wlo = lo - (lo.abs() * 1e-5 + 1e-6)
+    whi = hi + (hi.abs() * 1e-5 + 1e-6)
+    tn = torch.zeros((), dtype=torch.float32, device=lo.device)
+    tf = torch.full((), F32_INF, dtype=torch.float32, device=lo.device)
+    one = torch.ones((), dtype=torch.float32, device=lo.device)
+    for a, (o, d) in enumerate(((ox, dx), (oy, dy), (oz, dz))):
+        om = o.abs() * 1e-5
+        p, q = o + om, o - om
+        flat = d.abs() < F32_MIN_NORMAL
+        inv = torch.where(flat, 0.0, one / torch.where(flat, 1.0, d))
+        ta = (wlo[..., a] - p) * inv
+        tb = (whi[..., a] - q) * inv
+        inside = (p >= wlo[..., a]) & (q <= whi[..., a])
+        na = torch.where(flat, torch.where(inside, 0.0, F32_INF),
+                         torch.fmin(ta, tb))
+        fa = torch.where(flat, torch.where(inside, F32_INF, -F32_INF),
+                         torch.fmax(ta, tb))
+        tn = torch.fmax(tn, na)
+        tf = torch.fmin(tf, fa)
+    entry = tn * (1.0 - 1e-5) - 1e-6
+    ok = (lo <= hi).all(dim=-1) & ((tf + tf.abs() * 1e-5 + 1e-6) >= entry)
+    return ok, entry
+
+
 def perray_super_any(slo, shi, ox, oy, oz, dx, dy, dz, tile_r: int,
                      act=None):
     """(T, S) bool exact per-ray union superblock admission (JAX
