@@ -13,7 +13,7 @@ program on its own, and checks them:
 2. build: the CUDA kernels from rust_wgpu_raytracing_tpu_torch/csrc
    (one nvcc per source, in parallel, linked into one shared library in
    the git-ignored build/kernels/); ptxas's registers and spills, and
-   the per-ray culled walks' (K8, K10) registers, shared memory and
+   the per-ray culled walks' (K8-K11) registers, shared memory and
    blocks an SM;
 3. each kernel against its plain PyTorch version on the card, on the
    very arguments the 1080p frames give it: closest hit, texshade and
@@ -22,9 +22,11 @@ program on its own, and checks them:
    nm branch and the texture filter from the normal-mapped fused frame,
    the texture filter also from the normal-mapped split frame and on
    seeded random u16 taps (texshade too: the smoke mesh's texture is
-   solid white). Every plane equal by value (texshade and the texture
-   filter within 0 ulp). The frame kernel's in-kernel shadow branch
-   against the sched branch: occlusion equal, unquantized frames equal;
+   solid white), and both on texels past 2^24 in a ~400 MB pool
+   (testing.texels.far_texel_case: each ray's taps at its int64 address).
+   Every plane equal by value (texshade and the texture filter within 0
+   ulp). The frame kernel's in-kernel shadow branch against the sched
+   branch: occlusion equal, unquantized frames equal;
 4. the paths through the Renderer, each run with the launch counters
    set to 0 just before it and read just after, each needing every
    kernel it uses launched (and the fused path none of the closest-hit
@@ -46,9 +48,10 @@ program on its own, and checks them:
    the bounce-1 wavefront of a traced sample (K8 also without its
    boxes), the any-hit kernel on the last bounce's act-aware arguments,
    K8 against K7 + K3 on the same rays (t, face, occ equal), K8's
-   admitted and entered (ray, block) pairs, K8 and K10 against their
+   admitted and entered (ray, block) pairs, K8-K11 against their
    plain versions on the seeded adversarial set (raycull.write_grid_mesh
-   x raycull.adversarial_rays, with and without boxes), one sample
+   x raycull.adversarial_rays, K9 x raycull.adversarial_camera, with and
+   without boxes), one sample
    through the kernels against
    the same sample composed from the plain versions (bitwise), the
    compacted bounce loop (run with room for every live tile) and
@@ -78,15 +81,19 @@ program on its own, and checks them:
    cull frame == bvh frame bitwise, the bvh words a superset of the flat
    scan's; K5 on the whole frame and K9, K11 on 8 of its batches (the
    one with the most admitted blocks among them) against their plain
-   versions; the kernel-run frame (cull, bvh) against the plain-composed
-   one on builtin:terrain:128 at 640x360; the 540p 3-bounce path tracer
-   through the Renderer (1 warm-up + 3 samples; K9, K10, K11, K6
-   launched, K1, K7, K8 not), K10 (with and without boxes) and K11 on 8
-   batches of its bounce-1 wavefront against plain, K10's admitted and
-   entered pairs, one terrain:128 320x180 sample against the
-   plain-composed one; each new kernel's time, plain time and bound
-   (K8 and K10 also the mask walk's bound and their walk's parts:
-   walk_parts).
+   versions, also without boxes; the kernel-run frame (cull, bvh) against
+   the plain-composed one on builtin:terrain:128 at 640x360; the 540p
+   3-bounce path tracer through the Renderer (1 warm-up + 3 samples; K9,
+   K10, K11, K6 launched, K1, K7, K8 not), K10 and K11 on 8 batches of
+   its bounce-1 wavefronts against plain (with and without boxes), one
+   terrain:128 320x180 sample against the plain-composed one; K9's and
+   K11's admitted, entered and needed (ray, block) pairs (K10's too),
+   the heaviest batch alone against the whole launch (tail), and both
+   at other sizes of K9's and K11's work items (stream_sweep.SEG 32-512,
+   each output bitwise the default's); each streamed kernel's time,
+   plain time and bound (the
+   per-ray culled walks K8-K11 also the mask walk's bound and their
+   walk's parts: walk_parts).
 
 `python3 chip_smoke.py --profile` runs only phases 1-2 and then
 profiles 5 frames of each frame program at the smoke view, 5 samples
@@ -151,6 +158,9 @@ STREAM_FRAMES, PTS_W, PTS_H, PTS_BOUNCES, PTS_SAMPLES = 5, 960, 540, 3, 3
 # (32,258 faces, 32 superblocks; the JAX package's __graft_entry__.py
 # streaming scene)
 CHECK_GRID = 128
+# the sizes of K9's and K11's work items timed beside the default
+# (stream_sweep.SEG: admitted blocks an item)
+SEGS = (32, 64, 128, 256, 512)
 # per-ray FP32 operations of the texture kernels (12 tap scales, 3
 # bilinear mixes of 9; texshade adds the 4-op Blinn-Phong per channel)
 OPS_TEXFILTER, OPS_TEXSHADE = 39, 51
@@ -361,11 +371,12 @@ def walk_pairs(tlb, ray_bound, lanes, floor=None) -> int:
 
 def culled_walk(name, args, kw, outs):
     """raycull.walk_counts of K8's two halves (closest hit, shadow) or of
-    K10, at these arguments and outputs: the pairs the per-ray culled
-    walk must test at least."""
+    K9, K10 or K11, at these arguments and outputs: the pairs the per-ray
+    culled walk must test at least. K9's arguments end with the origin
+    and the boxes (origin, blk_lo, blk_hi), K11's with the boxes."""
     import torch
 
-    from rust_wgpu_raytracing_tpu_torch.ops.kernels.raycull import (
+    from rust_wgpu_raytracing_tpu_torch.testing.raycull import (
         mask_pairs, stream_pairs, walk_counts)
 
     def aimed(dx, dy, dz):
@@ -380,6 +391,19 @@ def culled_walk(name, args, kw, outs):
                              args[18], *args[8:14], args[14] > 0,
                              occ=outs[2])
         return ext, shadow
+    if name == "stream_closest_hit":
+        # the camera origin broadcast to per-ray planes
+        o = [args[9][a].expand_as(args[3]) for a in range(3)]
+        reach = torch.minimum(outs[0], args[6]).view(-1, 1024).amax(1)
+        return (walk_counts(stream_pairs(args[0], args[2], reach), args[10],
+                            args[11], *args[3:6], *o, aimed(*args[3:6]),
+                            t_final=outs[0]),)
+    if name == "stream_anyhit":
+        act, occ = args[9] > 0, outs[0]
+        reach = torch.where(act & (occ == 0), args[10], -1.0).view(
+            -1, 1024).amax(1)
+        return (walk_counts(stream_pairs(args[0], args[2], reach), args[12],
+                            args[13], *args[3:9], act, occ=occ),)
     # K10: the words its walk visits, up to each subtile's reach
     reach = torch.minimum(outs[0], args[9]).view(-1, 1024).amax(1)
     return (walk_counts(stream_pairs(args[0], args[2], reach), args[11],
@@ -393,13 +417,13 @@ def kernel_work(name, args, kw, outs, mesh_t=None, walk="culled"):
     rays need, or the texture kernels' per-ray mix. The sweeps count
     the lanes that can take a test (a direction that is not zero; for
     the any-hit tests, an active ray) over the blocks their walk must
-    visit: the closest-hit walks (K1, K4, K7, K9) up to the tile's
-    largest min(t, root exit) among its rays (mesh_t: K4's mesh t, which
-    its outputs do not hold), the any-hit walks (K3, K11) up to the
-    largest root exit among its active rays that end unoccluded (at least
-    one block where an active ray ends occluded).
+    visit: the closest-hit walks (K1, K4, K7) up to the tile's largest
+    min(t, root exit) among its rays (mesh_t: K4's mesh t, which its
+    outputs do not hold), the any-hit walk (K3) up to the largest root
+    exit among its active rays that end unoccluded (at least one block
+    where an active ray ends occluded).
 
-    K8 and K10 walk per ray (csrc/cull_walk.cuh), and their count
+    K8-K11 walk per ray (csrc/cull_walk.cuh), and their count
     follows that walk (culled_walk, raycull.walk_counts): a box test
     (OPS_RAYBOX) for every admitted (ray, block) pair of an aimed ray,
     of an active shadow ray that ends unoccluded, and one per occluded
@@ -412,13 +436,16 @@ def kernel_work(name, args, kw, outs, mesh_t=None, walk="culled"):
     live ray (a shadow ray until it is occluded, so at least once), and
     keep a pair whenever its entry lies at or below the ray's best t so
     far, which never drops below the final t; an occluded ray needed at
-    least the block that occluded it. K10's walk skips the same words as
-    K9's (only words within the subtile's reach are counted).
+    least the block that occluded it. The streamed walks (K9-K11) count
+    only the words within the subtile's reach (the largest min(t, root
+    exit), or for K11 root exit of a ray that ends unoccluded); K9's face
+    tests are the shared-origin test's (OPS_SHARED), its staged rows the
+    record's 12 columns and the origin terms' 4.
 
-    walk="mask" counts K8 and K10 as the TPU kernels walk: every lane
-    that can take a test against every admitted block (K8 every set bit
-    of each half's mask, K10 the words up to each subtile's reach), the
-    bound the mask walk would have."""
+    walk="mask" counts K8-K11 as the TPU kernels walk: every lane that
+    can take a test against every admitted block (K8 every set bit of
+    each half's mask, the streamed sweeps the words up to each subtile's
+    reach), the bound the mask walk would have."""
     import torch
 
     moved = tensor_bytes(args) + tensor_bytes(outs)
@@ -430,10 +457,16 @@ def kernel_work(name, args, kw, outs, mesh_t=None, walk="culled"):
         moved = tensor_bytes(args[:15] + args[17:]) + tensor_bytes(outs) \
             + max(ext["blocks"], shadow["blocks"]) * bf * 16 * 4
         return moved, ops
-    if walk == "culled" and name == "stream_closest_hit_perray":
+    # the streamed culled walks: the record (K9 also its origin terms) is
+    # read only in the staged rows
+    record = {"stream_closest_hit_perray": (10, 11, OPS_PERRAY),
+              "stream_closest_hit": (7, 9, OPS_SHARED),
+              "stream_anyhit": (11, 12, OPS_PERRAY)}
+    if walk == "culled" and name in record:
+        r0, r1, per = record[name]
         (n,) = culled_walk(name, args, kw, outs)
-        ops = n["box_tests"] * OPS_RAYBOX + n["face_pairs"] * 32 * OPS_PERRAY
-        moved = tensor_bytes(args[:10] + args[11:]) + tensor_bytes(outs) \
+        ops = n["box_tests"] * OPS_RAYBOX + n["face_pairs"] * 32 * per
+        moved = tensor_bytes(args[:r0] + args[r1:]) + tensor_bytes(outs) \
             + n["blocks"] * 32 * 16 * 4
         return moved, ops
 
@@ -529,6 +562,30 @@ def stream_blocks(mask3, tlb3):
     return (bits.sum(2) * ok).sum(1)
 
 
+def heaviest_batch(mask3, tlb3):
+    """(index, admitted blocks per batch (NB,)): the batch of a streamed
+    schedule whose subtiles admit the most blocks together."""
+    nb, nsub = mask3.shape[0], mask3.shape[1] - 1
+    adm = stream_blocks(mask3, tlb3).view(nb, nsub).sum(1)
+    return int(adm.argmax()), adm
+
+
+def batch_args(args, sel):
+    """A streamed sweep's arguments restricted to the batches `sel` (an
+    index tensor): the schedule's rows and the rays' planes; the record,
+    origin terms, origin and boxes as they are."""
+    mask3 = args[0]
+    nb = mask3.shape[0]
+    r = nb * (mask3.shape[1] - 1) * 1024
+
+    def take(a):
+        if a.dim() == 1 and a.shape[0] == r:
+            return a.view(nb, -1).index_select(0, sel).reshape(-1)
+        return a
+    return [a.index_select(0, sel) for a in args[:3]] + \
+        [take(a) for a in args[3:]]
+
+
 def bound(moved: int, ops: int, ops_s: float = FP32_OPS_S):
     """(bound_ms, bound_by): the least time the card could take."""
     t_bytes, t_ops = moved / HBM_BYTES_S, ops / ops_s
@@ -559,8 +616,13 @@ def mask_walk_note(name, args, kw, outs, ms) -> str:
             f"{100 * mw_ms / ms:.1f}% of it")
 
 
+# the index of the per-ray culled walks' first box argument (blk_lo)
+BOX_ARG = {"extend_shadow": 17, "stream_closest_hit_perray": 11,
+           "stream_closest_hit": 10, "stream_anyhit": 12}
+
+
 def walk_parts(name, args, kw, reps: int) -> str:
-    """Times of parts of K8's or K10's culled walk on these arguments, as
+    """Times of parts of a per-ray culled walk (K8-K11) on these arguments, as
     a note to a timing line: with boxes no ray enters (valid boxes at
     1e6: the box tests and the chunk overheads alone, no face test) and,
     for K8, each half alone (the other half's mask words zeroed)."""
@@ -569,7 +631,7 @@ def walk_parts(name, args, kw, reps: int) -> str:
     from rust_wgpu_raytracing_tpu_torch.ops import kernels as K
 
     fn = getattr(K, name)
-    n = 17 if name == "extend_shadow" else 11
+    n = BOX_ARG[name]
     far = torch.full_like(args[n], 1e6)
     runs = {"boxes no ray enters": (*args[:n], far, far + 1.0)}
     if name == "extend_shadow":
@@ -581,14 +643,49 @@ def walk_parts(name, args, kw, reps: int) -> str:
         for label, a in runs.items())
 
 
+def texel_offset_phase(check, say):
+    """Texels past 2^24 in a ~400 MB pool (testing.texels.far_texel_case: odd
+    base offsets no f32 holds): the glue's i32 addresses give each ray
+    its own taps, and K6 and K2 on them equal their plain versions."""
+    import torch
+
+    from rust_wgpu_raytracing_tpu_torch.testing.texels import (
+        F32_EXACT, far_texel_case)
+    from rust_wgpu_raytracing_tpu_torch.ops.megakernel import \
+        gather_packed_taps
+
+    pool, base, hh, ww, u, v, want = far_texel_case("cuda")
+    taps, fx, fy = gather_packed_taps(pool, base, hh, ww, u, v)
+    addressed = torch.equal(taps.cpu(), want)
+    exact = bool((base.float().long() == base.long()).any())
+    say(f"[kernel] texels past 2^24: pool {tuple(pool.shape)} "
+        f"({pool.numel() * 2 / 2 ** 20:.0f} MiB), base offsets "
+        f"{sorted(set(base.tolist()))} (2^24 = {F32_EXACT}; any held by an "
+        f"f32: {exact}); each ray's taps at its int64 address: {addressed}")
+    if exact or not addressed:
+        raise AssertionError("texels past 2^24 are mis-addressed")
+    rng = np.random.default_rng(25)
+    n = fx.shape[0]
+    planes = [rng.uniform(0, 1, n), rng.uniform(0, 1, n) ** 8] + \
+        [rng.uniform(0, 0.2, n) for _ in range(3)] + \
+        [rng.uniform(0, 1, n) for _ in range(3)]
+    planes = [torch.from_numpy(p.astype(np.float32)).to("cuda")
+              for p in planes]
+    check("texels past 2^24", "texfilter", (taps, fx, fy), {})
+    check("texels past 2^24", "texshade", (taps, fx, fy, *planes), {})
+
+
 def raycull_phase(record, check, say):
-    """K8 and K10 against their plain versions on the seeded adversarial
-    set: raycull.write_grid_mesh's two meshes (8- and 32-face clusters,
-    faces in their boxes' planes, edges shared by blocks, NaN padding
-    faces and +inf padding boxes) under the five ray sets of
-    raycull.adversarial_rays, the arguments from the port's own glue on
-    the card (extend_shadow_rays, gbuffer_perray forced onto the streamed
-    sweep); every output equal, with the boxes and without."""
+    """K8-K11 against their plain versions on the seeded adversarial set:
+    raycull.write_grid_mesh's two meshes (8- and 32-face clusters, faces
+    in their boxes' planes, edges shared by blocks, NaN padding faces and
+    +inf padding boxes) under the five ray sets of raycull.adversarial_rays
+    (K8, K10, K11) and the six cameras of raycull.adversarial_camera (K9:
+    the ray sets' kinds from one origin and a camera on a face's plane),
+    the arguments from the port's own glue on the card
+    (extend_shadow_rays; gbuffer_perray, gbuffer and anyhit_rays forced
+    onto the streamed sweeps); every output equal, with the boxes and
+    without."""
     import torch
 
     from rust_wgpu_raytracing_tpu_torch.config import (MeshConfig,
@@ -596,8 +693,9 @@ def raycull_phase(record, check, say):
                                                        SceneConfig)
     from rust_wgpu_raytracing_tpu_torch.core.scene import Scene
     from rust_wgpu_raytracing_tpu_torch.ops import megakernel as MK
-    from rust_wgpu_raytracing_tpu_torch.ops.kernels.raycull import (
-        ADVERSARIAL_KINDS, adversarial_rays, write_grid_mesh)
+    from rust_wgpu_raytracing_tpu_torch.testing.raycull import (
+        ADVERSARIAL_KINDS, CAMERA_KINDS, adversarial_camera,
+        adversarial_rays, write_grid_mesh)
 
     root = tempfile.mkdtemp(prefix="rt_cull_")
     before = os.environ.get("RWRT_ASSETS")
@@ -608,17 +706,31 @@ def raycull_phase(record, check, say):
             data = Scene.build(SceneConfig(
                 meshes=(MeshConfig(obj_path=f"grid{cells}.obj"),),
                 render=RenderConfig(width=64, height=32))).data.to("cuda")
-            for seed, kind in enumerate(ADVERSARIAL_KINDS):
+            for seed, kind in enumerate(CAMERA_KINDS):
+                view = f"adversarial grid{cells} {kind}"
+                origin, d = (torch.from_numpy(x).to("cuda") for x in
+                             adversarial_camera(kind, cells, data.blk_lo,
+                                                data.blk_hi, 600 + seed))
+                calls = record(lambda ks: MK.gbuffer(
+                    data, origin, *d, stream=True, kernels=ks))
+                args, kw = calls["stream_closest_hit"][0]
+                check(view, "stream_closest_hit", args, kw)
+                check(view, "stream_closest_hit", args[:10], kw,
+                      " (no boxes)")
+                if kind not in ADVERSARIAL_KINDS:
+                    continue
                 o, d, so, sd, act = (torch.from_numpy(x).to("cuda") for x in
                                      adversarial_rays(kind, cells, data.blk_lo,
                                                       data.blk_hi, 500 + seed))
                 calls = record(lambda ks: (
                     MK.extend_shadow_rays(data, *o, *d, *so, *sd, act,
                                           kernels=ks),
-                    MK.gbuffer_perray(data, *o, *d, stream=True, kernels=ks)))
-                view = f"adversarial grid{cells} {kind}"
+                    MK.gbuffer_perray(data, *o, *d, stream=True, kernels=ks),
+                    MK.anyhit_rays(data, *so, *sd, act, stream=True,
+                                   kernels=ks)))
                 for name, n_args in (("extend_shadow", 17),
-                                     ("stream_closest_hit_perray", 11)):
+                                     ("stream_closest_hit_perray", 11),
+                                     ("stream_anyhit", 12)):
                     args, kw = calls[name][0]
                     check(view, name, args, kw)
                     check(view, name, args[:n_args], kw, " (no boxes)")
@@ -642,6 +754,7 @@ def stream_phase(card, K, Renderer, drive, record, check, results, errs,
 
     from rust_wgpu_raytracing_tpu_torch.core.camera import Camera
     from rust_wgpu_raytracing_tpu_torch.core.scene import Scene
+    from rust_wgpu_raytracing_tpu_torch.ops.kernels import stream_sweep
     from rust_wgpu_raytracing_tpu_torch.ops.megakernel import \
         render_megakernel
     from rust_wgpu_raytracing_tpu_torch.ops.pathtrace import (
@@ -651,13 +764,78 @@ def stream_phase(card, K, Renderer, drive, record, check, results, errs,
     plain = {f.__name__: p for f, p in zip(K.KERNELS, K.PLAIN)}
     gib = 2.0 ** 30
 
+    seg = stream_sweep.SEG
+
+    def tail(at, name, args, kw, reps=5, rounds=3):
+        """(ms on all batches, ms of the heaviest batch alone): whether the
+        longest walks set the launch's time; then both at other sizes of
+        the work items (stream_sweep.SEG), each output bitwise the
+        default's. Each time is the median of `rounds` rounds that visit
+        the sizes in turn, each round the mean of `reps` launches."""
+        top, adm = heaviest_batch(args[0], args[2])
+        one = batch_args(args, torch.tensor([top], device=args[0].device))
+        nsub = args[0].shape[1] - 1
+        per = stream_blocks(args[0], args[2]).view(-1, nsub)
+        want = flat(name, wrapper[name](*args, **kw))
+        runs = {s: [] for s in SEGS}
+        try:
+            for s in SEGS:
+                stream_sweep.SEG = s
+                got = flat(name, wrapper[name](*args, **kw))
+                torch.cuda.synchronize()
+                if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                    raise AssertionError(f"{name}: SEG {s} changes the "
+                                         f"output")
+            for _ in range(rounds):
+                for s in SEGS:
+                    stream_sweep.SEG = s
+                    runs[s].append((
+                        time_ms(lambda: wrapper[name](*args, **kw), reps),
+                        time_ms(lambda: wrapper[name](*one, **kw), reps)))
+        finally:
+            stream_sweep.SEG = seg
+        out = {s: tuple(float(np.median(x)) for x in zip(*r))
+               for s, r in runs.items()}
+        sizes = [f"{s}: {f:.4f} / {a:.4f} ({100 * a / f:.1f}%)"
+                 for s, (f, a) in out.items()]
+        full, alone = out[seg]
+        say(f"[tail] {card}: {name} at {at}'s arguments: all "
+            f"{args[0].shape[0]} batches {full:.4f} ms, the heaviest batch "
+            f"alone (batch {top}: {int(adm[top])} admitted blocks, at most "
+            f"{int(per[top].max())} in one subtile, against a mean of "
+            f"{float(per.float().mean()):.1f} a subtile) {alone:.4f} ms, "
+            f"{100 * alone / full:.1f}% of the launch (items of at most "
+            f"SEG {seg} admitted blocks; CUDA events around the wrapper, the "
+            f"median of {rounds} rounds of {reps} launches)")
+        say(f"[tail] {card}: {name} at {at}'s arguments by SEG, all batches "
+            f"/ the heaviest alone, ms: {'; '.join(sizes)} (each output "
+            f"bitwise SEG {seg}'s; sizes interleaved, as above)")
+        return full, alone
+
+    def check_culled(view, name, sub):
+        """K9 or K11 without its boxes on the subset batches against the
+        plain version."""
+        check(view + ", 8 batches", name, sub[0][:BOX_ARG[name]], {},
+              " (no boxes: every ray of an admitted block)")
+
+    def pairs(at, name, args, kw):
+        """raycull.walk_counts of K9's or K11's walk at these arguments
+        (with the origin and the 32-face blocks' boxes)."""
+        (n,) = culled_walk(name, args, kw, flat(name, wrapper[name](
+            *args, **kw)))
+        say(f"[pairs] {name} at {at}'s arguments, (ray, block) pairs in the "
+            f"words its walk visits: admitted {n['admitted']}, entered "
+            f"{n['entered']}, needed {n['face_pairs']} ({n['blocks']} "
+            f"distinct blocks; box tests at least {n['box_tests']})")
+        return n
+
     def frame_of(data, uni, accel, kernels, width=WIDTH, height=HEIGHT):
         return render_megakernel(data, uni, width=width, height=height,
                                  shadows=True, accel=accel, fused=False,
                                  kernels=kernels)
 
     # (a) the frame through the Renderer, cull then bvh
-    colors, calls = {}, {}
+    colors, calls, origins = {}, {}, {}
     for accel in ("cull", "bvh"):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -689,6 +867,7 @@ def stream_phase(card, K, Renderer, drive, record, check, results, errs,
             f"(max_memory_allocated, scene included)")
         colors[accel] = color
         uni = rv.camera.uniforms().flat()
+        origins[accel] = torch.tensor(uni[32:35], device="cuda")
         calls[accel] = record(lambda ks: frame_of(data, uni, accel, ks))
         if accel == "cull":
             del rv
@@ -719,20 +898,12 @@ def stream_phase(card, K, Renderer, drive, record, check, results, errs,
         n_batches of them (the most admitted blocks among them)."""
         mask3 = args[0]
         nb, nsub = mask3.shape[0], mask3.shape[1] - 1
-        adm = stream_blocks(mask3, args[2]).view(nb, nsub).sum(1)
-        top = int(adm.argmax())
+        top, adm = heaviest_batch(mask3, args[2])
         spread = [int(i) for i in np.linspace(0, nb - 1, n_batches)]
         pick = sorted({top} | set([i for i in spread
                                    if i != top][:n_batches - 1]))
         sel = torch.tensor(pick, device=mask3.device)
-        r = nb * nsub * 1024
-
-        def take(a):
-            if a.dim() == 1 and a.shape[0] == r:
-                return a.view(nb, -1).index_select(0, sel).reshape(-1)
-            return a
-        sub = [a.index_select(0, sel) for a in args[:3]] + \
-            [take(a) for a in args[3:]]
+        sub = batch_args(args, sel)
         got = flat(name, wrapper[name](*args, **kw))
         want = flat(name, plain[name](*sub, **kw))
         torch.cuda.synchronize()
@@ -761,6 +932,20 @@ def stream_phase(card, K, Renderer, drive, record, check, results, errs,
         f"{float(stream_blocks(k9_args[0], k9_args[2]).float().mean()):.1f}"
         f", K11 {float(stream_blocks(k11_args[0], k11_args[2]).float().mean()):.1f}")
     del calls["bvh"]["stream_closest_hit"], calls["bvh"]["stream_anyhit"]
+    if not torch.equal(k9_args[9], origins["cull"]):
+        raise AssertionError("K9 was not handed the camera origin")
+    check_culled("stream frame, cull", "stream_closest_hit", k9_sub)
+    check_culled("stream frame, cull (shadow wavefront)", "stream_anyhit",
+                 k11_sub)
+    tails = {"frame K9": tail(
+                 "the cull frame's primary sweep", "stream_closest_hit",
+                 k9_args, k9_kw),
+             "frame K11": tail("the cull frame's shadow sweep",
+                               "stream_anyhit", k11_args, k11_kw)}
+    pairs("the cull frame's primary sweep", "stream_closest_hit", k9_args,
+          k9_kw)
+    pairs("the cull frame's shadow sweep", "stream_anyhit", k11_args,
+          k11_kw)
 
     # (c) the kernel-run frame against the plain-composed one, terrain:128
     cfg = stream_config(grid=CHECK_GRID, width=640, height=360)
@@ -821,10 +1006,19 @@ def stream_phase(card, K, Renderer, drive, record, check, results, errs,
         f"{ {k: len(v) for k, v in pt_calls.items()} }")
     k10_args, k10_kw = pt_calls["stream_closest_hit_perray"][0]
     k11b_args, k11b_kw = pt_calls["stream_anyhit"][0]
+    k9b_args, k9b_kw = pt_calls["stream_closest_hit"][0]
+    subset_check("pt primary rays", "stream_closest_hit", k9b_args, k9b_kw)
     k10_sub = subset_check("pt bounce 1 (extension rays)",
                            "stream_closest_hit_perray", k10_args, k10_kw)
-    subset_check("pt bounce 1 (shadow rays of bounce 0)", "stream_anyhit",
-                 k11b_args, k11b_kw)
+    k11b_sub = subset_check("pt bounce 1 (shadow rays of bounce 0)",
+                            "stream_anyhit", k11b_args, k11b_kw)
+    check_culled("pt bounce 1 (shadow rays of bounce 0)", "stream_anyhit",
+                 k11b_sub)
+    tails["PT K11"] = tail("the PT's bounce-1 shadow sweep", "stream_anyhit",
+                           k11b_args, k11b_kw)
+    tail("the PT's primary sweep", "stream_closest_hit", k9b_args, k9b_kw)
+    pairs("the PT's bounce-1 shadow sweep", "stream_anyhit", k11b_args,
+          k11b_kw)
     check("pt bounce 1 (extension rays), 8 batches",
           "stream_closest_hit_perray", k10_sub[0][:11], k10_kw,
           " (no boxes: every ray of an admitted block)")
@@ -857,16 +1051,19 @@ def stream_phase(card, K, Renderer, drive, record, check, results, errs,
         raise AssertionError("streamed sample differs from its plain twin")
 
     # (e) timing at the paths' arguments, turns plain, kernel, kernel, plain
-    timed = {"hier_cull": (calls["bvh"]["hier_cull"][0],
-                           (None, "plain on the same arguments"),
-                           "the bvh frame's primary cull"),
-             "stream_closest_hit": ((k9_args, k9_kw), k9_sub,
-                                    "the cull frame's primary sweep"),
-             "stream_anyhit": ((k11_args, k11_kw), k11_sub,
-                               "the cull frame's shadow sweep"),
-             "stream_closest_hit_perray": ((k10_args, k10_kw), k10_sub,
-                                           "the PT's bounce-1 sweep")}
-    for name, ((args, kw), (sub, where), at) in timed.items():
+    # (key, kernel, its call, the plain version's (args, where), the path)
+    timed = [("hier_cull", "hier_cull", calls["bvh"]["hier_cull"][0],
+              (None, "plain on the same arguments"),
+              "the bvh frame's primary cull"),
+             ("stream_closest_hit", "stream_closest_hit", (k9_args, k9_kw),
+              k9_sub, "the cull frame's primary sweep"),
+             ("stream_anyhit", "stream_anyhit", (k11_args, k11_kw), k11_sub,
+              "the cull frame's shadow sweep"),
+             ("stream_anyhit (PT)", "stream_anyhit", (k11b_args, k11b_kw),
+              k11b_sub, "the PT's bounce-1 shadow sweep"),
+             ("stream_closest_hit_perray", "stream_closest_hit_perray",
+              (k10_args, k10_kw), k10_sub, "the PT's bounce-1 sweep")]
+    for key, name, (args, kw), (sub, where), at in timed:
         p_args = sub if sub is not None else args
 
         def run_kernel():
@@ -878,18 +1075,27 @@ def stream_phase(card, K, Renderer, drive, record, check, results, errs,
         k1 = time_ms(run_kernel, 10)
         k2 = time_ms(run_kernel, 10)
         p2 = time_ms(run_plain, 1)
-        moved, ops = kernel_work(name, args, kw, flat(name, run_kernel()))
+        outs = flat(name, run_kernel())
+        moved, ops = kernel_work(name, args, kw, outs)
         bound_ms, bound_by = bound(moved, ops)
         unfused_ms, _ = bound(moved, ops, FP32_UNFUSED_S)
         ms = (k1 + k2) / 2
-        results[name] = dict(max_abs_err=errs[name], ms=ms,
-                             plain_ms=(p1 + p2) / 2, bound_ms=bound_ms,
-                             bound_by=bound_by)
-        note = mask_walk_note(name, args, kw, flat(name, run_kernel()), ms) \
-            + walk_parts(name, args, kw, 10) \
-            if name == "stream_closest_hit_perray" else ""
-        say(f"[timing] {card}: {name} {ms:.4f} ms (kernel, {k1:.4f} / "
-            f"{k2:.4f}) vs {results[name]['plain_ms']:.4f} ms ({where}) at "
+        if key == name:
+            results[name] = dict(max_abs_err=errs[name], ms=ms,
+                                 plain_ms=(p1 + p2) / 2, bound_ms=bound_ms,
+                                 bound_by=bound_by)
+        note = ""
+        if name != "hier_cull":
+            note = mask_walk_note(name, args, kw, outs, ms) \
+                + walk_parts(name, args, kw, 10)
+        tail_ms = tails.get({"stream_closest_hit": "frame K9",
+                             "stream_anyhit": "frame K11",
+                             "stream_anyhit (PT)": "PT K11"}.get(key))
+        if tail_ms:
+            note += (f"; the heaviest batch alone {tail_ms[1]:.4f} ms of "
+                     f"{tail_ms[0]:.4f}")
+        say(f"[timing] {card}: {key} {ms:.4f} ms (kernel, {k1:.4f} / "
+            f"{k2:.4f}) vs {(p1 + p2) / 2:.4f} ms ({where}) at "
             f"{at}'s arguments; bound {bound_ms:.4f} ms by {bound_by} "
             f"({moved} bytes, {ops} FP32 operations), "
             f"{100 * bound_ms / ms:.1f}% of it; {unfused_ms:.4f} ms at the "
@@ -928,7 +1134,8 @@ def main() -> int:
     build.library()
     say(f"[build] {os.path.relpath(lib_path)} in "
         f"{time.perf_counter() - t0:.1f} s (flags: {' '.join(build.NVCC_FLAGS)})")
-    for name in ("extend_shadow", "stream_closest_hit_perray"):
+    for name in ("extend_shadow", "stream_closest_hit",
+                 "stream_closest_hit_perray", "stream_anyhit"):
         out = (ctypes.c_int * 4)()
         err = getattr(build.library(), f"rt_{name}_resources")(out)
         if err:
@@ -1078,6 +1285,31 @@ def main() -> int:
         errs[name] = max(errs.get(name, 0.0), err)
         return got
 
+    def drive(label, renderer, need, absent=(), frames=FRAMES):
+        """Reset the counters, render WARMUP + frames with the orbit key
+        held, read the counters; returns (times, launches, last frame)."""
+        K.reset_launch_counts()
+        renderer.controller.process_key("d", True)
+        times = []
+        for i in range(WARMUP + frames):
+            renderer.update()
+            color, depth = renderer.render(block=True)
+            if i >= WARMUP:
+                times.append(renderer.last_frame_ms)
+        launches = K.launch_counts()
+        say(f"[path] {label}: launches over {WARMUP + frames} frames: "
+            f"{launches}")
+        missing = [k for k in need if launches[k] == 0]
+        extra = [k for k in absent if launches[k] != 0]
+        if missing or extra:
+            raise AssertionError(f"{label}: kernels of the path never "
+                                 f"launched {missing}, kernels off the path "
+                                 f"launched {extra}")
+        if tuple(color.shape) != (renderer.height, renderer.width, 3) or \
+                not bool(torch.isfinite(color).all()):
+            raise AssertionError(f"{label}: bad frame {tuple(color.shape)}")
+        return sorted(times), launches, color, depth
+
     # --- 3. each kernel against its plain version at the frame's shapes ----
     smoke_uni = r.camera.uniforms().flat()
     dense_uni = Camera.from_config(CameraConfig(
@@ -1147,33 +1379,9 @@ def main() -> int:
     check("nm view", "texshade", *cap["texshade"])
     cap = capture(nm_r.data, nm_uni, fused=False, shadows=True, nm=True)
     check("nm view, split with shadows", "texfilter", *cap["texfilter"])
+    texel_offset_phase(check, say)
 
     # --- 4. the paths through the Renderer --------------------------------
-    def drive(label, renderer, need, absent=(), frames=FRAMES):
-        """Reset the counters, render WARMUP + frames with the orbit key
-        held, read the counters; returns (times, launches, last frame)."""
-        K.reset_launch_counts()
-        renderer.controller.process_key("d", True)
-        times = []
-        for i in range(WARMUP + frames):
-            renderer.update()
-            color, depth = renderer.render(block=True)
-            if i >= WARMUP:
-                times.append(renderer.last_frame_ms)
-        launches = K.launch_counts()
-        say(f"[path] {label}: launches over {WARMUP + frames} frames: "
-            f"{launches}")
-        missing = [k for k in need if launches[k] == 0]
-        extra = [k for k in absent if launches[k] != 0]
-        if missing or extra:
-            raise AssertionError(f"{label}: kernels of the path never "
-                                 f"launched {missing}, kernels off the path "
-                                 f"launched {extra}")
-        if tuple(color.shape) != (renderer.height, renderer.width, 3) or \
-                not bool(torch.isfinite(color).all()):
-            raise AssertionError(f"{label}: bad frame {tuple(color.shape)}")
-        return sorted(times), launches, color, depth
-
     def against_plain(label, renderer, color, nm=False):
         fused = renderer.variant_chosen == "fused"
         ref, _ = frame(renderer.data, renderer.camera.uniforms().flat(),

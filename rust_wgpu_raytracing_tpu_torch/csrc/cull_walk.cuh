@@ -1,26 +1,31 @@
-// The per-ray culled walk of K8 (extend_shadow.cu) and K10 (the per-ray
-// sweep of stream_sweep.cu): a tile's admitted face blocks are taken in
-// chunks of a few blocks, and each block's faces are tested only for the
-// rays whose own line enters the block's box (rt_common.cuh
-// ray_box_enter), a closest-hit ray only where that entry lies at or
-// below its best t so far.
+// The per-ray culled walk of K8 (extend_shadow.cu) and of the streamed
+// sweeps K9, K10 and K11 (stream_sweep.cu): a tile's admitted face
+// blocks are taken in chunks of a few blocks, and each block's faces are
+// tested only for the rays whose own line enters the block's box
+// (rt_common.cuh ray_box_enter), a closest-hit ray only where that entry
+// lies at or below its best t so far.
 //
-// Why: a tile of incoherent bounce rays admits hundreds of blocks, but a
-// ray enters only a few of their boxes. The TPU kernels test every lane
-// against every admitted block (a 1024-lane vector gains nothing from
-// skipping lanes); a 32-lane warp does, once the (ray, block) pairs that
-// need a test are compacted. The outputs stay the unculled walk's, bit
-// for bit: the merges (a lexicographic (t, face) min, an OR) do not
-// depend on the order of visits, a ray whose line misses the widened box
-// cannot hit a face inside it, and no face t lies before its box's entry.
+// Why: a tile of incoherent bounce rays, or of shadow rays of which a
+// tenth are live, admits hundreds of blocks, but a ray enters only a few
+// of their boxes. The TPU kernels test every lane against every admitted
+// block (a 1024-lane vector gains nothing from skipping lanes); a 32-lane
+// warp does, once the (ray, block) pairs that need a test are compacted.
+// The outputs stay the unculled walk's, bit for bit: the merges (a
+// lexicographic (t, face) min, an OR) do not depend on the order of
+// visits, a ray whose line misses the widened box cannot hit a face
+// inside it, and no face t lies before its box's entry.
 //
 // One CUDA block of CT = 512 threads per 1024-ray tile. The rays live in
-// shared memory (struct of arrays), with the closest-hit winner packed as
-// one 64-bit key (float bits of t << 32 | face): every hit has t >= 1e-3
-// > 0, so the bits of t order as its value and the key's order is the
-// lexicographic (t, face) order; a miss keeps (+inf, 0). Per chunk:
-//  1. box phase: each thread box-tests its 2 rays against the chunk's
-//     blocks (bit s of a per-ray mask: the ray enters block s);
+// shared memory (struct of arrays; K9's as directions beside one origin),
+// with the closest-hit winner packed as one 64-bit key (float bits of t
+// << 32 | face): the bits of a t >= +0.0 order as its value, so the key's
+// order is the lexicographic (t, face) order; K8 and K10 hit at t >= 1e-3,
+// K9 at t >= 0, where a zero t is packed as +0.0 (the bits of -0.0 would
+// order after every positive t). A miss keeps (+inf, 0). Per chunk:
+//  1. box phase: each thread box-tests its rays against the chunk's
+//     blocks (bit s of a per-ray mask: the ray enters block s); K11
+//     takes the live rays from a compacted list, so only live rays are
+//     tested;
 //  2. a block-wide scan of the masks' popcounts numbers the (ray, block)
 //     pairs; the union of the masks says which blocks some pair needs;
 //  3. only those blocks are staged, column-major (one face per lane);
@@ -86,6 +91,64 @@ struct Walk {
 // state of a shadow ray
 constexpr unsigned char S_OFF = 0, S_LIVE = 1, S_OCC = 2;
 
+// the halves of a walk (run_chunk's HALVES, a slot's flag bits)
+constexpr int EXT = 1, SHADOW = 2;
+
+// K9's rays: directions only, beside the tile's one origin
+struct Dirs {
+  float d[3][TILE_R];
+};
+
+// The closest-hit rays of a walk, with per-ray origins (K8, K10): every
+// hit has t >= 1e-3 > 0, so t's bits are the key's.
+struct PerRayExt {
+  const Rays& R;
+  __device__ __forceinline__ bool aimed(int i) const {
+    return R.d[0][i] != 0.0f || R.d[1][i] != 0.0f || R.d[2][i] != 0.0f;
+  }
+  __device__ __forceinline__ BoxRay box(int i) const {
+    return box_ray(R.o[0][i], R.o[1][i], R.o[2][i], R.d[0][i], R.d[1][i],
+                   R.d[2][i]);
+  }
+  __device__ __forceinline__ bool hit(const float* g, int stride, int i,
+                                      float& t) const {
+    return perray_hit_cols(g, stride, R.d[0][i], R.d[1][i], R.d[2][i],
+                           R.o[0][i], R.o[1][i], R.o[2][i], t);
+  }
+  __device__ __forceinline__ static unsigned key(float t) {
+    return __float_as_uint(t);
+  }
+};
+
+// The closest-hit rays of K9, from one origin: the face test is
+// shared_origin_t's (t >= 0, staged columns 12-15 the origin terms), and
+// a zero t (+0.0 or -0.0) packs as +0.0.
+struct SharedExt {
+  const Dirs& R;
+  float o[3];
+  __device__ __forceinline__ bool aimed(int i) const {
+    return R.d[0][i] != 0.0f || R.d[1][i] != 0.0f || R.d[2][i] != 0.0f;
+  }
+  __device__ __forceinline__ BoxRay box(int i) const {
+    return box_ray(o[0], o[1], o[2], R.d[0][i], R.d[1][i], R.d[2][i]);
+  }
+  __device__ __forceinline__ bool hit(const float* g, int stride, int i,
+                                      float& t) const {
+    t = shared_origin_t_cols(g, stride, R.d[0][i], R.d[1][i], R.d[2][i]);
+    return t != INFINITY;
+  }
+  __device__ __forceinline__ static unsigned key(float t) {
+    return t == 0.0f ? 0u : __float_as_uint(t);
+  }
+};
+
+// the closest-hit half of a shadow-only walk (K11): none
+struct NoExt {
+  __device__ __forceinline__ static unsigned key(float t) {
+    return __float_as_uint(t);
+  }
+};
+
 __device__ __forceinline__ void load_rays(Rays& R, const float* dx,
                                           const float* dy, const float* dz,
                                           const float* ox, const float* oy,
@@ -130,13 +193,11 @@ __device__ __forceinline__ void load_slot(Chunk& ch, int s, int blk, int flag,
   ch.flag[s] = box ? flag : 0;
 }
 
-// Box-test one ray against the slots whose `want` flag is set: bit s of
-// the result = the ray enters slot s's box (at or below `cap`).
+// Box-test one ray (r from box_ray) against the slots whose `want` flag
+// is set: bit s of the result = the ray enters slot s's box (at or below
+// `cap`).
 __device__ __forceinline__ unsigned enter_mask(const Chunk& ch, int want,
-                                               const Rays& R, int i,
-                                               float cap) {
-  const BoxRay r = box_ray(R.o[0][i], R.o[1][i], R.o[2][i], R.d[0][i],
-                           R.d[1][i], R.d[2][i]);
+                                               const BoxRay& r, float cap) {
   unsigned m = 0;
   for (int s = 0; s < ch.n; ++s) {
     float e;
@@ -147,34 +208,65 @@ __device__ __forceinline__ unsigned enter_mask(const Chunk& ch, int want,
   return m;
 }
 
-// One chunk of the walk (ch filled and synchronised by the caller). The
-// closest-hit half tests the aimed rays of W.ext against the slots with
-// flag bit 0; with SHADOW, the live rays of `sh` (state S_LIVE) against
-// the slots with flag bit 1. Faces: columns 0-11 of `pack` (row stride
-// pack_cols) and 0-3 of `extra` (row stride extra_cols). Ends synchronised.
-template <bool SHADOW>
-__device__ void run_chunk(Walk& W, const Rays* sh, unsigned char* state,
-                          const float* __restrict__ pack, int pack_cols,
-                          const float* __restrict__ extra, int extra_cols,
-                          int block_f) {
+// The rays, the shared scratch and the outputs of one chunk of a walk.
+// `best` holds the closest-hit keys; `ext` (PerRayExt, SharedExt, NoExt)
+// the closest-hit rays; `sh` and `state` the shadow rays and their
+// states; `live` the ray indices of the first *n_live entries that a
+// shadow-only walk (K11) box-tests.
+template <class Ext>
+struct Tile {
+  Chunk& ch;
+  float* faces;               // (slot, column, face), face stride bf+1
+  unsigned short* list;       // pair: ray | slot << 10 | half << 15
+  unsigned long long* best;
+  Ext ext;
+  const Rays* sh;
+  unsigned char* state;
+  const unsigned short* live;
+  const int* n_live;
+};
+
+// One chunk of the walk (T.ch filled and synchronised by the caller).
+// With EXT in HALVES, the closest-hit half tests the aimed rays of T.ext
+// against the slots with flag bit 0; with SHADOW, the live rays of T.sh
+// (state S_LIVE) against the slots with flag bit 1 (a shadow-only walk
+// takes its rays from T.live). Faces: columns 0-11 of `pack` (row stride
+// pack_cols) and 0-3 of `extra` (row stride extra_cols). Ends
+// synchronised.
+template <int HALVES, class Ext>
+__device__ void run_chunk(const Tile<Ext>& T, const float* __restrict__ pack,
+                          int pack_cols, const float* __restrict__ extra,
+                          int extra_cols, int block_f) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  Chunk& ch = W.ch;
+  Chunk& ch = T.ch;
+  constexpr bool HAS_EXT = (HALVES & EXT) != 0;
+  constexpr bool HAS_SH = (HALVES & SHADOW) != 0;
 
   // 1. box phase
   unsigned em[RPC], sm[RPC];
+  int ray[RPC];
   int cnt = 0;
   unsigned need = 0;
 #pragma unroll
   for (int k = 0; k < RPC; ++k) {
-    const int i = tid + k * CT;
+    int i = tid + k * CT;
+    if constexpr (!HAS_EXT) i = i < *T.n_live ? T.live[i] : -1;
+    ray[k] = i;
     em[k] = 0;
     sm[k] = 0;
-    if (W.ext.d[0][i] != 0.0f || W.ext.d[1][i] != 0.0f ||
-        W.ext.d[2][i] != 0.0f)
-      em[k] = enter_mask(ch, 1, W.ext, i,
-                         __uint_as_float((unsigned)(W.best[i] >> 32)));
-    if (SHADOW && state[i] == S_LIVE)
-      sm[k] = enter_mask(ch, 2, *sh, i, INFINITY);
+    if constexpr (HAS_EXT) {
+      if (T.ext.aimed(i))
+        em[k] = enter_mask(ch, EXT, T.ext.box(i),
+                           __uint_as_float((unsigned)(T.best[i] >> 32)));
+    }
+    if constexpr (HAS_SH) {
+      if (i >= 0 && T.state[i] == S_LIVE)
+        sm[k] = enter_mask(ch, SHADOW,
+                           box_ray(T.sh->o[0][i], T.sh->o[1][i],
+                                   T.sh->o[2][i], T.sh->d[0][i],
+                                   T.sh->d[1][i], T.sh->d[2][i]),
+                           INFINITY);
+    }
     cnt += __popc(em[k]) + __popc(sm[k]);
     need |= em[k] | sm[k];
   }
@@ -208,7 +300,7 @@ __device__ void run_chunk(Walk& W, const Rays* sh, unsigned char* state,
     for (int e = tid; e < block_f * STAGE_COLS; e += CT) {
       const int j = e / STAGE_COLS, c = e % STAGE_COLS;
       const size_t row = row0 + j;
-      W.faces[(s * STAGE_COLS + c) * stride + j] =
+      T.faces[(s * STAGE_COLS + c) * stride + j] =
           c < 12 ? pack[row * pack_cols + c]
                  : extra[row * extra_cols + (c - 12)];
     }
@@ -224,13 +316,13 @@ __device__ void run_chunk(Walk& W, const Rays* sh, unsigned char* state,
       int idx = first;
 #pragma unroll
       for (int k = 0; k < RPC; ++k) {
-        const int i = tid + k * CT;
 #pragma unroll
-        for (int half = 0; half < (SHADOW ? 2 : 1); ++half) {
+        for (int half = 0; half < 2; ++half) {
+          if (!(HALVES & (1 << half))) continue;
           for (unsigned m = half ? sm[k] : em[k]; m; m &= m - 1u, ++idx)
             if (idx >= base && idx < base + CAP)
-              W.list[idx - base] = (unsigned short)(
-                  i | ((__ffs(m) - 1) << 10) | (half << 15));
+              T.list[idx - base] = (unsigned short)(
+                  ray[k] | ((__ffs(m) - 1) << 10) | (half << 15));
         }
       }
     }
@@ -243,16 +335,28 @@ __device__ void run_chunk(Walk& W, const Rays* sh, unsigned char* state,
       bool hit = false;     // a shadow lane's hit
       int i = 0, s = 0, half = 0;
       if (have) {
-        const unsigned e = W.list[p];
+        const unsigned e = T.list[p];
         i = e & 1023;
         s = (e >> 10) & 31;
         half = e >> 15;
-        if (j < block_f && !(SHADOW && half && state[i] != S_LIVE)) {
-          const Rays& R = (SHADOW && half) ? *sh : W.ext;
+        if (j < block_f && !(HAS_SH && half && T.state[i] != S_LIVE)) {
+          const float* col = T.faces + s * STAGE_COLS * stride + j;
           float t;
-          const bool v = perray_hit_cols(
-              W.faces + s * STAGE_COLS * stride + j, stride, R.d[0][i],
-              R.d[1][i], R.d[2][i], R.o[0][i], R.o[1][i], R.o[2][i], t);
+          bool v;
+          if constexpr (HALVES == (EXT | SHADOW)) {
+            // K8: one test, on the pair's ray set
+            const Rays& R = half ? *T.sh : T.ext.R;
+            v = perray_hit_cols(col, stride, R.d[0][i], R.d[1][i],
+                                R.d[2][i], R.o[0][i], R.o[1][i], R.o[2][i],
+                                t);
+          } else if constexpr (HAS_SH) {
+            const Rays& R = *T.sh;
+            v = perray_hit_cols(col, stride, R.d[0][i], R.d[1][i],
+                                R.d[2][i], R.o[0][i], R.o[1][i], R.o[2][i],
+                                t);
+          } else {
+            v = T.ext.hit(col, stride, i, t);
+          }
           if (half)
             hit = v;
           else if (v)
@@ -269,16 +373,39 @@ __device__ void run_chunk(Walk& W, const Rays* sh, unsigned char* state,
           gmask;
       if (have && j == 0 && bits) {
         if (half)
-          state[i] = S_OCC;
-        else
-          atomicMin(&W.best[i],
-                    ((unsigned long long)__float_as_uint(tmin) << 32) |
+          T.state[i] = S_OCC;
+        else if constexpr (HAS_EXT)
+          atomicMin(&T.best[i],
+                    ((unsigned long long)Ext::key(tmin) << 32) |
                         (unsigned)(ch.blk[s] * block_f + __ffs(bits) - 1 -
                                    q * g));
       }
     }
     __syncthreads();
   }
+}
+
+// Fill the chunk from the set bits of `word` (superblock s), at most
+// `slots` of them, each slot with its box and the halves `flag`: warp 0
+// loads, then the block synchronises. Returns the bits left.
+__device__ __forceinline__ unsigned fill_chunk(Chunk& ch, unsigned word,
+                                               int s, int flag, int slots,
+                                               const float* blo,
+                                               const float* bhi) {
+  const int lane = threadIdx.x & 31;
+  if (threadIdx.x < 32) {
+    unsigned rest = word;
+    int n = 0;
+    for (; rest && n < slots; ++n) {
+      const int bit = __ffs((int)rest) - 1;
+      rest &= rest - 1u;
+      if (lane == n) load_slot(ch, n, s * 32 + bit, flag, blo, bhi);
+    }
+    if (lane == 0) ch.n = n;
+  }
+  for (int k = 0; k < slots && word; ++k) word &= word - 1u;
+  __syncthreads();
+  return word;
 }
 
 // out[0..3] = registers a thread, spilled bytes a thread, dynamic shared

@@ -71,6 +71,8 @@ extend_shadow_kernel(const int* __restrict__ words_a,
     S.state[i] = act[base + i] > 0.0f ? S_LIVE : S_OFF;
   }
 
+  const Tile<PerRayExt> T{S.w.ch,  S.w.faces, S.w.list, S.w.best,
+                          {S.w.ext}, &S.sh,     S.state,  nullptr, nullptr};
   const int* wa = words_a + (size_t)blockIdx.x * nwords;
   const int* wb = words_b + (size_t)blockIdx.x * nwords;
   const int slots = slots_for(block_f);
@@ -106,7 +108,7 @@ extend_shadow_kernel(const int* __restrict__ words_a,
     }
     __syncthreads();
     if (S.w.ch.n == 0) break;  // uniform
-    run_chunk<true>(S.w, &S.sh, S.state, fpack, fpack_cols, dc, 8, block_f);
+    run_chunk<EXT | SHADOW>(T, fpack, fpack_cols, dc, 8, block_f);
   }
 
   for (int i = tid; i < TILE_R; i += CT) {

@@ -175,7 +175,25 @@ __device__ __forceinline__ bool perray_hit_cols(const float* g, int stride,
          h1 >= 0.0f && h2 >= 0.0f;
 }
 
-// The per-ray box test of K8 and K10 (the port's ops/traverse.py
+// shared_origin_t over a column-major staging (cull_walk.cuh, as
+// perray_hit_cols): column c of the face at g[c * stride], columns 12-15
+// the origin terms. The same expression, term for term.
+__device__ __forceinline__ float shared_origin_t_cols(const float* g,
+                                                      int stride, float x,
+                                                      float y, float z) {
+  const float* c = g;
+  auto col = [c, stride](int k) { return c[k * stride]; };
+  const float ndotd = col(0) * x + col(1) * y + col(2) * z;
+  const float t = col(12) / ndotd;
+  const float h0 = col(13) + t * (col(3) * x + col(4) * y + col(5) * z);
+  const float h1 = col(14) + t * (col(6) * x + col(7) * y + col(8) * z);
+  const float h2 = col(15) + t * (col(9) * x + col(10) * y + col(11) * z);
+  const bool valid = fabsf(ndotd) >= K_EPSILON && t >= 0.0f && h0 >= 0.0f &&
+                     h1 >= 0.0f && h2 >= 0.0f;
+  return valid ? t : INFINITY;
+}
+
+// The per-ray box test of K8-K11 (the port's ops/traverse.py
 // ray_box_enter, bit for bit with -fmad=false and IEEE division): does
 // the forward line of the ray (origin o, direction d) meet the AABB [lo,
 // hi], and where does it enter? The box is widened in space on each axis:

@@ -52,14 +52,17 @@ _SIGNATURES = {
     "rt_extend_shadow": [_VOIDP] * 19 + [_INT] * 5 + [_VOIDP] * 3
     + [_VOIDP],
     "rt_hier_cull": [_VOIDP] * 3 + [_INT] * 2 + [_VOIDP] + [_VOIDP],
-    "rt_stream_closest_hit": [_VOIDP] * 9 + [_INT] * 4 + [_VOIDP] * 2
-    + [_VOIDP],
+    "rt_stream_closest_hit": [_VOIDP] * 14 + [_INT] + [_VOIDP] + [_INT] * 4
+    + [_VOIDP] + [_VOIDP],
     "rt_stream_closest_hit_perray": [_VOIDP] * 13 + [_INT] * 5
     + [_VOIDP] * 2 + [_VOIDP],
-    "rt_stream_anyhit": [_VOIDP] * 12 + [_INT] * 5 + [_VOIDP] + [_VOIDP],
+    "rt_stream_anyhit": [_VOIDP] * 16 + [_INT] + [_VOIDP] + [_INT] * 5
+    + [_VOIDP] + [_VOIDP],
     # (int out[4]): registers, spilled bytes, shared bytes, blocks an SM
     "rt_extend_shadow_resources": [_VOIDP],
+    "rt_stream_closest_hit_resources": [_VOIDP],
     "rt_stream_closest_hit_perray_resources": [_VOIDP],
+    "rt_stream_anyhit_resources": [_VOIDP],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -104,23 +104,28 @@ def closest_shared_blocks(tiles_of_block, dx, dy, dz, fpack, oterm,
     for j, tiles in enumerate(tiles_of_block):
         if tiles is None:
             continue
-        x, y, z = (block_rows(v, tiles) for v in (dx, dy, dz))
-        g = fpack[j * block_f:(j + 1) * block_f]
-        o = oterm[j * block_f:(j + 1) * block_f]
-
-        def c(m, k):
-            return m[:, k:k + 1]
-
-        ndotd = c(g, 0) * x + c(g, 1) * y + c(g, 2) * z
-        tt = c(o, 0) / ndotd
-        h0 = c(o, 1) + tt * (c(g, 3) * x + c(g, 4) * y + c(g, 5) * z)
-        h1 = c(o, 2) + tt * (c(g, 6) * x + c(g, 7) * y + c(g, 8) * z)
-        h2 = c(o, 3) + tt * (c(g, 9) * x + c(g, 10) * y + c(g, 11) * z)
-        valid = ((ndotd.abs() >= K_EPSILON) & (tt >= 0.0) & (h0 >= 0.0)
-                 & (h1 >= 0.0) & (h2 >= 0.0))
-        merge_block(t, face, tiles, torch.where(valid, tt, F32_INF),
-                    j * block_f)
+        rows = slice(j * block_f, (j + 1) * block_f)
+        tm = shared_plane_t(fpack[rows], oterm[rows],
+                            *(block_rows(v, tiles) for v in (dx, dy, dz)))
+        merge_block(t, face, tiles, tm, j * block_f)
     return t, face
+
+
+def shared_plane_t(g, o, x, y, z):
+    """(BF, n) t of the shared-origin face test (JAX _ch_block_tv) of the
+    faces g (BF, >=12) with origin terms o (BF, >=4) against rays x, y,
+    z (n,); +inf where a face misses."""
+    def c(m, k):
+        return m[:, k:k + 1]
+
+    ndotd = c(g, 0) * x + c(g, 1) * y + c(g, 2) * z
+    tt = c(o, 0) / ndotd
+    h0 = c(o, 1) + tt * (c(g, 3) * x + c(g, 4) * y + c(g, 5) * z)
+    h1 = c(o, 2) + tt * (c(g, 6) * x + c(g, 7) * y + c(g, 8) * z)
+    h2 = c(o, 3) + tt * (c(g, 9) * x + c(g, 10) * y + c(g, 11) * z)
+    valid = ((ndotd.abs() >= K_EPSILON) & (tt >= 0.0) & (h0 >= 0.0)
+             & (h1 >= 0.0) & (h2 >= 0.0))
+    return torch.where(valid, tt, F32_INF)
 
 
 def merge_block(t, face, tiles, tm, face_base: int) -> None:

@@ -17,8 +17,8 @@ K3's over the words_b tiles.
 The kernel also takes the face blocks' boxes (blk_lo, blk_hi: the
 scene's cluster AABBs, one row per block) and tests a block's faces
 only for the rays whose own line enters its box, a closest-hit ray only
-where that entry lies at or below its best t so far (raycull.py models
-that walk). The results are the same bits, so the plain version ignores
+where that entry lies at or below its best t so far (testing/raycull.py
+models that walk). The results are the same bits, so the plain version ignores
 the boxes. Without boxes the kernel admits every ray of an admitted
 block.
 """

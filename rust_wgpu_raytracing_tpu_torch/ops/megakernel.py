@@ -298,8 +298,8 @@ def _natural_block_f(scene: SceneData, f: int) -> int:
 def _block_boxes(scene: SceneData, f: int, block_f: int):
     """(lo, hi) (f // block_f, 3) f32: each face block's box, the union
     of the cluster AABBs it holds (a block holds whole clusters: K8's
-    blocks are the clusters, K10's 32-face blocks hold one cluster or
-    four 8-face ones), for the per-ray culling of K8 and K10."""
+    blocks are the clusters, the streamed sweeps' 32-face blocks hold one
+    cluster or four 8-face ones), for the per-ray culling of K8-K11."""
     k = block_f * scene.blk_lo.shape[0] // f  # clusters per block
     if k == 1:
         return scene.blk_lo, scene.blk_hi
@@ -481,7 +481,8 @@ def gbuffer(scene: SceneData, origin, dx, dy, dz, *, accel: str = "cull",
     which fuses no spheres (the caller runs the per-sphere passes).
     with_nm fills the G-buffer's normal-mapping planes. stream=None
     takes the streamed sweep (K9) past STREAM_FACES faces, the
-    all-on-chip one (K1) below."""
+    all-on-chip one (K1) below; K9 gets the origin and the blocks' boxes
+    (_block_boxes), which it tests per ray."""
     f = scene.padded_faces
     stream, block_f = _stream_setup(scene, stream)
     nrays = dx.shape[0]
@@ -497,7 +498,8 @@ def gbuffer(scene: SceneData, origin, dx, dy, dz, *, accel: str = "cull",
             scene, mask, nwords, o0, o1, o2, dx, dy, dz)
         t, face = kernels.stream_closest_hit(
             mask3, order2, tlb3, dx, dy, dz, texit, _stream_pack(scene),
-            oterm)
+            oterm, origin.reshape(3).contiguous(),
+            *_block_boxes(scene, f, block_f))
         sph = None
     else:
         tlb, order, texit = _vmem_sched(scene, mask, nwords, o0, o1, o2,
@@ -533,7 +535,8 @@ def anyhit_rays(scene: SceneData, ox, oy, oz, dx, dy, dz, active, *,
     last-bounce shadow wavefront, mostly dead lanes); None folds it on
     the streamed branch only, as JAX's default. The occlusion is the
     same either way, the mask and the sweep's work are not. stream as
-    for gbuffer (K11 streamed, K3 all on chip)."""
+    for gbuffer (K11 streamed, with the blocks' boxes; K3 all on
+    chip)."""
     f = scene.padded_faces
     stream, block_f = _stream_setup(scene, stream)
     if act_cull is None:
@@ -551,7 +554,8 @@ def anyhit_rays(scene: SceneData, ox, oy, oz, dx, dy, dz, active, *,
         mask3, order2, tlb3, texit = _stream_inputs(
             scene, mask, nwords, oxp, oyp, ozp, dxp, dyp, dzp, act=act > 0)
         occ = kernels.stream_anyhit(mask3, order2, tlb3, *args, act, texit,
-                                    _stream_pack(scene))
+                                    _stream_pack(scene),
+                                    *_block_boxes(scene, f, block_f))
         return occ[:nrays] > 0.0
     fpack = pack_face_columns(scene)
     dc = _plane_consts(scene)

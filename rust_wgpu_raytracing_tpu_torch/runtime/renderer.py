@@ -234,6 +234,14 @@ class Renderer:
             self.config, render=dataclasses.replace(
                 self.config.render, width=width, height=height))
         self._reset_accumulation()
+        rc = self.config.render
+        if not self.pathtrace and rc.variant == "auto" and fused_eligible(
+                self.data, shadows=rc.shadows,
+                normal_mapping=self._normal_mapping):
+            # as JAX's _build_frame_fn: the next render re-times both
+            # programs at the new size
+            self.variant_chosen = None
+            self.variant_ms = {}
 
     # --- presentation (screenquad.wgsl analogue) ---
     def _latest_color(self):

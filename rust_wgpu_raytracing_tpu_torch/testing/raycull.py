@@ -1,22 +1,29 @@
-"""Plain models of the per-ray cluster culling in kernels K8 and K10.
+"""Plain models of the per-ray cluster culling in kernels K8-K11.
 
-K8 (csrc/extend_shadow.cu) and K10 (csrc/stream_sweep.cu, the per-ray
-sweep) test a face block only against the rays whose own forward line
-enters the block's box (ops/traverse.ray_box_enter), and a closest-hit
-ray only where that entry lies at or below the ray's best t so far.
-Their outputs stay those of the unculled plain versions
-(extend_shadow_plain, stream_closest_hit_perray_plain), which compute
-the TPU kernels' function: a ray whose line misses a conservatively
-widened box cannot hit a face inside it, a face beyond the ray's best t
-cannot win, and both merges (a lexicographic (t, face) min and an OR)
-do not depend on the order of visits.
+K8 (csrc/extend_shadow.cu) and the streamed sweeps K9, K10, K11
+(csrc/stream_sweep.cu) test a face block only against the rays whose own
+forward line enters the block's box (ops/traverse.ray_box_enter), and a
+closest-hit ray only where that entry lies at or below the ray's best t
+so far. Their outputs stay those of the unculled plain versions
+(extend_shadow_plain, stream_closest_hit_plain,
+stream_closest_hit_perray_plain, stream_anyhit_plain), which compute the
+TPU kernels' function: a ray whose line misses a conservatively widened
+box cannot hit a face inside it, a face beyond the ray's best t cannot
+win, and both merges (a lexicographic (t, face) min and an OR) do not
+depend on the order of visits.
 
 This module walks the same (ray, block) pairs in plain PyTorch, so the
-CPU tests can hold the culled walk against the unculled versions bit for
-bit, counts the work the culled walk needs (`walk_counts`, read by
-chip_smoke.py's bounds), and makes the seeded adversarial inputs both
-hold the kernels to (`write_grid_mesh`, `adversarial_rays`). It is not
-on any render path.
+CPU tests can hold the culled walks against the unculled versions bit
+for bit, counts the work a culled walk needs (`walk_counts`, read by
+chip_smoke.py's bounds), and makes the seeded adversarial inputs the
+tests and chip_smoke.py hold the kernels to (`write_grid_mesh`,
+`adversarial_rays`, `adversarial_camera`). K9's and K11's models
+(`stream_shared_culled`, `stream_anyhit_culled`) follow the kernels'
+word walk itself: the work items of stream_sweep.walk_items (at
+stream_sweep.SEG as it stands when called), each
+subtile's visit order with its skip, stop and bound rules, K9's zero t
+packed as +0.0, K11's walk over its live rays only. It is not on any
+render path.
 """
 
 from __future__ import annotations
@@ -24,12 +31,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ...core.scene import SC_DC
-from ..traverse import ray_box_enter
-from .anyhit import perray_plane_test
-from .common import INT_MAX, TILE_R
-from .extend_shadow import mask_tiles
-from .stream_sweep import BLOCK_F, admitted_subtiles
+from ..core.scene import SC_DC
+from ..ops.kernels import stream_sweep
+from ..ops.kernels.anyhit import perray_plane_test
+from ..ops.kernels.closest_hit import shared_plane_t
+from ..ops.kernels.common import INT_MAX, TILE_R
+from ..ops.kernels.extend_shadow import mask_tiles
+from ..ops.kernels.stream_sweep import BLOCK_F, admitted_subtiles, walk_items
+from ..ops.traverse import ray_box_enter
 
 F32_INF = float("inf")
 
@@ -126,6 +135,134 @@ def stream_perray_culled(mask3, order2, tlb3, dx, dy, dz, ox, oy, oz, texit,
                           BLOCK_F)
 
 
+def item_walks(mask3, order2, tlb3, seg: int):
+    """(subtile, j0, j1) of each work item of K9's and K11's walks:
+    stream_sweep.walk_items' segments of each subtile's visit order."""
+    n_sub = mask3.shape[0] * (mask3.shape[1] - 1)
+    pre, off = walk_items(mask3, order2, tlb3, seg)
+    pre, off = pre.cpu(), off.tolist()
+    out = []
+    for u in range(n_sub):
+        for q in range(off[u + 1] - off[u]):
+            j0, j1 = (int(torch.searchsorted(pre[u], x)) for x in (
+                q * seg, (q + 1) * seg))
+            out.append((u, j0, j1))
+    return out
+
+
+def word_walk(mask3, order2, tlb3, u: int, j0: int, j1: int, b: float,
+              bound, visit, stop_below_zero: bool) -> None:
+    """One item of the streamed kernels' walk: subtile u's words
+    [j0, j1) of its batch's visit order from bound b. A word whose own
+    mask word is 0 or whose own entry bound exceeds b is skipped; the
+    walk stops at the first word whose batch-minimum bound exceeds b (K11
+    also at b < 0); each admitted word's set bits go to visit(block) in
+    bit order, then b = bound()."""
+    nsub = mask3.shape[1] - 1
+    batch, sub = divmod(u, nsub)
+    own_mask, own_tlb = mask3[batch, sub].tolist(), tlb3[batch, sub].tolist()
+    batch_tlb, order = tlb3[batch, nsub].tolist(), order2[batch].tolist()
+    for j in range(j0, j1):
+        if stop_below_zero and b < 0.0:
+            break
+        s = order[j]
+        if not batch_tlb[s] <= b:
+            break
+        word = own_mask[s] & 0xFFFFFFFF
+        if word == 0 or not own_tlb[s] <= b:
+            continue
+        for bit in range(32):
+            if word >> bit & 1:
+                visit(s * 32 + bit)
+        b = bound()
+
+
+def stream_shared_culled(mask3, order2, tlb3, dx, dy, dz, texit, spack,
+                         oterm, origin, blk_lo, blk_hi):
+    """K9's culled walk in plain PyTorch: (t, face) as
+    stream_closest_hit's, the rays from `origin` (3,), blk_lo/blk_hi
+    (F / 32, 3) the 32-face blocks' boxes. The items run last first (the
+    kernel runs them in any order); each starts from the winners as they
+    stand. A zero t is +0.0."""
+    r = dx.shape[0]
+    t = torch.full((r,), F32_INF, dtype=torch.float32, device=dx.device)
+    face = torch.zeros(r, dtype=torch.int32, device=dx.device)
+    lane = torch.arange(TILE_R, device=dx.device)
+    items = item_walks(mask3, order2, tlb3, stream_sweep.SEG)
+    for u, j0, j1 in reversed(items):
+        idx = u * TILE_R + lane
+        x, y, z, cap = dx[idx], dy[idx], dz[idx], texit[idx]
+        aimed = (x != 0.0) | (y != 0.0) | (z != 0.0)
+        o = [origin[a].expand_as(x) for a in range(3)]
+
+        def visit(j):
+            ok, entry = ray_box_enter(blk_lo[j], blk_hi[j], *o, x, y, z)
+            keep = (aimed & ok & (entry <= t[idx])).nonzero().squeeze(1)
+            if keep.numel() == 0:
+                return
+            rows = slice(j * BLOCK_F, (j + 1) * BLOCK_F)
+            tm = shared_plane_t(spack[rows], oterm[rows], x[keep],
+                                y[keep], z[keep])
+            tmin = tm.amin(dim=0)
+            tmin = torch.where(tmin == 0.0, 0.0, tmin)  # +0.0
+            lanes = torch.arange(BLOCK_F, dtype=torch.int32,
+                                 device=dx.device)[:, None]
+            new_face = torch.where(tm == tmin, lanes, INT_MAX).amin(dim=0) \
+                + j * BLOCK_F
+            ray = idx[keep]
+            prev_t, prev_f = t[ray], face[ray]
+            better = (tmin < prev_t) | ((tmin == prev_t) &
+                                         (new_face < prev_f))
+            t[ray] = torch.where(better, tmin, prev_t)
+            face[ray] = torch.where(better, new_face, prev_f)
+
+        def bound():
+            return float(torch.minimum(t[idx], cap).max())
+        word_walk(mask3, order2, tlb3, u, j0, j1, bound(), bound, visit,
+                  False)
+    return t, face
+
+
+def stream_anyhit_culled(mask3, order2, tlb3, dx, dy, dz, ox, oy, oz, act,
+                         texit, spack, blk_lo, blk_hi):
+    """K11's culled walk in plain PyTorch: occ as stream_anyhit's. Each
+    item keeps its live rays (active, not occluded so far, by it or by an
+    item before it) and box-tests only those; a ray leaves the walk once
+    occluded; the bound is the largest root exit of a live ray, -1 when
+    none is left. Items run last first."""
+    occ = torch.zeros_like(dx)
+    lane = torch.arange(TILE_R, device=dx.device)
+    dc = spack[:, SC_DC:]
+    items = item_walks(mask3, order2, tlb3, stream_sweep.SEG)
+    for u, j0, j1 in reversed(items):
+        idx = u * TILE_R + lane
+        live = (act[idx] > 0.0) & (occ[idx] == 0.0)
+
+        def visit(j):
+            ray = idx[live]
+            if ray.numel() == 0:
+                return
+            planes = [p[ray] for p in (dx, dy, dz, ox, oy, oz)]
+            ok, _ = ray_box_enter(blk_lo[j], blk_hi[j], *planes[3:],
+                                  *planes[:3])
+            ray = ray[ok]
+            if ray.numel() == 0:
+                return
+            rows = slice(j * BLOCK_F, (j + 1) * BLOCK_F)
+            _, hit = perray_plane_test(spack[rows], dc[rows], *(
+                p[ray] for p in (dx, dy, dz, ox, oy, oz)))
+            shut = ray[hit.any(dim=0)]
+            occ[shut] = act[shut]
+            live[shut - u * TILE_R] = False
+
+        def bound():
+            caps = texit[idx][live]
+            return max(-1.0, float(caps.max())) if caps.numel() else -1.0
+        word_walk(mask3, order2, tlb3, u, j0, j1, bound(), bound, visit,
+                  True)
+    return occ
+
+
 def mask_pairs(words, n_tiles: int, nb: int):
     """(tiles, blocks) (P,) int64: the (tile, block) pairs that packed
     (tiles * nwords,) mask words admit."""
@@ -205,6 +342,9 @@ def walk_counts(pairs, blo, bhi, dx, dy, dz, ox, oy, oz, lanes,
 
 # the ray sets of adversarial_rays
 ADVERSARIAL_KINDS = ("axis", "on_face", "inside", "in_plane", "grazing")
+# the cameras of adversarial_camera: the ray sets' kinds from one origin,
+# and a camera on a face's plane
+CAMERA_KINDS = ADVERSARIAL_KINDS + ("on_face_plane",)
 
 
 def _grid_faces(v0, du, dv, n, m, verts, faces):
@@ -307,3 +447,36 @@ def adversarial_rays(kind: str, cells: int, blk_lo, blk_hi, seed: int,
     d[parked] = 0.0
     return (o.T.copy(), d.T.copy(), so.T.copy(),
             sd.astype(np.float32).T.copy(), act)
+
+
+def adversarial_camera(kind: str, cells: int, blk_lo, blk_hi, seed: int,
+                       n: int = 2048):
+    """(origin (3,), d (3, n)) f32 numpy: one seeded camera of `kind`
+    (CAMERA_KINDS) against write_grid_mesh(cells)'s scene, for the
+    shared-origin sweep K9. The ray-set kinds take adversarial_rays'
+    first unparked origin and its directions (the parked ones drawn
+    anew); "grazing" aims from it at grid vertices and points of grid
+    lines (t ties between blocks). "on_face_plane" puts the camera on the
+    z = -3 grid, at a vertex, on an edge or inside a face (by seed), with
+    random directions: every ray that leaves the plane hits the faces
+    holding the origin at t = +0.0 or -0.0, the lowest face id winning
+    the tie."""
+    rng = np.random.default_rng(seed)
+    if kind == "on_face_plane":
+        step = 3.0 / cells
+        k = rng.integers(1, cells - 1, 2)
+        o = np.array([-1.5 + k[0] * step, -1.5 + k[1] * step, -3.0])
+        o[:2] += ((0.0, 0.0), (0.5 * step, 0.0),
+                  (0.3 * step, 0.6 * step))[seed % 3]
+        return o.astype(np.float32), _unit(rng.normal(size=(n, 3))).T.copy()
+    o, d, _, _, _ = adversarial_rays(kind, cells, blk_lo, blk_hi, seed, n)
+    parked = (d == 0.0).all(axis=0)
+    origin = o[:, np.argmin(parked)].copy()
+    if kind == "grazing":
+        k = rng.integers(0, cells + 1, (n, 2)) * (3.0 / cells) - 1.5
+        on_line = rng.uniform(size=n) < 0.5
+        k[on_line, 0] += rng.uniform(0, 3.0 / cells, on_line.sum())
+        target = np.stack([k[:, 0], k[:, 1], np.full(n, -3.0)], 1)
+        return origin, _unit(target - origin.astype(np.float64)).T.copy()
+    d[:, parked] = _unit(rng.normal(size=(int(parked.sum()), 3))).T
+    return origin, d

@@ -261,6 +261,58 @@ def test_renderer_fixed_variant(variant):
     assert torch.equal(color, want)
 
 
+def test_renderer_resize_retimes_auto():
+    """resize under variant="auto" puts the timing back, as JAX's
+    _build_frame_fn does: the next render times both programs anew (the
+    host clock on the CPU) and draws at the new size."""
+    cfg = terrain_config(pcfg, width=32, height=32)
+    r = Renderer(cfg, device="cpu")
+    timed = []
+    time_frames = r._time_frames
+
+    def counted(fn, *a, **kw):
+        timed.append(fn)
+        return time_frames(fn, *a, **kw)
+    r._time_frames = counted
+    r.render(block=True)
+    assert len(timed) == 2 and set(r.variant_ms) == {"split", "fused"}
+    first = dict(r.variant_ms)
+    r.resize(48, 24)
+    assert r.variant_chosen is None and r.variant_ms == {}
+    color, _ = r.render(block=True)
+    assert len(timed) == 4 and set(r.variant_ms) == {"split", "fused"}
+    assert all(ms > 0 for ms in r.variant_ms.values())
+    assert r.variant_ms is not first
+    assert r.variant_chosen == min(r.variant_ms, key=r.variant_ms.get)
+    want, _ = render_megakernel(
+        r.data, r.camera.uniforms().flat(), width=48, height=24,
+        shadows=True, fused=r.variant_chosen == "fused")
+    assert color.shape == (24, 48, 3) and torch.equal(color, want)
+    r.render(block=True)
+    assert len(timed) == 4  # timed once per size
+
+
+@pytest.mark.parametrize("variant", ["split", "fused", "auto_no_mesh"])
+def test_renderer_resize_keeps_a_fixed_choice(variant):
+    """A fixed variant, and auto on a scene the fused frame cannot draw,
+    keep their choice through resize and time nothing."""
+    if variant == "auto_no_mesh":
+        cfg = pcfg.SceneConfig(spheres=pcfg.reference_scene().spheres,
+                               render=pcfg.RenderConfig(width=32, height=32))
+        want = "split"
+    else:
+        cfg = terrain_config(pcfg, width=32, height=32)
+        cfg = dataclasses.replace(cfg, render=dataclasses.replace(
+            cfg.render, variant=variant))
+        want = variant
+    r = Renderer(cfg, device="cpu")
+    r.render(block=True)
+    r.resize(40, 24)
+    assert r.variant_chosen == want and r.variant_ms == {}
+    color, _ = r.render(block=True)
+    assert color.shape == (24, 40, 3) and r.variant_ms == {}
+
+
 def test_renderer_nm_with_shadows_renders_split(assets, monkeypatch):
     monkeypatch.setenv("RWRT_ASSETS", assets)
     cfg = textured_config(pcfg, width=32, height=32, bump=True)

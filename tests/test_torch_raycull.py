@@ -1,14 +1,19 @@
 """PyTorch port: the per-ray cluster culling of kernels K8 (the path
-tracer's fused extend + shadow sweep) and K10 (the streamed per-ray
-closest hit).
+tracer's fused extend + shadow sweep), K9 (the streamed shared-origin
+closest hit), K10 (the streamed per-ray closest hit) and K11 (the
+streamed shadow any-hit).
 
 Both kernels test a face block only for the rays whose own line enters
 the block's box (ops/traverse.ray_box_enter, the plain twin of
 csrc/rt_common.cuh ray_box_enter), a closest-hit ray only where that
-entry lies at or below its best t so far. ops/kernels/raycull.py models
-that walk in plain PyTorch; here the model is held against the unculled
-plain versions (extend_shadow_plain, stream_closest_hit_perray_plain,
-the TPU kernels' function) BITWISE: t, face and occ.
+entry lies at or below its best t so far. testing/raycull.py models
+that walk in plain PyTorch (K9's and K11's models follow the kernels'
+word walk, split into work items); here the model is held against the
+unculled plain versions (extend_shadow_plain, stream_closest_hit_plain,
+stream_closest_hit_perray_plain, stream_anyhit_plain, the TPU kernels'
+function) BITWISE: t, face and occ; K9's t by value, its zero t being
++0.0 where the plain version's may be -0.0 (equal by value, as the
+Pallas kernels' planes are).
 
 Inputs, from numpy seeds, on two meshes built at run time (an 8-face
 cluster mesh and a 32-face one): flat axis-aligned grids (faces lie in
@@ -16,12 +21,13 @@ their boxes' planes, grid lines are edges shared by blocks) and a wall,
 padded with NaN faces and +inf padding boxes. Ray sets: directions with
 zero components, origins on box faces, origins inside boxes, rays in a
 face plane, rays aimed at shared edges and vertices (t ties the lower
-face id must win), each with parked rays (origin 1e9, zero direction).
+face id must win), each with parked rays (origin 1e9, zero direction);
+for K9 one camera of each kind and a camera on a face's plane (zero t).
 Then the bounce-1 wavefronts of 64x64 path traces of a heightfield (K8)
-and of a streamed one (K10). The arguments come from the port's own
-glue (extend_shadow_rays, gbuffer_perray), which hands the kernels the
-boxes. The card tests (marked gpu) hold the CUDA kernels to the plain
-versions on the same inputs.
+and of a streamed one (K9, K10, K11). The arguments come from the
+port's own glue (extend_shadow_rays, gbuffer, gbuffer_perray,
+anyhit_rays), which hands the kernels the boxes. The card tests (marked
+gpu) hold the CUDA kernels to the plain versions on the same inputs.
 """
 
 import os
@@ -36,12 +42,20 @@ from rust_wgpu_raytracing_tpu_torch.core.camera import Camera
 from rust_wgpu_raytracing_tpu_torch.core.scene import Scene
 from rust_wgpu_raytracing_tpu_torch.ops import kernels as K
 from rust_wgpu_raytracing_tpu_torch.ops import megakernel as P
-from rust_wgpu_raytracing_tpu_torch.ops.kernels.raycull import (
-    ADVERSARIAL_KINDS, adversarial_rays, extend_shadow_culled, mask_pairs,
-    stream_pairs, stream_perray_culled, walk_counts, write_grid_mesh)
+from rust_wgpu_raytracing_tpu_torch.testing.raycull import (
+    ADVERSARIAL_KINDS, CAMERA_KINDS, adversarial_camera, adversarial_rays,
+    extend_shadow_culled, item_walks, mask_pairs, stream_anyhit_culled,
+    stream_pairs, stream_perray_culled, stream_shared_culled, walk_counts,
+    write_grid_mesh)
+from rust_wgpu_raytracing_tpu_torch.ops.kernels import stream_sweep
+from rust_wgpu_raytracing_tpu_torch.ops.kernels.stream_sweep import (
+    walk_items)
 from rust_wgpu_raytracing_tpu_torch.ops.pathtrace import (PRNGKey, fold_in,
                                                           render_pathtrace)
-from rust_wgpu_raytracing_tpu_torch.ops.traverse import ray_box_enter
+from rust_wgpu_raytracing_tpu_torch.ops.kernels.anyhit import \
+    perray_plane_test
+from rust_wgpu_raytracing_tpu_torch.ops.traverse import (perray_super_any,
+                                                         ray_box_enter)
 from test_torch_host import cuda_device, heightfield_config  # noqa: F401
 
 # mesh name: cells of raycull.write_grid_mesh's z = -3 grid (928 and
@@ -191,6 +205,115 @@ def test_culled_k10_equals_plain(meshes, mesh, kind):
     assert int(torch.isfinite(want[0]).sum()) > 50
 
 
+def k9_args(data, origin, d):
+    """stream_closest_hit's arguments from the port's glue (gbuffer
+    forced onto the streamed sweep)."""
+    calls = {}
+    P.gbuffer(data, torch.from_numpy(origin), *tens(d), stream=True,
+              kernels=recorder(calls))
+    return calls["stream_closest_hit"][0]
+
+
+def k11_args(data, so, sd, act):
+    """stream_anyhit's arguments from the port's glue."""
+    calls = {}
+    P.anyhit_rays(data, *tens(so), *tens(sd), torch.from_numpy(act),
+                  stream=True, kernels=recorder(calls))
+    return calls["stream_anyhit"][0]
+
+
+# K9's and K11's items: one word's 32 blocks, and the default
+SEGS = (32, stream_sweep.SEG)
+
+
+def segs(monkeypatch):
+    """Set stream_sweep.SEG to each of SEGS in turn."""
+    for seg in SEGS:
+        monkeypatch.setattr(stream_sweep, "SEG", seg)
+        yield seg
+
+
+def positive_zero(t):
+    """t with -0.0 turned into +0.0 (the bits K9 packs)."""
+    return torch.where(t == 0.0, 0.0, t)
+
+
+@pytest.mark.parametrize("kind", CAMERA_KINDS)
+@pytest.mark.parametrize("mesh", sorted(MESHES))
+def test_culled_k9_equals_plain(meshes, mesh, kind, monkeypatch):
+    """K9's walk (shared origin, items of 32 blocks and of the default)
+    against the unculled plain version: faces bitwise, t bitwise once a
+    zero t is +0.0 (the plain version keeps -0.0 where t_num / N.d is
+    one)."""
+    data = meshes[mesh]
+    seed = 600 + CAMERA_KINDS.index(kind) + 10 * sorted(MESHES).index(mesh)
+    origin, d = adversarial_camera(kind, MESHES[mesh], data.blk_lo,
+                                   data.blk_hi, seed)
+    args, kw = k9_args(data, origin, d)
+    assert len(args) == 12 and torch.equal(args[9], torch.from_numpy(origin))
+    assert torch.equal(args[10], P._block_boxes(data, data.padded_faces,
+                                                32)[0])
+    want = K.stream_closest_hit_plain(*args, **kw)
+    for _ in segs(monkeypatch):
+        got = stream_shared_culled(*args)
+        assert_bits(got, (positive_zero(want[0]), want[1]), ("t", "face"))
+    assert int(torch.isfinite(want[0]).sum()) > 100
+    if kind == "on_face_plane":
+        # the hazard: a camera on a face's plane hits at t = -0.0 too
+        zero = want[0] == 0.0
+        assert int(zero.sum()) > 1000
+        assert bool((want[0][zero].view(torch.int32) != 0).any())
+
+
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("mesh", sorted(MESHES))
+def test_culled_k11_equals_plain(meshes, mesh, kind, monkeypatch):
+    """K11's walk over live rays only (items of 32 blocks and of the
+    default) against the unculled plain version, bitwise."""
+    data = meshes[mesh]
+    seed = 700 + KINDS.index(kind) + 10 * sorted(MESHES).index(mesh)
+    _, _, so, sd, act = rays(kind, mesh, data, seed)
+    args, kw = k11_args(data, so, sd, act)
+    assert len(args) == 14
+    want = K.stream_anyhit_plain(*args, **kw)
+    for _ in segs(monkeypatch):
+        assert_bits((stream_anyhit_culled(*args),), (want,),
+                    ("occ",))
+    assert int((want > 0).sum()) > 50
+
+
+def test_walk_items_cover_each_walk_once(meshes):
+    """walk_items: each subtile's items hold consecutive words of its
+    visit order, every admitted word once, at most seg + 31 admitted
+    blocks an item, none empty."""
+    data = meshes["bf32"]
+    origin, d = adversarial_camera("inside", 48, data.blk_lo, data.blk_hi,
+                                   5)
+    args, _ = k9_args(data, origin, d)
+    mask3, order2, tlb3 = args[:3]
+    nsub, n_super = mask3.shape[1] - 1, mask3.shape[2]
+    for seg in (32, 64, 256):
+        pre, off = walk_items(mask3, order2, tlb3, seg)
+        items = item_walks(mask3, order2, tlb3, seg)
+        assert len(items) == int(off[-1])
+        assert len(items) > mask3.shape[0] * nsub or seg == 256
+        for u in range(mask3.shape[0] * nsub):
+            batch, sub = divmod(u, nsub)
+            ordered = order2[batch].long()
+            words = mask3[batch, sub][ordered].long() & 0xFFFFFFFF
+            ok = torch.isfinite(tlb3[batch, sub][ordered])
+            cnt = torch.tensor([bin(int(w)).count("1") for w in words]) * ok
+            assert torch.equal(pre[u].long(), torch.cumsum(cnt, 0) - cnt)
+            mine = [(j0, j1) for v, j0, j1 in items if v == u]
+            assert len(mine) == int(off[u + 1] - off[u]) >= 1
+            assert mine[0][0] == 0 and all(
+                a[1] == b[0] for a, b in zip(mine, mine[1:]))
+            assert all(int(cnt[j0:j1].sum()) <= seg + 31 for j0, j1 in mine)
+            assert all(int(cnt[j0:j1].sum()) > 0 for j0, j1 in mine) \
+                or int(cnt.sum()) == 0
+            assert int(cnt[mine[-1][1]:].sum()) == 0
+
+
 def pt_wavefront(root, name):
     """The first call of `name` in one 64x64 path-traced sample (2
     bounces) of the bowl in `root`."""
@@ -239,6 +362,42 @@ def test_pt_bounce1_k10_culled_equals_plain(fields):
     aimed = (args[3] != 0) | (args[4] != 0) | (args[5] != 0)
     n = walk_counts(stream_pairs(args[0], args[2]), args[11], args[12],
                     *args[3:9], aimed, t_final=want[0])
+    assert n["face_pairs"] <= n["entered"] < n["admitted"] / 4
+
+
+def test_pt_bounce1_k11_culled_equals_plain(fields, monkeypatch):
+    """K11 on the shadow rays of a 64x64 streamed path trace (the
+    bowl's 16,562 faces), items of 32 blocks and of the default."""
+    data, (args, kw) = pt_wavefront(fields[92], "stream_anyhit")
+    assert data.num_faces > 16384 and len(args) == 14
+    want = K.stream_anyhit_plain(*args, **kw)
+    for _ in segs(monkeypatch):
+        assert_bits((stream_anyhit_culled(*args),), (want,),
+                    ("occ",))
+    assert int((want > 0).sum()) > 50
+    act, occ = args[9] > 0, want
+    reach = torch.where(act & (occ == 0), args[10], -1.0).view(
+        -1, 1024).amax(1)
+    n = walk_counts(stream_pairs(args[0], args[2], reach), args[12],
+                    args[13], *args[3:9], act, occ=occ)
+    assert n["face_pairs"] <= n["box_tests"] <= n["admitted"] + int(
+        (occ > 0).sum())
+    assert n["entered"] < n["admitted"] / 4
+
+
+def test_pt_primary_k9_culled_equals_plain(fields, monkeypatch):
+    """K9 on the primary rays of the same path trace (its camera)."""
+    data, (args, kw) = pt_wavefront(fields[92], "stream_closest_hit")
+    want = K.stream_closest_hit_plain(*args, **kw)
+    for _ in segs(monkeypatch):
+        assert_bits(stream_shared_culled(*args),
+                    (positive_zero(want[0]), want[1]), ("t", "face"))
+    assert int(torch.isfinite(want[0]).sum()) > 500
+    o = [args[9][a].expand_as(args[3]) for a in range(3)]
+    aimed = (args[3] != 0) | (args[4] != 0) | (args[5] != 0)
+    reach = torch.minimum(want[0], args[6]).view(-1, 1024).amax(1)
+    n = walk_counts(stream_pairs(args[0], args[2], reach), args[10],
+                    args[11], *args[3:6], *o, aimed, t_final=want[0])
     assert n["face_pairs"] <= n["entered"] < n["admitted"] / 4
 
 
@@ -309,6 +468,57 @@ def test_ray_box_enter_is_conservative():
     assert ok[~meets].mean() < 0.05
 
 
+def line_meets_boxes_f64(lo, hi, o, d):
+    """(R, S) bool: the forward line of each ray (o, d (3, R)) meets box
+    [lo, hi] (S, 3), in float64 arithmetic on the f32 values (a zero
+    component takes the inside rule; empty boxes meet nothing)."""
+    lo, hi = lo.double().numpy()[None], hi.double().numpy()[None]
+    o, d = o.T.astype(np.float64)[:, None], d.T.astype(np.float64)[:, None]
+    with np.errstate(divide="ignore", invalid="ignore"):
+        ta, tb = (lo - o) / d, (hi - o) / d
+    inside = (o >= lo) & (o <= hi)
+    tn = np.where(d == 0, np.where(inside, 0.0, np.inf), np.minimum(ta, tb))
+    tf = np.where(d == 0, np.where(inside, np.inf, -np.inf),
+                  np.maximum(ta, tb))
+    return (np.maximum(tn.max(2), 0.0) <= tf.min(2)) & (lo <= hi).all(2)
+
+
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("mesh", sorted(MESHES))
+def test_perray_super_any_margins(meshes, mesh, kind):
+    """perray_super_any at the superblock level (K10's glue clears the
+    words of superblocks no live ray's line meets, by JAX's margins in
+    t): on the adversarial rays, each tile admits every superblock that a
+    live ray's forward line meets in float64, and every face a live ray
+    hits (t >= 1e-3, the per-ray face test) lies in a superblock its
+    tile admits."""
+    data = meshes[mesh]
+    seed = 400 + KINDS.index(kind) + 10 * sorted(MESHES).index(mesh)
+    o, d, _, _, _ = rays(kind, mesh, data, seed)
+    n_super = data.padded_faces // 1024
+    _, _, slo, shi = P._super_aabbs(data, n_super)
+    ox, oy, oz, dx, dy, dz = (torch.from_numpy(v) for v in (*o, *d))
+    live = (dx != 0) | (dy != 0) | (dz != 0)
+    sup_ok = perray_super_any(slo, shi, ox, oy, oz, dx, dy, dz, 1024,
+                              act=live)
+    tile = torch.arange(dx.shape[0]) // 1024
+    admitted = sup_ok[tile]  # (R, S)
+    meets = torch.from_numpy(line_meets_boxes_f64(slo, shi, o, d))
+    need = meets & live[:, None]
+    assert int(need.sum()) > 100
+    assert bool(admitted[need].all())
+    fpack, dc = P.pack_face_columns(data), P._plane_consts(data)
+    hits = 0
+    for s in range(n_super):
+        rows = slice(s * 1024, (s + 1) * 1024)
+        _, hit = perray_plane_test(fpack[rows], dc[rows], dx, dy, dz,
+                                   ox, oy, oz)
+        ray_hits = hit.any(dim=0) & live
+        hits += int(ray_hits.sum())
+        assert bool(admitted[ray_hits, s].all())
+    assert hits > 50
+
+
 def test_wrappers_take_and_ignore_boxes(meshes):
     """On the CPU the wrappers run the unculled plain versions, with or
     without boxes; mismatched boxes raise."""
@@ -328,6 +538,19 @@ def test_wrappers_take_and_ignore_boxes(meshes):
     with pytest.raises(TypeError):
         K.stream_closest_hit_perray(*args[:11], args[11].double(),
                                     args[12])
+    origin, d = adversarial_camera("inside", 16, data.blk_lo, data.blk_hi,
+                                   7)
+    args, _ = k9_args(data, origin, d)
+    assert_bits(K.stream_closest_hit(*args), K.stream_closest_hit(*args[:9]),
+                ("t", "face"))
+    with pytest.raises(ValueError):  # boxes need the origin
+        K.stream_closest_hit(*args[:9], None, *args[10:])
+    _, _, so, sd, act = rays("inside", "bf8", data, 8)
+    args, _ = k11_args(data, so, sd, act)
+    assert_bits((K.stream_anyhit(*args),), (K.stream_anyhit(*args[:12]),),
+                ("occ",))
+    with pytest.raises(ValueError):
+        K.stream_anyhit(*args[:12], args[12][:-1], args[13][:-1])
 
 
 def test_block_boxes_follow_the_blocks(meshes):
@@ -371,3 +594,37 @@ def test_culling_kernels_cuda_match_plain(meshes, mesh, kind, cuda_device):
             assert fn.launches == before + 1
             for x, y in zip(got, want):
                 assert torch.equal(x, y), fn.__name__
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", CAMERA_KINDS)
+@pytest.mark.parametrize("mesh", sorted(MESHES))
+def test_streamed_culling_kernels_cuda_match_plain(meshes, mesh, kind,
+                                                   cuda_device, monkeypatch):
+    """K9 (each camera) and K11 (each ray set) on the card, with the boxes
+    and without, with items of 32 blocks and of the default, against their
+    plain versions: every output equal by value."""
+    data = meshes[mesh]
+    move = (lambda a: a.to(cuda_device) if isinstance(a, torch.Tensor)
+            else a)
+    origin, d = adversarial_camera(kind, MESHES[mesh], data.blk_lo,
+                                   data.blk_hi, 800 + CAMERA_KINDS.index(kind))
+    cases = [(K.stream_closest_hit, K.stream_closest_hit_plain,
+              k9_args(data, origin, d)[0], 10)]
+    if kind in KINDS:
+        _, _, so, sd, act = rays(kind, mesh, data, 900 + KINDS.index(kind))
+        cases.append((K.stream_anyhit, K.stream_anyhit_plain,
+                      k11_args(data, so, sd, act)[0], 12))
+    for fn, plain, args, n in cases:
+        args = [move(a) for a in args]
+        want = plain(*args)
+        want = want if isinstance(want, tuple) else (want,)
+        for a in (args, args[:n]):
+            for _ in segs(monkeypatch):
+                before = fn.launches
+                got = fn(*a)
+                torch.cuda.synchronize()
+                assert fn.launches == before + 1
+                got = got if isinstance(got, tuple) else (got,)
+                for x, y in zip(got, want):
+                    assert torch.equal(x, y), fn.__name__

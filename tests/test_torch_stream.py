@@ -415,3 +415,71 @@ def test_stream_kernels_cuda_match_plain(name, cuda_device):
         want = want if isinstance(want, tuple) else (want,)
         for x, y in zip(got, want):
             assert torch.equal(x, y), fn.__name__
+
+
+def test_streamed_glue_hands_k9_and_k11_their_boxes(scenes):
+    """gbuffer's streamed branch hands K9 the camera origin and the
+    32-face blocks' boxes, anyhit_rays' streamed branch hands K11 the
+    boxes; the plain versions ignore them (the same values as without)."""
+    data = scenes["t92"]
+    cfg = scene_config(92)
+    uni = Camera.from_config(cfg.camera, W / H).uniforms()
+    origin = t(uni.origin)
+    calls = {}
+
+    def capture(fn):
+        def call(*a, **kw):
+            calls[fn.__name__] = (a, kw)
+            return fn(*a, **kw)
+        return call
+    ks = K.KernelSet(*(capture(p) for p in K.PLAIN))
+    P.gbuffer(data, origin, *P.raygen_planar(W, H, uni, device="cpu"),
+              kernels=ks)
+    o, _, sd, act = bounce_tensors()
+    P.anyhit_rays(data, *o, *sd, act, kernels=ks)
+    lo, hi = P._block_boxes(data, data.padded_faces, 32)
+    a9, _ = calls["stream_closest_hit_plain"]
+    a11, _ = calls["stream_anyhit_plain"]
+    assert torch.equal(a9[9], origin)
+    for got in (a9[10:12], a11[12:14]):
+        assert torch.equal(got[0], lo) and torch.equal(got[1], hi)
+    for got, want in zip(K.stream_closest_hit(*a9),
+                         K.stream_closest_hit(*a9[:9])):
+        assert torch.equal(got, want)
+    assert torch.equal(K.stream_anyhit(*a11), K.stream_anyhit(*a11[:12]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_stream_split_walks_cuda_match_plain(name, cuda_device,
+                                             monkeypatch):
+    """K9 and K11 on the card with their walks split into items of 32,
+    128, 256 and the default number of blocks (stream_sweep.SEG): every
+    output equal to the plain version's."""
+    data, origin, rays = gpu_case(name, cuda_device)
+    calls = {}
+
+    def capture(fn):
+        def call(*a, **kw):
+            calls[fn.__name__] = (a, kw)
+            return fn(*a, **kw)
+        return call
+    ks = K.KernelSet(*(capture(f) for f in K.KERNELS))
+    stream = CASES[name][1]
+    P.gbuffer(data, origin, *rays, stream=stream, kernels=ks)
+    o, _, sd, act = bounce_tensors()
+    o, sd = ([v.to(cuda_device) for v in x] for x in (o, sd))
+    P.anyhit_rays(data, *o, *sd, act.to(cuda_device), stream=stream,
+                  kernels=ks)
+    for fn, plain in ((K.stream_closest_hit, K.stream_closest_hit_plain),
+                      (K.stream_anyhit, K.stream_anyhit_plain)):
+        a, kw = calls[fn.__name__]
+        want = plain(*a, **kw)
+        want = want if isinstance(want, tuple) else (want,)
+        for seg in (32, 128, 256, K.stream_sweep.SEG):
+            monkeypatch.setattr(K.stream_sweep, "SEG", seg)
+            got = fn(*a, **kw)
+            torch.cuda.synchronize()
+            got = got if isinstance(got, tuple) else (got,)
+            for x, y in zip(got, want):
+                assert torch.equal(x, y), (fn.__name__, seg)

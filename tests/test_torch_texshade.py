@@ -90,3 +90,43 @@ def test_texshade_cuda_matches_plain(cuda_device):
     assert texshade.launches == before + 1
     for a, b in zip(out, texshade_plain(*args)):
         assert torch.equal(a, b)
+
+
+def shade_planes(n, device, seed=25):
+    """Seeded Blinn factors and colours for texshade, on `device`."""
+    rng = np.random.default_rng(seed)
+    planes = [rng.uniform(0, 1, n), rng.uniform(0, 1, n) ** 8]
+    planes += [rng.uniform(0, 0.2, n) for _ in range(3)]
+    planes += [rng.uniform(0, 1, n) for _ in range(3)]
+    return [torch.from_numpy(p.astype(np.float32)).to(device)
+            for p in planes]
+
+
+@pytest.mark.gpu
+def test_texel_offsets_past_2_24_cuda(cuda_device):
+    """Texels past 2^24 in a ~400 MB pool (odd base offsets no f32 holds):
+    the glue's i32 addresses pick each ray's own taps, and K2 and K6 on
+    them equal their plain versions."""
+    from rust_wgpu_raytracing_tpu_torch.ops.kernels import (texfilter,
+                                                            texfilter_plain)
+    from rust_wgpu_raytracing_tpu_torch.testing.texels import (
+        F32_EXACT, far_texel_case)
+    from rust_wgpu_raytracing_tpu_torch.ops.megakernel import \
+        gather_packed_taps
+
+    pool, base, hh, ww, u, v, want = far_texel_case(cuda_device)
+    assert bool((base > F32_EXACT).all()) and bool(
+        (base.float().long() != base.long()).all())
+    taps, fx, fy = gather_packed_taps(pool, base, hh, ww, u, v)
+    assert torch.equal(taps.cpu(), want)
+    before = texfilter.launches, texshade.launches
+    got = texfilter(taps, fx, fy)
+    shaded = texshade(taps, fx, fy, *shade_planes(fx.shape[0], cuda_device))
+    torch.cuda.synchronize()
+    assert (texfilter.launches, texshade.launches) == (before[0] + 1,
+                                                       before[1] + 1)
+    for a, b in zip(got, texfilter_plain(taps, fx, fy)):
+        assert torch.equal(a, b)
+    for a, b in zip(shaded, texshade_plain(
+            taps, fx, fy, *shade_planes(fx.shape[0], cuda_device))):
+        assert torch.equal(a, b)
