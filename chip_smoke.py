@@ -13,11 +13,13 @@ program on its own, and checks them:
 2. build: the CUDA kernels from rust_wgpu_raytracing_tpu_torch/csrc
    (one nvcc per source, in parallel, linked into one shared library in
    the git-ignored build/kernels/); ptxas's registers and spills, and
-   the per-ray culled walks' (K8-K11) registers, shared memory and
-   blocks an SM;
+   the per-ray culled walks' (K1, K3, K8-K11) registers, shared memory
+   and blocks an SM;
 3. each kernel against its plain PyTorch version on the card, on the
    very arguments the 1080p frames give it: closest hit, texshade and
-   any-hit from the split frame, the frame kernel (sched branch) from
+   any-hit from the split frame (K1 and K3 also without their boxes;
+   K1's t bitwise, the sign of a zero t included), the frame kernel
+   (sched branch) from
    the fused frame, at the smoke and the dense view; the frame kernel's
    nm branch and the texture filter from the normal-mapped fused frame,
    the texture filter also from the normal-mapped split frame and on
@@ -46,12 +48,15 @@ program on its own, and checks them:
    heightfield: 4 bounces, 1920x1080): the per-ray closest hit (K7) and
    the fused extend+shadow sweep (K8) against their plain versions on
    the bounce-1 wavefront of a traced sample (K8 also without its
-   boxes), the any-hit kernel on the last bounce's act-aware arguments,
+   boxes), the any-hit kernel on the last bounce's act-aware arguments
+   and the closest hit on the primary sweep's (both also without boxes),
    K8 against K7 + K3 on the same rays (t, face, occ equal), K8's
-   admitted and entered (ray, block) pairs, K8-K11 against their
-   plain versions on the seeded adversarial set (raycull.write_grid_mesh
-   x raycull.adversarial_rays, K9 x raycull.adversarial_camera, with and
-   without boxes), one sample
+   admitted and entered (ray, block) pairs, K1, K3 and K8-K11 against
+   their plain versions on the seeded adversarial set
+   (raycull.write_grid_mesh x raycull.adversarial_rays, K1 and K9 x
+   raycull.adversarial_camera, with and without boxes), the split frame
+   from a camera on a face's plane (raycull.plane_camera_config, all on
+   chip and streamed) against its plain-composed twin, one sample
    through the kernels against
    the same sample composed from the plain versions (bitwise), the
    compacted bounce loop (run with room for every live tile) and
@@ -63,7 +68,11 @@ program on its own, and checks them:
    equal to the kernel-run sample, the median ms per sample, the time
    to 64 samples and paths/s;
 6. timing with CUDA events: each kernel's time beside its plain
-   version's at the path's shapes, and back-to-back frames of each
+   version's at the path's shapes (K1 and K3 also at the dense view's
+   and the path tracer's: the primary sweep, the last bounce; their
+   longest walk alone; and at each of them by the threshold of their
+   ray-major chunks, RAY_MAJORS, each output bitwise the default's), and
+   back-to-back frames of each
    program (the fused frame in both shadow modes) at both views. The
    kernels line gives each kernel's least possible time on the card
    (bound_ms: the larger of its bytes over 3.35 TB/s and its FP32
@@ -71,7 +80,9 @@ program on its own, and checks them:
    kernel_work for what is counted). 67 TFLOP/s counts a fused
    multiply-add as two operations; the kernels build with -fmad=false,
    so every multiply and add issues alone, and the text line also
-   gives the operations bound at that issue rate (33.5 T/s);
+   gives the operations bound at that issue rate (33.5 T/s); the per-ray
+   culled walks (K1, K3, K8) also the mask walk's bound and their walk's
+   parts (walk_parts);
 7. streaming scale (meshes above STREAM_FACES, the JAX package's
    bench_configs.py configs 6 and 8 on builtin:terrain:512, 522,242
    faces): the 1080p shadowed frame through Renderer(device="cuda")
@@ -161,6 +172,10 @@ CHECK_GRID = 128
 # the sizes of K9's and K11's work items timed beside the default
 # (stream_sweep.SEG: admitted blocks an item)
 SEGS = (32, 64, 128, 256, 512)
+# the thresholds of K1's and K3's ray-major chunks timed beside the
+# defaults (kernels.common.RAY_MAJOR: 0 takes every chunk ray-major, 65
+# none)
+RAY_MAJORS = (0, 8, 16, 24, 32, 48, 65)
 # per-ray FP32 operations of the texture kernels (12 tap scales, 3
 # bilinear mixes of 9; texshade adds the 4-op Blinn-Phong per channel)
 OPS_TEXFILTER, OPS_TEXSHADE = 39, 51
@@ -369,18 +384,43 @@ def walk_pairs(tlb, ray_bound, lanes, floor=None) -> int:
     return int((blocks * lanes.view(n_tiles, -1).sum(1)).sum())
 
 
+def sched_reach(name, args, outs):
+    """(tiles,) how far K1's or K3's walk of the schedule reaches at these
+    arguments and outputs: each tile's largest min(t, root exit) (K1), or
+    root exit of an active ray that ends unoccluded, -1 for none (K3)."""
+    import torch
+
+    if name == "closest_hit":
+        reach = torch.minimum(outs[0], args[5])
+    else:
+        reach = torch.where((args[8] > 0) & (outs[0] == 0), args[9], -1.0)
+    return reach.view(-1, 1024).amax(1)
+
+
 def culled_walk(name, args, kw, outs):
     """raycull.walk_counts of K8's two halves (closest hit, shadow) or of
-    K9, K10 or K11, at these arguments and outputs: the pairs the per-ray
-    culled walk must test at least. K9's arguments end with the origin
-    and the boxes (origin, blk_lo, blk_hi), K11's with the boxes."""
+    K1, K3, K9, K10 or K11, at these arguments and outputs: the pairs the
+    per-ray culled walk must test at least. K1's arguments end with the
+    sphere block (the origin first) and the boxes, K9's with the origin
+    and the boxes (origin, blk_lo, blk_hi), K3's and K11's with the
+    boxes."""
     import torch
 
     from rust_wgpu_raytracing_tpu_torch.testing.raycull import (
-        mask_pairs, stream_pairs, walk_counts)
+        mask_pairs, sched_pairs, stream_pairs, walk_counts)
 
     def aimed(dx, dy, dz):
         return (dx != 0) | (dy != 0) | (dz != 0)
+    if name == "closest_hit":
+        # the camera origin broadcast to per-ray planes
+        o = [args[8][a].expand_as(args[2]) for a in range(3)]
+        return (walk_counts(sched_pairs(args[0], sched_reach(
+            name, args, outs)), args[9], args[10], *args[2:5], *o,
+            aimed(*args[2:5]), t_final=outs[0]),)
+    if name == "anyhit":
+        return (walk_counts(sched_pairs(args[0], sched_reach(
+            name, args, outs)), args[12], args[13], *args[2:8],
+            args[8] > 0, occ=outs[0]),)
     if name == "extend_shadow":
         n_tiles = args[2].shape[0] // 1024
         nb = args[15].shape[0] // kw["block_f"]
@@ -423,7 +463,7 @@ def kernel_work(name, args, kw, outs, mesh_t=None, walk="culled"):
     exit among its active rays that end unoccluded (at least one block
     where an active ray ends occluded).
 
-    K8-K11 walk per ray (csrc/cull_walk.cuh), and their count
+    K1, K3 and K8-K11 walk per ray (csrc/cull_walk.cuh), and their count
     follows that walk (culled_walk, raycull.walk_counts): a box test
     (OPS_RAYBOX) for every admitted (ray, block) pair of an aimed ray,
     of an active shadow ray that ends unoccluded, and one per occluded
@@ -436,16 +476,19 @@ def kernel_work(name, args, kw, outs, mesh_t=None, walk="culled"):
     live ray (a shadow ray until it is occluded, so at least once), and
     keep a pair whenever its entry lies at or below the ray's best t so
     far, which never drops below the final t; an occluded ray needed at
-    least the block that occluded it. The streamed walks (K9-K11) count
-    only the words within the subtile's reach (the largest min(t, root
-    exit), or for K11 root exit of a ray that ends unoccluded); K9's face
-    tests are the shared-origin test's (OPS_SHARED), its staged rows the
-    record's 12 columns and the origin terms' 4.
+    least the block that occluded it. The schedule walks (K1, K3) count
+    only the blocks within the tile's reach and the streamed walks
+    (K9-K11) only the words within the subtile's reach (the largest
+    min(t, root exit), or for K3 and K11 root exit of a ray that ends
+    unoccluded); K1's and K9's face tests are the shared-origin test's
+    (OPS_SHARED), their staged rows the face pack's 12 columns and the
+    origin terms' 4.
 
-    walk="mask" counts K8-K11 as the TPU kernels walk: every lane that
-    can take a test against every admitted block (K8 every set bit of
-    each half's mask, the streamed sweeps the words up to each subtile's
-    reach), the bound the mask walk would have."""
+    walk="mask" counts K1, K3 and K8-K11 as the TPU kernels walk: every
+    lane that can take a test against every admitted block (the schedule
+    walks up to the tile's reach, K8 every set bit of each half's mask,
+    the streamed sweeps the words up to each subtile's reach), the bound
+    the mask walk would have."""
     import torch
 
     moved = tensor_bytes(args) + tensor_bytes(outs)
@@ -456,6 +499,16 @@ def kernel_work(name, args, kw, outs, mesh_t=None, walk="culled"):
             ext["face_pairs"] + shadow["face_pairs"]) * bf * OPS_PERRAY
         moved = tensor_bytes(args[:15] + args[17:]) + tensor_bytes(outs) \
             + max(ext["blocks"], shadow["blocks"]) * bf * 16 * 4
+        return moved, ops
+    # the schedule walks: the face pack and its plane constants or origin
+    # terms are read only in the staged rows
+    if walk == "culled" and name in ("closest_hit", "anyhit"):
+        (n,) = culled_walk(name, args, kw, outs)
+        ops = n["box_tests"] * OPS_RAYBOX + n["face_pairs"] * bf * (
+            OPS_SHARED if name == "closest_hit" else OPS_PERRAY)
+        r0 = 6 if name == "closest_hit" else 10
+        moved = tensor_bytes(args[:r0] + args[r0 + 2:]) + tensor_bytes(outs) \
+            + n["blocks"] * bf * 16 * 4
         return moved, ops
     # the streamed culled walks: the record (K9 also its origin terms) is
     # read only in the staged rows
@@ -616,16 +669,21 @@ def mask_walk_note(name, args, kw, outs, ms) -> str:
             f"{100 * mw_ms / ms:.1f}% of it")
 
 
+# the shared-origin closest-hit sweeps, whose t is held bitwise: a zero t
+# keeps its sign (a camera on a face's plane draws the face by it)
+SIGNED_T = ("closest_hit", "stream_closest_hit")
 # the index of the per-ray culled walks' first box argument (blk_lo)
-BOX_ARG = {"extend_shadow": 17, "stream_closest_hit_perray": 11,
-           "stream_closest_hit": 10, "stream_anyhit": 12}
+BOX_ARG = {"closest_hit": 9, "anyhit": 12, "extend_shadow": 17,
+           "stream_closest_hit_perray": 11, "stream_closest_hit": 10,
+           "stream_anyhit": 12}
 
 
 def walk_parts(name, args, kw, reps: int) -> str:
-    """Times of parts of a per-ray culled walk (K8-K11) on these arguments, as
-    a note to a timing line: with boxes no ray enters (valid boxes at
-    1e6: the box tests and the chunk overheads alone, no face test) and,
-    for K8, each half alone (the other half's mask words zeroed)."""
+    """Times of parts of a per-ray culled walk (K1, K3, K8-K11) on these
+    arguments, as a note to a timing line: with boxes no ray enters
+    (valid boxes at 1e6: the box tests and the chunk overheads alone, no
+    face test) and, for K8, each half alone (the other half's mask words
+    zeroed)."""
     import torch
 
     from rust_wgpu_raytracing_tpu_torch.ops import kernels as K
@@ -641,6 +699,28 @@ def walk_parts(name, args, kw, reps: int) -> str:
     return "; " + ", ".join(
         f"{label} {time_ms(lambda a=a: fn(*a, **kw), reps):.4f} ms"
         for label, a in runs.items())
+
+
+def longest_walk(name, args, kw, outs, reps: int) -> str:
+    """K1's or K3's tile with the longest walk (the most admitted blocks
+    within the tile's reach, sched_reach) launched alone, as a note to a
+    timing line: whether one walk sets the launch's time."""
+    import torch
+
+    from rust_wgpu_raytracing_tpu_torch.ops import kernels as K
+
+    tlb, r = args[0], args[2].shape[0]
+    reach = sched_reach(name, args, outs)
+    walk = (torch.isfinite(tlb) & (tlb <= reach[:, None])).sum(1)
+    t = int(walk.argmax())
+    one = [a[t:t + 1] if i < 2 else
+           a[t * 1024:(t + 1) * 1024] if a.dim() == 1 and a.shape[0] == r
+           else a for i, a in enumerate(args)]
+    fn = getattr(K, name)
+    ms = time_ms(lambda: fn(*one, **kw), reps)
+    return (f"; its longest walk alone (tile {t}: {int(walk[t])} blocks "
+            f"within reach, against a mean of {float(walk.float().mean()):.1f}"
+            f") {ms:.4f} ms")
 
 
 def texel_offset_phase(check, say):
@@ -676,30 +756,37 @@ def texel_offset_phase(check, say):
 
 
 def raycull_phase(record, check, say):
-    """K8-K11 against their plain versions on the seeded adversarial set:
-    raycull.write_grid_mesh's two meshes (8- and 32-face clusters, faces
-    in their boxes' planes, edges shared by blocks, NaN padding faces and
-    +inf padding boxes) under the five ray sets of raycull.adversarial_rays
-    (K8, K10, K11) and the six cameras of raycull.adversarial_camera (K9:
-    the ray sets' kinds from one origin and a camera on a face's plane),
-    the arguments from the port's own glue on the card
-    (extend_shadow_rays; gbuffer_perray, gbuffer and anyhit_rays forced
-    onto the streamed sweeps); every output equal, with the boxes and
-    without."""
+    """K1, K3 and K8-K11 against their plain versions on the seeded
+    adversarial set: raycull.write_grid_mesh's two meshes (8- and 32-face
+    clusters, faces in their boxes' planes, edges shared by blocks, NaN
+    padding faces and +inf padding boxes) under the five ray sets of
+    raycull.adversarial_rays (K3, K8, K10, K11) and the six cameras of
+    raycull.adversarial_camera (K1, K9: the ray sets' kinds from one
+    origin and a camera on a face's plane), the arguments from the port's
+    own glue on the card (gbuffer and anyhit_rays on the all-on-chip
+    sweeps and forced onto the streamed ones, extend_shadow_rays,
+    gbuffer_perray); every output equal, with the boxes and without.
+    Then the hazard of a zero t: the split frame from a camera on a
+    face's plane (raycull.plane_camera_config; also forced onto the
+    streamed sweeps on the 32-face mesh) through the kernels against the
+    plain-composed frame, bitwise."""
     import torch
 
     from rust_wgpu_raytracing_tpu_torch.config import (MeshConfig,
                                                        RenderConfig,
                                                        SceneConfig)
+    from rust_wgpu_raytracing_tpu_torch.core.camera import Camera
     from rust_wgpu_raytracing_tpu_torch.core.scene import Scene
+    from rust_wgpu_raytracing_tpu_torch.ops import kernels as K
     from rust_wgpu_raytracing_tpu_torch.ops import megakernel as MK
     from rust_wgpu_raytracing_tpu_torch.testing.raycull import (
         ADVERSARIAL_KINDS, CAMERA_KINDS, adversarial_camera,
-        adversarial_rays, write_grid_mesh)
+        adversarial_rays, plane_camera_config, write_grid_mesh)
 
     root = tempfile.mkdtemp(prefix="rt_cull_")
     before = os.environ.get("RWRT_ASSETS")
     os.environ["RWRT_ASSETS"] = root
+    should_stream = MK._should_stream
     try:
         for cells in (16, 48):
             write_grid_mesh(os.path.join(root, f"grid{cells}.obj"), cells)
@@ -711,12 +798,14 @@ def raycull_phase(record, check, say):
                 origin, d = (torch.from_numpy(x).to("cuda") for x in
                              adversarial_camera(kind, cells, data.blk_lo,
                                                 data.blk_hi, 600 + seed))
-                calls = record(lambda ks: MK.gbuffer(
-                    data, origin, *d, stream=True, kernels=ks))
-                args, kw = calls["stream_closest_hit"][0]
-                check(view, "stream_closest_hit", args, kw)
-                check(view, "stream_closest_hit", args[:10], kw,
-                      " (no boxes)")
+                calls = record(lambda ks: (
+                    MK.gbuffer(data, origin, *d, stream=True, kernels=ks),
+                    MK.gbuffer(data, origin, *d, stream=False, kernels=ks)))
+                for name in ("stream_closest_hit", "closest_hit"):
+                    args, kw = calls[name][0]
+                    check(view, name, args, kw)
+                    check(view, name, args[:BOX_ARG[name]], kw,
+                          " (no boxes)")
                 if kind not in ADVERSARIAL_KINDS:
                     continue
                 o, d, so, sd, act = (torch.from_numpy(x).to("cuda") for x in
@@ -727,14 +816,44 @@ def raycull_phase(record, check, say):
                                           kernels=ks),
                     MK.gbuffer_perray(data, *o, *d, stream=True, kernels=ks),
                     MK.anyhit_rays(data, *so, *sd, act, stream=True,
+                                   kernels=ks),
+                    MK.anyhit_rays(data, *so, *sd, act, stream=False,
                                    kernels=ks)))
-                for name, n_args in (("extend_shadow", 17),
-                                     ("stream_closest_hit_perray", 11),
-                                     ("stream_anyhit", 12)):
+                for name in ("extend_shadow", "stream_closest_hit_perray",
+                             "stream_anyhit", "anyhit"):
                     args, kw = calls[name][0]
                     check(view, name, args, kw)
-                    check(view, name, args[:n_args], kw, " (no boxes)")
+                    check(view, name, args[:BOX_ARG[name]], kw,
+                          " (no boxes)")
+            cfg = plane_camera_config(f"grid{cells}.obj", cells, 600, 640,
+                                      360)
+            plane = Scene.build(cfg).data.to("cuda")
+            uni = Camera.from_config(cfg.camera, 640 / 360).uniforms().flat()
+            for stream in (False, True) if cells == 48 else (False,):
+                MK._should_stream = lambda f, bf, stream=stream: stream
+                K.reset_launch_counts()
+                a, _ = MK.render_megakernel(plane, uni, width=640,
+                                            height=360, shadows=True,
+                                            fused=False)
+                sweep = "stream_closest_hit" if stream else "closest_hit"
+                launched = K.launch_counts()[sweep]
+                b, _ = MK.render_megakernel(plane, uni, width=640,
+                                            height=360, shadows=True,
+                                            fused=False, kernels=K.PLAIN)
+                MK._should_stream = should_stream
+                dmax, exact, bitwise = frame_bar(a, b)
+                lit = float((u8(a) > 0).any(-1).float().mean())
+                say(f"[frame] camera on a face's plane, grid{cells} 640x360 "
+                    f"split frame through {sweep} (launched {launched}): "
+                    f"kernels vs plain-composed bitwise {bitwise} (max "
+                    f"linear u8 delta {dmax}, exact {exact:.6f}); "
+                    f"{lit:.4f} of pixels lit")
+                if not bitwise or launched != 1:
+                    raise AssertionError("the frame from a camera on a "
+                                         "face's plane differs from its "
+                                         "plain twin")
     finally:
+        MK._should_stream = should_stream
         if before is None:
             os.environ.pop("RWRT_ASSETS", None)
         else:
@@ -910,6 +1029,9 @@ def stream_phase(card, K, Renderer, drive, record, check, results, errs,
         got = [g.view(nb, -1).index_select(0, sel).reshape(-1) for g in got]
         err = max(max_abs_err(x, y) for x, y in zip(got, want))
         exact = all(torch.equal(x, y) for x, y in zip(got, want))
+        if name in SIGNED_T:  # a zero t with its sign
+            exact = exact and torch.equal(got[0].view(torch.int32),
+                                          want[0].view(torch.int32))
         say(f"[kernel] {view}: {name} {'OK' if exact else 'MISMATCH'} vs "
             f"plain on {len(sel)} of {nb} batches ({len(sel) * nsub} "
             f"subtiles, the batch with the most admitted blocks ({int(adm[top])}"
@@ -1134,8 +1256,9 @@ def main() -> int:
     build.library()
     say(f"[build] {os.path.relpath(lib_path)} in "
         f"{time.perf_counter() - t0:.1f} s (flags: {' '.join(build.NVCC_FLAGS)})")
-    for name in ("extend_shadow", "stream_closest_hit",
-                 "stream_closest_hit_perray", "stream_anyhit"):
+    for name in ("closest_hit", "anyhit", "extend_shadow",
+                 "stream_closest_hit", "stream_closest_hit_perray",
+                 "stream_anyhit"):
         out = (ctypes.c_int * 4)()
         err = getattr(build.library(), f"rt_{name}_resources")(out)
         if err:
@@ -1255,8 +1378,8 @@ def main() -> int:
                  "stream_anyhit": "occ"}
 
     def flat(name, out):
-        if name == "closest_hit":
-            return (out[0], out[1], *out[2])
+        if name == "closest_hit":  # the sphere planes, where there are any
+            return (out[0], out[1], *(out[2] or ()))
         return (out,) if name in ("anyhit", "stream_anyhit",
                                   "hier_cull") else tuple(out)
 
@@ -1271,10 +1394,18 @@ def main() -> int:
         if name in ("texshade", "texfilter"):
             gap = max(ulp_gap(x, y) for x, y in zip(got, want))
             ok, bar = gap <= 0, f"max gap {gap} ulp (bound 0 ulp)"
+        elif name in SIGNED_T:
+            same_t = torch.equal(got[0].view(torch.int32),
+                                 want[0].view(torch.int32))
+            ok = exact and same_t
+            bar = (f"every plane equal by value and t bitwise (the sign of "
+                   f"a zero t) required; t bitwise {same_t}")
         else:
             ok, bar = exact, "every plane equal by value required"
         planes = planes_of.get(name, f"{len(got)} planes, mode "
                                      f"{kw.get('mode')}")
+        if name == "closest_hit" and len(got) == 2:  # no spheres
+            planes = "t, face"
         shape = "x".join(map(str, args[0].shape))
         say(f"[kernel] {view}: {name}{tag} {'OK' if ok else 'MISMATCH'} vs "
             f"plain on ({planes}), first arg {shape}; max_abs_err {err!r}; "
@@ -1321,6 +1452,9 @@ def main() -> int:
         for name in ("closest_hit", "texshade", "anyhit"):
             args, kw = cap[name]
             got = check(view, name, args, kw)
+            if name in BOX_ARG:
+                check(view, name, args[:BOX_ARG[name]], kw,
+                      " (no boxes: every ray of an admitted block)")
             if name == "closest_hit":
                 say(f"[kernel] {view}: {int(torch.isfinite(got[0]).sum())} "
                     f"of {got[0].numel()} rays hit the mesh, "
@@ -1514,6 +1648,7 @@ def main() -> int:
         f"took the {branch} loop")
     es_args, es_kw = calls["extend_shadow"][0]  # the bounce-1 wavefront
     ah_args, ah_kw = calls["anyhit"][-1]  # the last bounce's shadow rays
+    ch_args, ch_kw = calls["closest_hit"][0]  # the primary sweep
     d, o = es_args[2:5], es_args[5:8]
     sd, so, act = es_args[8:11], es_args[11:14], es_args[14]
     # K7 and K3 on the same rays, through their own glue
@@ -1524,6 +1659,15 @@ def main() -> int:
     k8 = check("pt bounce 1", "extend_shadow", es_args, es_kw)
     k7 = check("pt bounce 1", "closest_hit_perray", k7_args, k7_kw)
     check("pt last bounce", "anyhit", ah_args, ah_kw, " (act-aware mask)")
+    check("pt last bounce", "anyhit", ah_args[:12], ah_kw,
+          " (act-aware mask, no boxes: every ray of an admitted block)")
+    pt_ch = check("pt primary", "closest_hit", ch_args, ch_kw)
+    check("pt primary", "closest_hit", ch_args[:9], ch_kw,
+          " (no boxes: every ray of an admitted block)")
+    say(f"[pt] primary sweep: {int(torch.isfinite(pt_ch[0]).sum())} of "
+        f"{pt_ch[0].numel()} rays hit the mesh; "
+        f"{float(torch.isfinite(ch_args[0]).sum(1).float().mean()):.1f} of "
+        f"{ch_args[0].shape[1]} face blocks admitted per tile")
     k3 = wrapper["anyhit"](*k3_args, **k3_kw)
     torch.cuda.synchronize()
     fused_ok = [torch.equal(k8[0], k7[0]), torch.equal(k8[1], k7[1]),
@@ -1639,24 +1783,89 @@ def main() -> int:
             say(f"[timing] {card}: {view} {WIDTH}x{HEIGHT} shadowed {label} "
                 f"frame {time_ms(fn, 10):.3f} ms/frame (mean of 10 "
                 f"back-to-back, CUDA events)")
+    # each kernel's main arguments (timed beside its plain version) and
+    # the other argument sets of its paths (the kernel alone)
+    dense = split_args["dense view"]
     timed = {
         "closest_hit": (split_args["smoke view"]["closest_hit"],
-                        split_args["dense view"]["closest_hit"]),
+                        [("the dense view's", dense["closest_hit"]),
+                         ("the path tracer's primary-sweep",
+                          (ch_args, ch_kw))]),
         "texshade": ((random_taps(split_args["smoke view"]["texshade"][0]),
-                      {}), None),
+                      {}), []),
         "anyhit": (split_args["smoke view"]["anyhit"],
-                   split_args["dense view"]["anyhit"]),
+                   [("the dense view's", dense["anyhit"]),
+                    ("the path tracer's last-bounce", (ah_args, ah_kw))]),
         "frame": (fused_args["smoke view"]["frame"],
-                  fused_args["dense view"]["frame"]),
-        "texfilter": ((nm_taps, {}), None),
-        "closest_hit_perray": ((k7_args, k7_kw), None),
-        "extend_shadow": ((es_args, es_kw), None),
+                  [("the dense view's", fused_args["dense view"]["frame"])]),
+        "texfilter": ((nm_taps, {}), []),
+        "closest_hit_perray": ((k7_args, k7_kw), []),
+        "extend_shadow": ((es_args, es_kw), []),
     }
     where = {"texfilter": "the nm frame's", "closest_hit_perray":
              "the path tracer's bounce-1", "extend_shadow":
              "the path tracer's bounce-1"}
+
+    def bound_note(name, args, kw, outs, ms):
+        """A timing line's bound: the culled walk's, then the unfused
+        rate's and, for the per-ray culled walks, the mask walk's bound
+        and the walk's parts."""
+        mesh_t = None
+        if name == "frame":
+            # the frame's sweep is K1's: its mesh t, from K1 on these rays
+            mesh_t = wrapper["closest_hit"](
+                args[0], args[1], *args[3:9], args[2][:3].contiguous(),
+                *MK._block_boxes(r.data, r.data.padded_faces,
+                                 kw["block_f"]), block_f=kw["block_f"])[0]
+        moved, ops = kernel_work(name, args, kw, outs, mesh_t)
+        bound_ms, bound_by = bound(moved, ops)
+        unfused_ms, _ = bound(moved, ops, FP32_UNFUSED_S)
+        note = (f"bound {bound_ms:.4f} ms by {bound_by} ({moved} bytes, "
+                f"{ops} FP32 operations), {100 * bound_ms / ms:.1f}% of it; "
+                f"{unfused_ms:.4f} ms at the unfused issue rate, "
+                f"{100 * unfused_ms / ms:.1f}% of it")
+        if name in BOX_ARG:
+            note += mask_walk_note(name, args, kw, outs, ms) \
+                + walk_parts(name, args, kw, 20)
+        if name in ("closest_hit", "anyhit"):
+            note += longest_walk(name, args, kw, outs, 20)
+        return note, bound_ms, bound_by
+
+    def ray_major_sweep(name, at, args, kw, reps=10, rounds=3):
+        """K1's or K3's time at these arguments at each RAY_MAJORS
+        threshold of its ray-major chunks, each output bitwise the
+        default's; each time the median of `rounds` rounds that visit the
+        thresholds in turn, each round the mean of `reps` launches."""
+        from rust_wgpu_raytracing_tpu_torch.ops.kernels import common
+
+        default = common.RAY_MAJOR[name]
+        want = flat(name, wrapper[name](*args, **kw))
+        runs = {v: [] for v in RAY_MAJORS}
+        try:
+            for v in RAY_MAJORS:
+                common.RAY_MAJOR[name] = v
+                got = flat(name, wrapper[name](*args, **kw))
+                torch.cuda.synchronize()
+                if not all(torch.equal(x.view(torch.int32), y.view(
+                        torch.int32)) for x, y in zip(got, want)):
+                    raise AssertionError(f"{name}: RAY_MAJOR {v} changes "
+                                         f"the output")
+            for _ in range(rounds):
+                for v in RAY_MAJORS:
+                    common.RAY_MAJOR[name] = v
+                    runs[v].append(time_ms(
+                        lambda: wrapper[name](*args, **kw), reps))
+        finally:
+            common.RAY_MAJOR[name] = default
+        say(f"[ray-major] {card}: {name} at {at} arguments by RAY_MAJOR "
+            f"(0: every chunk ray-major, 65: every chunk by pairs), ms: "
+            + "; ".join(f"{v}: {float(np.median(r)):.4f}"
+                        for v, r in runs.items())
+            + f" (each output bitwise RAY_MAJOR {default}'s; the median of "
+              f"{rounds} interleaved rounds of {reps} launches)")
+
     results = {}
-    for name, (main_call, dense_call) in timed.items():
+    for name, (main_call, others) in timed.items():
         args, kw = main_call
         reps = 1 if name in ("closest_hit_perray", "extend_shadow") else 2
 
@@ -1670,37 +1879,25 @@ def main() -> int:
         k1 = time_ms(run_kernel, 20)
         k2 = time_ms(run_kernel, 20)
         p2 = time_ms(run_plain, reps)
-        mesh_t = None
-        if name == "frame":
-            # the frame's sweep is K1's: its mesh t, from K1 on these rays
-            mesh_t = wrapper["closest_hit"](
-                args[0], args[1], *args[3:9], args[2][:3].contiguous(),
-                block_f=kw["block_f"])[0]
-        moved, ops = kernel_work(name, args, kw, flat(name, run_kernel()),
-                                 mesh_t)
-        bound_ms, bound_by = bound(moved, ops)
-        unfused_ms, _ = bound(moved, ops, FP32_UNFUSED_S)
-        results[name] = dict(max_abs_err=errs[name], ms=(k1 + k2) / 2,
+        ms = (k1 + k2) / 2
+        note, bound_ms, bound_by = bound_note(
+            name, args, kw, flat(name, run_kernel()), ms)
+        results[name] = dict(max_abs_err=errs[name], ms=ms,
                              plain_ms=(p1 + p2) / 2, bound_ms=bound_ms,
                              bound_by=bound_by)
         at = where.get(name, "the smoke frame's")
-        msg = (f"[timing] {card}: {name} {results[name]['ms']:.4f} ms "
-               f"(kernel) vs {results[name]['plain_ms']:.4f} ms (plain "
-               f"PyTorch) at {at} "
-               f"arguments; bound {bound_ms:.4f} ms by {bound_by} ({moved} "
-               f"bytes, {ops} FP32 operations), "
-               f"{100 * bound_ms / results[name]['ms']:.1f}% of it; "
-               f"{unfused_ms:.4f} ms at the unfused issue rate, "
-               f"{100 * unfused_ms / results[name]['ms']:.1f}% of it")
-        if dense_call is not None:
-            dms = time_ms(lambda: wrapper[name](*dense_call[0],
-                                                **dense_call[1]), 20)
-            msg += f"; kernel {dms:.4f} ms at the dense view's"
-        if name == "extend_shadow":
-            msg += mask_walk_note(name, args, kw, flat(name, run_kernel()),
-                                  results[name]["ms"])
-            msg += walk_parts(name, args, kw, 20)
-        say(msg)
+        say(f"[timing] {card}: {name} {ms:.4f} ms (kernel, {k1:.4f} / "
+            f"{k2:.4f}) vs {results[name]['plain_ms']:.4f} ms (plain "
+            f"PyTorch) at {at} arguments; {note}")
+        for label, (o_args, o_kw) in others:
+            o_ms = time_ms(lambda: wrapper[name](*o_args, **o_kw), 20)
+            o_note, _, _ = bound_note(name, o_args, o_kw, flat(
+                name, wrapper[name](*o_args, **o_kw)), o_ms)
+            say(f"[timing] {card}: {name} {o_ms:.4f} ms (kernel) at "
+                f"{label} arguments; {o_note}")
+        if name in ("closest_hit", "anyhit"):
+            for label, (o_args, o_kw) in [(at, main_call)] + others:
+                ray_major_sweep(name, label, o_args, o_kw)
     say(f"[timing] {card}: medians fused {medians['fused']:.3f} ms, split "
         f"{medians['split']:.3f} ms")
 

@@ -1,73 +1,126 @@
-// Closest hit for shared-origin rays, with the scene's spheres fused.
+// Closest hit for shared-origin rays, with the scene's spheres fused (K1).
 //
 // Replaces the TPU kernel rust_wgpu_raytracing_tpu/ops/megakernel.py
 // _make_closest_hit_kernel (reached from gbuffer_pallas, VMEM branch):
 // the same inputs (schedule tlb/order, ray planes, root-exit caps, the
 // (F, 40) face pack, the (F, 8) per-frame origin terms, the sphere
-// block) and the same outputs: the lexicographic (t, face) winner and
-// the winning sphere's (t, id, unit normal), picked by strict
-// nonlinear depth.
+// block: the camera origin, then (center, radius) per sphere) and the
+// same outputs: the lexicographic (t, face) winner and the winning
+// sphere's (t, id, unit normal), picked by strict nonlinear depth. It
+// also takes the face blocks' boxes blo / bhi (nb, 3).
 //
-// What bounds it on the H100: face-visit compute. Each visited
-// (face, ray) pair costs ~20 FP32 operations and one divide, and a
-// dense 1080p view visits tens of faces per ray, so the arithmetic
-// rather than memory traffic sets the time (a tile reads ~2 KB of face
-// planes per visited 32-face block and 16 B per ray).
-// The design keeps each ray's (t, face) in registers for the whole
-// walk, stages each visited block's 16 plane columns once into shared
-// memory for all 1024 rays of the tile, and stops the front-to-back walk
-// early (rt_common.cuh sweep_closest, shared with frame.cu).
-// Expressions follow _ch_block_tv and the sphere tail term for term;
-// compiled with -fmad=false so every product rounds, as in the plain
-// PyTorch version.
-#include "rt_common.cuh"
+// The walk: one block of CT = 512 threads per 1024-ray tile, the ray
+// directions in shared memory beside the camera origin (three scalars),
+// each ray's winner one 64-bit key (SharedExt::pack) merged by a
+// shared-memory atomicMin. The tile's `order` row is taken in chunks of
+// slots_for(block_f) blocks while their entry bound tlb is at most the
+// bound b (cull_walk.cuh fill_sched_chunk), each chunk through
+// run_chunk<EXT> with the shared-origin ray policy SharedExt (K9's): a
+// block's faces are tested only for the aimed rays whose line from the
+// camera enters its box at or below their best t, by (ray, block) pairs
+// or, in a dense chunk (ray_major: primary rays are coherent), by each
+// thread for its own rays (cull_walk.cuh ray_major_chunk). b is the
+// block-wide max of min(best t, root exit), refreshed after each chunk
+// (the TPU kernel refreshes it every few visits). A block past every ray's bound,
+// one a ray's line misses, or one entered beyond its best t cannot
+// change its winner, and the lexicographic merge does not depend on the
+// order of visits, so the winner is the TPU kernel's. A zero t (a camera
+// on a face's plane) keeps its sign, the winning face's own (SharedExt
+// packs it beside the face id).
+//
+// The sphere tail runs after the walk on the directions in shared
+// memory, term for term as the TPU kernel's.
+//
+// What bounds it on the H100: the face tests (27 FP32 operations each, a
+// divide counted as one) of the (ray, block) pairs whose line enters the
+// block's box at or below the ray's best t, and the box tests (29
+// operations) of the admitted pairs of aimed rays. The TPU kernel tests
+// every lane of the tile against every admitted block. The face test is
+// rt_common.cuh shared_origin_t_cols, _ch_block_tv term for term
+// (-fmad=false).
+#include "cull_walk.cuh"
 
 namespace {
 
 using namespace rt;
+using namespace rt::cull;
 
-__global__ void __launch_bounds__(THREADS)
+// shared memory: the keys, the directions
+struct Smem {
+  unsigned long long best[TILE_R];
+  Dirs dirs;
+  float faces[STAGE_FLOATS];
+  unsigned short list[CAP];
+  Chunk ch;
+};
+
+__global__ void __launch_bounds__(CT, 2)
 closest_hit_kernel(const float* __restrict__ tlb, const int* __restrict__ order,
                    const float* __restrict__ dx, const float* __restrict__ dy,
                    const float* __restrict__ dz, const float* __restrict__ texit,
                    const float* __restrict__ fpack, const float* __restrict__ oterm,
-                   const float* __restrict__ sph, int nb, int block_f,
+                   const float* __restrict__ sph, const float* __restrict__ blo,
+                   const float* __restrict__ bhi, int nb, int block_f,
                    int fpack_cols, int n_spheres, float inv_near,
-                   float rcp_span, float* __restrict__ t_out,
+                   float rcp_span, int ray_major, float* __restrict__ t_out,
                    int* __restrict__ face_out, float* __restrict__ st_out,
                    float* __restrict__ sid_out, float* __restrict__ snx_out,
                    float* __restrict__ sny_out, float* __restrict__ snz_out) {
-  __shared__ float faces[MAX_BLOCK_F * STAGE_COLS];
-  __shared__ float red[THREADS / 32];
-
-  const int tile = blockIdx.x;
-  const size_t base = (size_t)tile * TILE_R + threadIdx.x;
-  float rx[RPT], ry[RPT], rz[RPT], cap[RPT], bt[RPT];
-  int bf[RPT];
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  Smem& W = *reinterpret_cast<Smem*>(smem_raw);
+  const int tid = threadIdx.x;
+  const size_t base = (size_t)blockIdx.x * TILE_R;
+  float cap[RPC];
 #pragma unroll
-  for (int k = 0; k < RPT; ++k) {
-    const size_t r = base + (size_t)k * THREADS;
-    rx[k] = dx[r];
-    ry[k] = dy[r];
-    rz[k] = dz[r];
-    cap[k] = texit[r];
+  for (int k = 0; k < RPC; ++k) {
+    const int i = tid + k * CT;
+    W.dirs.d[0][i] = dx[base + i];
+    W.dirs.d[1][i] = dy[base + i];
+    W.dirs.d[2][i] = dz[base + i];
+    W.best[i] = NO_HIT;
+    cap[k] = texit[base + i];
   }
-  sweep_closest(tlb + (size_t)tile * nb, order + (size_t)tile * nb, nb, block_f,
-                fpack, fpack_cols, oterm, rx, ry, rz, cap, bt, bf, faces, red);
+  const float ox = sph[0], oy = sph[1], oz = sph[2];
+  const Tile<SharedExt> T{W.ch,    W.faces, W.list,  W.best,
+                          {W.dirs, {ox, oy, oz}},
+                          nullptr, nullptr, nullptr, nullptr};
+  // the block-wide max of min(best t, root exit) over the rays
+  auto bound = [&]() {
+    float m = -INFINITY;
+#pragma unroll
+    for (int k = 0; k < RPC; ++k)
+      m = fmaxf(m, fminf(__uint_as_float((unsigned)(
+                             W.best[tid + k * CT] >> 32)), cap[k]));
+    return walk_max(m, W.ch.red);
+  };
+  const float* tl = tlb + (size_t)blockIdx.x * nb;
+  const int* ord = order + (size_t)blockIdx.x * nb;
+  const int slots = slots_for(block_f);
+  float b = bound();
+  for (int p = 0;; p += slots) {
+    const int n = fill_sched_chunk(W.ch, tl, ord, nb, p, b, EXT, slots, blo,
+                                   bhi);
+    if (n == 0) break;
+    run_chunk<EXT, SharedExt, true>(T, fpack, fpack_cols, oterm, 8, block_f,
+                                    ray_major);
+    if (n < slots) break;
+    b = bound();
+  }
 
 #pragma unroll
-  for (int k = 0; k < RPT; ++k) {
-    const size_t r = base + (size_t)k * THREADS;
-    t_out[r] = bt[k];
-    face_out[r] = bf[k];
+  for (int k = 0; k < RPC; ++k) {
+    const int i = tid + k * CT;
+    t_out[base + i] = shared_key_t(W.best[i]);
+    face_out[base + i] = shared_key_face(W.best[i]);
   }
   if (n_spheres == 0) return;
 
   // sphere tail: the winner by strict nonlinear depth, in config order
-  const float ox = sph[0], oy = sph[1], oz = sph[2];
 #pragma unroll
-  for (int k = 0; k < RPT; ++k) {
-    const float x = rx[k], y = ry[k], z = rz[k];
+  for (int k = 0; k < RPC; ++k) {
+    const int ray = tid + k * CT;
+    const float x = W.dirs.d[0][ray], y = W.dirs.d[1][ray];
+    const float z = W.dirs.d[2][ray];
     const float a = x * x + y * y + z * z;
     float best_d = INFINITY, best_t = INFINITY, best_id = 0.0f;
     float best_cx = 0.0f, best_cy = 0.0f, best_cz = 0.0f;
@@ -99,7 +152,7 @@ closest_hit_kernel(const float* __restrict__ tlb, const int* __restrict__ order,
     const float nz = (oz + z * ts) - best_cz;
     float l = sqrtf(nx * nx + ny * ny + nz * nz);
     l = l > 0.0f ? l : 1.0f;
-    const size_t r = base + (size_t)k * THREADS;
+    const size_t r = base + ray;
     st_out[r] = best_t;
     sid_out[r] = best_id;
     snx_out[r] = nx / l;
@@ -113,14 +166,24 @@ closest_hit_kernel(const float* __restrict__ tlb, const int* __restrict__ order,
 extern "C" int rt_closest_hit(const float* tlb, const int* order, const float* dx,
                               const float* dy, const float* dz, const float* texit,
                               const float* fpack, const float* oterm, const float* sph,
-                              int n_tiles, int nb, int block_f, int fpack_cols,
-                              int n_spheres, float inv_near, float rcp_span,
-                              float* t, int* face, float* st, float* sid, float* snx,
-                              float* sny, float* snz, void* stream) {
+                              const float* blo, const float* bhi, int n_tiles,
+                              int nb, int block_f, int fpack_cols, int n_spheres,
+                              float inv_near, float rcp_span, int ray_major,
+                              float* t, int* face, float* st, float* sid,
+                              float* snx, float* sny, float* snz, void* stream) {
   if (block_f < 1 || block_f > rt::MAX_BLOCK_F) return (int)cudaErrorInvalidValue;
+  const int bytes = (int)sizeof(Smem);
+  cudaError_t err = cudaFuncSetAttribute(
+      closest_hit_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return (int)err;
   if (n_tiles > 0)
-    closest_hit_kernel<<<n_tiles, rt::THREADS, 0, (cudaStream_t)stream>>>(
-        tlb, order, dx, dy, dz, texit, fpack, oterm, sph, nb, block_f, fpack_cols,
-        n_spheres, inv_near, rcp_span, t, face, st, sid, snx, sny, snz);
+    closest_hit_kernel<<<n_tiles, rt::cull::CT, bytes, (cudaStream_t)stream>>>(
+        tlb, order, dx, dy, dz, texit, fpack, oterm, sph, blo, bhi, nb, block_f,
+        fpack_cols, n_spheres, inv_near, rcp_span, ray_major, t, face, st, sid,
+        snx, sny, snz);
   return (int)cudaGetLastError();
+}
+
+extern "C" int rt_closest_hit_resources(int* out) {
+  return rt::cull::resources(closest_hit_kernel, (int)sizeof(Smem), out);
 }

@@ -16,12 +16,15 @@
 // inside it, and no face t lies before its box's entry.
 //
 // One CUDA block of CT = 512 threads per 1024-ray tile. The rays live in
-// shared memory (struct of arrays; K9's as directions beside one origin),
-// with the closest-hit winner packed as one 64-bit key (float bits of t
-// << 32 | face): the bits of a t >= +0.0 order as its value, so the key's
-// order is the lexicographic (t, face) order; K8 and K10 hit at t >= 1e-3,
-// K9 at t >= 0, where a zero t is packed as +0.0 (the bits of -0.0 would
-// order after every positive t). A miss keeps (+inf, 0). Per chunk:
+// shared memory (struct of arrays; K1's and K9's as directions beside
+// one origin), with the closest-hit winner packed as one 64-bit key
+// (float bits of t << 32 | face): the bits of a t >= +0.0 order as its
+// value, so the key's order is the lexicographic (t, face) order. K8 and
+// K10 hit at t >= 1e-3; K1 and K9 at t >= 0, where a zero t packs as
+// +0.0 in the high word (the bits of -0.0 would order after every
+// positive t) and its sign goes to bit 0 of the low word, beside face << 1
+// (SharedExt::pack): the winner keeps its own zero, as the TPU kernel's
+// merge keeps it. A miss keeps (+inf, 0). Per chunk:
 //  1. box phase: each thread box-tests its rays against the chunk's
 //     blocks (bit s of a per-ray mask: the ray enters block s); K11
 //     takes the live rays from a compacted list, so only live rays are
@@ -33,9 +36,18 @@
 //     warps take them: the lanes are the block's faces (G lanes per pair,
 //     G the power of two >= block_f, 32 / G pairs per warp). A
 //     closest-hit pair min-reduces t over its lanes, takes the first lane
-//     at that t (the lowest face id) by a ballot and merges its key into
-//     the ray's with a shared-memory atomicMin; a shadow pair ORs its
-//     lanes' hits into the ray's state (then the ray leaves the walk).
+//     at that t (the lowest face id) by a ballot and merges its key (that
+//     lane's own t) into the ray's with a shared-memory atomicMin; a
+//     shadow pair ORs its lanes' hits into the ray's state (then the ray
+//     leaves the walk).
+// A walk of coherent rays (K1's from the camera, K3's shadow rays toward
+// the light) enters the same blocks from most rays of a warp; there a
+// pair costs a warp pass of shuffles, a ballot and an atomic for one ray.
+// So K1 and K3 (run_chunk's HYBRID) take a dense chunk ray-major
+// instead: where the (ray, block) pairs reach `ray_major` times the
+// warps' visits of the blocks they need, each thread tests its own rays
+// against the faces of the blocks its warp enters, face after face, each
+// face's columns read by all lanes at once (ray_major_chunk).
 #pragma once
 
 #include "rt_common.cuh"
@@ -102,6 +114,7 @@ struct Dirs {
 // The closest-hit rays of a walk, with per-ray origins (K8, K10): every
 // hit has t >= 1e-3 > 0, so t's bits are the key's.
 struct PerRayExt {
+  static constexpr bool SIGNED_ZERO = false;
   const Rays& R;
   __device__ __forceinline__ bool aimed(int i) const {
     return R.d[0][i] != 0.0f || R.d[1][i] != 0.0f || R.d[2][i] != 0.0f;
@@ -120,10 +133,15 @@ struct PerRayExt {
   }
 };
 
-// The closest-hit rays of K9, from one origin: the face test is
-// shared_origin_t's (t >= 0, staged columns 12-15 the origin terms), and
-// a zero t (+0.0 or -0.0) packs as +0.0.
+// The closest-hit rays of K1 and K9, from one origin: the face test is
+// shared_origin_t's (t >= 0, staged columns 12-15 the origin terms). A
+// zero t (+0.0 or -0.0, by the signs of t_num and N.d) packs as +0.0 in
+// the key's high word and its sign in bit 0 of the low word, beside
+// face << 1: the key orders by (t by value, face), and the winner keeps
+// the sign of its own t (a camera on a face's plane draws the face or
+// not by that sign: 1/t is the frame's depth).
 struct SharedExt {
+  static constexpr bool SIGNED_ZERO = true;
   const Dirs& R;
   float o[3];
   __device__ __forceinline__ bool aimed(int i) const {
@@ -137,13 +155,25 @@ struct SharedExt {
     t = shared_origin_t_cols(g, stride, R.d[0][i], R.d[1][i], R.d[2][i]);
     return t != INFINITY;
   }
-  __device__ __forceinline__ static unsigned key(float t) {
-    return t == 0.0f ? 0u : __float_as_uint(t);
+  __device__ __forceinline__ static unsigned long long pack(float t,
+                                                            unsigned face) {
+    const unsigned bits = __float_as_uint(t);
+    return t == 0.0f ? (unsigned long long)(face << 1 | bits >> 31)
+                     : (unsigned long long)bits << 32 | face << 1;
   }
 };
 
-// the closest-hit half of a shadow-only walk (K11): none
+// t and face of a SharedExt key
+__device__ __forceinline__ float shared_key_t(unsigned long long key) {
+  return __uint_as_float((unsigned)(key >> 32) | (unsigned)key << 31);
+}
+__device__ __forceinline__ int shared_key_face(unsigned long long key) {
+  return (int)((unsigned)key >> 1);
+}
+
+// the closest-hit half of a shadow-only walk (K3, K11): none
 struct NoExt {
+  static constexpr bool SIGNED_ZERO = false;
   __device__ __forceinline__ static unsigned key(float t) {
     return __float_as_uint(t);
   }
@@ -226,17 +256,86 @@ struct Tile {
   const int* n_live;
 };
 
+// A dense chunk of a one-half walk (run_chunk with HYBRID), after its
+// staging: each thread tests its own rays ray[k] (their masks mk[k])
+// against the faces of the blocks its warp enters (the union wu), block
+// by block and face by face, each test only where the ray's own mask bit
+// is set. The thread owns its rays in the chunk: a closest-hit ray's key
+// (the least of Ext::pack, as the pairs' atomicMin merges it) and a
+// shadow ray's state are updated without atomics. Ends synchronised.
+template <int HALVES, class Ext>
+__device__ __forceinline__ void ray_major_chunk(const Tile<Ext>& T,
+                                                const int (&ray)[RPC],
+                                                const unsigned (&mk)[RPC],
+                                                unsigned wu, int block_f) {
+  const int stride = block_f + 1;
+  __syncthreads();  // the faces are staged
+  if constexpr ((HALVES & EXT) != 0) {
+    unsigned long long key[RPC];
+#pragma unroll
+    for (int k = 0; k < RPC; ++k) key[k] = mk[k] ? T.best[ray[k]] : 0ull;
+    for (unsigned m = wu; m; m &= m - 1u) {
+      const int s = __ffs(m) - 1;
+      const float* blk = T.faces + s * STAGE_COLS * stride;
+      const unsigned face0 = (unsigned)(T.ch.blk[s] * block_f);
+      for (int j = 0; j < block_f; ++j) {
+#pragma unroll
+        for (int k = 0; k < RPC; ++k) {
+          float t;
+          if ((mk[k] >> s & 1u) && T.ext.hit(blk + j, stride, ray[k], t)) {
+            const unsigned long long c = Ext::pack(t, face0 + j);
+            key[k] = c < key[k] ? c : key[k];
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < RPC; ++k)
+      if (mk[k]) T.best[ray[k]] = key[k];
+  } else {
+    bool was[RPC], live[RPC];
+#pragma unroll
+    for (int k = 0; k < RPC; ++k) {
+      was[k] = mk[k] && T.state[ray[k]] == S_LIVE;
+      live[k] = was[k];
+    }
+    const Rays& R = *T.sh;
+    for (unsigned m = wu; m; m &= m - 1u) {
+      const int s = __ffs(m) - 1;
+      const float* blk = T.faces + s * STAGE_COLS * stride;
+      for (int j = 0; j < block_f; ++j) {
+#pragma unroll
+        for (int k = 0; k < RPC; ++k) {
+          const int i = ray[k];
+          float t;
+          if (live[k] && (mk[k] >> s & 1u) &&
+              perray_hit_cols(blk + j, stride, R.d[0][i], R.d[1][i],
+                              R.d[2][i], R.o[0][i], R.o[1][i], R.o[2][i],
+                              t))
+            live[k] = false;
+        }
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < RPC; ++k)
+      if (was[k] && !live[k]) T.state[ray[k]] = S_OCC;
+  }
+  __syncthreads();
+}
+
 // One chunk of the walk (T.ch filled and synchronised by the caller).
 // With EXT in HALVES, the closest-hit half tests the aimed rays of T.ext
 // against the slots with flag bit 0; with SHADOW, the live rays of T.sh
 // (state S_LIVE) against the slots with flag bit 1 (a shadow-only walk
 // takes its rays from T.live). Faces: columns 0-11 of `pack` (row stride
-// pack_cols) and 0-3 of `extra` (row stride extra_cols). Ends
-// synchronised.
-template <int HALVES, class Ext>
+// pack_cols) and 0-3 of `extra` (row stride extra_cols). HYBRID (a
+// one-half walk: K1, K3) takes the chunk ray-major (ray_major_chunk)
+// where its (ray, block) pairs reach ray_major times the sum over the
+// warps of the blocks each enters, else by pairs. Ends synchronised.
+template <int HALVES, class Ext, bool HYBRID = false>
 __device__ void run_chunk(const Tile<Ext>& T, const float* __restrict__ pack,
                           int pack_cols, const float* __restrict__ extra,
-                          int extra_cols, int block_f) {
+                          int extra_cols, int block_f, int ray_major = 0) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   Chunk& ch = T.ch;
   constexpr bool HAS_EXT = (HALVES & EXT) != 0;
@@ -281,13 +380,14 @@ __device__ void run_chunk(const Tile<Ext>& T, const float* __restrict__ pack,
   if (lane == 31) ch.wsum[warp] = incl;
   if (lane == 0) ch.wneed[warp] = need;
   __syncthreads();
-  int first = incl - cnt, total = 0;
+  int first = incl - cnt, total = 0, visits = 0;
   need = 0;
   for (int w = 0; w < NW; ++w) {
     const int v = ch.wsum[w];
     total += v;
     if (w < warp) first += v;
     need |= ch.wneed[w];
+    if constexpr (HYBRID) visits += __popc(ch.wneed[w]);
   }
   if (total == 0) return;  // uniform
 
@@ -303,6 +403,17 @@ __device__ void run_chunk(const Tile<Ext>& T, const float* __restrict__ pack,
       T.faces[(s * STAGE_COLS + c) * stride + j] =
           c < 12 ? pack[row * pack_cols + c]
                  : extra[row * extra_cols + (c - 12)];
+    }
+  }
+
+  if constexpr (HYBRID) {
+    static_assert(HALVES == EXT || HALVES == SHADOW, "one half");
+    if (total >= ray_major * visits) {  // uniform
+      if constexpr (HAS_EXT)
+        ray_major_chunk<HALVES>(T, ray, em, ch.wneed[warp], block_f);
+      else
+        ray_major_chunk<HALVES>(T, ray, sm, ch.wneed[warp], block_f);
+      return;
     }
   }
 
@@ -371,7 +482,12 @@ __device__ void run_chunk(const Tile<Ext>& T, const float* __restrict__ pack,
       const unsigned bits =
           __ballot_sync(FULL, half ? hit : (tm == tmin && tmin < INFINITY)) &
           gmask;
-      if (have && j == 0 && bits) {
+      if constexpr (Ext::SIGNED_ZERO) {
+        // the first lane at the least t merges its own t (a closest-hit
+        // walk only): a zero keeps its sign
+        if (have && bits && lane == __ffs(bits) - 1)
+          atomicMin(&T.best[i], Ext::pack(tm, ch.blk[s] * block_f + j));
+      } else if (have && j == 0 && bits) {
         if (half)
           T.state[i] = S_OCC;
         else if constexpr (HAS_EXT)
@@ -406,6 +522,80 @@ __device__ __forceinline__ unsigned fill_chunk(Chunk& ch, unsigned word,
   for (int k = 0; k < slots && word; ++k) word &= word - 1u;
   __syncthreads();
   return word;
+}
+
+// Fill the chunk from a tile's front-to-back schedule (K1, K3): the
+// blocks ord[p], ord[p + 1], ... (at most `slots`, none past nb) as long
+// as their entry bound tl[block] is at most b, each slot with its box and
+// the halves `flag`: warp 0 loads, then the block synchronises. Returns
+// the slots filled; fewer than `slots` means the walk ends with this
+// chunk: `order` ascends in tl, so no later block passes the bound
+// either (and a block that fails `tl <= b` stops the TPU kernel's walk
+// too).
+__device__ __forceinline__ int fill_sched_chunk(Chunk& ch, const float* tl,
+                                                const int* ord, int nb,
+                                                int p, float b, int flag,
+                                                int slots, const float* blo,
+                                                const float* bhi) {
+  if (threadIdx.x < 32) {
+    const int lane = threadIdx.x, q = p + lane;
+    int ci = 0;
+    bool ok = false;
+    if (lane < slots && q < nb) {
+      ci = ord[q];
+      ok = tl[ci] <= b;
+    }
+    const unsigned fail = __ballot_sync(FULL, !ok);
+    const int n = fail ? __ffs((int)fail) - 1 : 32;
+    if (lane < n) load_slot(ch, lane, ci, flag, blo, bhi);
+    if (lane == 0) ch.n = n;
+  }
+  __syncthreads();
+  return ch.n;
+}
+
+// The live-ray list of a shadow-only walk (K3, K11; S holds the rays'
+// `state`, `cap`, the list `live`, its length `n_live` and the chunk
+// scratch `ch`): compact the rays in state S_LIVE into S.live (all: from
+// every ray of the tile, else from the list as it stands) and return the
+// block-wide max of their caps, -1 when none is live. Ends synchronised.
+template <class S>
+__device__ float compact_live(S& A, bool all) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  int ray[RPC], cnt = 0;
+  float m = -1.0f;
+#pragma unroll
+  for (int k = 0; k < RPC; ++k) {
+    const int p = tid + k * CT;
+    const int i = all ? p : (p < A.n_live ? A.live[p] : -1);
+    ray[k] = i >= 0 && A.state[i] == S_LIVE ? i : -1;
+    if (ray[k] >= 0) {
+      ++cnt;
+      m = fmaxf(m, A.cap[i]);
+    }
+  }
+  int incl = cnt;
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(FULL, incl, o);
+    if (lane >= o) incl += y;
+    m = fmaxf(m, __shfl_xor_sync(FULL, m, o));
+  }
+  __syncthreads();  // every read of the list and of the scratch is done
+  if (lane == 31) A.ch.wsum[warp] = incl;
+  if (lane == 0) A.ch.red[warp] = m;
+  __syncthreads();
+  int first = incl - cnt, total = 0;
+  for (int w = 0; w < NW; ++w) {
+    total += A.ch.wsum[w];
+    if (w < warp) first += A.ch.wsum[w];
+    m = fmaxf(m, A.ch.red[w]);
+  }
+#pragma unroll
+  for (int k = 0; k < RPC; ++k)
+    if (ray[k] >= 0) A.live[first++] = (unsigned short)ray[k];
+  if (tid == 0) A.n_live = total;
+  __syncthreads();
+  return m;
 }
 
 // out[0..3] = registers a thread, spilled bytes a thread, dynamic shared

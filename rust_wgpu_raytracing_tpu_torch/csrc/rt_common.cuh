@@ -1,8 +1,10 @@
 // Shared pieces of the ray-tracing kernels (closest_hit.cu, anyhit.cu,
 // frame.cu, closest_hit_perray.cu, extend_shadow.cu, stream_sweep.cu;
-// the per-ray culled walk of the last two is cull_walk.cuh).
+// the per-ray culled walk of all but frame.cu and closest_hit_perray.cu
+// is cull_walk.cuh).
 //
-// The sweep kernels walk one 1024-ray schedule tile per CUDA block:
+// The register sweeps (frame.cu, closest_hit_perray.cu) walk one
+// 1024-ray schedule tile per CUDA block:
 // 256 threads x 4 rays each, rays r = tile*1024 + threadIdx.x + k*256 so
 // that neighbouring threads load neighbouring floats. The per-tile face
 // blocks are visited in the order the host schedule gives (ascending
@@ -139,7 +141,7 @@ __device__ __forceinline__ bool perray_hit(const float* g, float x, float y,
          h1 >= 0.0f && h2 >= 0.0f;
 }
 
-// The shared-origin sweep of K1 and K4 (rays rx, ry, rz; origin terms
+// The shared-origin sweep of K4 (rays rx, ry, rz; origin terms
 // from oterm).
 __device__ __forceinline__ void sweep_closest(
     const float* __restrict__ tl, const int* __restrict__ ord, int nb,
@@ -193,7 +195,7 @@ __device__ __forceinline__ float shared_origin_t_cols(const float* g,
   return valid ? t : INFINITY;
 }
 
-// The per-ray box test of K8-K11 (the port's ops/traverse.py
+// The per-ray box test of K1, K3 and K8-K11 (the port's ops/traverse.py
 // ray_box_enter, bit for bit with -fmad=false and IEEE division): does
 // the forward line of the ray (origin o, direction d) meet the AABB [lo,
 // hi], and where does it enter? The box is widened in space on each axis:

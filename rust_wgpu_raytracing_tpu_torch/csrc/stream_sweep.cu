@@ -28,7 +28,7 @@
 // (_chp_block_tv, _ah_block), term for term, compiled with -fmad=false.
 // Padding rows are all zero: N.d = 0 fails |N.d| >= 1e-6 and t = 0/0 =
 // NaN fails every comparison. K9's zero t (a camera on a face's plane)
-// is +0.0 (cull_walk.cuh SharedExt); equal by value to the TPU kernel's.
+// keeps the winning face's own sign (cull_walk.cuh SharedExt::pack).
 //
 // The walk: a subtile's rays in shared memory, 512 threads (CT). The
 // block reads its batch's order row and walks the words in that order.
@@ -239,47 +239,6 @@ struct AnyhitSmem {
   int slot[3];
 };
 
-// Compact the rays in state S_LIVE into A.live (all: from every ray of
-// the tile, else from the list as it stands) and return the block-wide
-// max of their caps, -1 when none is live. Ends synchronised.
-__device__ float compact_live(AnyhitSmem& A, bool all) {
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  int ray[RPC], cnt = 0;
-  float m = -1.0f;
-#pragma unroll
-  for (int k = 0; k < RPC; ++k) {
-    const int p = tid + k * CT;
-    const int i = all ? p : (p < A.n_live ? A.live[p] : -1);
-    ray[k] = i >= 0 && A.state[i] == S_LIVE ? i : -1;
-    if (ray[k] >= 0) {
-      ++cnt;
-      m = fmaxf(m, A.cap[i]);
-    }
-  }
-  int incl = cnt;
-  for (int o = 1; o < 32; o <<= 1) {
-    const int y = __shfl_up_sync(FULL, incl, o);
-    if (lane >= o) incl += y;
-    m = fmaxf(m, __shfl_xor_sync(FULL, m, o));
-  }
-  __syncthreads();  // every read of the list and of the scratch is done
-  if (lane == 31) A.ch.wsum[warp] = incl;
-  if (lane == 0) A.ch.red[warp] = m;
-  __syncthreads();
-  int first = incl - cnt, total = 0;
-  for (int w = 0; w < NW; ++w) {
-    total += A.ch.wsum[w];
-    if (w < warp) first += A.ch.wsum[w];
-    m = fmaxf(m, A.ch.red[w]);
-  }
-#pragma unroll
-  for (int k = 0; k < RPC; ++k)
-    if (ray[k] >= 0) A.live[first++] = (unsigned short)ray[k];
-  if (tid == 0) A.n_live = total;
-  __syncthreads();
-  return m;
-}
-
 // K11: the shadow half of the culled walk, over live rays only.
 __global__ void __launch_bounds__(CT, 2)
 anyhit_culled_kernel(Sched S, const float* __restrict__ dx,
@@ -403,7 +362,7 @@ int launch_walk(Kernel kernel, int bytes, int n_sub, void* stream,
 }  // namespace
 
 // K9: oterm = the frame's (F, 8) origin terms [t_num, hc0, hc1, hc2,
-// ...], origin (3,) the camera's, key (R,) the (t bits << 32 | face) keys
+// ...], origin (3,) the camera's, key (R,) the SharedExt::pack keys
 // to merge into (+inf, 0 to start)
 extern "C" int rt_stream_closest_hit(
     const int* mask3, const int* order2, const float* tlb3, const float* dx,

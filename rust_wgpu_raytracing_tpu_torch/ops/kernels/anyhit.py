@@ -8,15 +8,24 @@ admits at t >= 1e-3. The plain version loops over face blocks,
 vectorised over the admitted tiles' rays, without early termination
 (an OR over hits does not depend on visit order, and termination only
 drops blocks no live ray can reach).
+
+The kernel also takes the face blocks' boxes (blk_lo, blk_hi: one row
+per block, the union of its cluster AABBs) and tests a block's faces
+only for the live rays whose own line enters its box
+(testing/raycull.py sched_anyhit_culled models that walk), by pairs or,
+in a dense chunk, ray-major (common.RAY_MAJOR). The result is the same
+bits, so the plain version ignores the boxes. Without boxes the kernel
+admits every live ray of an admitted block.
 """
 
 from __future__ import annotations
 
 import torch
 
+from . import common
 from .build import check, library
-from .common import (TILE_R, admitted_tiles, block_rows, is_cuda_call, ptr,
-                     require, stream_ptr)
+from .common import (TILE_R, admitted_tiles, block_rows, box_args,
+                     is_cuda_call, open_boxes, ptr, require, stream_ptr)
 
 K_EPSILON = 1e-6
 
@@ -39,20 +48,24 @@ def _check(tlb, order, planes, fpack, dc, block_f):
     return n_tiles, nb
 
 
-def anyhit(tlb, order, dx, dy, dz, ox, oy, oz, act, texit, fpack, dc, *,
-           block_f: int):
+def anyhit(tlb, order, dx, dy, dz, ox, oy, oz, act, texit, fpack, dc,
+           blk_lo=None, blk_hi=None, *, block_f: int):
     """occ (R,) f32 in {0, 1} for R = tiles * 1024 rays with per-ray
     origins. act (R,) f32: 1 for rays to test; dc (F, 8): [d, c0, c1,
-    c2, ...]; the rest as for closest_hit."""
+    c2, ...]; blk_lo / blk_hi (nb, 3) f32 the blocks' boxes, or None;
+    the rest as for closest_hit."""
     planes = (dx, dy, dz, ox, oy, oz, act, texit)
     n_tiles, nb = _check(tlb, order, planes, fpack, dc, block_f)
-    if not is_cuda_call(tlb, order, *planes, fpack, dc):
-        return anyhit_plain(tlb, order, *planes, fpack, dc, block_f=block_f)
+    boxes = box_args(blk_lo, blk_hi, nb)
+    if not is_cuda_call(tlb, order, *planes, fpack, dc, *boxes):
+        return anyhit_plain(tlb, order, *planes, fpack, dc, *boxes,
+                            block_f=block_f)
+    lo, hi = boxes or open_boxes(nb, dx.device)
     occ = torch.empty(dx.shape[0], dtype=torch.float32, device=dx.device)
     err = library().rt_anyhit(
         ptr(tlb), ptr(order), *[ptr(p) for p in planes], ptr(fpack),
-        ptr(dc), n_tiles, nb, block_f, fpack.shape[1], ptr(occ),
-        stream_ptr(dx.device))
+        ptr(dc), ptr(lo), ptr(hi), n_tiles, nb, block_f, fpack.shape[1],
+        common.RAY_MAJOR["anyhit"], ptr(occ), stream_ptr(dx.device))
     check(err, "rt_anyhit")
     anyhit.launches += 1
     return occ
@@ -62,9 +75,11 @@ anyhit.launches = 0
 
 
 def anyhit_plain(tlb, order, dx, dy, dz, ox, oy, oz, act, texit, fpack, dc,
-                 *, block_f: int):
-    """Plain PyTorch version of anyhit (same arguments, same results)."""
-    del order, texit  # an OR does not depend on visit order or termination
+                 blk_lo=None, blk_hi=None, *, block_f: int):
+    """Plain PyTorch version of anyhit (same arguments, same results):
+    every active ray of an admitted block, the boxes unread."""
+    # an OR does not depend on visit order or termination
+    del order, texit, blk_lo, blk_hi
     return anyhit_blocks(admitted_tiles(tlb), dx, dy, dz, ox, oy, oz, act,
                          fpack, dc, block_f)
 

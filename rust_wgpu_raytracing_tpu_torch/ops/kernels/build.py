@@ -40,9 +40,9 @@ _FLOAT = ctypes.c_float
 
 # C signatures (csrc/*.cu): pointers and the stream are c_void_p
 _SIGNATURES = {
-    "rt_closest_hit": [_VOIDP] * 9 + [_INT] * 5 + [_FLOAT] * 2
+    "rt_closest_hit": [_VOIDP] * 11 + [_INT] * 5 + [_FLOAT] * 2 + [_INT]
     + [_VOIDP] * 7 + [_VOIDP],
-    "rt_anyhit": [_VOIDP] * 12 + [_INT] * 4 + [_VOIDP] + [_VOIDP],
+    "rt_anyhit": [_VOIDP] * 14 + [_INT] * 5 + [_VOIDP] + [_VOIDP],
     "rt_texshade": [_VOIDP] * 11 + [_INT] + [_VOIDP] * 3 + [_VOIDP],
     "rt_frame": [_VOIDP] * 10 + [_INT] * 6 + [_FLOAT] * 2 + [_VOIDP]
     + [_VOIDP],
@@ -59,6 +59,8 @@ _SIGNATURES = {
     "rt_stream_anyhit": [_VOIDP] * 16 + [_INT] + [_VOIDP] + [_INT] * 5
     + [_VOIDP] + [_VOIDP],
     # (int out[4]): registers, spilled bytes, shared bytes, blocks an SM
+    "rt_closest_hit_resources": [_VOIDP],
+    "rt_anyhit_resources": [_VOIDP],
     "rt_extend_shadow_resources": [_VOIDP],
     "rt_stream_closest_hit_resources": [_VOIDP],
     "rt_stream_closest_hit_perray_resources": [_VOIDP],

@@ -11,6 +11,15 @@ winning sphere by strict nonlinear depth. The plain version loops over
 face blocks, vectorised over the admitted tiles' rays, and models no
 early termination: the (t, face) merge does not depend on visit order,
 and termination only drops blocks that cannot win.
+
+The kernel also takes the face blocks' boxes (blk_lo, blk_hi: one row
+per block, the union of its cluster AABBs) and tests a block's faces
+only for the rays whose line from the camera enters its box at or below
+their best t so far (testing/raycull.py sched_closest_culled models that
+walk), by pairs or, in a dense chunk, ray-major (common.RAY_MAJOR). The
+winner is the same, a zero t with the winning face's own sign, so the
+plain version ignores the boxes. Without boxes the kernel admits every
+aimed ray of an admitted block.
 """
 
 from __future__ import annotations
@@ -19,9 +28,10 @@ import torch
 
 from ..composite import depth_constants
 from ..rounding import sqrt
+from . import common
 from .build import check, library
-from .common import (INT_MAX, TILE_R, admitted_tiles, block_rows,
-                     is_cuda_call, ptr, require, stream_ptr)
+from .common import (INT_MAX, TILE_R, admitted_tiles, block_rows, box_args,
+                     is_cuda_call, open_boxes, ptr, require, stream_ptr)
 
 F32_INF = float("inf")
 K_EPSILON = 1e-6
@@ -46,21 +56,26 @@ def _check(tlb, order, dx, dy, dz, texit, fpack, oterm, sph, block_f):
     return n_tiles, nb, (sph.shape[0] - 3) // 4
 
 
-def closest_hit(tlb, order, dx, dy, dz, texit, fpack, oterm, sph, *,
-                block_f: int, near: float = 0.01, far: float = 100.0):
+def closest_hit(tlb, order, dx, dy, dz, texit, fpack, oterm, sph,
+                blk_lo=None, blk_hi=None, *, block_f: int,
+                near: float = 0.01, far: float = 100.0):
     """(t (R,) f32, face (R,) i32, sph_out) for R = tiles * 1024 rays.
 
     tlb/order (T, nb): per-tile entry bounds (+inf = culled) and visit
     order; texit (R,): per-ray root-exit caps; fpack (F, >=12): plane
     columns (N, g0, g1, g2); oterm (F, 8): [t_num, hc0, hc1, hc2, ...];
-    sph (3 + 4S,): origin then (center, radius) per sphere. sph_out is
-    (t, id_f32, nx, ny, nz) of the winning sphere, None when S = 0."""
+    sph (3 + 4S,): origin then (center, radius) per sphere; blk_lo /
+    blk_hi (nb, 3) f32 the blocks' boxes, or None. sph_out is (t, id_f32,
+    nx, ny, nz) of the winning sphere, None when S = 0."""
     n_tiles, nb, n_sph = _check(tlb, order, dx, dy, dz, texit, fpack,
                                 oterm, sph, block_f)
-    if not is_cuda_call(tlb, order, dx, dy, dz, texit, fpack, oterm, sph):
+    boxes = box_args(blk_lo, blk_hi, nb)
+    if not is_cuda_call(tlb, order, dx, dy, dz, texit, fpack, oterm, sph,
+                        *boxes):
         return closest_hit_plain(tlb, order, dx, dy, dz, texit, fpack,
-                                 oterm, sph, block_f=block_f, near=near,
-                                 far=far)
+                                 oterm, sph, *boxes, block_f=block_f,
+                                 near=near, far=far)
+    lo, hi = boxes or open_boxes(nb, dx.device)
     r = dx.shape[0]
     t = torch.empty(r, dtype=torch.float32, device=dx.device)
     face = torch.empty(r, dtype=torch.int32, device=dx.device)
@@ -69,8 +84,9 @@ def closest_hit(tlb, order, dx, dy, dz, texit, fpack, oterm, sph, *,
     inv_near, rcp_span = depth_constants(near, far)
     err = library().rt_closest_hit(
         ptr(tlb), ptr(order), ptr(dx), ptr(dy), ptr(dz), ptr(texit),
-        ptr(fpack), ptr(oterm), ptr(sph), n_tiles, nb, block_f,
-        fpack.shape[1], n_sph, inv_near, rcp_span, ptr(t), ptr(face),
+        ptr(fpack), ptr(oterm), ptr(sph), ptr(lo), ptr(hi), n_tiles, nb,
+        block_f, fpack.shape[1], n_sph, inv_near, rcp_span,
+        common.RAY_MAJOR["closest_hit"], ptr(t), ptr(face),
         *[ptr(p) for p in planes], stream_ptr(dx.device))
     check(err, "rt_closest_hit")
     closest_hit.launches += 1
@@ -80,17 +96,20 @@ def closest_hit(tlb, order, dx, dy, dz, texit, fpack, oterm, sph, *,
 closest_hit.launches = 0
 
 
-def closest_hit_plain(tlb, order, dx, dy, dz, texit, fpack, oterm, sph, *,
-                      block_f: int, near: float = 0.01, far: float = 100.0):
+def closest_hit_plain(tlb, order, dx, dy, dz, texit, fpack, oterm, sph,
+                      blk_lo=None, blk_hi=None, *, block_f: int,
+                      near: float = 0.01, far: float = 100.0):
     """Plain PyTorch version of closest_hit (same arguments, same
-    results bit for bit)."""
-    del order, texit  # visit order and termination cannot change a winner
+    results bit for bit): every ray of an admitted block, the boxes
+    unread."""
+    # visit order and termination cannot change a winner
+    del order, texit, blk_lo, blk_hi
     t, face = closest_shared_blocks(admitted_tiles(tlb), dx, dy, dz, fpack,
                                     oterm, block_f)
     n_sph = (sph.shape[0] - 3) // 4
     if n_sph == 0:
         return t, face, None
-    return t, face, _sphere_winner(sph, n_sph, dx, dy, dz, near, far)
+    return t, face, sphere_winner(sph, n_sph, dx, dy, dz, near, far)
 
 
 def closest_shared_blocks(tiles_of_block, dx, dy, dz, fpack, oterm,
@@ -147,7 +166,7 @@ def merge_block(t, face, tiles, tm, face_base: int) -> None:
         better, new_face, prev_f).view(-1, TILE_R)
 
 
-def _sphere_winner(sph, n_sph, dx, dy, dz, near, far):
+def sphere_winner(sph, n_sph, dx, dy, dz, near, far):
     """Per-ray winning sphere by strict nonlinear depth, in config order:
     (t, id_f32, nx, ny, nz), the kernel's sphere tail term for term."""
     inv_near, rcp_span = depth_constants(near, far)

@@ -8,6 +8,13 @@ import torch
 
 TILE_R = 1024  # rays per schedule tile: one CUDA block of the sweep kernels
 INT_MAX = 2**31 - 1
+# K1 and K3 (csrc/cull_walk.cuh run_chunk's HYBRID) take a chunk
+# ray-major where its (ray, block) pairs reach RAY_MAJOR[kernel] times
+# the warps' visits of the blocks they enter (a visit holds at most 64
+# rays), else by pairs; read at each launch (0: always ray-major, 65:
+# never). Of 0-65, the least sum of each kernel's times at the smoke and
+# dense views and the path tracer's arguments on the H100 (PERF.md).
+RAY_MAJOR = {"closest_hit": 32, "anyhit": 48}
 
 
 def is_cuda_call(*tensors: torch.Tensor) -> bool:

@@ -53,7 +53,7 @@ BLOCK_F = 32  # faces per block; 32 blocks per superblock word
 # each launch): of 32-512, about the lowest sum of their four times on
 # the streamed cells, over three runs on the H100 (PERF.md)
 SEG = 64
-NO_HIT = 0x7F80000000000000  # the key (t bits << 32 | face) of (+inf, 0)
+NO_HIT = 0x7F80000000000000  # the key of (+inf, 0): unpack_keys
 
 
 def _check(mask3, order2, tlb3, planes, spack, names):
@@ -85,8 +85,7 @@ def stream_closest_hit(mask3, order2, tlb3, dx, dy, dz, texit, spack,
     (columns 0-11 read); oterm (F, 8): the frame's origin terms
     [t_num, hc0, hc1, hc2, ...]; origin (3,) f32: the camera origin,
     needed with the boxes; blk_lo / blk_hi (F / 32, 3) f32: the 32-face
-    blocks' boxes, or None (every ray of an admitted block tested). A
-    zero t is +0.0."""
+    blocks' boxes, or None (every ray of an admitted block tested)."""
     planes = (dx, dy, dz, texit)
     n_sub, nsub, n_super = _check(mask3, order2, tlb3, planes, spack,
                                   ("dx", "dy", "dz", "texit"))
@@ -122,10 +121,12 @@ stream_closest_hit.launches = 0
 
 
 def unpack_keys(key):
-    """(t f32, face i32) of (t bits << 32 | face) keys: every t >= +0.0,
-    so its bits are below 2^31."""
-    t = (key >> 32).to(torch.int32).view(torch.float32)
-    return t, (key & 0xFFFFFFFF).to(torch.int32)
+    """(t f32, face i32) of K9's keys (csrc/cull_walk.cuh SharedExt):
+    t's bits << 32 | face << 1, a zero t as +0.0 with its sign bit in
+    bit 0. Every t >= 0, so its bits are below 2^31."""
+    low = key & 0xFFFFFFFF
+    t = ((key >> 32) | ((low & 1) << 31)).to(torch.int32)
+    return t.view(torch.float32), (low >> 1).to(torch.int32)
 
 
 def _popcount(x):

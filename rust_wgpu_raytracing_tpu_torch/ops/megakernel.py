@@ -299,7 +299,8 @@ def _block_boxes(scene: SceneData, f: int, block_f: int):
     """(lo, hi) (f // block_f, 3) f32: each face block's box, the union
     of the cluster AABBs it holds (a block holds whole clusters: K8's
     blocks are the clusters, the streamed sweeps' 32-face blocks hold one
-    cluster or four 8-face ones), for the per-ray culling of K8-K11."""
+    cluster or four 8-face ones), for the per-ray culling of K1, K3 and
+    K8-K11."""
     k = block_f * scene.blk_lo.shape[0] // f  # clusters per block
     if k == 1:
         return scene.blk_lo, scene.blk_hi
@@ -481,8 +482,8 @@ def gbuffer(scene: SceneData, origin, dx, dy, dz, *, accel: str = "cull",
     which fuses no spheres (the caller runs the per-sphere passes).
     with_nm fills the G-buffer's normal-mapping planes. stream=None
     takes the streamed sweep (K9) past STREAM_FACES faces, the
-    all-on-chip one (K1) below; K9 gets the origin and the blocks' boxes
-    (_block_boxes), which it tests per ray."""
+    all-on-chip one (K1) below; K9 gets the origin and both get the
+    blocks' boxes (_block_boxes), which they test per ray."""
     f = scene.padded_faces
     stream, block_f = _stream_setup(scene, stream)
     nrays = dx.shape[0]
@@ -508,7 +509,8 @@ def gbuffer(scene: SceneData, origin, dx, dy, dz, *, accel: str = "cull",
                     else origin.reshape(3).contiguous())
         t, face, sph = kernels.closest_hit(
             tlb, order, dx, dy, dz, texit, pack_face_columns(scene), oterm,
-            sph_pack, block_f=block_f, near=near, far=far)
+            sph_pack, *_block_boxes(scene, f, block_f), block_f=block_f,
+            near=near, far=far)
     t, face = t[:nrays], face[:nrays]
     if sph is not None:
         sph = tuple(p[:nrays] for p in sph)
@@ -535,8 +537,8 @@ def anyhit_rays(scene: SceneData, ox, oy, oz, dx, dy, dz, active, *,
     last-bounce shadow wavefront, mostly dead lanes); None folds it on
     the streamed branch only, as JAX's default. The occlusion is the
     same either way, the mask and the sweep's work are not. stream as
-    for gbuffer (K11 streamed, with the blocks' boxes; K3 all on
-    chip)."""
+    for gbuffer (K11 streamed, K3 all on chip, both with the blocks'
+    boxes)."""
     f = scene.padded_faces
     stream, block_f = _stream_setup(scene, stream)
     if act_cull is None:
@@ -563,7 +565,7 @@ def anyhit_rays(scene: SceneData, ox, oy, oz, dx, dy, dz, active, *,
                                     oxp, oyp, ozp, dxp, dyp, dzp,
                                     TILE_R, f, block_f, act=(act > 0))
     occ = kernels.anyhit(tlb, order, *args, act, texit, fpack, dc,
-                         block_f=block_f)
+                         *_block_boxes(scene, f, block_f), block_f=block_f)
     return occ[:nrays] > 0.0
 
 

@@ -1,31 +1,37 @@
-"""Plain models of the per-ray cluster culling in kernels K8-K11.
+"""Plain models of the per-ray cluster culling in kernels K1, K3 and
+K8-K11.
 
-K8 (csrc/extend_shadow.cu) and the streamed sweeps K9, K10, K11
+K1 and K3 (csrc/closest_hit.cu, csrc/anyhit.cu), K8
+(csrc/extend_shadow.cu) and the streamed sweeps K9, K10, K11
 (csrc/stream_sweep.cu) test a face block only against the rays whose own
 forward line enters the block's box (ops/traverse.ray_box_enter), and a
 closest-hit ray only where that entry lies at or below the ray's best t
 so far. Their outputs stay those of the unculled plain versions
-(extend_shadow_plain, stream_closest_hit_plain,
-stream_closest_hit_perray_plain, stream_anyhit_plain), which compute the
-TPU kernels' function: a ray whose line misses a conservatively widened
-box cannot hit a face inside it, a face beyond the ray's best t cannot
-win, and both merges (a lexicographic (t, face) min and an OR) do not
-depend on the order of visits.
+(closest_hit_plain, anyhit_plain, extend_shadow_plain,
+stream_closest_hit_plain, stream_closest_hit_perray_plain,
+stream_anyhit_plain), which compute the TPU kernels' function: a ray
+whose line misses a conservatively widened box cannot hit a face inside
+it, a face beyond the ray's best t cannot win, and both merges (a
+lexicographic (t, face) min and an OR) do not depend on the order of
+visits.
 
 This module walks the same (ray, block) pairs in plain PyTorch, so the
 CPU tests can hold the culled walks against the unculled versions bit
 for bit, counts the work a culled walk needs (`walk_counts`, read by
 chip_smoke.py's bounds), and makes the seeded adversarial inputs the
 tests and chip_smoke.py hold the kernels to (`write_grid_mesh`,
-`adversarial_rays`, `adversarial_camera`). K9's and K11's models
+`adversarial_rays`, `adversarial_camera`, `plane_camera_config`). K1's
+and K3's models
+(`sched_closest_culled`, `sched_anyhit_culled`) follow the kernels' walk
+of the front-to-back schedule: chunks of the tile's visit order under
+the bound refreshed after each chunk. K9's and K11's models
 (`stream_shared_culled`, `stream_anyhit_culled`) follow the kernels'
 word walk itself: the work items of stream_sweep.walk_items (at
-stream_sweep.SEG as it stands when called), each
-subtile's visit order with its skip, stop and bound rules, K9's zero t
-packed as +0.0, K11's walk over its live rays only. It is not on any
-render path.
+stream_sweep.SEG as it stands when called), each subtile's visit order
+with its skip, stop and bound rules. K1's and K9's zero t keeps the
+winning face's own sign (merge_own), K3 and K11 walk their live rays
+only. It is not on any render path.
 """
-
 from __future__ import annotations
 
 import numpy as np
@@ -34,7 +40,7 @@ import torch
 from ..core.scene import SC_DC
 from ..ops.kernels import stream_sweep
 from ..ops.kernels.anyhit import perray_plane_test
-from ..ops.kernels.closest_hit import shared_plane_t
+from ..ops.kernels.closest_hit import shared_plane_t, sphere_winner
 from ..ops.kernels.common import INT_MAX, TILE_R
 from ..ops.kernels.extend_shadow import mask_tiles
 from ..ops.kernels.stream_sweep import BLOCK_F, admitted_subtiles, walk_items
@@ -104,6 +110,131 @@ def culled_anyhit(tiles_of_block, blo, bhi, dx, dy, dz, ox, oy, oz, act,
             p[idx] for p in (dx, dy, dz, ox, oy, oz)))
         occ[idx] = torch.maximum(occ[idx], torch.where(
             hit.any(dim=0), act[idx], 0.0))
+    return occ
+
+
+def merge_own(t, face, ray, tm, face_base: int) -> None:
+    """Merge one block's shared-origin t (tm (BF, n), +inf where a face
+    misses) into the winners of the rays `ray` (n,) in place, as K1's
+    and K9's keys merge (csrc/cull_walk.cuh SharedExt::pack): the block's
+    winner is its first face at the least t by value, it replaces the
+    incumbent by the lexicographic (t, face) rule, and it brings its own
+    t: a zero keeps that face's sign."""
+    lanes = torch.arange(tm.shape[0], dtype=torch.int32,
+                         device=tm.device)[:, None]
+    tmin = tm.amin(dim=0)
+    lane = torch.where(tm == tmin, lanes, INT_MAX).amin(dim=0)
+    own = tm.gather(0, lane[None].long())[0]
+    new_face = lane + face_base
+    prev_t, prev_f = t[ray], face[ray]
+    better = (tmin < prev_t) | ((tmin == prev_t) & (new_face < prev_f))
+    t[ray] = torch.where(better, own, prev_t)
+    face[ray] = torch.where(better, new_face, prev_f)
+
+
+def _slots(block_f: int) -> int:
+    """Blocks per chunk of the culled walks (cull_walk.cuh slots_for)."""
+    return min(256 // block_f, 32)
+
+
+def sched_walk(tl, order, b: float, slots: int, bound, visit,
+               stop_below_zero: bool) -> None:
+    """One tile's walk of the front-to-back schedule (K1, K3): chunks of
+    up to `slots` blocks of the visit order `order` (a list) taken while
+    their entry bound tl[block] is at most b; a chunk that ends early (a
+    block fails the bound, or the order runs out) ends the walk.
+    visit(chunk) gets each chunk's blocks, then b = bound(); K3 also
+    stops at b < 0."""
+    p = 0
+    while not (stop_below_zero and b < 0.0):
+        chunk = []
+        for ci in order[p:p + slots]:
+            if not tl[ci] <= b:
+                break
+            chunk.append(ci)
+        if chunk:
+            visit(chunk)
+        if len(chunk) < slots:
+            return
+        p += slots
+        b = bound()
+
+
+def sched_closest_culled(tlb, order, dx, dy, dz, texit, fpack, oterm, sph,
+                         blk_lo, blk_hi, *, block_f: int, near: float = 0.01,
+                         far: float = 100.0):
+    """K1's culled walk in plain PyTorch: (t, face, sph_out) as
+    closest_hit's, blk_lo/blk_hi (nb, 3) the face blocks' boxes. Each
+    tile walks its schedule (sched_walk) under the bound max(min(best t,
+    root exit)); in a chunk a block tests only the aimed rays whose line
+    from the camera (sph[:3]) enters its box at or below their best t at
+    the chunk's start. A zero t keeps the winning face's own sign."""
+    r = dx.shape[0]
+    t = torch.full((r,), F32_INF, dtype=torch.float32, device=dx.device)
+    face = torch.zeros(r, dtype=torch.int32, device=dx.device)
+    lane = torch.arange(TILE_R, device=dx.device)
+    for u in range(tlb.shape[0]):
+        idx = u * TILE_R + lane
+        x, y, z, cap = dx[idx], dy[idx], dz[idx], texit[idx]
+        aimed = (x != 0.0) | (y != 0.0) | (z != 0.0)
+        o = [sph[a].expand_as(x) for a in range(3)]
+
+        def visit(chunk):
+            best = t[idx].clone()
+            for j in chunk:
+                ok, entry = ray_box_enter(blk_lo[j], blk_hi[j], *o, x, y, z)
+                keep = (aimed & ok & (entry <= best)).nonzero().squeeze(1)
+                if keep.numel() == 0:
+                    continue
+                rows = slice(j * block_f, (j + 1) * block_f)
+                tm = shared_plane_t(fpack[rows], oterm[rows], x[keep],
+                                    y[keep], z[keep])
+                merge_own(t, face, idx[keep], tm, j * block_f)
+
+        def bound():
+            return float(torch.minimum(t[idx], cap).max())
+        sched_walk(tlb[u].tolist(), order[u].tolist(), bound(),
+                   _slots(block_f), bound, visit, False)
+    n_sph = (sph.shape[0] - 3) // 4
+    if n_sph == 0:
+        return t, face, None
+    return t, face, sphere_winner(sph, n_sph, dx, dy, dz, near, far)
+
+
+def sched_anyhit_culled(tlb, order, dx, dy, dz, ox, oy, oz, act, texit,
+                        fpack, dc, blk_lo, blk_hi, *, block_f: int):
+    """K3's culled walk in plain PyTorch: occ as anyhit's, blk_lo/blk_hi
+    (nb, 3) the face blocks' boxes. Each tile keeps its live rays
+    (active, not occluded so far) and walks its schedule (sched_walk)
+    under the largest root exit of a live ray, -1 when none is left; in a
+    chunk a block tests only the rays live at the chunk's start whose
+    line enters its box; a ray leaves the walk once occluded."""
+    occ = torch.zeros_like(dx)
+    lane = torch.arange(TILE_R, device=dx.device)
+    for u in range(tlb.shape[0]):
+        idx = u * TILE_R + lane
+        live = act[idx] > 0.0
+
+        def visit(chunk):
+            ray = idx[live]
+            planes = [p[ray] for p in (dx, dy, dz, ox, oy, oz)]
+            for j in chunk:
+                ok, _ = ray_box_enter(blk_lo[j], blk_hi[j], *planes[3:],
+                                      *planes[:3])
+                if not bool(ok.any()):
+                    continue
+                rows = slice(j * block_f, (j + 1) * block_f)
+                _, hit = perray_plane_test(fpack[rows], dc[rows], *(
+                    p[ok] for p in planes))
+                shut = ray[ok][hit.any(dim=0)]
+                occ[shut] = act[shut]
+                live[shut - u * TILE_R] = False
+
+        def bound():
+            caps = texit[idx][live]
+            return max(-1.0, float(caps.max())) if caps.numel() else -1.0
+        sched_walk(tlb[u].tolist(), order[u].tolist(), bound(),
+                   _slots(block_f), bound, visit, True)
     return occ
 
 
@@ -183,7 +314,7 @@ def stream_shared_culled(mask3, order2, tlb3, dx, dy, dz, texit, spack,
     stream_closest_hit's, the rays from `origin` (3,), blk_lo/blk_hi
     (F / 32, 3) the 32-face blocks' boxes. The items run last first (the
     kernel runs them in any order); each starts from the winners as they
-    stand. A zero t is +0.0."""
+    stand. A zero t keeps the winning face's own sign."""
     r = dx.shape[0]
     t = torch.full((r,), F32_INF, dtype=torch.float32, device=dx.device)
     face = torch.zeros(r, dtype=torch.int32, device=dx.device)
@@ -203,18 +334,7 @@ def stream_shared_culled(mask3, order2, tlb3, dx, dy, dz, texit, spack,
             rows = slice(j * BLOCK_F, (j + 1) * BLOCK_F)
             tm = shared_plane_t(spack[rows], oterm[rows], x[keep],
                                 y[keep], z[keep])
-            tmin = tm.amin(dim=0)
-            tmin = torch.where(tmin == 0.0, 0.0, tmin)  # +0.0
-            lanes = torch.arange(BLOCK_F, dtype=torch.int32,
-                                 device=dx.device)[:, None]
-            new_face = torch.where(tm == tmin, lanes, INT_MAX).amin(dim=0) \
-                + j * BLOCK_F
-            ray = idx[keep]
-            prev_t, prev_f = t[ray], face[ray]
-            better = (tmin < prev_t) | ((tmin == prev_t) &
-                                         (new_face < prev_f))
-            t[ray] = torch.where(better, tmin, prev_t)
-            face[ray] = torch.where(better, new_face, prev_f)
+            merge_own(t, face, idx[keep], tm, j * BLOCK_F)
 
         def bound():
             return float(torch.minimum(t[idx], cap).max())
@@ -272,6 +392,17 @@ def mask_pairs(words, n_tiles: int, nb: int):
     bits = ((w[:, c >> 5] >> (c & 31)) & 1).bool()
     tiles, blocks = bits.nonzero(as_tuple=True)
     return tiles, blocks
+
+
+def sched_pairs(tlb, reach=None):
+    """(tiles, blocks) (P,) int64: the (tile, block) pairs a front-to-back
+    schedule (tlb (tiles, nb)) admits: a finite entry bound and, with
+    reach (tiles,) given, at most the tile's reach (the walk stops
+    before the others)."""
+    ok = torch.isfinite(tlb)
+    if reach is not None:
+        ok = ok & (tlb <= reach[:, None])
+    return ok.nonzero(as_tuple=True)
 
 
 def stream_pairs(mask3, tlb3, reach=None):
@@ -447,6 +578,29 @@ def adversarial_rays(kind: str, cells: int, blk_lo, blk_hi, seed: int,
     d[parked] = 0.0
     return (o.T.copy(), d.T.copy(), so.T.copy(),
             sd.astype(np.float32).T.copy(), act)
+
+
+def plane_camera_config(obj_path: str, cells: int, seed: int,
+                        width: int = 48, height: int = 32):
+    """The port's SceneConfig of a split frame of write_grid_mesh(cells)
+    at `obj_path`, with the reference's spheres and shadows, from a
+    camera on the z = -3 grid's plane (adversarial_camera's
+    "on_face_plane" origin) looking along it: the rays that leave the
+    plane hit the faces holding the eye at t = +0.0 on one side and -0.0
+    on the other, and the frame's depth (1/t) draws the faces or not by
+    that sign."""
+    from .. import config
+
+    o, _ = adversarial_camera("on_face_plane", cells, None, None, seed)
+    eye = tuple(float(v) for v in o)
+    return config.SceneConfig(
+        spheres=config.reference_scene().spheres,
+        meshes=(config.MeshConfig(obj_path=obj_path,
+                                  light_direction=(6.0, -1.0, 1.0)),),
+        camera=config.CameraConfig(eye=eye, target=(eye[0] + 1.0,
+                                                    eye[1] + 0.3, -3.0)),
+        render=config.RenderConfig(width=width, height=height,
+                                   shadows=True))
 
 
 def adversarial_camera(kind: str, cells: int, blk_lo, blk_hi, seed: int,

@@ -1,0 +1,150 @@
+#!/usr/bin/env python3
+"""Time the port's all-on-chip sweeps K1 (closest_hit) and K3 (anyhit) on
+one NVIDIA GPU, against another checkout of the port if asked.
+
+    python3 sweep_times.py [--against DIR]
+
+Each kernel runs at the arguments the port's own glue gives it in
+chip_smoke.py's scenes at 1920x1080: the split frame at the smoke view
+and at the dense view (K1's primary sweep, K3's shadow rays) and the
+path tracer's first sample (K1's primary sweep, K3's last-bounce shadow
+rays). A time is the mean of 20 launches after one, by CUDA events.
+
+With --against DIR (another checkout of the port, e.g. an earlier
+commit unpacked with `git archive`), both checkouts run, each in its own
+process that builds its own kernels and records its own arguments, in
+turns: this one, the other, the other, this one. Each line gives a
+kernel and an argument set with each checkout's two times; the card's
+name and power limit come before the last line. Exits 2 without CUDA.
+"""
+
+from __future__ import annotations
+
+import importlib.util
+import json
+import os
+import subprocess
+import sys
+import tempfile
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+
+
+def child(root: str) -> None:
+    """Record and time the sweeps of the checkout at `root`; one JSON
+    line per (kernel, argument set)."""
+    sys.path.insert(0, root)
+    import torch
+
+    from rust_wgpu_raytracing_tpu_torch import Renderer
+    from rust_wgpu_raytracing_tpu_torch.core.camera import Camera
+    from rust_wgpu_raytracing_tpu_torch.config import CameraConfig
+    from rust_wgpu_raytracing_tpu_torch.ops import kernels as K
+    from rust_wgpu_raytracing_tpu_torch.ops.kernels import build
+    from rust_wgpu_raytracing_tpu_torch.ops.megakernel import \
+        render_megakernel
+    from rust_wgpu_raytracing_tpu_torch.ops.pathtrace import (
+        PRNGKey, fold_in, render_pathtrace)
+
+    # chip_smoke.py's scenes and timer, from this script's checkout
+    spec = importlib.util.spec_from_file_location(
+        "smoke_scenes", os.path.join(HERE, "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    build.build()
+
+    def record(run):
+        calls = {}
+
+        def recorder(fn):
+            def call(*args, **kwargs):
+                calls.setdefault(fn.__name__, []).append((args, kwargs))
+                return fn(*args, **kwargs)
+            return call
+        run(K.KernelSet(*(recorder(f) for f in K.KERNELS)))
+        torch.cuda.synchronize()
+        return calls
+
+    cfg = cs.smoke_config("split")
+    rc = cfg.render
+    data = Renderer(cfg, device="cuda").data
+    cases = []
+    for view, eye, target in (("smoke view", cs.SMOKE_EYE, cs.SMOKE_TARGET),
+                              ("dense view", cs.DENSE_EYE, cs.DENSE_TARGET)):
+        uni = Camera.from_config(CameraConfig(eye=eye, target=target),
+                                 cs.WIDTH / cs.HEIGHT).uniforms().flat()
+        calls = record(lambda ks: render_megakernel(
+            data, uni, width=cs.WIDTH, height=cs.HEIGHT,
+            near=rc.kernel_near, far=rc.kernel_far,
+            background=tuple(cfg.background), shadows=True,
+            quantize=rc.quantize_rgba8, accel=rc.accel, fused=False,
+            kernels=ks))
+        cases += [("closest_hit", view, calls["closest_hit"][0]),
+                  ("anyhit", view, calls["anyhit"][0])]
+    assets = tempfile.mkdtemp(prefix="rt_sweeps_")
+    os.environ["RWRT_ASSETS"] = assets
+    cs.write_nm_assets(assets)
+    pt_cfg = cs.pt_config()
+    pt = Renderer(pt_cfg, device="cuda")
+    key = fold_in(PRNGKey(cs.PT_SEED), 0)  # the Renderer's first sample
+    calls = record(lambda ks: render_pathtrace(
+        pt.data, pt.camera.uniforms().flat(), key,
+        width=cs.WIDTH, height=cs.HEIGHT, bounces=cs.PT_BOUNCES, spp=1,
+        background=tuple(pt_cfg.background), compact_cap="auto",
+        kernels=ks))
+    cases += [("closest_hit", "the path tracer's primary sweep",
+               calls["closest_hit"][0]),
+              ("anyhit", "the path tracer's last bounce",
+               calls["anyhit"][-1])]
+    wrapper = {f.__name__: f for f in K.KERNELS}
+    for name, at, (args, kw) in cases:
+        ms = cs.time_ms(lambda: wrapper[name](*args, **kw), 20)
+        print(json.dumps({"kernel": name, "at": at, "ms": ms}), flush=True)
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("sweep_times: torch.cuda.is_available() is false; this needs "
+              "an NVIDIA GPU", file=sys.stderr)
+        return 2
+    args = sys.argv[1:]
+    other = None
+    if args[:1] == ["--against"] and len(args) == 2:
+        other = os.path.abspath(args[1])
+    elif args:
+        print(__doc__, file=sys.stderr)
+        return 2
+    label = {HERE: "this checkout", other: f"against {other}"}
+    turns = [HERE] if other is None else [HERE, other, other, HERE]
+    times = {}
+    for root in turns:
+        res = subprocess.run([sys.executable, __file__, "--child", root],
+                             capture_output=True, text=True, timeout=1200)
+        if res.returncode:
+            print(f"sweep_times: {root} failed:\n{res.stderr[-4000:]}",
+                  file=sys.stderr)
+            return 1
+        for line in res.stdout.splitlines():
+            if line.startswith("{"):
+                rec = json.loads(line)
+                times.setdefault((rec["kernel"], rec["at"]), {}).setdefault(
+                    root, []).append(rec["ms"])
+    import chip_smoke
+
+    for (name, at), by_root in times.items():
+        print(f"[sweeps] {name} at {at}'s arguments, ms (CUDA events, mean "
+              f"of 20 launches): " + "; ".join(
+                  f"{label[root]} " + ", ".join(f"{ms:.4f}" for ms in v)
+                  for root, v in by_root.items()), flush=True)
+    print(chip_smoke.card_line())
+    print(json.dumps({"ok": True, "turns": len(turns)}))
+    return 0
+
+
+if __name__ == "__main__":
+    if sys.argv[1:2] == ["--child"]:
+        child(sys.argv[2])
+        sys.exit(0)
+    sys.exit(main())

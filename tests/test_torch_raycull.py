@@ -1,19 +1,22 @@
-"""PyTorch port: the per-ray cluster culling of kernels K8 (the path
+"""PyTorch port: the per-ray cluster culling of kernels K1 (the
+shared-origin closest hit), K3 (the shadow any-hit), K8 (the path
 tracer's fused extend + shadow sweep), K9 (the streamed shared-origin
 closest hit), K10 (the streamed per-ray closest hit) and K11 (the
 streamed shadow any-hit).
 
-Both kernels test a face block only for the rays whose own line enters
+The kernels test a face block only for the rays whose own line enters
 the block's box (ops/traverse.ray_box_enter, the plain twin of
 csrc/rt_common.cuh ray_box_enter), a closest-hit ray only where that
 entry lies at or below its best t so far. testing/raycull.py models
-that walk in plain PyTorch (K9's and K11's models follow the kernels'
-word walk, split into work items); here the model is held against the
-unculled plain versions (extend_shadow_plain, stream_closest_hit_plain,
-stream_closest_hit_perray_plain, stream_anyhit_plain, the TPU kernels'
-function) BITWISE: t, face and occ; K9's t by value, its zero t being
-+0.0 where the plain version's may be -0.0 (equal by value, as the
-Pallas kernels' planes are).
+that walk in plain PyTorch (K1's and K3's models follow the kernels'
+chunks of the front-to-back schedule, K9's and K11's their word walk,
+split into work items); here the model is held against the unculled
+plain versions (closest_hit_plain, anyhit_plain, extend_shadow_plain,
+stream_closest_hit_plain, stream_closest_hit_perray_plain,
+stream_anyhit_plain, the TPU kernels' function) BITWISE: t, face and
+occ, K1's and K9's zero t with its sign (a camera on a face's plane
+draws the face or not by that sign; the split frame there is held
+against the JAX package's).
 
 Inputs, from numpy seeds, on two meshes built at run time (an 8-face
 cluster mesh and a 32-face one): flat axis-aligned grids (faces lie in
@@ -22,11 +25,12 @@ padded with NaN faces and +inf padding boxes. Ray sets: directions with
 zero components, origins on box faces, origins inside boxes, rays in a
 face plane, rays aimed at shared edges and vertices (t ties the lower
 face id must win), each with parked rays (origin 1e9, zero direction);
-for K9 one camera of each kind and a camera on a face's plane (zero t).
-Then the bounce-1 wavefronts of 64x64 path traces of a heightfield (K8)
-and of a streamed one (K9, K10, K11). The arguments come from the
-port's own glue (extend_shadow_rays, gbuffer, gbuffer_perray,
-anyhit_rays), which hands the kernels the boxes. The card tests (marked
+for K1 and K9 one camera of each kind and a camera on a face's plane
+(zero t). Then the wavefronts of 64x64 path traces of a heightfield (K1
+primary, K8 bounce 1, K3 last bounce) and of a streamed one (K9, K10,
+K11). The arguments come from the port's own glue (extend_shadow_rays,
+gbuffer, gbuffer_perray, anyhit_rays), which hands the kernels the
+boxes. The card tests (marked
 gpu) hold the CUDA kernels to the plain versions on the same inputs.
 """
 
@@ -44,10 +48,11 @@ from rust_wgpu_raytracing_tpu_torch.ops import kernels as K
 from rust_wgpu_raytracing_tpu_torch.ops import megakernel as P
 from rust_wgpu_raytracing_tpu_torch.testing.raycull import (
     ADVERSARIAL_KINDS, CAMERA_KINDS, adversarial_camera, adversarial_rays,
-    extend_shadow_culled, item_walks, mask_pairs, stream_anyhit_culled,
-    stream_pairs, stream_perray_culled, stream_shared_culled, walk_counts,
-    write_grid_mesh)
-from rust_wgpu_raytracing_tpu_torch.ops.kernels import stream_sweep
+    extend_shadow_culled, item_walks, mask_pairs, plane_camera_config,
+    sched_anyhit_culled, sched_closest_culled, sched_pairs,
+    stream_anyhit_culled, stream_pairs, stream_perray_culled,
+    stream_shared_culled, walk_counts, write_grid_mesh)
+from rust_wgpu_raytracing_tpu_torch.ops.kernels import common, stream_sweep
 from rust_wgpu_raytracing_tpu_torch.ops.kernels.stream_sweep import (
     walk_items)
 from rust_wgpu_raytracing_tpu_torch.ops.pathtrace import (PRNGKey, fold_in,
@@ -56,7 +61,8 @@ from rust_wgpu_raytracing_tpu_torch.ops.kernels.anyhit import \
     perray_plane_test
 from rust_wgpu_raytracing_tpu_torch.ops.traverse import (perray_super_any,
                                                          ray_box_enter)
-from test_torch_host import cuda_device, heightfield_config  # noqa: F401
+from test_torch_host import (cuda_device, heightfield_config,  # noqa: F401
+                             jax_reference, u8_levels)
 
 # mesh name: cells of raycull.write_grid_mesh's z = -3 grid (928 and
 # 5,024 faces, padded to 1,024 and 5,120: whole superblocks, so K10 can be
@@ -233,18 +239,12 @@ def segs(monkeypatch):
         yield seg
 
 
-def positive_zero(t):
-    """t with -0.0 turned into +0.0 (the bits K9 packs)."""
-    return torch.where(t == 0.0, 0.0, t)
-
-
 @pytest.mark.parametrize("kind", CAMERA_KINDS)
 @pytest.mark.parametrize("mesh", sorted(MESHES))
 def test_culled_k9_equals_plain(meshes, mesh, kind, monkeypatch):
     """K9's walk (shared origin, items of 32 blocks and of the default)
-    against the unculled plain version: faces bitwise, t bitwise once a
-    zero t is +0.0 (the plain version keeps -0.0 where t_num / N.d is
-    one)."""
+    against the unculled plain version: faces and t bitwise, a zero t
+    with its sign (-0.0 where t_num / N.d is one)."""
     data = meshes[mesh]
     seed = 600 + CAMERA_KINDS.index(kind) + 10 * sorted(MESHES).index(mesh)
     origin, d = adversarial_camera(kind, MESHES[mesh], data.blk_lo,
@@ -256,7 +256,7 @@ def test_culled_k9_equals_plain(meshes, mesh, kind, monkeypatch):
     want = K.stream_closest_hit_plain(*args, **kw)
     for _ in segs(monkeypatch):
         got = stream_shared_culled(*args)
-        assert_bits(got, (positive_zero(want[0]), want[1]), ("t", "face"))
+        assert_bits(got, want, ("t", "face"))
     assert int(torch.isfinite(want[0]).sum()) > 100
     if kind == "on_face_plane":
         # the hazard: a camera on a face's plane hits at t = -0.0 too
@@ -279,6 +279,63 @@ def test_culled_k11_equals_plain(meshes, mesh, kind, monkeypatch):
     for _ in segs(monkeypatch):
         assert_bits((stream_anyhit_culled(*args),), (want,),
                     ("occ",))
+    assert int((want > 0).sum()) > 50
+
+
+def k1_args(data, origin, d):
+    """closest_hit's arguments from the port's glue (gbuffer on the
+    all-on-chip sweep)."""
+    calls = {}
+    P.gbuffer(data, torch.from_numpy(origin), *tens(d), stream=False,
+              kernels=recorder(calls))
+    return calls["closest_hit"][0]
+
+
+def k3_args(data, so, sd, act):
+    """anyhit's arguments from the port's glue (all on chip)."""
+    calls = {}
+    P.anyhit_rays(data, *tens(so), *tens(sd), torch.from_numpy(act),
+                  stream=False, kernels=recorder(calls))
+    return calls["anyhit"][0]
+
+
+@pytest.mark.parametrize("kind", CAMERA_KINDS)
+@pytest.mark.parametrize("mesh", sorted(MESHES))
+def test_culled_k1_equals_plain(meshes, mesh, kind):
+    """K1's walk (chunks of the front-to-back schedule, per-ray boxes
+    from the camera) against the unculled plain version: t (a zero t
+    with its sign) and face bitwise."""
+    data = meshes[mesh]
+    seed = 1000 + CAMERA_KINDS.index(kind) + 10 * sorted(MESHES).index(mesh)
+    origin, d = adversarial_camera(kind, MESHES[mesh], data.blk_lo,
+                                   data.blk_hi, seed)
+    args, kw = k1_args(data, origin, d)
+    assert len(args) == 11 and kw["block_f"] == (8 if mesh == "bf8" else 32)
+    assert torch.equal(args[8], torch.from_numpy(origin))
+    assert args[9] is data.blk_lo and args[10] is data.blk_hi
+    want = K.closest_hit_plain(*args, **kw)
+    got = sched_closest_culled(*args, **kw)
+    assert_bits(got[:2], want[:2], ("t", "face"))
+    assert got[2] is None and want[2] is None
+    assert int(torch.isfinite(want[0]).sum()) > 100
+    if kind == "on_face_plane":
+        zero = want[0] == 0.0
+        assert int(zero.sum()) > 1000
+        assert bool((want[0][zero].view(torch.int32) != 0).any())
+
+
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("mesh", sorted(MESHES))
+def test_culled_k3_equals_plain(meshes, mesh, kind):
+    """K3's walk over live rays only (chunks of the front-to-back
+    schedule) against the unculled plain version, bitwise."""
+    data = meshes[mesh]
+    seed = 1100 + KINDS.index(kind) + 10 * sorted(MESHES).index(mesh)
+    _, _, so, sd, act = rays(kind, mesh, data, seed)
+    args, kw = k3_args(data, so, sd, act)
+    assert len(args) == 14 and args[12] is data.blk_lo
+    want = K.anyhit_plain(*args, **kw)
+    assert_bits((sched_anyhit_culled(*args, **kw),), (want,), ("occ",))
     assert int((want > 0).sum()) > 50
 
 
@@ -350,6 +407,120 @@ def test_pt_bounce1_k8_culled_equals_plain(fields):
     assert s["entered"] < s["admitted"]
 
 
+def test_pt_primary_k1_culled_equals_plain(fields):
+    """K1 on the primary rays of a 64x64 path trace of the bowl (4,608
+    faces, 32-face clusters, all on chip)."""
+    data, (args, kw) = pt_wavefront(fields[49], "closest_hit")
+    assert kw["block_f"] == 32 and len(args) == 11
+    want = K.closest_hit_plain(*args, **kw)
+    got = sched_closest_culled(*args, **kw)
+    assert_bits(got[:2], want[:2], ("t", "face"))
+    assert int(torch.isfinite(want[0]).sum()) > 500
+    aimed = (args[2] != 0) | (args[3] != 0) | (args[4] != 0)
+    o = [args[8][a].expand_as(args[2]) for a in range(3)]
+    reach = torch.minimum(want[0], args[5]).view(-1, 1024).amax(1)
+    n = walk_counts(sched_pairs(args[0], reach), args[9], args[10],
+                    *args[2:5], *o, aimed, t_final=want[0])
+    assert n["face_pairs"] <= n["entered"] < n["admitted"] / 2
+    assert n["box_tests"] == n["admitted"]
+
+
+def test_pt_last_bounce_k3_culled_equals_plain(fields):
+    """K3 on the last bounce's shadow rays of the same path trace (the
+    act-aware schedule: most lanes dead)."""
+    data, (args, kw) = pt_wavefront(fields[49], "anyhit")
+    assert kw["block_f"] == 32 and len(args) == 14
+    want = K.anyhit_plain(*args, **kw)
+    assert_bits((sched_anyhit_culled(*args, **kw),), (want,), ("occ",))
+    assert int((want > 0).sum()) > 20
+    act, occ = args[8] > 0, want
+    reach = torch.where(act & (occ == 0), args[9], -1.0).view(
+        -1, 1024).amax(1)
+    n = walk_counts(sched_pairs(args[0], reach), args[12], args[13],
+                    *args[2:8], act, occ=occ)
+    shut = int((occ > 0).sum())
+    assert shut <= n["face_pairs"] <= n["box_tests"] <= n["admitted"] + shut
+
+
+def jax_split_frames(out, configs):
+    """The JAX package's split frames (interpret mode) of SceneConfig
+    JSONs, saved as frame0, frame1, ... (run through jax_reference)."""
+    import jax.numpy as jnp
+
+    from rust_wgpu_raytracing_tpu import config as jcfg
+    from rust_wgpu_raytracing_tpu.core.camera import Camera as JCamera
+    from rust_wgpu_raytracing_tpu.core.scene import Scene as JScene
+    from rust_wgpu_raytracing_tpu.ops.megakernel import render_megakernel
+
+    frames = {}
+    for k, text in enumerate(configs):
+        cfg = jcfg.SceneConfig.from_json(text)
+        rc = cfg.render
+        uni = jnp.asarray(JCamera.from_config(
+            cfg.camera, rc.width / rc.height).uniforms().flat())
+        color, _ = render_megakernel(JScene.build(cfg).data, uni,
+                                     width=rc.width, height=rc.height,
+                                     shadows=rc.shadows, interpret=True,
+                                     fused=False)
+        frames[f"frame{k}"] = np.asarray(color)
+    np.savez(out, **frames)
+
+
+@pytest.fixture(scope="module")
+def plane_frames(assets, tmp_path_factory):
+    """mesh: (port config, the JAX package's split frame) of
+    plane_camera_config."""
+    cfgs = {mesh: plane_camera_config(f"{mesh}.obj", MESHES[mesh], 600)
+            for mesh in sorted(MESHES)}
+    with mock.patch.dict(os.environ, {"RWRT_ASSETS": assets}):
+        ref = jax_reference("test_torch_raycull", "jax_split_frames",
+                            tmp_path_factory.mktemp("plane_jax"),
+                            configs=[c.to_json() for c in cfgs.values()])
+    return {mesh: (cfg, ref[f"frame{k}"])
+            for k, (mesh, cfg) in enumerate(cfgs.items())}
+
+
+# the kernels' culled walks, as the frame's KernelSet
+MODELS = K.PLAIN._replace(closest_hit=sched_closest_culled,
+                          anyhit=sched_anyhit_culled,
+                          stream_closest_hit=stream_shared_culled,
+                          stream_anyhit=stream_anyhit_culled)
+
+
+@pytest.mark.parametrize("mesh,stream", [("bf8", False), ("bf32", False),
+                                         ("bf32", True)])
+def test_plane_camera_frame_keeps_zero_sign(assets, plane_frames, mesh,
+                                            stream):
+    """The hazard of a zero t: the split frame from a camera on a face's
+    plane (raycull.plane_camera_config), composed from the culled walks'
+    models (K1 and K3, or forced onto the streamed sweeps K9 and K11),
+    equals the plain-composed frame bitwise and the JAX package's frame
+    at the frame bar. Packing every zero t as +0.0 draws the faces the
+    reference leaves out."""
+    cfg, want = plane_frames[mesh]
+    with mock.patch.dict(os.environ, {"RWRT_ASSETS": assets}):
+        data = Scene.build(cfg).data
+    uni = Camera.from_config(cfg.camera, 48 / 32).uniforms().flat()
+    frames, calls = [], {}
+    with mock.patch.object(P, "_should_stream", lambda f, bf: stream):
+        for ks in (recorder(calls), MODELS):
+            color, _ = P.render_megakernel(data, uni, width=48, height=32,
+                                           shadows=True, fused=False,
+                                           kernels=ks)
+            frames.append(color)
+    name = "stream_closest_hit" if stream else "closest_hit"
+    assert len(calls[name]) == 1
+    t = K.PLAIN._asdict()[name](*calls[name][0][0], **calls[name][0][1])[0]
+    zero = t == 0.0
+    negative = zero & (t.view(torch.int32) != 0)
+    assert int(negative.sum()) > 100 and int((zero & ~negative).sum()) > 100
+    assert torch.equal(frames[1], frames[0])
+    diff = np.abs(u8_levels(frames[0]) - u8_levels(want))
+    assert diff.max() <= 1 and (diff == 0).mean() >= 0.999
+    lit = (u8_levels(frames[0]) > 0).any(-1)
+    assert 0.1 < lit.mean() < 0.9  # the faces drawn on one side only
+
+
 def test_pt_bounce1_k10_culled_equals_plain(fields):
     data, (args, kw) = pt_wavefront(fields[92], "stream_closest_hit_perray")
     assert data.num_faces > 16384  # streamed on its own
@@ -390,8 +561,7 @@ def test_pt_primary_k9_culled_equals_plain(fields, monkeypatch):
     data, (args, kw) = pt_wavefront(fields[92], "stream_closest_hit")
     want = K.stream_closest_hit_plain(*args, **kw)
     for _ in segs(monkeypatch):
-        assert_bits(stream_shared_culled(*args),
-                    (positive_zero(want[0]), want[1]), ("t", "face"))
+        assert_bits(stream_shared_culled(*args), want, ("t", "face"))
     assert int(torch.isfinite(want[0]).sum()) > 500
     o = [args[9][a].expand_as(args[3]) for a in range(3)]
     aimed = (args[3] != 0) | (args[4] != 0) | (args[5] != 0)
@@ -551,6 +721,18 @@ def test_wrappers_take_and_ignore_boxes(meshes):
                 ("occ",))
     with pytest.raises(ValueError):
         K.stream_anyhit(*args[:12], args[12][:-1], args[13][:-1])
+    args, kw = k1_args(data, origin, d)
+    assert_bits(K.closest_hit(*args, **kw)[:2],
+                K.closest_hit(*args[:9], **kw)[:2], ("t", "face"))
+    with pytest.raises(ValueError):
+        K.closest_hit(*args[:10], None, **kw)
+    args, kw = k3_args(data, so, sd, act)
+    assert_bits((K.anyhit(*args, **kw),), (K.anyhit(*args[:12], **kw),),
+                ("occ",))
+    with pytest.raises(ValueError):
+        K.anyhit(*args[:12], args[12][:-1], args[13][:-1], **kw)
+    with pytest.raises(TypeError):
+        K.anyhit(*args[:12], args[12].double(), args[13], **kw)
 
 
 def test_block_boxes_follow_the_blocks(meshes):
@@ -567,33 +749,52 @@ def test_block_boxes_follow_the_blocks(meshes):
 
 
 def gpu_inputs(meshes, mesh, kind, device):
+    """(kernel, plain version, arguments on the card, keywords) of K1
+    (camera `kind`) and, for a ray set `kind`, K8, K10 and K3."""
     data = meshes[mesh]
-    r = rays(kind, mesh, data, 300 + KINDS.index(kind))
-    a8, kw8 = k8_args(data, *r)
-    a10, kw10 = k10_args(data, r[0], r[1])
+    origin, d = adversarial_camera(kind, MESHES[mesh], data.blk_lo,
+                                   data.blk_hi, 350 + CAMERA_KINDS.index(kind))
+    cases = [(K.closest_hit, K.closest_hit_plain, k1_args(data, origin, d))]
+    if kind in KINDS:
+        r = rays(kind, mesh, data, 300 + KINDS.index(kind))
+        cases += [(K.extend_shadow, K.extend_shadow_plain, k8_args(data, *r)),
+                  (K.stream_closest_hit_perray,
+                   K.stream_closest_hit_perray_plain,
+                   k10_args(data, r[0], r[1])),
+                  (K.anyhit, K.anyhit_plain, k3_args(data, *r[2:]))]
     move = (lambda a: a.to(device) if isinstance(a, torch.Tensor) else a)
-    return [move(a) for a in a8], kw8, [move(a) for a in a10], kw10
+    return [(fn, plain, [move(a) for a in args], kw)
+            for fn, plain, (args, kw) in cases]
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("kind", CAMERA_KINDS)
 @pytest.mark.parametrize("mesh", sorted(MESHES))
-def test_culling_kernels_cuda_match_plain(meshes, mesh, kind, cuda_device):
-    """K8 and K10 on the card, with the boxes and without, against their
-    plain versions on the adversarial sets: every output equal."""
-    a8, kw8, a10, kw10 = gpu_inputs(meshes, mesh, kind, cuda_device)
-    for fn, plain, args, kw in (
-            (K.extend_shadow, K.extend_shadow_plain, a8, kw8),
-            (K.stream_closest_hit_perray, K.stream_closest_hit_perray_plain,
-             a10, kw10)):
+def test_culling_kernels_cuda_match_plain(meshes, mesh, kind, cuda_device,
+                                          monkeypatch):
+    """K8, K10, K3 and K1 on the card, with the boxes and without (K1 and
+    K3 also with every chunk ray-major and every chunk by pairs), against
+    their plain versions on the adversarial sets: every output equal, K1's
+    t bitwise (a zero t with its sign)."""
+    for fn, plain, args, kw in gpu_inputs(meshes, mesh, kind, cuda_device):
         want = plain(*args, **kw)
-        for a in (args, args[:-2]):
-            before = fn.launches
-            got = fn(*a, **kw)
-            torch.cuda.synchronize()
-            assert fn.launches == before + 1
-            for x, y in zip(got, want):
-                assert torch.equal(x, y), fn.__name__
+        want = want if isinstance(want, tuple) else (want,)
+        modes = (None, 0, 65) if fn in (K.closest_hit, K.anyhit) else (None,)
+        for mode in modes:
+            if mode is not None:
+                monkeypatch.setitem(common.RAY_MAJOR, fn.__name__, mode)
+            for a in (args, args[:-2]):
+                before = fn.launches
+                got = fn(*a, **kw)
+                torch.cuda.synchronize()
+                assert fn.launches == before + 1
+                got = got if isinstance(got, tuple) else (got,)
+                for x, y in zip(got, want):  # K1's sphere planes: None
+                    assert (x is None and y is None) or torch.equal(x, y), \
+                        fn.__name__
+                if fn is K.closest_hit:  # a zero t with its sign
+                    assert torch.equal(got[0].view(torch.int32),
+                                       want[0].view(torch.int32))
 
 
 @pytest.mark.gpu
@@ -603,7 +804,8 @@ def test_streamed_culling_kernels_cuda_match_plain(meshes, mesh, kind,
                                                    cuda_device, monkeypatch):
     """K9 (each camera) and K11 (each ray set) on the card, with the boxes
     and without, with items of 32 blocks and of the default, against their
-    plain versions: every output equal by value."""
+    plain versions: every output equal, K9's t bitwise (a zero t with its
+    sign)."""
     data = meshes[mesh]
     move = (lambda a: a.to(cuda_device) if isinstance(a, torch.Tensor)
             else a)
@@ -628,3 +830,6 @@ def test_streamed_culling_kernels_cuda_match_plain(meshes, mesh, kind,
                 got = got if isinstance(got, tuple) else (got,)
                 for x, y in zip(got, want):
                     assert torch.equal(x, y), fn.__name__
+                if fn is K.stream_closest_hit:  # a zero t with its sign
+                    assert torch.equal(got[0].view(torch.int32),
+                                       want[0].view(torch.int32))
