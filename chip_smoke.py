@@ -13,14 +13,16 @@ program on its own, and checks them:
 2. build: the CUDA kernels from rust_wgpu_raytracing_tpu_torch/csrc
    (one nvcc per source, in parallel, linked into one shared library in
    the git-ignored build/kernels/); ptxas's registers and spills, and
-   the per-ray culled walks' (K1, K3, K8-K11) registers, shared memory
-   and blocks an SM;
+   the per-ray culled walks' (K1, K3, K8-K11), K4's (per mode) and K5's
+   registers, spills, shared memory and blocks an SM;
 3. each kernel against its plain PyTorch version on the card, on the
    very arguments the 1080p frames give it: closest hit, texshade and
    any-hit from the split frame (K1 and K3 also without their boxes;
    K1's t bitwise, the sign of a zero t included), the frame kernel
    (sched branch) from
-   the fused frame, at the smoke and the dense view; the frame kernel's
+   the fused frame, at the smoke and the dense view (also without its
+   boxes, sched and in-kernel) and at the Renderer's orbit frames 4-8
+   (the frames --profile profiles); the frame kernel's
    nm branch and the texture filter from the normal-mapped fused frame,
    the texture filter also from the normal-mapped split frame and on
    seeded random u16 taps (texshade too: the smoke mesh's texture is
@@ -51,12 +53,13 @@ program on its own, and checks them:
    boxes), the any-hit kernel on the last bounce's act-aware arguments
    and the closest hit on the primary sweep's (both also without boxes),
    K8 against K7 + K3 on the same rays (t, face, occ equal), K8's
-   admitted and entered (ray, block) pairs, K1, K3 and K8-K11 against
-   their plain versions on the seeded adversarial set
-   (raycull.write_grid_mesh x raycull.adversarial_rays, K1 and K9 x
+   admitted and entered (ray, block) pairs, K1, K3, K4 (all four modes)
+   and K8-K11 against their plain versions on the seeded adversarial set
+   (raycull.write_grid_mesh x raycull.adversarial_rays, K1, K4 and K9 x
    raycull.adversarial_camera, with and without boxes), the split frame
-   from a camera on a face's plane (raycull.plane_camera_config, all on
-   chip and streamed) against its plain-composed twin, one sample
+   (all on chip and streamed) and the fused frame (both shadow modes)
+   from a camera on a face's plane (raycull.plane_camera_config) against
+   its plain-composed twin, one sample
    through the kernels against
    the same sample composed from the plain versions (bitwise), the
    compacted bounce loop (run with room for every live tile) and
@@ -71,7 +74,10 @@ program on its own, and checks them:
    version's at the path's shapes (K1 and K3 also at the dense view's
    and the path tracer's: the primary sweep, the last bounce; their
    longest walk alone; and at each of them by the threshold of their
-   ray-major chunks, RAY_MAJORS, each output bitwise the default's), and
+   ray-major chunks, RAY_MAJORS, each output bitwise the default's; K4
+   also at the dense view's, in modes inkernel, nm and none on the same
+   rays, at the nm frame's and at each orbit frame's arguments, with
+   their mean, which --profile's per-frame K4 time reads), and
    back-to-back frames of each
    program (the fused frame in both shadow modes) at both views. The
    kernels line gives each kernel's least possible time on the card
@@ -81,8 +87,8 @@ program on its own, and checks them:
    multiply-add as two operations; the kernels build with -fmad=false,
    so every multiply and add issues alone, and the text line also
    gives the operations bound at that issue rate (33.5 T/s); the per-ray
-   culled walks (K1, K3, K8) also the mask walk's bound and their walk's
-   parts (walk_parts);
+   culled walks (K1, K3, K4, K8) also the mask walk's bound and their
+   walk's parts (walk_parts);
 7. streaming scale (meshes above STREAM_FACES, the JAX package's
    bench_configs.py configs 6 and 8 on builtin:terrain:512, 522,242
    faces): the 1080p shadowed frame through Renderer(device="cuda")
@@ -90,7 +96,8 @@ program on its own, and checks them:
    median, Mrays/s, peak device memory; launch counts: the streamed
    sweeps K9 and K11 and K2, K5 under bvh only, none of K1, K3, K4),
    cull frame == bvh frame bitwise, the bvh words a superset of the flat
-   scan's; K5 on the whole frame and K9, K11 on 8 of its batches (the
+   scan's; K5 on the whole frame (its primary and shadow-wavefront culls)
+   and K9, K11 on 8 of its batches (the
    one with the most admitted blocks among them) against their plain
    versions, also without boxes; the kernel-run frame (cull, bvh) against
    the plain-composed one on builtin:terrain:128 at 640x360; the 540p
@@ -100,11 +107,14 @@ program on its own, and checks them:
    terrain:128 320x180 sample against the plain-composed one; K9's and
    K11's admitted, entered and needed (ray, block) pairs (K10's too),
    the heaviest batch alone against the whole launch (tail), and both
-   at other sizes of K9's and K11's work items (stream_sweep.SEG 32-512,
-   each output bitwise the default's); each streamed kernel's time,
+   at other sizes of K9's and K11's work items (stream_sweep.SEG 32,
+   64, 256, each output bitwise the default's); each streamed kernel's
+   time,
    plain time and bound (the
    per-ray culled walks K8-K11 also the mask walk's bound and their
-   walk's parts: walk_parts).
+   walk's parts: walk_parts; K5 at both culls, also its device time by
+   torch.profiler, which its kernels line reports: its wrapper's host
+   work outlasts the kernel).
 
 `python3 chip_smoke.py --profile` runs only phases 1-2 and then
 profiles 5 frames of each frame program at the smoke view, 5 samples
@@ -171,14 +181,24 @@ STREAM_FRAMES, PTS_W, PTS_H, PTS_BOUNCES, PTS_SAMPLES = 5, 960, 540, 3, 3
 CHECK_GRID = 128
 # the sizes of K9's and K11's work items timed beside the default
 # (stream_sweep.SEG: admitted blocks an item)
-SEGS = (32, 64, 128, 256, 512)
+SEGS = (32, 64, 256)
 # the thresholds of K1's and K3's ray-major chunks timed beside the
 # defaults (kernels.common.RAY_MAJOR: 0 takes every chunk ray-major, 65
 # none)
-RAY_MAJORS = (0, 8, 16, 24, 32, 48, 65)
+RAY_MAJORS = (0, 16, 32, 48, 65)
 # per-ray FP32 operations of the texture kernels (12 tap scales, 3
 # bilinear mixes of 9; texshade adds the 4-op Blinn-Phong per channel)
 OPS_TEXFILTER, OPS_TEXSHADE = 39, 51
+# FP32 operations of K4's tail (csrc/frame.cu after the sweep): a mesh
+# hit's winner attributes (N.d 5, two edge terms 7 each, barycentrics 4,
+# uv 10: 33); every ray's nonlinear depth (3) and, outside mode "nm", the
+# mesh's Blinn-Phong (|l| 6, its unit 3, lambert 6, the half vector 6 and
+# its length 6, N.H and its scale 6, pow32 5: 38); per sphere the
+# quadratic (33), the hit normal (15), its Blinn-Phong (38) and depth (3);
+# in mode "inkernel" per relevant ray the shadow ray (|l| 6, its unit 3,
+# origin 9) and the root exit (12), and per sphere its quadratic (33).
+OPS_TAIL_HIT, OPS_TAIL_DEPTH, OPS_TAIL_BLINN = 33, 3, 38
+OPS_TAIL_SPHERE, OPS_SHADOW_RAY, OPS_SHADOW_SPHERE = 89, 30, 33
 
 
 def say(msg: str) -> None:
@@ -397,20 +417,40 @@ def sched_reach(name, args, outs):
     return reach.view(-1, 1024).amax(1)
 
 
-def culled_walk(name, args, kw, outs):
+def culled_walk(name, args, kw, outs, mesh=None):
     """raycull.walk_counts of K8's two halves (closest hit, shadow) or of
     K1, K3, K9, K10 or K11, at these arguments and outputs: the pairs the
     per-ray culled walk must test at least. K1's arguments end with the
     sphere block (the origin first) and the boxes, K9's with the origin
     and the boxes (origin, blk_lo, blk_hi), K3's and K11's with the
-    boxes."""
+    boxes. K4 (its const vector holds the origin; the boxes last) counts
+    its sweep as K1's on the same rays and, in mode "inkernel", its
+    shadow loop as K3's over the live shadow rays and the clusters their
+    cone admits: mesh = (t, face), the sweep's winners (K4's outputs do
+    not hold them)."""
     import torch
 
     from rust_wgpu_raytracing_tpu_torch.testing.raycull import (
-        mask_pairs, sched_pairs, stream_pairs, walk_counts)
+        frame_shadow_rays, mask_pairs, sched_pairs, stream_pairs,
+        walk_counts)
 
     def aimed(dx, dy, dz):
         return (dx != 0) | (dy != 0) | (dz != 0)
+    if name == "frame":
+        t, face = mesh
+        o = [args[2][a].expand_as(args[3]) for a in range(3)]
+        reach = torch.minimum(t, args[6]).view(-1, 1024).amax(1)
+        sweep = walk_counts(sched_pairs(args[0], reach), args[10], args[11],
+                            *args[3:6], *o, aimed(*args[3:6]), t_final=t)
+        if kw["mode"] != "inkernel":
+            return (sweep,)
+        w = frame_shadow_rays(args, kw, t, face)
+        occ = torch.where(w["live"], outs[2], 0.0)  # the clusters' share
+        reach = torch.where(w["live"] & (occ == 0), w["cap"], -1.0).view(
+            -1, 1024).amax(1)
+        shadow = walk_counts(sched_pairs(w["tl"], reach), args[10],
+                             args[11], *w["sd"], *w["p"], w["live"], occ=occ)
+        return sweep, shadow
     if name == "closest_hit":
         # the camera origin broadcast to per-ray planes
         o = [args[8][a].expand_as(args[2]) for a in range(3)]
@@ -451,17 +491,23 @@ def culled_walk(name, args, kw, outs):
                         t_final=outs[0]),)
 
 
-def kernel_work(name, args, kw, outs, mesh_t=None, walk="culled"):
+def kernel_work(name, args, kw, outs, mesh=None, walk="culled"):
     """(bytes, FP32 operations) of one call at these arguments: every
     input read once and every output written once; the face tests these
     rays need, or the texture kernels' per-ray mix. The sweeps count
     the lanes that can take a test (a direction that is not zero; for
     the any-hit tests, an active ray) over the blocks their walk must
     visit: the closest-hit walks (K1, K4, K7) up to the tile's largest
-    min(t, root exit) among its rays (mesh_t: K4's mesh t, which its
-    outputs do not hold), the any-hit walk (K3) up to the largest root
-    exit among its active rays that end unoccluded (at least one block
-    where an active ray ends occluded).
+    min(t, root exit) among its rays (mesh = (t, face): K4's mesh
+    winners, which its outputs do not hold), the any-hit walk (K3) up to
+    the largest root exit among its active rays that end unoccluded (at
+    least one block where an active ray ends occluded).
+
+    K4 (culled) counts its sweep as K1's culled walk on the same rays and
+    its in-kernel shadow loop as K3's over the live shadow rays
+    (culled_walk), plus its tail (OPS_TAIL_*, OPS_SHADOW_*); it reads the
+    face pack, origin terms and plane constants only in the staged rows
+    and in each hit's winner row (columns 0-22 and two origin terms).
 
     K1, K3 and K8-K11 walk per ray (csrc/cull_walk.cuh), and their count
     follows that walk (culled_walk, raycull.walk_counts): a box test
@@ -484,15 +530,34 @@ def kernel_work(name, args, kw, outs, mesh_t=None, walk="culled"):
     (OPS_SHARED), their staged rows the face pack's 12 columns and the
     origin terms' 4.
 
-    walk="mask" counts K1, K3 and K8-K11 as the TPU kernels walk: every
-    lane that can take a test against every admitted block (the schedule
-    walks up to the tile's reach, K8 every set bit of each half's mask,
-    the streamed sweeps the words up to each subtile's reach), the bound
-    the mask walk would have."""
+    walk="mask" counts K1, K3, K4 and K8-K11 as the TPU kernels walk:
+    every lane that can take a test against every admitted block (the
+    schedule walks up to the tile's reach, K4's in-kernel shadow loop as
+    K3's over the clusters its cone admits, K8 every set bit of each
+    half's mask, the streamed sweeps the words up to each subtile's
+    reach), the bound the mask walk would have."""
     import torch
 
     moved = tensor_bytes(args) + tensor_bytes(outs)
     bf = kw.get("block_f", 1)
+    if walk == "culled" and name == "frame":
+        walks = culled_walk(name, args, kw, outs, mesh)
+        ops = walks[0]["box_tests"] * OPS_RAYBOX \
+            + walks[0]["face_pairs"] * bf * OPS_SHARED
+        if len(walks) == 2:
+            ops += walks[1]["box_tests"] * OPS_RAYBOX \
+                + walks[1]["face_pairs"] * bf * OPS_PERRAY
+        r, ns = args[3].shape[0], kw["ns"]
+        hits = int(torch.isfinite(mesh[0]).sum())
+        ops += hits * OPS_TAIL_HIT + r * (
+            OPS_TAIL_DEPTH + ns * OPS_TAIL_SPHERE
+            + (0 if kw["mode"] == "nm" else OPS_TAIL_BLINN))
+        if kw["mode"] == "inkernel":
+            rel = int(((outs[1] > 0) & (outs[6] + outs[7] > 0)).sum())
+            ops += rel * (OPS_SHADOW_RAY + ns * OPS_SHADOW_SPHERE)
+        moved = tensor_bytes(args[:7] + args[10:]) + tensor_bytes(outs) \
+            + sum(n["blocks"] for n in walks) * bf * 16 * 4 + hits * 25 * 4
+        return moved, ops
     if walk == "culled" and name == "extend_shadow":
         ext, shadow = culled_walk(name, args, kw, outs)
         ops = (ext["box_tests"] + shadow["box_tests"]) * OPS_RAYBOX + (
@@ -531,10 +596,22 @@ def kernel_work(name, args, kw, outs, mesh_t=None, walk="culled"):
               "closest_hit_perray": (2, 8, OPS_PERRAY)}
     if name in sweeps:
         d0, te, per = sweeps[name]
-        t = mesh_t if name == "frame" else outs[0]
+        t = mesh[0] if name == "frame" else outs[0]
         pairs = walk_pairs(args[0], torch.minimum(t, args[te]),
                            aimed(*args[d0:d0 + 3]))
         ops = pairs * bf * per
+        if name == "frame" and kw["mode"] == "inkernel":
+            # the shadow loop: every live lane against every cluster the
+            # cone admits within reach, as K3's mask walk
+            from rust_wgpu_raytracing_tpu_torch.testing.raycull import \
+                frame_shadow_rays
+
+            w = frame_shadow_rays(args, kw, *mesh)
+            occ = torch.where(w["live"], outs[2], 0.0)
+            hit_any = (occ > 0).view(-1, 1024).any(1).long()
+            ops += walk_pairs(w["tl"], torch.where(
+                w["live"] & (occ == 0), w["cap"], -1.0), w["live"],
+                floor=hit_any) * bf * OPS_PERRAY
     elif name == "anyhit":
         act, texit, occ = args[8] > 0, args[9], outs[0]
         open_ = act & (occ == 0)
@@ -661,10 +738,34 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def mask_walk_note(name, args, kw, outs, ms) -> str:
+def device_ms(fn, reps: int, kernel: str) -> float:
+    """The mean device time (ms) a call of fn spends in the kernels whose
+    name holds `kernel`, over `reps` calls, from torch.profiler's trace.
+    CUDA events around back-to-back calls time the host where a kernel
+    takes less than its wrapper's host work (K5: ~40 us of Python a
+    call); the trace times the kernel itself."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == cuda and kernel in e.name)
+    return us / reps / 1e3
+
+
+def mask_walk_note(name, args, kw, outs, ms, mesh=None) -> str:
     """The bound of the mask walk (the TPU kernels' walk, every lane of
-    every admitted block) at these arguments, as a note to a timing line."""
-    mw_ms, mw_by = bound(*kernel_work(name, args, kw, outs, walk="mask"))
+    every admitted block) at these arguments, as a note to a timing line
+    (mesh: K4's sweep winners, as for kernel_work)."""
+    mw_ms, mw_by = bound(*kernel_work(name, args, kw, outs, mesh,
+                                      walk="mask"))
     return (f"; the mask walk's bound {mw_ms:.4f} ms by {mw_by}, "
             f"{100 * mw_ms / ms:.1f}% of it")
 
@@ -673,7 +774,7 @@ def mask_walk_note(name, args, kw, outs, ms) -> str:
 # keeps its sign (a camera on a face's plane draws the face by it)
 SIGNED_T = ("closest_hit", "stream_closest_hit")
 # the index of the per-ray culled walks' first box argument (blk_lo)
-BOX_ARG = {"closest_hit": 9, "anyhit": 12, "extend_shadow": 17,
+BOX_ARG = {"closest_hit": 9, "anyhit": 12, "frame": 10, "extend_shadow": 17,
            "stream_closest_hit_perray": 11, "stream_closest_hit": 10,
            "stream_anyhit": 12}
 
@@ -756,20 +857,22 @@ def texel_offset_phase(check, say):
 
 
 def raycull_phase(record, check, say):
-    """K1, K3 and K8-K11 against their plain versions on the seeded
+    """K1, K3, K4 and K8-K11 against their plain versions on the seeded
     adversarial set: raycull.write_grid_mesh's two meshes (8- and 32-face
     clusters, faces in their boxes' planes, edges shared by blocks, NaN
     padding faces and +inf padding boxes) under the five ray sets of
     raycull.adversarial_rays (K3, K8, K10, K11) and the six cameras of
-    raycull.adversarial_camera (K1, K9: the ray sets' kinds from one
+    raycull.adversarial_camera (K1, K4, K9: the ray sets' kinds from one
     origin and a camera on a face's plane), the arguments from the port's
     own glue on the card (gbuffer and anyhit_rays on the all-on-chip
     sweeps and forced onto the streamed ones, extend_shadow_rays,
-    gbuffer_perray); every output equal, with the boxes and without.
-    Then the hazard of a zero t: the split frame from a camera on a
-    face's plane (raycull.plane_camera_config; also forced onto the
-    streamed sweeps on the 32-face mesh) through the kernels against the
-    plain-composed frame, bitwise."""
+    gbuffer_perray, raycull.frame_args: K4 in all four modes on the
+    meshes with the reference's spheres and a grazing light); every
+    output equal, with the boxes and without. Then the hazard of a zero
+    t: the split frame from a camera on a face's plane
+    (raycull.plane_camera_config; also forced onto the streamed sweeps on
+    the 32-face mesh) and the fused frame in both shadow modes through
+    the kernels against the plain-composed frame, bitwise."""
     import torch
 
     from rust_wgpu_raytracing_tpu_torch.config import (MeshConfig,
@@ -779,9 +882,12 @@ def raycull_phase(record, check, say):
     from rust_wgpu_raytracing_tpu_torch.core.scene import Scene
     from rust_wgpu_raytracing_tpu_torch.ops import kernels as K
     from rust_wgpu_raytracing_tpu_torch.ops import megakernel as MK
+    from rust_wgpu_raytracing_tpu_torch.config import reference_scene
+    from rust_wgpu_raytracing_tpu_torch.ops.fusedframe import \
+        render_frame_fused
     from rust_wgpu_raytracing_tpu_torch.testing.raycull import (
         ADVERSARIAL_KINDS, CAMERA_KINDS, adversarial_camera,
-        adversarial_rays, plane_camera_config, write_grid_mesh)
+        adversarial_rays, frame_args, plane_camera_config, write_grid_mesh)
 
     root = tempfile.mkdtemp(prefix="rt_cull_")
     before = os.environ.get("RWRT_ASSETS")
@@ -825,10 +931,45 @@ def raycull_phase(record, check, say):
                     check(view, name, args, kw)
                     check(view, name, args[:BOX_ARG[name]], kw,
                           " (no boxes)")
+            # K4's scene: the reference's spheres, a light a few degrees
+            # above the grids' plane (grazing shadow rays)
+            lit = Scene.build(SceneConfig(
+                spheres=reference_scene().spheres,
+                meshes=(MeshConfig(obj_path=f"grid{cells}.obj",
+                                   light_direction=(-1.0, -0.2, -0.05)),),
+                render=RenderConfig(width=64, height=32))).data.to("cuda")
+            for seed, kind in enumerate(CAMERA_KINDS):
+                view = f"adversarial grid{cells} {kind}, spheres, low light"
+                origin, d = (torch.from_numpy(x).to("cuda") for x in
+                             adversarial_camera(kind, cells, lit.blk_lo,
+                                                lit.blk_hi, 1300 + seed))
+                for mode in ("none", "sched", "nm", "inkernel"):
+                    args, kw = frame_args(lit, origin, d, mode)
+                    check(view, "frame", args, kw)
+                    check(view, "frame", args[:BOX_ARG["frame"]], kw,
+                          " (no boxes)")
             cfg = plane_camera_config(f"grid{cells}.obj", cells, 600, 640,
                                       360)
             plane = Scene.build(cfg).data.to("cuda")
             uni = Camera.from_config(cfg.camera, 640 / 360).uniforms().flat()
+            for mode in ("sched", "inkernel"):
+                K.reset_launch_counts()
+                a, _ = render_frame_fused(plane, uni, width=640, height=360,
+                                          shadows=True, shadow_mode=mode)
+                launched = K.launch_counts()["frame"]
+                b, _ = render_frame_fused(plane, uni, width=640, height=360,
+                                          shadows=True, shadow_mode=mode,
+                                          kernels=K.PLAIN)
+                dmax, exact, bitwise = frame_bar(a, b)
+                say(f"[frame] camera on a face's plane, grid{cells} 640x360 "
+                    f"fused frame (shadow_mode {mode}; frame launched "
+                    f"{launched}): kernels vs plain-composed bitwise "
+                    f"{bitwise} (max linear u8 delta {dmax}, exact "
+                    f"{exact:.6f})")
+                if not bitwise or launched != 1:
+                    raise AssertionError("the fused frame from a camera on a "
+                                         "face's plane differs from its "
+                                         "plain twin")
             for stream in (False, True) if cells == 48 else (False,):
                 MK._should_stream = lambda f, bf, stream=stream: stream
                 K.reset_launch_counts()
@@ -885,7 +1026,7 @@ def stream_phase(card, K, Renderer, drive, record, check, results, errs,
 
     seg = stream_sweep.SEG
 
-    def tail(at, name, args, kw, reps=5, rounds=3):
+    def tail(at, name, args, kw, reps=5, rounds=2):
         """(ms on all batches, ms of the heaviest batch alone): whether the
         longest walks set the launch's time; then both at other sizes of
         the work items (stream_sweep.SEG), each output bitwise the
@@ -1011,6 +1152,8 @@ def stream_phase(card, K, Renderer, drive, record, check, results, errs,
     # (b) the kernels against their plain versions on the frame's arguments
     check("stream frame, bvh primary", "hier_cull",
           *calls["bvh"]["hier_cull"][0])
+    check("stream frame, bvh shadow wavefront", "hier_cull",
+          *calls["bvh"]["hier_cull"][1])
 
     def subset_check(view, name, args, kw, n_batches=8):
         """The kernel on all batches against the plain version on
@@ -1177,6 +1320,9 @@ def stream_phase(card, K, Renderer, drive, record, check, results, errs,
     timed = [("hier_cull", "hier_cull", calls["bvh"]["hier_cull"][0],
               (None, "plain on the same arguments"),
               "the bvh frame's primary cull"),
+             ("hier_cull (shadow)", "hier_cull", calls["bvh"]["hier_cull"][1],
+              (None, "plain on the same arguments"),
+              "the bvh frame's shadow cull"),
              ("stream_closest_hit", "stream_closest_hit", (k9_args, k9_kw),
               k9_sub, "the cull frame's primary sweep"),
              ("stream_anyhit", "stream_anyhit", (k11_args, k11_kw), k11_sub,
@@ -1210,6 +1356,13 @@ def stream_phase(card, K, Renderer, drive, record, check, results, errs,
         if name != "hier_cull":
             note = mask_walk_note(name, args, kw, outs, ms) \
                 + walk_parts(name, args, kw, 10)
+        else:
+            dev = device_ms(run_kernel, 20, "hier_cull_kernel")
+            note = (f"; device time {dev:.4f} ms a launch (torch.profiler, "
+                    f"20 launches; the events time the wrapper's host "
+                    f"work), bound {100 * bound_ms / dev:.1f}% of it")
+            if key == name:
+                results[name]["ms"] = dev
         tail_ms = tails.get({"stream_closest_hit": "frame K9",
                              "stream_anyhit": "frame K11",
                              "stream_anyhit (PT)": "PT K11"}.get(key))
@@ -1267,6 +1420,20 @@ def main() -> int:
             f"{out[1]} bytes spilled a thread, {out[2]} bytes of shared "
             f"memory a block, {out[3]} blocks an SM "
             f"(cudaFuncGetAttributes, "
+            f"cudaOccupancyMaxActiveBlocksPerMultiprocessor)")
+    from rust_wgpu_raytracing_tpu_torch.ops.kernels.frame import MODES
+
+    # K4's kernel per mode, and K5's
+    for label, fn, arg in [(f"frame, mode {m}", "rt_frame_resources", (v,))
+                           for m, v in MODES.items()] + [
+            ("hier_cull", "rt_hier_cull_resources", ())]:
+        out = (ctypes.c_int * 4)()
+        err = getattr(build.library(), fn)(*arg, out)
+        if err:
+            raise RuntimeError(f"{fn}{arg}: CUDA error {err}")
+        say(f"[build] {label}: {out[0]} registers, {out[1]} bytes spilled "
+            f"a thread, {out[2]} bytes of shared memory a block, {out[3]} "
+            f"blocks an SM (cudaFuncGetAttributes, "
             f"cudaOccupancyMaxActiveBlocksPerMultiprocessor)")
 
     from rust_wgpu_raytracing_tpu_torch import Renderer
@@ -1472,6 +1639,9 @@ def main() -> int:
         sched = check(view, "frame", args, kw)
         ink = check(view, "frame", args, dict(kw, mode="inkernel"),
                     " (in-kernel shadows)")
+        for mode in ("sched", "inkernel"):
+            check(view, "frame", args[:BOX_ARG["frame"]], dict(kw, mode=mode),
+                  " (no boxes: every ray of an admitted block)")
         dx, dy, dz = args[3:6]
         # the sched branch's occlusion, traced as the fused frame's tail
         # traces it
@@ -1494,6 +1664,46 @@ def main() -> int:
         if not (same_occ and same_frame):
             raise AssertionError("in-kernel shadows disagree with sched")
 
+    # K4 at the Renderer's orbit frames as torch.profiler sees them
+    # (--profile, runtime/profiler.profile_frames: WARMUP unprofiled
+    # frames, then 5, each after update() with the orbit key held)
+    orbit = Renderer(smoke_config("fused"), device="cuda")
+    orbit.controller.process_key("d", True)
+    orbit_args = []
+    for i in range(WARMUP + 5):
+        orbit.update()
+        if i >= WARMUP:
+            orbit_args.append(capture(r.data, orbit.camera.uniforms().flat(),
+                                      fused=True)["frame"])
+    def walks(args, kw):
+        """K4's sweep at these arguments: admitted blocks per tile (mean)
+        and blocks within its reach (mean, max), the mask walk's visits;
+        the mesh t from K1 on the same rays."""
+        t = wrapper["closest_hit"](
+            args[0], args[1], *args[3:9], args[2][:3].contiguous(),
+            *args[10:12], block_f=kw["block_f"])[0]
+        reach = torch.minimum(t, args[6]).view(-1, 1024).amax(1)
+        adm = torch.isfinite(args[0])
+        walk = (adm & (args[0] <= reach[:, None])).sum(1)
+        return (f"{float(adm.sum(1).float().mean()):.1f} of {args[0].shape[1]}"
+                f" face blocks admitted per tile, within the sweep's reach "
+                f"{float(walk.float().mean()):.1f} (at most {int(walk.max())}"
+                f", {int((walk >= 20).sum())} tiles at 20 or more)")
+
+    for view in ("smoke view", "dense view"):
+        say(f"[kernel] {view}, fused: {walks(*fused_args[view]['frame'])}")
+    for k, (args, kw) in enumerate(orbit_args):
+        got = wrapper["frame"](*args, **kw)
+        say(f"[kernel] orbit frame {WARMUP + 1 + k}: "
+            f"{int((got[1] == r.data.num_spheres + 1).sum())} of "
+            f"{got[1].numel()} rays hit the mesh, "
+            f"{int(((got[1] > 0) & (got[1] <= r.data.num_spheres)).sum())} a "
+            f"sphere; {walks(args, kw)}")
+    args, kw = orbit_args[-1]
+    check(f"orbit frame {WARMUP + 5}", "frame", args, kw)
+    check(f"orbit frame {WARMUP + 5}", "frame", args,
+          dict(kw, mode="inkernel"), " (in-kernel shadows)")
+
     # the normal-mapped heightfield, built at run time
     asset_dir = tempfile.mkdtemp(prefix="rt_nm_")
     os.environ["RWRT_ASSETS"] = asset_dir
@@ -1505,8 +1715,8 @@ def main() -> int:
         f"{tuple(nm_r.data.tex_packed.shape)}")
     nm_uni = nm_r.camera.uniforms().flat()
     cap = capture(nm_r.data, nm_uni, fused=True, shadows=False, nm=True)
-    args, kw = cap["frame"]
-    check("nm view", "frame", args, kw)
+    nm_frame = cap["frame"]
+    check("nm view", "frame", *nm_frame)
     nm_taps = cap["texfilter"][0]
     check("nm view", "texfilter", *cap["texfilter"])
     check("nm view", "texfilter", random_taps(nm_taps), {}, " (random taps)")
@@ -1797,7 +2007,17 @@ def main() -> int:
                    [("the dense view's", dense["anyhit"]),
                     ("the path tracer's last-bounce", (ah_args, ah_kw))]),
         "frame": (fused_args["smoke view"]["frame"],
-                  [("the dense view's", fused_args["dense view"]["frame"])]),
+                  [("the dense view's", fused_args["dense view"]["frame"])]
+                  + [(f"the {view} view's (mode {mode})",
+                      (fused_args[f"{view} view"]["frame"][0],
+                       dict(fused_args[f"{view} view"]["frame"][1],
+                            mode=mode)))
+                     for view, mode in (("smoke", "inkernel"),
+                                        ("dense", "inkernel"),
+                                        ("smoke", "nm"), ("smoke", "none"))]
+                  + [("the nm frame's", nm_frame)]
+                  + [(f"orbit frame {WARMUP + 1 + k}'s", a)
+                     for k, a in enumerate(orbit_args)]),
         "texfilter": ((nm_taps, {}), []),
         "closest_hit_perray": ((k7_args, k7_kw), []),
         "extend_shadow": ((es_args, es_kw), []),
@@ -1810,14 +2030,14 @@ def main() -> int:
         """A timing line's bound: the culled walk's, then the unfused
         rate's and, for the per-ray culled walks, the mask walk's bound
         and the walk's parts."""
-        mesh_t = None
+        mesh = None
         if name == "frame":
-            # the frame's sweep is K1's: its mesh t, from K1 on these rays
-            mesh_t = wrapper["closest_hit"](
+            # the frame's sweep is K1's: its mesh winners, from K1 on these
+            # rays
+            mesh = wrapper["closest_hit"](
                 args[0], args[1], *args[3:9], args[2][:3].contiguous(),
-                *MK._block_boxes(r.data, r.data.padded_faces,
-                                 kw["block_f"]), block_f=kw["block_f"])[0]
-        moved, ops = kernel_work(name, args, kw, outs, mesh_t)
+                *args[10:12], block_f=kw["block_f"])[:2]
+        moved, ops = kernel_work(name, args, kw, outs, mesh)
         bound_ms, bound_by = bound(moved, ops)
         unfused_ms, _ = bound(moved, ops, FP32_UNFUSED_S)
         note = (f"bound {bound_ms:.4f} ms by {bound_by} ({moved} bytes, "
@@ -1825,13 +2045,13 @@ def main() -> int:
                 f"{unfused_ms:.4f} ms at the unfused issue rate, "
                 f"{100 * unfused_ms / ms:.1f}% of it")
         if name in BOX_ARG:
-            note += mask_walk_note(name, args, kw, outs, ms) \
+            note += mask_walk_note(name, args, kw, outs, ms, mesh) \
                 + walk_parts(name, args, kw, 20)
         if name in ("closest_hit", "anyhit"):
             note += longest_walk(name, args, kw, outs, 20)
         return note, bound_ms, bound_by
 
-    def ray_major_sweep(name, at, args, kw, reps=10, rounds=3):
+    def ray_major_sweep(name, at, args, kw, reps=10, rounds=2):
         """K1's or K3's time at these arguments at each RAY_MAJORS
         threshold of its ray-major chunks, each output bitwise the
         default's; each time the median of `rounds` rounds that visit the
@@ -1889,12 +2109,21 @@ def main() -> int:
         say(f"[timing] {card}: {name} {ms:.4f} ms (kernel, {k1:.4f} / "
             f"{k2:.4f}) vs {results[name]['plain_ms']:.4f} ms (plain "
             f"PyTorch) at {at} arguments; {note}")
+        orbit_ms = []
         for label, (o_args, o_kw) in others:
             o_ms = time_ms(lambda: wrapper[name](*o_args, **o_kw), 20)
             o_note, _, _ = bound_note(name, o_args, o_kw, flat(
                 name, wrapper[name](*o_args, **o_kw)), o_ms)
             say(f"[timing] {card}: {name} {o_ms:.4f} ms (kernel) at "
                 f"{label} arguments; {o_note}")
+            if label.startswith("orbit"):
+                orbit_ms.append(o_ms)
+        if orbit_ms:
+            say(f"[timing] {card}: {name} at the Renderer's orbit frames "
+                f"{WARMUP + 1}-{WARMUP + len(orbit_ms)} (the frames "
+                f"chip_smoke.py --profile profiles): mean "
+                f"{float(np.mean(orbit_ms)):.4f} ms a frame (CUDA events, "
+                f"20 launches each)")
         if name in ("closest_hit", "anyhit"):
             for label, (o_args, o_kw) in [(at, main_call)] + others:
                 ray_major_sweep(name, label, o_args, o_kw)
@@ -1902,6 +2131,7 @@ def main() -> int:
         f"{medians['split']:.3f} ms")
 
     # --- 7. streaming scale -----------------------------------------------
+    del timed, orbit_args  # the streamed cells' peak memory is their own
     stream_phase(card, K, Renderer, drive, record, check, results, errs,
                  path_launches, flat, say)
 

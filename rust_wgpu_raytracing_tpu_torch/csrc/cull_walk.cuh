@@ -1,5 +1,7 @@
-// The per-ray culled walk of K8 (extend_shadow.cu) and of the streamed
-// sweeps K9, K10 and K11 (stream_sweep.cu): a tile's admitted face
+// The per-ray culled walk of K1 (closest_hit.cu), K3 (anyhit.cu), K4's
+// in-kernel shadow loop (frame.cu; its sweep walks the same chunks with
+// the rays in registers), K8 (extend_shadow.cu) and the streamed sweeps
+// K9, K10 and K11 (stream_sweep.cu): a tile's admitted face
 // blocks are taken in chunks of a few blocks, and each block's faces are
 // tested only for the rays whose own line enters the block's box
 // (rt_common.cuh ray_box_enter), a closest-hit ray only where that entry

@@ -1,18 +1,7 @@
-// Shared pieces of the ray-tracing kernels (closest_hit.cu, anyhit.cu,
-// frame.cu, closest_hit_perray.cu, extend_shadow.cu, stream_sweep.cu;
-// the per-ray culled walk of all but frame.cu and closest_hit_perray.cu
-// is cull_walk.cuh).
-//
-// The register sweeps (frame.cu, closest_hit_perray.cu) walk one
-// 1024-ray schedule tile per CUDA block:
-// 256 threads x 4 rays each, rays r = tile*1024 + threadIdx.x + k*256 so
-// that neighbouring threads load neighbouring floats. The per-tile face
-// blocks are visited in the order the host schedule gives (ascending
-// entry-t lower bound `tlb`, culled blocks at +inf), and the walk stops
-// at the first block whose bound exceeds the block-wide max of each
-// ray's own cap. The cap is refreshed every REFRESH visits; a stale cap
-// is the max over an older, larger state, so the visited set only
-// grows and the result is unchanged (the merges are idempotent).
+// Shared pieces of the ray-tracing kernels: the face tests and the
+// per-ray box test (closest_hit.cu, anyhit.cu, frame.cu,
+// closest_hit_perray.cu, extend_shadow.cu, stream_sweep.cu; the per-ray
+// culled walk of all but closest_hit_perray.cu is cull_walk.cuh).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -20,91 +9,10 @@
 
 namespace rt {
 
-constexpr int THREADS = 256;
 constexpr int TILE_R = 1024;            // rays per schedule tile
-constexpr int RPT = TILE_R / THREADS;   // rays per thread
 constexpr int MAX_BLOCK_F = 32;         // faces per face block (8 or 32)
 constexpr int STAGE_COLS = 16;          // plane columns 0-11 + 4 per-face terms
-constexpr int REFRESH = 4;              // visits between bound refreshes
 constexpr float K_EPSILON = 1e-6f;      // reference kEpsilon (f32)
-
-// Block-wide max of one float per thread; every thread gets the result.
-// `red` holds THREADS/32 floats of shared memory. All threads must call.
-__device__ __forceinline__ float block_max(float v, float* red) {
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  const int warp = threadIdx.x >> 5;
-  __syncthreads();  // previous readers of red are done
-  if ((threadIdx.x & 31) == 0) red[warp] = v;
-  __syncthreads();
-  float m = red[0];
-  for (int w = 1; w < THREADS / 32; ++w) m = fmaxf(m, red[w]);
-  return m;
-}
-
-// Stage columns 0-11 of `pack` (row stride pack_cols) and columns 0-3 of
-// `extra` (row stride extra_cols) for faces [ci*block_f, (ci+1)*block_f)
-// into shared memory, STAGE_COLS floats per face.
-__device__ __forceinline__ void stage_faces(float* dst, const float* pack,
-                                            int pack_cols,
-                                            const float* extra, int ci,
-                                            int block_f, int extra_cols = 8) {
-  for (int i = threadIdx.x; i < block_f * STAGE_COLS; i += THREADS) {
-    const int f = i / STAGE_COLS;
-    const int c = i % STAGE_COLS;
-    const size_t row = (size_t)ci * block_f + f;
-    dst[i] = c < 12 ? pack[row * pack_cols + c]
-                    : extra[row * extra_cols + (c - 12)];
-  }
-}
-
-// The closest-hit (t, face) sweep of one tile (JAX _merge_tf's
-// lexicographic merge): for each of the thread's RPT rays, the smallest
-// t over the admitted faces and, on a tie, the smallest face id; misses
-// keep t = +inf, face = 0. `test(g, k)` returns ray k's t for the staged
-// face g, +inf where it misses. `extra` (row stride 8) supplies staged
-// columns 12-15. `faces` holds MAX_BLOCK_F * STAGE_COLS floats of shared
-// memory, `red` THREADS/32 floats.
-template <class Test>
-__device__ __forceinline__ void sweep_closest_by(
-    const float* __restrict__ tl, const int* __restrict__ ord, int nb,
-    int block_f, const float* __restrict__ fpack, int fpack_cols,
-    const float* __restrict__ extra, const float (&cap)[RPT],
-    float (&bt)[RPT], int (&bf)[RPT], float* faces, float* red, Test test) {
-#pragma unroll
-  for (int k = 0; k < RPT; ++k) {
-    bt[k] = INFINITY;
-    bf[k] = 0;
-  }
-  auto bound = [&]() {
-    float m = -INFINITY;
-#pragma unroll
-    for (int k = 0; k < RPT; ++k) m = fmaxf(m, fminf(bt[k], cap[k]));
-    return block_max(m, red);
-  };
-  float b = bound();
-  for (int p = 0; p < nb; ++p) {
-    const int ci = ord[p];
-    if (!(tl[ci] <= b)) break;  // uniform: every thread reads the same values
-    __syncthreads();            // the previous block's planes are consumed
-    stage_faces(faces, fpack, fpack_cols, extra, ci, block_f);
-    __syncthreads();
-    const int face_base = ci * block_f;
-    for (int j = 0; j < block_f; ++j) {
-      const float* g = faces + j * STAGE_COLS;
-      const int fid = face_base + j;
-#pragma unroll
-      for (int k = 0; k < RPT; ++k) {
-        const float tm = test(g, k);
-        if (tm < bt[k] || (tm == bt[k] && fid < bf[k])) {
-          bt[k] = tm;
-          bf[k] = fid;
-        }
-      }
-    }
-    if ((p + 1) % REFRESH == 0) b = bound();
-  }
-}
 
 // The shared-origin face test (JAX _ch_block_tv): staged columns 12-15
 // are the frame's origin terms [t_num, hc0, hc1, hc2] from oterm.
@@ -139,20 +47,6 @@ __device__ __forceinline__ bool perray_hit(const float* g, float x, float y,
                    t * (g[9] * x + g[10] * y + g[11] * z);
   return fabsf(ndotd) >= K_EPSILON && t >= 1e-3f && h0 >= 0.0f &&
          h1 >= 0.0f && h2 >= 0.0f;
-}
-
-// The shared-origin sweep of K4 (rays rx, ry, rz; origin terms
-// from oterm).
-__device__ __forceinline__ void sweep_closest(
-    const float* __restrict__ tl, const int* __restrict__ ord, int nb,
-    int block_f, const float* __restrict__ fpack, int fpack_cols,
-    const float* __restrict__ oterm, const float (&rx)[RPT],
-    const float (&ry)[RPT], const float (&rz)[RPT], const float (&cap)[RPT],
-    float (&bt)[RPT], int (&bf)[RPT], float* faces, float* red) {
-  sweep_closest_by(tl, ord, nb, block_f, fpack, fpack_cols, oterm, cap, bt,
-                   bf, faces, red, [&](const float* g, int k) {
-                     return shared_origin_t(g, rx[k], ry[k], rz[k]);
-                   });
 }
 
 // perray_hit over a column-major staging: column c of the face at
@@ -195,7 +89,7 @@ __device__ __forceinline__ float shared_origin_t_cols(const float* g,
   return valid ? t : INFINITY;
 }
 
-// The per-ray box test of K1, K3 and K8-K11 (the port's ops/traverse.py
+// The per-ray box test of K1, K3, K4 and K8-K11 (the port's ops/traverse.py
 // ray_box_enter, bit for bit with -fmad=false and IEEE division): does
 // the forward line of the ray (origin o, direction d) meet the AABB [lo,
 // hi], and where does it enter? The box is widened in space on each axis:
@@ -264,28 +158,6 @@ __device__ __forceinline__ bool ray_box_enter(const float* wlo, const float* whi
   }
   entry = tn * (float)(1.0 - 1e-5) - 1e-6f;
   return (tf + fabsf(tf) * 1e-5f + 1e-6f) >= entry;
-}
-
-// The any-hit test of one staged face block (JAX _ah_block) for rays
-// with per-ray origins: occ = max(occ, act) where an active ray hits a
-// face at t >= 1e-3. `faces` as staged by stage_faces from (fpack, dc).
-// Rays that are inactive or already occluded skip the arithmetic: their
-// result cannot change.
-__device__ __forceinline__ void anyhit_block(
-    const float* faces, int block_f, const float (&rdx)[RPT],
-    const float (&rdy)[RPT], const float (&rdz)[RPT], const float (&rox)[RPT],
-    const float (&roy)[RPT], const float (&roz)[RPT], const float (&ract)[RPT],
-    float (&occ)[RPT]) {
-  for (int j = 0; j < block_f; ++j) {
-    const float* g = faces + j * STAGE_COLS;
-#pragma unroll
-    for (int k = 0; k < RPT; ++k) {
-      if (!(ract[k] > 0.0f && occ[k] < ract[k])) continue;
-      float t;
-      if (perray_hit(g, rdx[k], rdy[k], rdz[k], rox[k], roy[k], roz[k], t))
-        occ[k] = fmaxf(occ[k], ract[k]);
-    }
-  }
 }
 
 }  // namespace rt

@@ -5,11 +5,12 @@ frame render_megakernel draws by default on an eligible scene (a mesh
 of at most STREAM_FACES faces, and not normal mapping with shadows).
 The frame kernel (kernels.frame, K4) runs the closest-hit sweep, the
 winner's shading attributes, the sphere passes, the Blinn-Phong
-factors and the composite in one launch; the tail gathers the texels
-once and shades them (K2), traces the winner shadow wavefront with the
-scheduled any-hit kernel (K3, shadow_mode "sched"), perturbs the
-normal through the bump sample (K6, normal mapping), selects the
-colours, quantizes and de-tiles.
+factors and the composite in one launch; it gets the face blocks'
+boxes (_block_boxes: the cluster AABBs), which it tests per ray. The
+tail gathers the texels once and shades them (K2), traces the winner
+shadow wavefront with the scheduled any-hit kernel (K3, shadow_mode
+"sched"), perturbs the normal through the bump sample (K6, normal
+mapping), selects the colours, quantizes and de-tiles.
 
 shadow_mode: "sched" (and "auto") emits the winner's shadow-ray inputs
 and traces them with K3 over the split frame's per-tile schedule;
@@ -31,8 +32,9 @@ from ..core.camera import CameraUniforms
 from ..core.scene import SceneData
 from .kernels import KERNELS, KernelSet
 from .kernels.common import TILE_R
-from .megakernel import (_mask_words, _mat_const, _pad1, _pick_tile_shape,
-                         _vmem_sched, blinn_phong_planar, gather_packed_taps,
+from .megakernel import (_block_boxes, _mask_words, _mat_const, _pad1,
+                         _pick_tile_shape, _vmem_sched, blinn_phong_planar,
+                         gather_packed_taps,
                          pack_face_columns, pack_origin_cols, perturb_normal,
                          present_planar, raygen_planar, raygen_planar_tiled,
                          winner_occlusion)
@@ -129,7 +131,8 @@ def render_frame_fused(scene: SceneData, uni_flat, *, width: int,
     else:
         mode = "sched" if use_sched else "inkernel"
     outs = kernels.frame(tlb, order, frame_const(scene, origin), dxp, dyp,
-                         dzp, texit, fpack, oterm, dc, ns=ns, nmat=nmat,
+                         dzp, texit, fpack, oterm, dc,
+                         *_block_boxes(scene, f, block_f), ns=ns, nmat=nmat,
                          block_f=block_f, near=near, far=far, mode=mode)
     outs = [p[:nrays] for p in outs]
     depth, kind, occ, uvx, uvy, mat, lam, spec = outs[:8]

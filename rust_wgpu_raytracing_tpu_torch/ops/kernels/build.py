@@ -44,7 +44,7 @@ _SIGNATURES = {
     + [_VOIDP] * 7 + [_VOIDP],
     "rt_anyhit": [_VOIDP] * 14 + [_INT] * 5 + [_VOIDP] + [_VOIDP],
     "rt_texshade": [_VOIDP] * 11 + [_INT] + [_VOIDP] * 3 + [_VOIDP],
-    "rt_frame": [_VOIDP] * 10 + [_INT] * 6 + [_FLOAT] * 2 + [_VOIDP]
+    "rt_frame": [_VOIDP] * 12 + [_INT] * 7 + [_FLOAT] * 2 + [_VOIDP]
     + [_VOIDP],
     "rt_texfilter": [_VOIDP] * 3 + [_INT] + [_VOIDP] + [_VOIDP],
     "rt_closest_hit_perray": [_VOIDP] * 11 + [_INT] * 4 + [_VOIDP] * 2
@@ -65,6 +65,8 @@ _SIGNATURES = {
     "rt_stream_closest_hit_resources": [_VOIDP],
     "rt_stream_closest_hit_perray_resources": [_VOIDP],
     "rt_stream_anyhit_resources": [_VOIDP],
+    "rt_hier_cull_resources": [_VOIDP],
+    "rt_frame_resources": [_INT, _VOIDP],  # (int mode, int out[4])
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -14,6 +14,7 @@ INT_MAX = 2**31 - 1
 # rays), else by pairs; read at each launch (0: always ray-major, 65:
 # never). Of 0-65, the least sum of each kernel's times at the smoke and
 # dense views and the path tracer's arguments on the H100 (PERF.md).
+# K4's in-kernel shadow loop runs K3's walk and takes K3's threshold.
 RAY_MAJOR = {"closest_hit": 32, "anyhit": 48}
 
 

@@ -29,7 +29,18 @@ shadow rays with anyhit_plain over every cluster the per-tile slab test
 (ops/traverse.py, the math of the kernel's slab_scalar) admits; the
 kernel additionally stops at the wavefront's root-exit bound, which only
 skips clusters that cannot occlude (the JAX kernel's own argument), so
-both give the same occ.
+both give the same occ. frame_from_sweep is everything after the sweep,
+with the in-kernel shadow rays' mesh occlusion as an argument
+(testing/raycull.py frame_culled composes the kernel's culled walks
+with it).
+
+The kernel also takes the face blocks' boxes (blk_lo, blk_hi: one row
+per block, the cluster AABBs) and tests a block's faces only for the
+rays whose line from the camera enters its box at or below their best t
+so far, a cluster's faces only for the live shadow rays whose line
+enters its box (testing/raycull.py models both walks). The planes are
+the same, so the plain version ignores the boxes. Without boxes the
+kernel admits every aimed ray of an admitted block.
 
 The const vector (one flat f32 tensor per frame, the JAX layout):
 origin (3), root AABB lo (3) and hi (3), 13 floats per sphere
@@ -46,10 +57,12 @@ import torch
 from ..composite import depth_constants
 from ..rounding import ftz, sqrt
 from ..traverse import slab_interval_entry, tile_ray_bounds
+from . import common
 from .anyhit import anyhit_plain
 from .build import check, library
 from .closest_hit import closest_hit_plain
-from .common import TILE_R, is_cuda_call, ptr, require, stream_ptr
+from .common import (TILE_R, box_args, is_cuda_call, open_boxes, ptr,
+                     require, stream_ptr)
 
 F32_INF = float("inf")
 C_ORIGIN = 0
@@ -143,28 +156,32 @@ def _check(tlb, order, const, planes, fpack, oterm, dc, ns, nmat, block_f,
     return n_tiles, nb
 
 
-def frame(tlb, order, const, dx, dy, dz, texit, fpack, oterm, dc, *,
-          ns: int, nmat: int, block_f: int, near: float = 0.01,
-          far: float = 100.0, mode: str = "sched"):
+def frame(tlb, order, const, dx, dy, dz, texit, fpack, oterm, dc,
+          blk_lo=None, blk_hi=None, *, ns: int, nmat: int, block_f: int,
+          near: float = 0.01, far: float = 100.0, mode: str = "sched"):
     """The mode's planes (module docstring), each (R,) f32, for R =
     tiles * 1024 shared-origin rays. tlb/order (T, nb), texit, fpack
     and oterm as for closest_hit; const the frame's const vector; dc
-    (F, 8) [d, c0, c1, c2, ...] for the in-kernel shadow rays."""
+    (F, 8) [d, c0, c1, c2, ...] for the in-kernel shadow rays; blk_lo /
+    blk_hi (nb, 3) f32 the blocks' boxes, or None."""
     n_tiles, nb = _check(tlb, order, const, (dx, dy, dz, texit), fpack,
                          oterm, dc, ns, nmat, block_f, mode)
+    boxes = box_args(blk_lo, blk_hi, nb)
     if not is_cuda_call(tlb, order, const, dx, dy, dz, texit, fpack, oterm,
-                        dc):
+                        dc, *boxes):
         return frame_plain(tlb, order, const, dx, dy, dz, texit, fpack,
-                           oterm, dc, ns=ns, nmat=nmat, block_f=block_f,
-                           near=near, far=far, mode=mode)
+                           oterm, dc, *boxes, ns=ns, nmat=nmat,
+                           block_f=block_f, near=near, far=far, mode=mode)
+    lo, hi = boxes or open_boxes(nb, dx.device)
     r = dx.shape[0]
     out = torch.empty((N_OUT[mode], r), dtype=torch.float32,
                       device=dx.device)
     inv_near, rcp_span = depth_constants(near, far)
     err = library().rt_frame(
         ptr(tlb), ptr(order), ptr(const), ptr(dx), ptr(dy), ptr(dz),
-        ptr(texit), ptr(fpack), ptr(oterm), ptr(dc), n_tiles, nb, block_f,
-        ns, nmat, MODES[mode], inv_near, rcp_span, ptr(out),
+        ptr(texit), ptr(fpack), ptr(oterm), ptr(dc), ptr(lo), ptr(hi),
+        n_tiles, nb, block_f, ns, nmat, MODES[mode],
+        common.RAY_MAJOR["anyhit"], inv_near, rcp_span, ptr(out),
         stream_ptr(dx.device))
     check(err, "rt_frame")
     frame.launches += 1
@@ -207,19 +224,58 @@ def _resolve(t, face, fpack, oterm, dx, dy, dz, nm: bool):
     return att
 
 
-def frame_plain(tlb, order, const, dx, dy, dz, texit, fpack, oterm, dc, *,
-                ns: int, nmat: int, block_f: int, near: float = 0.01,
-                far: float = 100.0, mode: str = "sched"):
-    """Plain PyTorch version of frame (same arguments, same planes)."""
+def frame_plain(tlb, order, const, dx, dy, dz, texit, fpack, oterm, dc,
+                blk_lo=None, blk_hi=None, *, ns: int, nmat: int,
+                block_f: int, near: float = 0.01, far: float = 100.0,
+                mode: str = "sched"):
+    """Plain PyTorch version of frame (same arguments, same planes): the
+    boxes unread."""
+    del blk_lo, blk_hi
     nb = tlb.shape[1]
-    mat0, blk0, _ = const_offsets(ns, nmat, nb)
+    blk0 = const_offsets(ns, nmat, nb)[1]
+    tm, face, _ = closest_hit_plain(tlb, order, dx, dy, dz, texit, fpack,
+                                    oterm, const[:3], block_f=block_f)
+
+    def mesh_occ(p, sd, rel, occ):
+        del occ  # the spheres' occlusion: every relevant ray is tested
+        relf = torch.where(rel, 1.0, 0.0)
+        return anyhit_plain(shadow_cone_entry(p, sd, rel, const, blk0, nb),
+                            order, *sd, *p, relf, texit, fpack, dc,
+                            block_f=block_f)
+    return frame_from_sweep(tm, face, const, dx, dy, dz, fpack, oterm,
+                            mesh_occ, ns=ns, nmat=nmat, near=near, far=far,
+                            mode=mode)
+
+
+def shadow_cone_entry(p, sd, rel, const, blk0: int, nb: int):
+    """(T, nb) the admission of each cluster (AABBs at const[blk0:], 6
+    floats each) by each tile's cone of relevant shadow rays (rel (R,)
+    bool; origins p, directions sd, 3 planes each): the entry-t lower
+    bound, +inf where the cone cannot reach the cluster (the kernel's
+    slab_scalar)."""
+    omin, omax, dmin, dmax = tile_ray_bounds(*p, *sd, TILE_R, act=rel)
+    boxes = const[blk0:blk0 + 6 * nb].view(nb, 6)
+    _, entry = slab_interval_entry(boxes[None, :, :3] - omax[:, None, :],
+                                   boxes[None, :, 3:] - omin[:, None, :],
+                                   dmin[:, None, :], dmax[:, None, :])
+    return entry
+
+
+def frame_from_sweep(tm, face, const, dx, dy, dz, fpack, oterm, mesh_occ, *,
+                     ns: int, nmat: int, near: float = 0.01,
+                     far: float = 100.0, mode: str = "sched"):
+    """frame_plain after its sweep: the mode's planes from the mesh
+    winners (tm, face). In mode "inkernel", mesh_occ(p, sd, rel, occ)
+    gives the winners' shadow rays' mesh occlusion (R,) f32: 1.0 where a
+    relevant ray (rel (R,) bool; origins p, directions sd, 3 planes
+    each) hits a face at t >= 1e-3, else 0; it may leave out the rays
+    the spheres occlude (occ (R,) f32, 1.0 where one does)."""
+    mat0 = const_offsets(ns, nmat, 0)[0]
     inv_near, rcp_span = depth_constants(near, far)
 
     def nld(t):
         return ((1.0 / t) - inv_near) * rcp_span
 
-    tm, face, _ = closest_hit_plain(tlb, order, dx, dy, dz, texit, fpack,
-                                    oterm, const[:3], block_f=block_f)
     att = _resolve(tm, face, fpack, oterm, dx, dy, dz, mode == "nm")
     hit_m = tm < F32_INF
     ox, oy, oz = const[C_ORIGIN], const[C_ORIGIN + 1], const[C_ORIGIN + 2]
@@ -305,16 +361,5 @@ def frame_plain(tlb, order, const, dx, dy, dz, texit, fpack, oterm, dc, *,
         t = sphere_quadratic(const[o_], const[o_ + 1], const[o_ + 2],
                              const[o_ + 3], *p, *sd, _f32(1e-3))
         occ = torch.maximum(occ, torch.where(t < F32_INF, 1.0, 0.0))
-
-    # per-tile admission of the live shadow rays' cone (entry-t lower
-    # bound, +inf where a cluster cannot be reached)
-    omin, omax, dmin, dmax = tile_ray_bounds(*p, *sd, TILE_R, act=rel)
-    boxes = const[blk0:blk0 + 6 * nb].view(nb, 6)
-    _, tlb_s = slab_interval_entry(boxes[None, :, :3] - omax[:, None, :],
-                                   boxes[None, :, 3:] - omin[:, None, :],
-                                   dmin[:, None, :], dmax[:, None, :])
-    relf = torch.where(rel, 1.0, 0.0)
-    occ_mesh = anyhit_plain(tlb_s, order, *sd, *p, relf, texit, fpack, dc,
-                            block_f=block_f)
-    head[2] = torch.maximum(occ, occ_mesh)
+    head[2] = torch.maximum(occ, mesh_occ(p, sd, rel, occ))
     return tuple(head)

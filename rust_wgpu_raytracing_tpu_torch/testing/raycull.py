@@ -1,13 +1,13 @@
-"""Plain models of the per-ray cluster culling in kernels K1, K3 and
+"""Plain models of the per-ray cluster culling in kernels K1, K3, K4 and
 K8-K11.
 
-K1 and K3 (csrc/closest_hit.cu, csrc/anyhit.cu), K8
+K1 and K3 (csrc/closest_hit.cu, csrc/anyhit.cu), K4 (csrc/frame.cu), K8
 (csrc/extend_shadow.cu) and the streamed sweeps K9, K10, K11
 (csrc/stream_sweep.cu) test a face block only against the rays whose own
 forward line enters the block's box (ops/traverse.ray_box_enter), and a
 closest-hit ray only where that entry lies at or below the ray's best t
 so far. Their outputs stay those of the unculled plain versions
-(closest_hit_plain, anyhit_plain, extend_shadow_plain,
+(closest_hit_plain, anyhit_plain, frame_plain, extend_shadow_plain,
 stream_closest_hit_plain, stream_closest_hit_perray_plain,
 stream_anyhit_plain), which compute the TPU kernels' function: a ray
 whose line misses a conservatively widened box cannot hit a face inside
@@ -24,7 +24,10 @@ tests and chip_smoke.py hold the kernels to (`write_grid_mesh`,
 and K3's models
 (`sched_closest_culled`, `sched_anyhit_culled`) follow the kernels' walk
 of the front-to-back schedule: chunks of the tile's visit order under
-the bound refreshed after each chunk. K9's and K11's models
+the bound refreshed after each chunk; K4's (`frame_culled`) walks the
+schedule as K1's and its in-kernel shadow rays as K3's, over the static
+cluster order and the wavefront's admission
+(`inkernel_shadow_culled`). K9's and K11's models
 (`stream_shared_culled`, `stream_anyhit_culled`) follow the kernels'
 word walk itself: the work items of stream_sweep.walk_items (at
 stream_sweep.SEG as it stands when called), each subtile's visit order
@@ -41,10 +44,12 @@ from ..core.scene import SC_DC
 from ..ops.kernels import stream_sweep
 from ..ops.kernels.anyhit import perray_plane_test
 from ..ops.kernels.closest_hit import shared_plane_t, sphere_winner
-from ..ops.kernels.common import INT_MAX, TILE_R
+from ..ops.kernels.common import INT_MAX, TILE_R, open_boxes
 from ..ops.kernels.extend_shadow import mask_tiles
+from ..ops.kernels.frame import (const_offsets, frame_from_sweep,
+                                 shadow_cone_entry)
 from ..ops.kernels.stream_sweep import BLOCK_F, admitted_subtiles, walk_items
-from ..ops.traverse import ray_box_enter
+from ..ops.traverse import ray_box_enter, ray_root_exit
 
 F32_INF = float("inf")
 
@@ -162,13 +167,14 @@ def sched_walk(tl, order, b: float, slots: int, bound, visit,
 
 def sched_closest_culled(tlb, order, dx, dy, dz, texit, fpack, oterm, sph,
                          blk_lo, blk_hi, *, block_f: int, near: float = 0.01,
-                         far: float = 100.0):
+                         far: float = 100.0, live_best: bool = False):
     """K1's culled walk in plain PyTorch: (t, face, sph_out) as
     closest_hit's, blk_lo/blk_hi (nb, 3) the face blocks' boxes. Each
     tile walks its schedule (sched_walk) under the bound max(min(best t,
     root exit)); in a chunk a block tests only the aimed rays whose line
     from the camera (sph[:3]) enters its box at or below their best t at
-    the chunk's start. A zero t keeps the winning face's own sign."""
+    the chunk's start (live_best: as it stands at the block, K4's rule).
+    A zero t keeps the winning face's own sign."""
     r = dx.shape[0]
     t = torch.full((r,), F32_INF, dtype=torch.float32, device=dx.device)
     face = torch.zeros(r, dtype=torch.int32, device=dx.device)
@@ -182,6 +188,8 @@ def sched_closest_culled(tlb, order, dx, dy, dz, texit, fpack, oterm, sph,
         def visit(chunk):
             best = t[idx].clone()
             for j in chunk:
+                if live_best:
+                    best = t[idx]
                 ok, entry = ray_box_enter(blk_lo[j], blk_hi[j], *o, x, y, z)
                 keep = (aimed & ok & (entry <= best)).nonzero().squeeze(1)
                 if keep.numel() == 0:
@@ -236,6 +244,143 @@ def sched_anyhit_culled(tlb, order, dx, dy, dz, ox, oy, oz, act, texit,
         sched_walk(tlb[u].tolist(), order[u].tolist(), bound(),
                    _slots(block_f), bound, visit, True)
     return occ
+
+
+def inkernel_shadow_culled(p, sd, rel, occ, const, ns: int, nmat: int,
+                           fpack, dc, blk_lo, blk_hi, *, block_f: int):
+    """K4's in-kernel shadow loop in plain PyTorch: the mesh occlusion
+    (R,) f32 of the winners' shadow rays (origins p, directions sd, 3
+    planes each; rel (R,) bool the relevant ones; occ (R,) f32 the
+    spheres' occlusion; const the frame's const vector of ns spheres and
+    nmat materials), as frame_from_sweep's mesh_occ. Each tile keeps
+    its live rays (relevant, not occluded by a sphere or a cluster so
+    far) and walks the const vector's static cluster order in chunks of
+    up to slots_for(block_f) clusters that its shadow cone admits
+    (slab_interval_entry, the kernel's slab_scalar) with an entry bound
+    at most b, the largest root exit of a live ray (-1 when none is
+    left, which ends the walk), refreshed after each chunk; in a chunk a
+    cluster tests only the rays live at the chunk's start whose line
+    enters its box (blk_lo / blk_hi). A ray leaves once occluded."""
+    nb = blk_lo.shape[0]
+    cap, t0 = shadow_admission(p, sd, rel, const, ns, nmat, nb)
+    shord0 = const_offsets(ns, nmat, nb)[2]
+    order = [int(c) for c in const[shord0:shord0 + nb].tolist()]
+    slots = _slots(block_f)
+    out = torch.zeros_like(p[0])
+    lane = torch.arange(TILE_R, device=p[0].device)
+    for u in range(t0.shape[0]):
+        idx = u * TILE_R + lane
+        live = rel[idx] & (occ[idx] == 0.0)
+        tl = t0[u].tolist()
+
+        def bound():
+            caps = cap[idx][live]
+            return max(-1.0, float(caps.max())) if caps.numel() else -1.0
+        b, seq = bound(), 0
+        while b >= 0.0 and seq < nb:
+            chunk = []
+            while len(chunk) < slots and seq < nb:
+                if tl[order[seq]] <= b:
+                    chunk.append(order[seq])
+                seq += 1
+            ray = idx[live]
+            planes = [v[ray] for v in (*sd, *p)]
+            for j in chunk:
+                ok, _ = ray_box_enter(blk_lo[j], blk_hi[j], *planes[3:],
+                                      *planes[:3])
+                if not bool(ok.any()):
+                    continue
+                rows = slice(j * block_f, (j + 1) * block_f)
+                _, hit = perray_plane_test(fpack[rows], dc[rows], *(
+                    v[ok] for v in planes))
+                shut = ray[ok][hit.any(dim=0)]
+                out[shut] = 1.0
+                live[shut - u * TILE_R] = False
+            b = bound()
+    return out
+
+
+def shadow_admission(p, sd, rel, const, ns: int, nmat: int, nb: int):
+    """(cap (R,), tl (T, nb)) of K4's in-kernel shadow loop: each
+    relevant ray's root exit along its shadow ray (-1 for the others),
+    and each tile's admission of each cluster by the cone of its
+    relevant rays (the kernel's slab_scalar: the entry-t lower bound,
+    +inf where the cone cannot reach the cluster)."""
+    cap = torch.where(rel, ray_root_exit(const[3:6], const[6:9], *p, *sd),
+                      -1.0)
+    blk0 = const_offsets(ns, nmat, nb)[1]
+    return cap, shadow_cone_entry(p, sd, rel, const, blk0, nb)
+
+
+def frame_shadow_rays(args, kw, t, face):
+    """K4's in-kernel shadow wavefront at its arguments (mode "inkernel")
+    and its sweep's winners (t, face): a dict of p, sd (the shadow rays'
+    origins and directions, 3 planes each), live (relevant and not
+    occluded by a sphere), cap and tl (shadow_admission)."""
+    const, dx, dy, dz, fpack, oterm = (args[2], *args[3:6], args[7],
+                                       args[8])
+    nb = args[0].shape[1]
+    out = {}
+
+    def mesh_occ(p, sd, rel, occ):
+        out.update(p=p, sd=sd, live=rel & (occ == 0.0))
+        out["cap"], out["tl"] = shadow_admission(p, sd, rel, const, kw["ns"],
+                                                 kw["nmat"], nb)
+        return torch.zeros_like(occ)
+    frame_from_sweep(t, face, const, dx, dy, dz, fpack, oterm, mesh_occ,
+                     ns=kw["ns"], nmat=kw["nmat"],
+                     near=kw.get("near", 0.01), far=kw.get("far", 100.0),
+                     mode="inkernel")
+    return out
+
+
+def frame_culled(tlb, order, const, dx, dy, dz, texit, fpack, oterm, dc,
+                 blk_lo=None, blk_hi=None, *, ns: int, nmat: int,
+                 block_f: int, near: float = 0.01, far: float = 100.0,
+                 mode: str = "sched"):
+    """K4's culled walks in plain PyTorch: the planes as frame's,
+    blk_lo/blk_hi (nb, 3) the face blocks' boxes (None: boxes every ray
+    enters). The sweep is K1's walk from the camera (const[:3]) with each
+    block's box test at the ray's best t as it stands
+    (sched_closest_culled, live_best); mode "inkernel" traces the
+    winners' shadow rays with inkernel_shadow_culled."""
+    if blk_lo is None:
+        blk_lo, blk_hi = open_boxes(tlb.shape[1], dx.device)
+    t, face, _ = sched_closest_culled(
+        tlb, order, dx, dy, dz, texit, fpack, oterm,
+        const[:3].contiguous(), blk_lo, blk_hi, block_f=block_f,
+        live_best=True)
+
+    def mesh_occ(p, sd, rel, occ):
+        return inkernel_shadow_culled(p, sd, rel, occ, const, ns, nmat,
+                                      fpack, dc, blk_lo, blk_hi,
+                                      block_f=block_f)
+    return frame_from_sweep(t, face, const, dx, dy, dz, fpack, oterm,
+                            mesh_occ, ns=ns, nmat=nmat, near=near, far=far,
+                            mode=mode)
+
+
+def frame_args(data, origin, d, mode: str):
+    """K4's (args, kw) for the shared-origin rays d (3 planes (n,))
+    leaving origin (3,), built as render_frame_fused builds them (accel
+    "cull"): the rays padded to whole tiles, the schedule, the const
+    vector, the face pack, origin terms and plane constants, and the
+    face blocks' boxes."""
+    from ..ops import megakernel as MK
+    from ..ops.fusedframe import frame_const
+
+    x, y, z = (MK._pad1(v, TILE_R) for v in d)
+    f = data.padded_faces
+    block_f = f // data.blk_lo.shape[0]
+    o = (origin[0], origin[1], origin[2])
+    mask, nw = MK._mask_words(data, "cull", *o, x, y, z, TILE_R, block_f, f)
+    tlb, order, texit = MK._vmem_sched(data, mask, nw, *o, x, y, z, TILE_R,
+                                       f, block_f)
+    args = [tlb, order, frame_const(data, origin), x, y, z, texit,
+            MK.pack_face_columns(data), MK.pack_origin_cols(data, origin),
+            MK._plane_consts(data), *MK._block_boxes(data, f, block_f)]
+    return args, dict(ns=data.num_spheres, nmat=data.mat_ambient.shape[0],
+                      block_f=block_f, mode=mode)
 
 
 def extend_shadow_culled(words_a, words_b, dx, dy, dz, ox, oy, oz, sdx, sdy,

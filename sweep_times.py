@@ -1,14 +1,22 @@
 #!/usr/bin/env python3
-"""Time the port's all-on-chip sweeps K1 (closest_hit) and K3 (anyhit) on
-one NVIDIA GPU, against another checkout of the port if asked.
+"""Time the port's all-on-chip sweeps K1 (closest_hit), K3 (anyhit) and
+K4 (frame), and the LBVH-cut cull K5 (hier_cull), on one NVIDIA GPU,
+against another checkout of the port if asked.
 
     python3 sweep_times.py [--against DIR]
 
 Each kernel runs at the arguments the port's own glue gives it in
 chip_smoke.py's scenes at 1920x1080: the split frame at the smoke view
-and at the dense view (K1's primary sweep, K3's shadow rays) and the
-path tracer's first sample (K1's primary sweep, K3's last-bounce shadow
-rays). A time is the mean of 20 launches after one, by CUDA events.
+and at the dense view (K1's primary sweep, K3's shadow rays), the fused
+frame at both views and at the Renderer's orbit frames 4-8 (the frames
+chip_smoke.py --profile profiles; K4 in each of its four modes on the
+same arguments), the path tracer's first sample (K1's primary sweep,
+K3's last-bounce shadow rays) and the streamed terrain:512 frame under
+accel="bvh" (K5's primary and shadow-wavefront culls). A time is the
+mean of 20 launches after one, by CUDA events (K5's by its kernels'
+device time in torch.profiler's trace: its wrapper's host work takes
+longer than the kernel); at the orbit frames the mean of the five
+frames' times.
 
 With --against DIR (another checkout of the port, e.g. an earlier
 commit unpacked with `git archive`), both checkouts run, each in its own
@@ -27,6 +35,8 @@ import subprocess
 import sys
 import tempfile
 
+import numpy as np
+
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -43,6 +53,7 @@ def child(root: str) -> None:
     from rust_wgpu_raytracing_tpu_torch.ops.kernels import build
     from rust_wgpu_raytracing_tpu_torch.ops.megakernel import \
         render_megakernel
+    from rust_wgpu_raytracing_tpu_torch.ops.kernels.frame import MODES
     from rust_wgpu_raytracing_tpu_torch.ops.pathtrace import (
         PRNGKey, fold_in, render_pathtrace)
 
@@ -81,6 +92,32 @@ def child(root: str) -> None:
             kernels=ks))
         cases += [("closest_hit", view, calls["closest_hit"][0]),
                   ("anyhit", view, calls["anyhit"][0])]
+        calls = record(lambda ks: render_megakernel(
+            data, uni, width=cs.WIDTH, height=cs.HEIGHT,
+            near=rc.kernel_near, far=rc.kernel_far,
+            background=tuple(cfg.background), shadows=True,
+            quantize=rc.quantize_rgba8, accel=rc.accel, fused=True,
+            kernels=ks))
+        args, kw = calls["frame"][0]
+        cases += [("frame", f"{view} (mode {m})", (args, dict(kw, mode=m)))
+                  for m in MODES]
+    # the orbit frames, each after update() with the orbit key held
+    orbit = Renderer(cs.smoke_config("fused"), device="cuda")
+    orbit.controller.process_key("d", True)
+    frames = []
+    for i in range(cs.WARMUP + 5):
+        orbit.update()
+        if i >= cs.WARMUP:
+            uni = orbit.camera.uniforms().flat()
+            frames.append(record(lambda ks: render_megakernel(
+                data, uni, width=cs.WIDTH, height=cs.HEIGHT,
+                near=rc.kernel_near, far=rc.kernel_far,
+                background=tuple(cfg.background), shadows=True,
+                quantize=rc.quantize_rgba8, accel=rc.accel, fused=True,
+                kernels=ks))["frame"][0])
+    orbits = [("frame", f"the orbit frames {cs.WARMUP + 1}-{cs.WARMUP + 5} "
+               f"(mode {m})", [(a, dict(k, mode=m)) for a, k in frames])
+              for m in MODES]
     assets = tempfile.mkdtemp(prefix="rt_sweeps_")
     os.environ["RWRT_ASSETS"] = assets
     cs.write_nm_assets(assets)
@@ -96,9 +133,29 @@ def child(root: str) -> None:
                calls["closest_hit"][0]),
               ("anyhit", "the path tracer's last bounce",
                calls["anyhit"][-1])]
+    del pt
+    scfg = cs.stream_config("bvh")
+    sdata = Renderer(scfg, device="cuda").data
+    suni = Camera.from_config(scfg.camera, cs.WIDTH / cs.HEIGHT).uniforms(
+        ).flat()
+    calls = record(lambda ks: render_megakernel(
+        sdata, suni, width=cs.WIDTH, height=cs.HEIGHT, shadows=True,
+        accel="bvh", fused=False, kernels=ks))
+    cases += [("hier_cull", "the bvh frame's primary cull",
+               calls["hier_cull"][0]),
+              ("hier_cull", "the bvh frame's shadow cull",
+               calls["hier_cull"][1])]
     wrapper = {f.__name__: f for f in K.KERNELS}
-    for name, at, (args, kw) in cases:
-        ms = cs.time_ms(lambda: wrapper[name](*args, **kw), 20)
+    for name, at, sets in cases + orbits:
+        sets = sets if isinstance(sets, list) else [sets]
+        if name == "hier_cull":  # shorter than its wrapper's host work
+            ms = float(np.mean([cs.device_ms(
+                lambda: wrapper[name](*args, **kw), 20, "hier_cull_kernel")
+                for args, kw in sets]))
+        else:
+            ms = float(np.mean([
+                cs.time_ms(lambda: wrapper[name](*args, **kw), 20)
+                for args, kw in sets]))
         print(json.dumps({"kernel": name, "at": at, "ms": ms}), flush=True)
 
 
@@ -134,8 +191,11 @@ def main() -> int:
     import chip_smoke
 
     for (name, at), by_root in times.items():
-        print(f"[sweeps] {name} at {at}'s arguments, ms (CUDA events, mean "
-              f"of 20 launches): " + "; ".join(
+        how = ("device time by torch.profiler" if name == "hier_cull"
+               else "CUDA events")
+        frames = ", the mean of the five frames" if "orbit" in at else ""
+        print(f"[sweeps] {name} at {at}'s arguments, ms ({how}, mean of 20 "
+              f"launches{frames}): " + "; ".join(
                   f"{label[root]} " + ", ".join(f"{ms:.4f}" for ms in v)
                   for root, v in by_root.items()), flush=True)
     print(chip_smoke.card_line())

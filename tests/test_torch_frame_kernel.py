@@ -9,7 +9,10 @@ kernel resolves the winner's attributes with a masked sum, which turns
 -0.0 into +0.0; the port reads the winner face's row). Each branch runs:
 no shadows, sched shadows, in-kernel shadows and normal mapping, on the
 terrain (NaN padding faces) and on a textured, bump-mapped box. The
-CUDA kernel is checked against frame_plain on the card (marked gpu).
+kernel's culled walks (testing/raycull.py frame_culled: per-ray boxes
+in the sweep and the in-kernel shadow loop) are held to the same JAX
+outputs. The CUDA kernel is checked against frame_plain on the card
+(marked gpu), with the face blocks' boxes and without.
 """
 
 import os
@@ -25,6 +28,7 @@ from rust_wgpu_raytracing_tpu_torch.ops import megakernel as P
 from rust_wgpu_raytracing_tpu_torch.ops.fusedframe import frame_const
 from rust_wgpu_raytracing_tpu_torch.ops.kernels import frame, frame_plain
 from rust_wgpu_raytracing_tpu_torch.ops.kernels.frame import N_OUT
+from rust_wgpu_raytracing_tpu_torch.testing.raycull import frame_culled
 from test_torch_host import (cuda_device, jax_config,  # noqa: F401
                              jax_reference, terrain_config, textured_config,
                              write_textured_assets)
@@ -131,6 +135,23 @@ def test_frame_plain_matches_jax_kernel(ref, scene, mode):
         assert torch.equal(got, torch.from_numpy(w)), f"plane {i}"
 
 
+@pytest.mark.parametrize("scene,mode", CASES)
+def test_frame_culled_matches_jax_kernel(ref, assets, monkeypatch, scene,
+                                         mode):
+    """K4's culled walks (raycull.frame_culled) on the JAX-built arguments
+    with the port's face-block boxes: every plane equal to the JAX
+    kernel's by value."""
+    monkeypatch.setenv("RWRT_ASSETS", assets)
+    args, kw = case_args(ref, scene, mode)
+    data = Scene.build(SCENES[scene]()).data
+    boxes = P._block_boxes(data, data.padded_faces, kw["block_f"])
+    outs = frame_culled(*args, *boxes, **kw)
+    want = ref[f"{scene}_{mode}_outs"]
+    assert len(outs) == want.shape[0]
+    for i, (got, w) in enumerate(zip(outs, want)):
+        assert torch.equal(got, torch.from_numpy(w)), f"plane {i}"
+
+
 def test_frame_rejects_bad_inputs(ref):
     args, kw = case_args(ref, "terrain", "sched")
     with pytest.raises(ValueError):
@@ -166,7 +187,8 @@ def port_args(scene, mode, device):
     dc = torch.cat([data.tri_d[:, None], data.tri_c,
                     torch.zeros((f, 4), device=device)], dim=1)
     args = [tlb, order, frame_const(data, origin), x, y, z, texit,
-            P.pack_face_columns(data), P.pack_origin_cols(data, origin), dc]
+            P.pack_face_columns(data), P.pack_origin_cols(data, origin), dc,
+            *P._block_boxes(data, f, bf)]
     return args, dict(ns=data.num_spheres, nmat=data.mat_ambient.shape[0],
                       block_f=bf, mode=mode)
 
@@ -196,9 +218,11 @@ def test_frame_cuda_matches_plain(assets, monkeypatch, scene, mode,
                                   cuda_device):
     monkeypatch.setenv("RWRT_ASSETS", assets)
     args, kw = port_args(scene, mode, cuda_device)
-    before = frame.launches
-    outs = frame(*args, **kw)
-    torch.cuda.synchronize()
-    assert frame.launches == before + 1
-    for i, (a, b) in enumerate(zip(outs, frame_plain(*args, **kw))):
-        assert torch.equal(a, b), f"plane {i}"
+    want = frame_plain(*args, **kw)
+    for a in (args, args[:10]):  # with the blocks' boxes and without
+        before = frame.launches
+        outs = frame(*a, **kw)
+        torch.cuda.synchronize()
+        assert frame.launches == before + 1
+        for i, (x, y) in enumerate(zip(outs, want)):
+            assert torch.equal(x, y), f"plane {i}"

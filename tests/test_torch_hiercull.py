@@ -6,10 +6,14 @@ Scenes: builtin:terrain:23 (128 8-face clusters, the last ones pure
 padding) and terrain:92 (544 32-face clusters, 17 superblocks, past
 STREAM_FACES). Cones: the tiles of a 128x128 camera frame (shared
 origin) and of a seeded shadow wavefront with a third of its rays
-inactive (act-aware bounds, some tiles empty). The JAX side runs as
-tests/test_torch_host.jax_reference runs it, every operation rounding
-on its own; the words, the widened tables and the frames are held
-bitwise.
+inactive (act-aware bounds, some tiles empty). Edge cases of the
+card's layout (EDGES: ragged groups of 32 superblocks and blocks of 8
+tiles, zero, mixed-sign and tiny direction axes, NaN bounds, empty cones
+and empty padding boxes), from numpy seeds, go through the JAX kernel
+too. The JAX side runs as tests/test_torch_host.jax_reference runs it,
+every operation rounding on its own; the words, the widened tables and
+the frames are held bitwise. The card tests (marked gpu) hold K5 to its
+plain version on the same inputs.
 """
 
 import dataclasses as dc
@@ -54,6 +58,84 @@ def shadow_wavefront(n=4 * 1024, seed=17):
     act = rng.uniform(size=n) < 0.67
     act[-1024:] = False
     return o.T.copy(), d.T.copy(), act
+
+
+# edge cases of K5's layout (a warp per tile, lanes over 32 superblocks):
+# name -> (superblocks S, tiles T); ragged superblock groups (S = 1, 31,
+# 33, 511) and tiles that fill no whole block of 8 warps
+EDGES = {"s1_t13": (1, 13), "s31_t200": (31, 200), "s32_t1030": (32, 1030),
+         "s33_t37": (33, 37), "s511_t2045": (511, 2045)}
+
+
+def edge_case(name):
+    """(lo, hi (32 S, 3), omin, omax, dmin, dmax (T, 3)) f32 numpy of an
+    EDGES case, from a numpy seed: cluster boxes with 15% empty padding
+    boxes (+inf / -inf; for S > 2 superblock 1 wholly empty), and tile
+    cones cycling through six kinds: plain, a zero direction axis
+    (dmin = dmax = 0), a mixed-sign axis, one NaN bound, an axis below
+    1e-30 (the reciprocals' clamp) and an empty cone (a tile without a
+    live ray: +inf / -inf)."""
+    n_super, n_tiles = EDGES[name]
+    rng = np.random.default_rng(n_super * 7 + n_tiles)
+    nb = 32 * n_super
+    c = rng.uniform(-2.0, 2.0, (nb, 3))
+    h = rng.uniform(0.01, 0.5, (nb, 3))
+    lo, hi = (c - h).astype(np.float32), (c + h).astype(np.float32)
+    empty = rng.uniform(size=nb) < 0.15
+    if n_super > 2:
+        empty[32:64] = True
+    lo[empty], hi[empty] = np.inf, -np.inf
+    o = rng.uniform(-3.0, 3.0, (n_tiles, 3))
+    e = rng.uniform(0.0, 0.5, (n_tiles, 3))
+    omin, omax = (o - e).astype(np.float32), (o + e).astype(np.float32)
+    d = rng.normal(size=(n_tiles, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    s = rng.uniform(0.0, 0.3, (n_tiles, 3))
+    dmin, dmax = (d - s).astype(np.float32), (d + s).astype(np.float32)
+    kind = np.arange(n_tiles) % 6
+    ax = rng.integers(0, 3, n_tiles)
+    which = rng.integers(0, 12, n_tiles)
+    planes = [omin, omax, dmin, dmax]
+    for t_ in range(n_tiles):
+        a = ax[t_]
+        if kind[t_] == 1:
+            dmin[t_, a] = dmax[t_, a] = 0.0
+        elif kind[t_] == 2:
+            dmin[t_, a] = -abs(dmin[t_, a]) - 0.1
+            dmax[t_, a] = abs(dmax[t_, a]) + 0.1
+        elif kind[t_] == 3:
+            planes[which[t_] // 3][t_, which[t_] % 3] = np.nan
+        elif kind[t_] == 4:
+            dmin[t_, a], dmax[t_, a] = 1e-35, 3e-31
+        elif kind[t_] == 5:
+            omin[t_], dmin[t_] = np.inf, np.inf
+            omax[t_], dmax[t_] = -np.inf, -np.inf
+    return lo, hi, omin, omax, dmin, dmax
+
+
+def edge_args(name):
+    """K5's (sup, clus, bounds) tensors of an EDGES case: the union boxes
+    of each superblock's 32 clusters, the cluster boxes, the 12 cone
+    planes."""
+    lo, hi, omin, omax, dmin, dmax = edge_case(name)
+    n_super = EDGES[name][0]
+    sup = np.concatenate([lo.reshape(n_super, 32, 3).min(1),
+                          hi.reshape(n_super, 32, 3).max(1)], 1)
+    return (t(sup), t(np.concatenate([lo, hi], 1)),
+            t(np.concatenate([omin.T, omax.T, dmin.T, dmax.T])))
+
+
+def jax_edge_words(out):
+    """The JAX kernel's words (traverse_pallas._smem_cull_words, interpret
+    mode) of every EDGES case."""
+    import jax.numpy as jnp
+
+    import rust_wgpu_raytracing_tpu.ops.traverse_pallas as TP
+
+    res = {name: TP._smem_cull_words(
+        *(jnp.asarray(v) for v in edge_case(name)), EDGES[name][0], True)
+        for name in EDGES}
+    np.savez(out, **{k: np.asarray(v) for k, v in res.items()})
 
 
 def jax_hiercull(out, part):
@@ -135,6 +217,12 @@ def frames_ref(tmp_path_factory):
 
 
 @pytest.fixture(scope="module")
+def edge_ref(tmp_path_factory):
+    return jax_reference("test_torch_hiercull", "jax_edge_words",
+                         tmp_path_factory.mktemp("hiercull_edges"))
+
+
+@pytest.fixture(scope="module")
 def scenes():
     return {name: Scene.build(scene_config(grid)).data
             for name, grid in GRIDS.items()}
@@ -183,6 +271,18 @@ def test_hier_cull_kernel_on_jax_tables(ref, name, cone):
     words = K.hier_cull(t(ref[f"{key}_sup"]), t(ref[f"{key}_clus"]),
                         t(ref[f"{key}_bounds"]))
     np.testing.assert_array_equal(words.numpy(), ref[f"{key}_words"])
+
+
+@pytest.mark.parametrize("name", sorted(EDGES))
+def test_hier_cull_edge_cases_match_jax(edge_ref, name):
+    """K5 (plain version here) on the edge cases of the card's layout
+    (ragged superblock groups and tile blocks, zero, mixed-sign and tiny
+    direction axes, NaN bounds, empty cones, empty padding boxes): the
+    JAX kernel's words, bit for bit."""
+    words = K.hier_cull(*edge_args(name))
+    want = edge_ref[name]
+    assert (want != 0).any() and (want == 0).any()
+    np.testing.assert_array_equal(words.numpy(), want)
 
 
 @pytest.mark.parametrize("name", sorted(GRIDS))
@@ -282,4 +382,17 @@ def test_hier_cull_cuda_matches_plain(name, cone, cuda_device):
     torch.cuda.synchronize()
     assert K.hier_cull.launches == before + 1
     assert bool((words != 0).any())
+    assert torch.equal(words, K.hier_cull_plain(*args))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(EDGES))
+def test_hier_cull_cuda_edge_cases(name, cuda_device):
+    """K5 on the card against its plain version on the edge cases (words
+    bitwise)."""
+    args = [a.to(cuda_device) for a in edge_args(name)]
+    before = K.hier_cull.launches
+    words = K.hier_cull(*args)
+    torch.cuda.synchronize()
+    assert K.hier_cull.launches == before + 1
     assert torch.equal(words, K.hier_cull_plain(*args))

@@ -1,17 +1,19 @@
 """PyTorch port: the per-ray cluster culling of kernels K1 (the
-shared-origin closest hit), K3 (the shadow any-hit), K8 (the path
-tracer's fused extend + shadow sweep), K9 (the streamed shared-origin
-closest hit), K10 (the streamed per-ray closest hit) and K11 (the
-streamed shadow any-hit).
+shared-origin closest hit), K3 (the shadow any-hit), K4 (the fused frame
+kernel: its sweep and its in-kernel shadow loop), K8 (the path tracer's
+fused extend + shadow sweep), K9 (the streamed shared-origin closest
+hit), K10 (the streamed per-ray closest hit) and K11 (the streamed
+shadow any-hit).
 
 The kernels test a face block only for the rays whose own line enters
 the block's box (ops/traverse.ray_box_enter, the plain twin of
 csrc/rt_common.cuh ray_box_enter), a closest-hit ray only where that
 entry lies at or below its best t so far. testing/raycull.py models
 that walk in plain PyTorch (K1's and K3's models follow the kernels'
-chunks of the front-to-back schedule, K9's and K11's their word walk,
-split into work items); here the model is held against the unculled
-plain versions (closest_hit_plain, anyhit_plain, extend_shadow_plain,
+chunks of the front-to-back schedule, K4's the same sweep and K3's walk
+over the static cluster order, K9's and K11's their word walk, split
+into work items); here the model is held against the unculled plain
+versions (closest_hit_plain, anyhit_plain, frame_plain, extend_shadow_plain,
 stream_closest_hit_plain, stream_closest_hit_perray_plain,
 stream_anyhit_plain, the TPU kernels' function) BITWISE: t, face and
 occ, K1's and K9's zero t with its sign (a camera on a face's plane
@@ -25,13 +27,16 @@ padded with NaN faces and +inf padding boxes. Ray sets: directions with
 zero components, origins on box faces, origins inside boxes, rays in a
 face plane, rays aimed at shared edges and vertices (t ties the lower
 face id must win), each with parked rays (origin 1e9, zero direction);
-for K1 and K9 one camera of each kind and a camera on a face's plane
-(zero t). Then the wavefronts of 64x64 path traces of a heightfield (K1
-primary, K8 bounce 1, K3 last bounce) and of a streamed one (K9, K10,
-K11). The arguments come from the port's own glue (extend_shadow_rays,
-gbuffer, gbuffer_perray, anyhit_rays), which hands the kernels the
-boxes. The card tests (marked
-gpu) hold the CUDA kernels to the plain versions on the same inputs.
+for K1, K4 and K9 one camera of each kind and a camera on a face's
+plane (zero t); K4's scene adds the reference's spheres and a light a
+few degrees above the grids' plane (grazing shadow rays, whose origins
+lie inside the clusters' boxes). Then the wavefronts of 64x64 path
+traces of a heightfield (K1 primary, K8 bounce 1, K3 last bounce) and of
+a streamed one (K9, K10, K11). The arguments come from the port's own
+glue (extend_shadow_rays, gbuffer, gbuffer_perray, anyhit_rays,
+raycull.frame_args), which hands the kernels the boxes. The card tests
+(marked gpu) hold the CUDA kernels to the plain versions on the same
+inputs.
 """
 
 import os
@@ -46,11 +51,12 @@ from rust_wgpu_raytracing_tpu_torch.core.camera import Camera
 from rust_wgpu_raytracing_tpu_torch.core.scene import Scene
 from rust_wgpu_raytracing_tpu_torch.ops import kernels as K
 from rust_wgpu_raytracing_tpu_torch.ops import megakernel as P
+from rust_wgpu_raytracing_tpu_torch.ops.fusedframe import render_frame_fused
 from rust_wgpu_raytracing_tpu_torch.testing.raycull import (
     ADVERSARIAL_KINDS, CAMERA_KINDS, adversarial_camera, adversarial_rays,
-    extend_shadow_culled, item_walks, mask_pairs, plane_camera_config,
-    sched_anyhit_culled, sched_closest_culled, sched_pairs,
-    stream_anyhit_culled, stream_pairs, stream_perray_culled,
+    extend_shadow_culled, frame_args, frame_culled, item_walks, mask_pairs,
+    plane_camera_config, sched_anyhit_culled, sched_closest_culled,
+    sched_pairs, stream_anyhit_culled, stream_pairs, stream_perray_culled,
     stream_shared_culled, walk_counts, write_grid_mesh)
 from rust_wgpu_raytracing_tpu_torch.ops.kernels import common, stream_sweep
 from rust_wgpu_raytracing_tpu_torch.ops.kernels.stream_sweep import (
@@ -119,6 +125,28 @@ def meshes(assets):
     with mock.patch.dict(os.environ, {"RWRT_ASSETS": assets}):
         return {name: Scene.build(mesh_config(name)).data
                 for name in MESHES}
+
+
+@pytest.fixture(scope="module")
+def frame_meshes(assets):
+    """The meshes with the reference's spheres and a light a few degrees
+    above the grids' plane: K4's scenes."""
+    cfgs = {name: pcfg.SceneConfig(
+        spheres=pcfg.reference_scene().spheres,
+        meshes=(pcfg.MeshConfig(obj_path=f"{name}.obj",
+                                light_direction=(-1.0, -0.2, -0.05)),),
+        render=pcfg.RenderConfig(width=64, height=32)) for name in MESHES}
+    with mock.patch.dict(os.environ, {"RWRT_ASSETS": assets}):
+        return {name: Scene.build(cfg).data for name, cfg in cfgs.items()}
+
+
+def k4_args(data, mesh, kind, seed, mode):
+    """frame's arguments for the camera `kind`, from the port's glue."""
+    origin, d = adversarial_camera(kind, MESHES[mesh], data.blk_lo,
+                                   data.blk_hi, seed)
+    dev = data.blk_lo.device
+    return frame_args(data, torch.from_numpy(origin).to(dev),
+                      [v.to(dev) for v in tens(d)], mode)
 
 
 def rays(kind, mesh, data, seed):
@@ -339,6 +367,25 @@ def test_culled_k3_equals_plain(meshes, mesh, kind):
     assert int((want > 0).sum()) > 50
 
 
+@pytest.mark.parametrize("kind", CAMERA_KINDS)
+@pytest.mark.parametrize("mesh", sorted(MESHES))
+def test_culled_k4_equals_plain(frame_meshes, mesh, kind):
+    """K4's walks (the sweep over chunks of the front-to-back schedule
+    with per-ray boxes from the camera; the in-kernel shadow loop over the
+    live rays, the static cluster order and the wavefront's admission)
+    against frame_plain in the in-kernel shadow mode: every plane
+    bitwise (depth, kind, occ, uv, material, lambert, specular)."""
+    data = frame_meshes[mesh]
+    seed = 1200 + CAMERA_KINDS.index(kind) + 10 * sorted(MESHES).index(mesh)
+    args, kw = k4_args(data, mesh, kind, seed, "inkernel")
+    assert len(args) == 12 and args[10] is data.blk_lo
+    want = K.frame_plain(*args, **kw)
+    got = frame_culled(*args, **kw)
+    assert_bits(got, want, [f"plane {i}" for i in range(len(want))])
+    assert int((want[1] == data.num_spheres + 1).sum()) > 100  # mesh hits
+    assert int((want[2] > 0).sum()) > 0  # occluded
+
+
 def test_walk_items_cover_each_walk_once(meshes):
     """walk_items: each subtile's items hold consecutive words of its
     visit order, every admitted word once, at most seg + 31 admitted
@@ -442,9 +489,10 @@ def test_pt_last_bounce_k3_culled_equals_plain(fields):
     assert shut <= n["face_pairs"] <= n["box_tests"] <= n["admitted"] + shut
 
 
-def jax_split_frames(out, configs):
-    """The JAX package's split frames (interpret mode) of SceneConfig
-    JSONs, saved as frame0, frame1, ... (run through jax_reference)."""
+def jax_frames(out, configs):
+    """The JAX package's split and fused frames (interpret mode) of
+    SceneConfig JSONs, saved as frame0, frame1, ... and fused0, fused1,
+    ... (run through jax_reference)."""
     import jax.numpy as jnp
 
     from rust_wgpu_raytracing_tpu import config as jcfg
@@ -458,31 +506,33 @@ def jax_split_frames(out, configs):
         rc = cfg.render
         uni = jnp.asarray(JCamera.from_config(
             cfg.camera, rc.width / rc.height).uniforms().flat())
-        color, _ = render_megakernel(JScene.build(cfg).data, uni,
-                                     width=rc.width, height=rc.height,
-                                     shadows=rc.shadows, interpret=True,
-                                     fused=False)
-        frames[f"frame{k}"] = np.asarray(color)
+        data = JScene.build(cfg).data
+        for key, fused in (("frame", False), ("fused", True)):
+            color, _ = render_megakernel(data, uni, width=rc.width,
+                                         height=rc.height,
+                                         shadows=rc.shadows, interpret=True,
+                                         fused=fused)
+            frames[f"{key}{k}"] = np.asarray(color)
     np.savez(out, **frames)
 
 
 @pytest.fixture(scope="module")
 def plane_frames(assets, tmp_path_factory):
-    """mesh: (port config, the JAX package's split frame) of
-    plane_camera_config."""
+    """mesh: (port config, the JAX package's split frame, its fused
+    frame) of plane_camera_config."""
     cfgs = {mesh: plane_camera_config(f"{mesh}.obj", MESHES[mesh], 600)
             for mesh in sorted(MESHES)}
     with mock.patch.dict(os.environ, {"RWRT_ASSETS": assets}):
-        ref = jax_reference("test_torch_raycull", "jax_split_frames",
+        ref = jax_reference("test_torch_raycull", "jax_frames",
                             tmp_path_factory.mktemp("plane_jax"),
                             configs=[c.to_json() for c in cfgs.values()])
-    return {mesh: (cfg, ref[f"frame{k}"])
+    return {mesh: (cfg, ref[f"frame{k}"], ref[f"fused{k}"])
             for k, (mesh, cfg) in enumerate(cfgs.items())}
 
 
 # the kernels' culled walks, as the frame's KernelSet
 MODELS = K.PLAIN._replace(closest_hit=sched_closest_culled,
-                          anyhit=sched_anyhit_culled,
+                          anyhit=sched_anyhit_culled, frame=frame_culled,
                           stream_closest_hit=stream_shared_culled,
                           stream_anyhit=stream_anyhit_culled)
 
@@ -497,7 +547,7 @@ def test_plane_camera_frame_keeps_zero_sign(assets, plane_frames, mesh,
     equals the plain-composed frame bitwise and the JAX package's frame
     at the frame bar. Packing every zero t as +0.0 draws the faces the
     reference leaves out."""
-    cfg, want = plane_frames[mesh]
+    cfg, want, _ = plane_frames[mesh]
     with mock.patch.dict(os.environ, {"RWRT_ASSETS": assets}):
         data = Scene.build(cfg).data
     uni = Camera.from_config(cfg.camera, 48 / 32).uniforms().flat()
@@ -511,6 +561,40 @@ def test_plane_camera_frame_keeps_zero_sign(assets, plane_frames, mesh,
     name = "stream_closest_hit" if stream else "closest_hit"
     assert len(calls[name]) == 1
     t = K.PLAIN._asdict()[name](*calls[name][0][0], **calls[name][0][1])[0]
+    zero = t == 0.0
+    negative = zero & (t.view(torch.int32) != 0)
+    assert int(negative.sum()) > 100 and int((zero & ~negative).sum()) > 100
+    assert torch.equal(frames[1], frames[0])
+    diff = np.abs(u8_levels(frames[0]) - u8_levels(want))
+    assert diff.max() <= 1 and (diff == 0).mean() >= 0.999
+    lit = (u8_levels(frames[0]) > 0).any(-1)
+    assert 0.1 < lit.mean() < 0.9  # the faces drawn on one side only
+
+
+@pytest.mark.parametrize("mesh", sorted(MESHES))
+@pytest.mark.parametrize("shadow_mode", ["sched", "inkernel"])
+def test_plane_camera_fused_frame_keeps_zero_sign(assets, plane_frames,
+                                                  mesh, shadow_mode):
+    """The same hazard through the fused frame: render_frame_fused from a
+    camera on a face's plane, composed from the culled walks' models (K4,
+    with K3 for the sched shadows or K4's own in-kernel shadow loop),
+    equals the plain-composed fused frame bitwise and the JAX package's
+    fused frame at the frame bar."""
+    cfg, _, want = plane_frames[mesh]
+    with mock.patch.dict(os.environ, {"RWRT_ASSETS": assets}):
+        data = Scene.build(cfg).data
+    uni = Camera.from_config(cfg.camera, 48 / 32).uniforms().flat()
+    frames, calls = [], {}
+    for ks in (recorder(calls), MODELS):
+        color, _ = render_frame_fused(data, uni, width=48, height=32,
+                                      shadows=True, shadow_mode=shadow_mode,
+                                      kernels=ks)
+        frames.append(color)
+    args, kw = calls["frame"][0]
+    assert kw["mode"] == shadow_mode and len(args) == 12
+    t = K.closest_hit_plain(args[0], args[1], *args[3:9],
+                            args[2][:3].contiguous(),
+                            block_f=kw["block_f"])[0]
     zero = t == 0.0
     negative = zero & (t.view(torch.int32) != 0)
     assert int(negative.sum()) > 100 and int((zero & ~negative).sum()) > 100
@@ -733,6 +817,14 @@ def test_wrappers_take_and_ignore_boxes(meshes):
         K.anyhit(*args[:12], args[12][:-1], args[13][:-1], **kw)
     with pytest.raises(TypeError):
         K.anyhit(*args[:12], args[12].double(), args[13], **kw)
+    for mode in ("sched", "inkernel"):
+        args, kw = frame_args(data, torch.from_numpy(origin), tens(d), mode)
+        assert_bits(K.frame(*args, **kw), K.frame(*args[:10], **kw),
+                    [f"plane {i}" for i in range(16)])
+    with pytest.raises(ValueError):
+        K.frame(*args[:10], args[10][:-1], args[11][:-1], **kw)
+    with pytest.raises(ValueError):
+        K.frame(*args[:11], None, **kw)
 
 
 def test_block_boxes_follow_the_blocks(meshes):
@@ -833,3 +925,30 @@ def test_streamed_culling_kernels_cuda_match_plain(meshes, mesh, kind,
                 if fn is K.stream_closest_hit:  # a zero t with its sign
                     assert torch.equal(got[0].view(torch.int32),
                                        want[0].view(torch.int32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", CAMERA_KINDS)
+@pytest.mark.parametrize("mesh", sorted(MESHES))
+def test_frame_cuda_matches_plain_adversarial(frame_meshes, mesh, kind,
+                                              cuda_device, monkeypatch):
+    """K4 on the card in all four modes, with the boxes and without (every
+    ray enters every box), the in-kernel shadow loop also with every
+    chunk ray-major and every chunk by pairs, against frame_plain on the
+    adversarial cameras: every plane bitwise."""
+    data = frame_meshes[mesh].to(cuda_device)
+    seed = 1300 + CAMERA_KINDS.index(kind) + 10 * sorted(MESHES).index(mesh)
+    for mode in ("none", "sched", "nm", "inkernel"):
+        args, kw = k4_args(data, mesh, kind, seed, mode)
+        want = K.frame_plain(*args, **kw)
+        for ray_major in ((None, 0, 65) if mode == "inkernel" else (None,)):
+            if ray_major is not None:
+                monkeypatch.setitem(common.RAY_MAJOR, "anyhit", ray_major)
+            for a in (args, args[:10]):
+                before = K.frame.launches
+                got = K.frame(*a, **kw)
+                torch.cuda.synchronize()
+                assert K.frame.launches == before + 1
+                for i, (x, y) in enumerate(zip(got, want)):
+                    assert torch.equal(x.view(torch.int32),
+                                       y.view(torch.int32)), (mode, i)
