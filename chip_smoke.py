@@ -110,11 +110,30 @@ program on its own, and checks them:
    at other sizes of K9's and K11's work items (stream_sweep.SEG 32,
    64, 256, each output bitwise the default's); each streamed kernel's
    time,
-   plain time and bound (the
+   plain time (one call on 8 batches) and bound (the
    per-ray culled walks K8-K11 also the mask walk's bound and their
    walk's parts: walk_parts; K5 at both culls, also its device time by
    torch.profiler, which its kernels line reports: its wrapper's host
-   work outlasts the kernel).
+   work outlasts the kernel);
+8. the oracle (oracle-1080p-terrain91): Renderer(backend="oracle") on the
+   smoke scene at 1920x1080 with shadows, 1 warm-up and 2 timed frames
+   (CUDA events), peak device memory, no kernel launched; its frame at
+   the frame bar against the fused and the split frame at its camera
+   (the brute-force spec: the first full-size independent check of the
+   kernels' frame; the streamed scene is not drawn by it);
+9. mip sampling (mip-1080p-heightfield91): the normal-mapped heightfield
+   with RenderConfig.mip through the Renderer (split, shadows, normal
+   mapping on and off, 3 warm-up + 12 frames each: launch counts, K6
+   three or two times a frame, K2 and K4 never; medians); each frame
+   through K6 bitwise the frame composed with texfilter_plain on the
+   card, at the Renderer's last camera and at a far view (mean LOD and
+   the share of hit pixels above LOD 1 printed: the pyramid's deeper
+   levels); K6's time, plain time and bound at the mip frame's first tap;
+10. the LBVH (stream-1080p-terrain512's scene): the host build of
+   bench_configs.py config 9 (build_lbvh + linearize_bvh, NumPy, host
+   clock); bvh_walk_mask_words on the card at the 1080p frame's tiles,
+   its words a superset of the flat scan's, and equal to them on
+   builtin:terrain:23 at 128x128 (the JAX package's test_accel.py case).
 
 `python3 chip_smoke.py --profile` runs only phases 1-2 and then
 profiles 5 frames of each frame program at the smoke view, 5 samples
@@ -199,6 +218,11 @@ OPS_TEXFILTER, OPS_TEXSHADE = 39, 51
 # origin 9) and the root exit (12), and per sphere its quadratic (33).
 OPS_TAIL_HIT, OPS_TAIL_DEPTH, OPS_TAIL_BLINN = 33, 3, 38
 OPS_TAIL_SPHERE, OPS_SHADOW_RAY, OPS_SHADOW_SPHERE = 89, 30, 33
+# the oracle phase: timed frames after one warm-up
+ORACLE_FRAMES = 2
+# the mip phase's far view of the nm heightfield: ~15 units away the
+# pyramid's level 2 serves most hit pixels at 1080p
+MIP_FAR_EYE, MIP_FAR_TARGET = (0.0, -4.0, 12.0), (0.0, 0.0, -3.0)
 
 
 def say(msg: str) -> None:
@@ -1009,7 +1033,8 @@ def stream_phase(card, K, Renderer, drive, record, check, results, errs,
     Renderer (launch counts, medians, peak memory), K5/K9/K10/K11 against
     their plain versions on the paths' own arguments, the kernel-run
     frame and sample against the plain-composed ones at terrain:128, and
-    the new kernels' times beside their bounds into `results`."""
+    the new kernels' times beside their bounds into `results`. Returns
+    the bvh frame's scene (on the card)."""
     import torch
 
     from rust_wgpu_raytracing_tpu_torch.core.camera import Camera
@@ -1315,7 +1340,8 @@ def stream_phase(card, K, Renderer, drive, record, check, results, errs,
     if not same:
         raise AssertionError("streamed sample differs from its plain twin")
 
-    # (e) timing at the paths' arguments, turns plain, kernel, kernel, plain
+    # (e) timing at the paths' arguments, turns plain, kernel, kernel (the
+    # plain versions take 8-20 s a call here: timed once)
     # (key, kernel, its call, the plain version's (args, where), the path)
     timed = [("hier_cull", "hier_cull", calls["bvh"]["hier_cull"][0],
               (None, "plain on the same arguments"),
@@ -1342,7 +1368,6 @@ def stream_phase(card, K, Renderer, drive, record, check, results, errs,
         p1 = time_ms(run_plain, 1)
         k1 = time_ms(run_kernel, 10)
         k2 = time_ms(run_kernel, 10)
-        p2 = time_ms(run_plain, 1)
         outs = flat(name, run_kernel())
         moved, ops = kernel_work(name, args, kw, outs)
         bound_ms, bound_by = bound(moved, ops)
@@ -1350,7 +1375,7 @@ def stream_phase(card, K, Renderer, drive, record, check, results, errs,
         ms = (k1 + k2) / 2
         if key == name:
             results[name] = dict(max_abs_err=errs[name], ms=ms,
-                                 plain_ms=(p1 + p2) / 2, bound_ms=bound_ms,
+                                 plain_ms=p1, bound_ms=bound_ms,
                                  bound_by=bound_by)
         note = ""
         if name != "hier_cull":
@@ -1370,11 +1395,280 @@ def stream_phase(card, K, Renderer, drive, record, check, results, errs,
             note += (f"; the heaviest batch alone {tail_ms[1]:.4f} ms of "
                      f"{tail_ms[0]:.4f}")
         say(f"[timing] {card}: {key} {ms:.4f} ms (kernel, {k1:.4f} / "
-            f"{k2:.4f}) vs {(p1 + p2) / 2:.4f} ms ({where}) at "
+            f"{k2:.4f}) vs {p1:.4f} ms ({where}) at "
             f"{at}'s arguments; bound {bound_ms:.4f} ms by {bound_by} "
             f"({moved} bytes, {ops} FP32 operations), "
             f"{100 * bound_ms / ms:.1f}% of it; {unfused_ms:.4f} ms at the "
             f"unfused issue rate, {100 * unfused_ms / ms:.1f}% of it{note}")
+    return data
+
+
+def oracle_phase(card, K, Renderer, frame, say):
+    """Phase 8: Renderer(backend="oracle") on the smoke scene at 1080p
+    with shadows (1 warm-up, ORACLE_FRAMES timed frames, CUDA events;
+    peak device memory), its frame held at the frame bar against the
+    fused and the split frame at the same camera."""
+    import torch
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ro = Renderer(smoke_config(), backend="oracle", device="cuda")
+    if ro.backend != "oracle" or ro.variant_chosen is not None:
+        raise AssertionError("backend='oracle' did not take the oracle")
+    K.reset_launch_counts()
+    times = []
+    for i in range(1 + ORACLE_FRAMES):
+        color, depth = ro.render(block=True)
+        if i >= 1:
+            times.append(ro.last_frame_ms)
+    launched = {k: v for k, v in K.launch_counts().items() if v}
+    peak = torch.cuda.max_memory_allocated()
+    if launched or tuple(color.shape) != (HEIGHT, WIDTH, 3) or \
+            not bool(torch.isfinite(color).all()):
+        raise AssertionError(f"oracle frame: bad frame or kernels launched "
+                             f"{launched}")
+    say(f"[timing] {card}: oracle-1080p-terrain91 (Renderer(backend="
+        f"'oracle'), {WIDTH}x{HEIGHT} shadowed, {ro.data.num_faces} faces "
+        f"brute force): {', '.join(f'{t:.1f}' for t in times)} ms per "
+        f"frame over {ORACLE_FRAMES} frames after 1 warm-up (CUDA events), "
+        f"mean {float(np.mean(times)):.1f}; peak device memory "
+        f"{peak / 2.0 ** 30:.3f} GiB (max_memory_allocated, every resident "
+        f"scene included); no kernel of the package launched; a spec, no "
+        f"yardstick")
+    uni = ro.camera.uniforms().flat()
+    for variant, fused in (("fused", True), ("split", False)):
+        kc, kd = frame(ro.data, uni, K.KERNELS, fused)
+        dmax, exact, bitwise = frame_bar(color, kc)
+        say(f"[frame] oracle vs {variant} frame at {WIDTH}x{HEIGHT}: "
+            f"{int((color != kc).sum())} of {color.numel()} quantized "
+            f"subpixels differ, max linear u8 delta {dmax}, exact "
+            f"{exact:.6f}, bitwise {bitwise}; depth differs at "
+            f"{int((depth != kd).sum())} pixels, max_abs_err "
+            f"{max_abs_err(depth, kd)!r} (the frames' rays are d * (1/|d|), "
+            f"the oracle's d / |d|, as in the JAX package)")
+        if dmax > 1 or exact < 0.999:
+            raise AssertionError(f"the {variant} frame disagrees with the "
+                                 f"oracle")
+    say(f"[frame] oracle: mean colour {float(color.mean()):.5f}, "
+        f"{float((depth < 1).float().mean()):.4f} of pixels hit")
+
+
+def mip_config(nm: bool, far: bool = False):
+    """The nm heightfield (write_nm_assets) with mip sampling: split,
+    shadows, normal mapping on or off; far: the camera MIP_FAR_EYE."""
+    import dataclasses as dc
+
+    from rust_wgpu_raytracing_tpu_torch.config import CameraConfig
+
+    cfg = nm_config(shadows=True)
+    cam = (CameraConfig(eye=MIP_FAR_EYE, target=MIP_FAR_TARGET) if far
+           else cfg.camera)
+    return dc.replace(cfg, meshes=(dc.replace(cfg.meshes[0],
+                                              normal_mapping=nm),),
+                      camera=cam, render=dc.replace(cfg.render, mip=True))
+
+
+def mip_lods(data, uni):
+    """(R_hit,) the ray-cone LOD of the hit pixels of a 1080p frame, as
+    the mip frame computes it (ops/miptex.py ray_cone_lod on the split
+    frame's tiled rays and G-buffer)."""
+    import torch
+
+    from rust_wgpu_raytracing_tpu_torch.core.camera import CameraUniforms
+    from rust_wgpu_raytracing_tpu_torch.ops.megakernel import (
+        _pick_tile_shape, gbuffer, raygen_planar_tiled)
+    from rust_wgpu_raytracing_tpu_torch.ops.miptex import ray_cone_lod
+
+    u = CameraUniforms.unflat(np.asarray(uni, np.float32))
+    tile_h, tile_w, render_h = _pick_tile_shape(WIDTH, HEIGHT)
+    dx, dy, dz = raygen_planar_tiled(WIDTH, render_h, u, device="cuda",
+                                     total_height=HEIGHT, tile_h=tile_h,
+                                     tile_w=tile_w)
+    origin = torch.tensor(u.origin, dtype=torch.float32, device="cuda")
+    gb, _ = gbuffer(data, origin, dx, dy, dz)
+    lod = ray_cone_lod(data, gb, dx, dy, dz, tile_w)
+    return lod[torch.isfinite(gb.t)]
+
+
+def mip_phase(card, K, Renderer, drive, record, path_launches, say):
+    """Phase 9: mip-1080p-heightfield91 through the Renderer (split,
+    shadows, normal mapping on and off; WARMUP + FRAMES frames, orbit key
+    held): launch counts (K6 twice a frame, three times with normal
+    mapping; no K2, no K4), median ms; each frame through K6 bitwise the
+    frame composed with texfilter_plain on the card, at the dense view
+    and at a far view whose LOD exceeds 1 on most hit pixels (mean LOD
+    printed); K6's time beside its plain version and bound at the mip
+    frame's first tap."""
+    import torch
+
+    from rust_wgpu_raytracing_tpu_torch.core.camera import Camera
+    from rust_wgpu_raytracing_tpu_torch.ops.megakernel import \
+        render_megakernel
+
+    plain_k6 = K.KERNELS._replace(texfilter=K.PLAIN.texfilter)
+    for nm in (True, False):
+        rv = Renderer(mip_config(nm), device="cuda")
+        if rv.variant_chosen != "split":
+            raise AssertionError("mip must render split")
+        times, launches, color, _ = drive(
+            f"mip, normal mapping {nm}", rv,
+            ("closest_hit", "texfilter", "anyhit"), ("frame", "texshade"))
+        path_launches[f"mip_nm{int(nm)}"] = launches
+        per = launches["texfilter"] / (WARMUP + FRAMES)
+        if per != (3 if nm else 2):
+            raise AssertionError(f"mip: {per} K6 launches a frame")
+        med = times[len(times) // 2]
+        say(f"[timing] {card}: mip-1080p-heightfield91 (mip, split, shadows, "
+            f"normal mapping {nm}): median {med:.3f} ms/frame over {FRAMES} "
+            f"frames after {WARMUP} warm-up (CUDA events; min {times[0]:.3f}"
+            f", max {times[-1]:.3f}), {WIDTH * HEIGHT / (med * 1e-3) / 1e6:.1f}"
+            f" Mrays/s; K6 launches {per:g} a frame")
+        views = [("the Renderer's last", rv.camera.uniforms().flat()),
+                 ("the far", Camera.from_config(mip_config(nm, far=True).camera,
+                                                WIDTH / HEIGHT).uniforms().flat())]
+        for view, uni in views:
+            a, _ = render_megakernel(
+                rv.data, uni, width=WIDTH, height=HEIGHT, shadows=True,
+                normal_mapping=nm, mip=True, kernels=K.KERNELS)
+            b, _ = render_megakernel(
+                rv.data, uni, width=WIDTH, height=HEIGHT, shadows=True,
+                normal_mapping=nm, mip=True, kernels=plain_k6)
+            lod = mip_lods(rv.data, uni)
+            say(f"[frame] mip, normal mapping {nm}, {view} view: through K6 "
+                f"vs composed with texfilter_plain: bitwise "
+                f"{bool(torch.equal(a, b))}; {lod.numel()} hit pixels, mean "
+                f"LOD {float(lod.mean()):.3f}, LOD > 1 on "
+                f"{float((lod > 1).float().mean()):.4f} of them")
+            if not torch.equal(a, b):
+                raise AssertionError("the mip frame through K6 differs from "
+                                     "its texfilter_plain twin")
+            if view == "the far" and float((lod > 1).float().mean()) <= 0.5:
+                raise AssertionError("the far view does not reach level 1")
+    # K6 at the mip frame's first pyramid tap (normal mapping off)
+    calls = record(lambda ks: render_megakernel(
+        rv.data, rv.camera.uniforms().flat(), width=WIDTH, height=HEIGHT,
+        shadows=True, mip=True, kernels=ks))
+    args, kw = calls["texfilter"][0]
+    wrapper, plain = K.KERNELS.texfilter, K.PLAIN.texfilter
+    p1 = time_ms(lambda: plain(*args, **kw), 2)
+    k1 = time_ms(lambda: wrapper(*args, **kw), 20)
+    k2 = time_ms(lambda: wrapper(*args, **kw), 20)
+    p2 = time_ms(lambda: plain(*args, **kw), 2)
+    ms = (k1 + k2) / 2
+    moved, ops = kernel_work("texfilter", args, kw, wrapper(*args, **kw))
+    bound_ms, bound_by = bound(moved, ops)
+    say(f"[timing] {card}: texfilter {ms:.4f} ms (kernel, {k1:.4f} / "
+        f"{k2:.4f}) vs {(p1 + p2) / 2:.4f} ms (plain PyTorch) at the mip "
+        f"frame's first pyramid tap ({args[0].shape[1]} rays); bound "
+        f"{bound_ms:.4f} ms by {bound_by} ({moved} bytes, {ops} FP32 "
+        f"operations), {100 * bound_ms / ms:.1f}% of it")
+
+
+def lbvh_phase(card, data, say):
+    """Phase 10: the LBVH on the streamed scene (the bvh frame's scene):
+    the host build of bench_configs.py config 9 (cluster-centre Morton
+    codes, build_lbvh + linearize_bvh, best of 3, host clock); on the card
+    bvh_walk_mask_words over the scene's bvh_pack at the tiles of the
+    cell's 1080p frame (its configured camera), a superset of the flat
+    scan's words (CUDA events, the call's host checks included); and on
+    builtin:terrain:23 at 128x128 its words equal to the flat scan's (the
+    JAX package's tests/test_accel.py)."""
+    import torch
+
+    from rust_wgpu_raytracing_tpu_torch.config import (CameraConfig,
+                                                       MeshConfig,
+                                                       RenderConfig,
+                                                       SceneConfig)
+    from rust_wgpu_raytracing_tpu_torch.core.camera import Camera
+    from rust_wgpu_raytracing_tpu_torch.core.scene import Scene
+    from rust_wgpu_raytracing_tpu_torch.ops.bvh import (build_lbvh,
+                                                       linearize_bvh,
+                                                       morton3d)
+    from rust_wgpu_raytracing_tpu_torch.ops.megakernel import (
+        _mask_words, _pick_tile_shape, raygen_planar, raygen_planar_tiled)
+    from rust_wgpu_raytracing_tpu_torch.ops.traverse import (
+        WALK_CHECK_STEPS, bvh_walk_mask_words, tile_ray_bounds)
+
+    lo = data.blk_lo.cpu().numpy()
+    hi = data.blk_hi.cpu().numpy()
+    fin = np.isfinite(lo).all(1) & np.isfinite(hi).all(1)
+    lo, hi = lo[fin], hi[fin]
+    codes = morton3d((lo + hi) * 0.5)
+    order = np.argsort(codes, kind="stable")
+    codes, lo, hi = codes[order], lo[order].copy(), hi[order].copy()
+    runs = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        tree = build_lbvh(codes, lo, hi)
+        t1 = time.perf_counter()
+        pack = linearize_bvh(tree)
+        runs.append((t1 - t0, time.perf_counter() - t1))
+    b, l = min(runs, key=sum)
+    say(f"[lbvh] {card}: host build of {len(codes)} cluster leaves "
+        f"(terrain:{STREAM_GRID}, {data.num_faces} faces; bench_configs.py "
+        f"config 9's leaves): build_lbvh + linearize_bvh "
+        f"{(b + l) * 1e3:.2f} ms (build {b * 1e3:.2f}, linearize "
+        f"{l * 1e3:.2f}; best of 3, host clock: NumPy on the card machine's "
+        f"CPU, not the card), pack {pack.shape}; the scene's own bvh_pack "
+        f"{tuple(data.bvh_pack.shape)}, {data.bvh_nodes} nodes")
+
+    def words_of(d, u, width, height, tiled):
+        """(walk words, flat-scan words), (T, nwords) each, and the walk's
+        ms (CUDA events around the call after a warm-up call)."""
+        if tiled:
+            tile_h, tile_w, render_h = _pick_tile_shape(width, height)
+            dx, dy, dz = raygen_planar_tiled(
+                width, render_h, u, device="cuda", total_height=height,
+                tile_h=tile_h, tile_w=tile_w)
+        else:
+            dx, dy, dz = raygen_planar(width, height, u, device="cuda")
+        o = torch.tensor(u.origin, dtype=torch.float32, device="cuda")
+        f = d.padded_faces
+        nb = d.blk_lo.shape[0]
+        flat, nwords = _mask_words(d, "cull", o[0], o[1], o[2], dx, dy, dz,
+                                   1024, f // nb, f)
+        bounds = tile_ray_bounds(o[0], o[1], o[2], dx, dy, dz, 1024)
+        bvh_walk_mask_words(d.bvh_pack, d.bvh_nodes, *bounds, nwords)
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        walk = bvh_walk_mask_words(d.bvh_pack, d.bvh_nodes, *bounds, nwords)
+        end.record()
+        end.synchronize()
+        return walk, flat.view(-1, nwords), start.elapsed_time(end)
+
+    def bits(w):
+        return int(((w.to(torch.int64)[..., None] >> torch.arange(
+            32, device=w.device)) & 1).sum())
+
+    walk, flat, ms = words_of(data, Camera.from_config(
+        stream_config().camera, WIDTH / HEIGHT).uniforms(), WIDTH, HEIGHT,
+        True)
+    missing = int(((flat & ~walk) != 0).sum())
+    say(f"[lbvh] {card}: bvh_walk_mask_words on the card at the "
+        f"stream-1080p-terrain512 frame's {walk.shape[0]} tiles: "
+        f"{ms:.3f} ms (CUDA events around the call, its host check every "
+        f"{WALK_CHECK_STEPS} steps included); admitted clusters walk "
+        f"{bits(walk)}, flat scan {bits(flat)}; a superset of the flat "
+        f"scan's words: {missing == 0} ({missing} words miss flat bits); "
+        f"words equal {bool(torch.equal(walk, flat))}")
+    if missing:
+        raise AssertionError("the LBVH walk misses flat-scan bits")
+    cfg = SceneConfig(
+        meshes=(MeshConfig(obj_path="builtin:terrain:23",
+                           translation=(0.0, 0.0, -3.0)),),
+        camera=CameraConfig(eye=(0.0, -2.0, -1.0), target=(0.0, 0.0, -3.2)),
+        render=RenderConfig(width=128, height=128))
+    small = Scene.build(cfg).data.to("cuda")
+    walk, flat, ms = words_of(small, Camera.from_config(
+        cfg.camera, 1.0).uniforms(), 128, 128, False)
+    same = bool(torch.equal(walk, flat))
+    say(f"[lbvh] terrain:23 128x128 (tests/test_accel.py's case): walk "
+        f"words equal to the flat scan's {same} ({bits(walk)} clusters "
+        f"admitted; {ms:.3f} ms)")
+    if not same:
+        raise AssertionError("the LBVH walk differs from the flat scan")
 
 
 def main() -> int:
@@ -2132,8 +2426,18 @@ def main() -> int:
 
     # --- 7. streaming scale -----------------------------------------------
     del timed, orbit_args  # the streamed cells' peak memory is their own
-    stream_phase(card, K, Renderer, drive, record, check, results, errs,
-                 path_launches, flat, say)
+    stream_data = stream_phase(card, K, Renderer, drive, record, check,
+                               results, errs, path_launches, flat, say)
+
+    # --- 8. the oracle ----------------------------------------------------
+    oracle_phase(card, K, Renderer, frame, say)
+
+    # --- 9. mip sampling --------------------------------------------------
+    mip_phase(card, K, Renderer, drive, record, path_launches, say)
+
+    # --- 10. the LBVH build and its walk ----------------------------------
+    lbvh_phase(card, stream_data, say)
+    del stream_data
 
     # each kernel's launches from the first path run that uses it
     launches = {}

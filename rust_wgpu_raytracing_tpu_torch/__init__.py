@@ -4,11 +4,13 @@ A port of the JAX/Pallas package `rust_wgpu_raytracing_tpu` (which stays
 in the repository as the reference) to PyTorch, with the frame's kernels
 hand-written in CUDA C++ for Hopper (csrc/). It renders spheres plus
 one triangle soup: the fused and the split frame (Blinn-Phong shading
-with textures, normal mapping, hard shadows, accel "brute", "cull" or
-"bvh") and the progressive path tracer (RenderConfig.pt_bounces > 0);
-meshes above STREAM_FACES faces take the streamed sweeps. What is not
-ported yet (mip sampling, the oracle, instancing, several cards)
-raises NotImplementedError and is listed in ROADMAP.md.
+with textures, normal mapping, mip sampling, hard shadows, accel
+"brute", "cull" or "bvh") and the progressive path tracer
+(RenderConfig.pt_bounces > 0); meshes above STREAM_FACES faces take the
+streamed sweeps. Renderer(backend="oracle") draws through the
+brute-force oracle (ops/oracle.py), the executable spec. What is not
+ported yet (instancing, several cards) raises NotImplementedError and
+is listed in ROADMAP.md.
 
 The host modules (config, camera, controllers, OBJ/MTL import, scene
 assembly) are copies of the JAX package's, because importing any module

@@ -5,7 +5,8 @@
 
 Scene selection: --scene reference|cube|<config.json> (the JSON schema
 is SceneConfig.to_json; render.pt_bounces > 0 in it path-traces, one
-sample per frame up to render.pt_spp). The loop is a plain update(); render() per
+sample per frame up to render.pt_spp; render.mip samples the texture
+pyramid). --backend oracle draws through the brute-force oracle. The loop is a plain update(); render() per
 frame; the window and server shells are later slices (ROADMAP.md).
 """
 
@@ -35,6 +36,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="number of frames to render")
     p.add_argument("--out", default=None,
                    help="PNG path for the final frame")
+    p.add_argument("--backend", default="megakernel",
+                   choices=("megakernel", "oracle"),
+                   help="frame backend: the kernels' frame programs "
+                        "(default) or the brute-force oracle")
     p.add_argument("--accel", default=None, choices=("brute", "cull", "bvh"))
     p.add_argument("--variant", default=None,
                    choices=("split", "fused", "auto"),
@@ -71,7 +76,7 @@ def main(argv=None) -> int:
 
     from .runtime.renderer import Renderer
 
-    renderer = Renderer(cfg, device=args.device)
+    renderer = Renderer(cfg, backend=args.backend, device=args.device)
     for i in range(args.frames):
         renderer.update()
         renderer.render(block=i == args.frames - 1)

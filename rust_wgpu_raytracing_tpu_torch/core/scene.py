@@ -30,11 +30,20 @@ The streaming record `spack` (meshes above STREAM_FACES) is built on the
 host as the JAX package builds it; the streamed sweep kernels read its
 plane columns and plane constants (ops/megakernel.py).
 
-Not carried over from the JAX SceneData (their consumers are later
-slices, see ROADMAP.md): the LBVH pack (the JAX package's tests and its
-skip-pointer walk use it; accel="bvh" renders through the two-level
-cut, ops/hier_cull.py), the mip pyramid, the f32 texture stack (the
-oracle) and the unused material columns.
+The oracle (ops/oracle.py) reads the f32 texture stack `textures` with
+its true sizes `tex_hw`, the diffuse texture index `mat_tex` and the
+face mask `tri_valid`. Mip sampling (ops/miptex.py, RenderConfig.mip)
+reads a third pool of the same layout, `tex_mips`, holding each diffuse
+texture's box-filtered pyramid (level 0 included, so the parity pool
+stays as it is), its per-(material, level) tables and the per-face uv
+density `tri_uvscale`. `bvh_pack` is the LBVH over the real cluster
+leaves in skip-pointer order (ops/bvh.py linearize_bvh); the walk over
+it is ops/traverse.py bvh_walk_mask_words, which no render path runs:
+accel="bvh" renders through the two-level cut (ops/hier_cull.py), as in
+the JAX package.
+
+Not carried over from the JAX SceneData: the material columns no
+shading reads (mat_diffuse, mat_shininess).
 """
 
 from __future__ import annotations
@@ -121,6 +130,37 @@ def _stream_pack_np(padded: int, n, d, g, c, inv_denom, uv3, vn3,
     return pack
 
 
+def _face_uvscale(n: np.ndarray, uv3: np.ndarray) -> np.ndarray:
+    """(F,) uv-per-world-unit density sqrt(uv_area / world_area): the
+    per-face static factor of the ray-cone mip footprint (ops/miptex.py).
+    n = unnormalized geometric normal (|n| = 2 * world area); uv areas
+    from the 2D cross of the uv edge deltas. Degenerate faces -> 0."""
+    duv1 = uv3[:, 1] - uv3[:, 0]
+    duv2 = uv3[:, 2] - uv3[:, 0]
+    det = np.abs(duv1[:, 0] * duv2[:, 1] - duv1[:, 1] * duv2[:, 0])
+    nlen = np.linalg.norm(n, axis=1)
+    return np.sqrt(np.where(nlen > 1e-30, det / np.maximum(nlen, 1e-30),
+                            0.0)).astype(np.float32)
+
+
+def _mip_chain(img: np.ndarray):
+    """Linear-light box-filter pyramid [level0, level1, ...] down to
+    1x1. Odd sizes edge-replicate one row/col before the 2x2 mean
+    (clamp-to-edge-consistent)."""
+    levels = [img.astype(np.float32)]
+    cur = levels[0]
+    while cur.shape[0] > 1 or cur.shape[1] > 1:
+        if cur.shape[0] % 2:
+            cur = np.concatenate([cur, cur[-1:]], axis=0)
+        if cur.shape[1] % 2:
+            cur = np.concatenate([cur, cur[:, -1:]], axis=1)
+        h2, w2 = cur.shape[0] // 2, cur.shape[1] // 2
+        cur = cur.reshape(h2, 2, w2, 2, 3).mean(axis=(1, 3),
+                                                dtype=np.float32)
+        levels.append(cur)
+    return levels
+
+
 def _gpack_sources_np(padded: int, n, g, c, inv_denom, uv3, vn3,
                       face_mat, tangent, bitangent) -> np.ndarray:
     """(GPACK_ROWS, padded) winner-attribute table from the planar
@@ -170,6 +210,7 @@ class SceneData:
     tri_uv: torch.Tensor  # (F,3,2) f32 per-corner uvs
     tri_vn: torch.Tensor  # (F,3,3) f32 per-corner shading normals
     tri_mat: torch.Tensor  # (F,) i32 material id
+    tri_valid: torch.Tensor  # (F,) f32 1.0 for real faces, 0.0 for padding
     tri_orig: torch.Tensor  # (F,) i32 original (pre-Morton-sort) face index
     tri_tangent: torch.Tensor  # (F,3) f32 per-face tangent (uv-aligned)
     tri_bitangent: torch.Tensor  # (F,3) f32
@@ -177,11 +218,19 @@ class SceneData:
     # --- acceleration (Morton clusters; ops/bvh.py) ---
     blk_lo: torch.Tensor  # (F/cluster, 3) f32 cluster AABB min
     blk_hi: torch.Tensor  # (F/cluster, 3) f32 cluster AABB max
+    # LBVH over the real cluster leaves, DFS order with skip pointers
+    # (ops/bvh.py linearize_bvh); (9, 1) zeros for a meshless scene
+    bvh_pack: torch.Tensor  # (9, M) f32
 
     # --- materials ---
     mat_ambient: torch.Tensor  # (M,3) f32
     mat_specular: torch.Tensor  # (M,3) f32
     mat_light: torch.Tensor  # (M,3) f32 light dir for faces of this material
+    mat_tex: torch.Tensor  # (M,) i32 diffuse texture index into `textures`
+
+    # --- the f32 texture stack (the oracle), padded to a common size ---
+    textures: torch.Tensor  # (T, TH, TW, 3) f32 linear
+    tex_hw: torch.Tensor  # (T, 2) i32 true (h, w) per texture
 
     # --- diffuse texel pool (see module docstring) ---
     tex_packed: torch.Tensor  # (12, N) int16 holding u16 bits
@@ -196,6 +245,14 @@ class SceneData:
     mat_bump_h: torch.Tensor  # (M,) f32
     mat_bump_w: torch.Tensor  # (M,) f32
 
+    # --- mip pyramid pool (RenderConfig.mip), same layout; tables are
+    # (M, L), rows padded by repeating the texture's last level ---
+    tex_mips: torch.Tensor  # (12, Nm) int16 holding u16 bits
+    mat_mip_base: torch.Tensor  # (M, L) i32 texel offset per level
+    mat_mip_h: torch.Tensor  # (M, L) f32
+    mat_mip_w: torch.Tensor  # (M, L) f32
+    tri_uvscale: torch.Tensor  # (F,) f32 sqrt(uv area / world area)
+
     # (GPACK_ROWS, F) f32 winner-attribute table
     gpack: torch.Tensor
 
@@ -205,6 +262,9 @@ class SceneData:
 
     num_faces: int = 0
     num_spheres: int = 0
+    bvh_nodes: int = 0  # nodes of bvh_pack's tree, 0 without a mesh
+    # pyramid levels (level 0 included) in the mip tables
+    mip_levels: int = 0
 
     @property
     def padded_faces(self) -> int:
@@ -220,9 +280,12 @@ class SceneData:
             self, **{k: v.to(device) for k, v in self.tensors().items()})
 
 
+STATIC_FIELDS = ("num_faces", "num_spheres", "bvh_nodes", "mip_levels")
+
+
 def _tensor_fields() -> List[str]:
     return [f.name for f in dataclasses.fields(SceneData)
-            if f.name not in ("num_faces", "num_spheres")]
+            if f.name not in STATIC_FIELDS]
 
 
 def scene_data_from_numpy(fields: Dict[str, np.ndarray],
@@ -231,7 +294,7 @@ def scene_data_from_numpy(fields: Dict[str, np.ndarray],
     bridge that carries the JAX package's SceneData (each field through
     np.asarray) into the port. Fields the port does not use are
     ignored; u16 texel pools keep their bits as int16. `static` holds
-    num_faces and num_spheres."""
+    the STATIC_FIELDS (num_faces, num_spheres, bvh_nodes, mip_levels)."""
     out = {}
     for name in _tensor_fields():
         a = np.asarray(fields[name])
@@ -375,7 +438,8 @@ class Scene:
             # Morton-sort faces by centroid so fixed-size clusters are
             # spatially compact (ops/bvh.py). Stable sort: equal codes
             # keep buffer order.
-            from ..ops.bvh import cluster_aabbs, morton_order
+            from ..ops.bvh import (build_lbvh, cluster_aabbs, linearize_bvh,
+                                   morton3d, morton_order)
 
             order = morton_order(positions[faces[:, 0]],
                                  positions[faces[:, 1]],
@@ -386,6 +450,7 @@ class Scene:
 
             (p0, n, d, g, c, inv_denom, uv3, vn3, tangent,
              bitangent) = _precompute_faces(positions, uvs, normals, faces)
+            uvscale = _face_uvscale(n, uv3)
             cull = (SMALL_CULL_BLOCK if num_faces <= SMALL_CLUSTER_FACES
                     else CULL_BLOCK)
             blk_lo, blk_hi = cluster_aabbs(
@@ -393,6 +458,18 @@ class Scene:
                 _pad_rows(positions[faces[:, 1]], padded),
                 _pad_rows(positions[faces[:, 2]], padded),
                 cull, num_faces)
+            # LBVH over the real cluster leaves; the leaf keys are the
+            # sorted face codes at the cluster starts (non-decreasing, as
+            # the Karras build requires)
+            n_real_clusters = -(-num_faces // cull)
+            codes_sorted = morton3d((positions[faces[:, 0]]
+                                     + positions[faces[:, 1]]
+                                     + positions[faces[:, 2]]) / 3.0)
+            bvh = build_lbvh(codes_sorted[np.arange(n_real_clusters) * cull],
+                             blk_lo[:n_real_clusters].copy(),
+                             blk_hi[:n_real_clusters].copy())
+            bvh_pack = linearize_bvh(bvh)
+            bvh_nodes = 2 * n_real_clusters - 1
             gpack_np = _gpack_sources_np(padded, n, g, c, inv_denom,
                                          uv3, vn3, face_mat,
                                          tangent, bitangent)
@@ -413,10 +490,13 @@ class Scene:
             vn3 = np.zeros((0, 3, 3), np.float32)
             tangent = np.zeros((0, 3), np.float32)
             bitangent = np.zeros((0, 3), np.float32)
+            uvscale = np.zeros((0,), np.float32)
             orig_ids = np.zeros((0,), np.int32)
             nb = padded // CULL_BLOCK
             blk_lo = np.full((nb, 3), np.inf, np.float32)
             blk_hi = np.full((nb, 3), -np.inf, np.float32)
+            bvh_pack = np.zeros((9, 1), np.float32)
+            bvh_nodes = 0
             gpack_np = np.zeros((GPACK_ROWS, 0), np.float32)
             spack_np = np.zeros((0, STREAM_COLS), np.float32)
 
@@ -449,6 +529,13 @@ class Scene:
                     lambda p=path: load_texture_file(p, srgb=False)))
             else:
                 mat_bump.append(-1)
+        th = max(t.height for t in textures)
+        tw = max(t.width for t in textures)
+        tex_stack = np.zeros((len(textures), th, tw, 3), np.float32)
+        tex_hw = np.zeros((len(textures), 2), np.int32)
+        for i, t in enumerate(textures):
+            tex_stack[i, : t.height, : t.width] = t.rgb_linear
+            tex_hw[i] = (t.height, t.width)
 
         def build_pool(tex_ids):
             base = {}
@@ -463,9 +550,36 @@ class Scene:
                     else np.zeros((1, 12), np.uint16))
             return np.ascontiguousarray(pool.T), base
 
-        pool_d, base_d = build_pool(sorted(set(mat_tex)))
+        diffuse_ids = sorted(set(mat_tex))
+        pool_d, base_d = build_pool(diffuse_ids)
         pool_b, base_b = build_pool(sorted(set(b for b in mat_bump
                                                if b >= 0)))
+
+        # ---- the mip pyramid pool: every diffuse texture's chain, level
+        # 0 included; tables padded with the texture's last level ----
+        mip_chains = {t_id: _mip_chain(textures[t_id].rgb_linear)
+                      for t_id in diffuse_ids}
+        mip_levels = max((len(c) for c in mip_chains.values()), default=0)
+        mip_base: dict = {}
+        mip_chunks = []
+        moff = 0
+        for t_id in diffuse_ids:
+            for lv, img in enumerate(mip_chains[t_id]):
+                mip_base[(t_id, lv)] = (moff, img.shape[0], img.shape[1])
+                mip_chunks.append(_pack_neighborhoods(img))
+                moff += img.shape[0] * img.shape[1]
+        mip_pool = (np.ascontiguousarray(
+            np.concatenate(mip_chunks, axis=0).T) if mip_chunks
+            else np.zeros((12, 1), np.uint16))
+        n_lv = max(mip_levels, 1)
+        m_mip_base = np.zeros((len(materials), n_lv), np.int32)
+        m_mip_h = np.ones((len(materials), n_lv), np.float32)
+        m_mip_w = np.ones((len(materials), n_lv), np.float32)
+        for mi, t_id in enumerate(mat_tex):
+            last = len(mip_chains[t_id]) - 1
+            for lv in range(n_lv):
+                m_mip_base[mi, lv], m_mip_h[mi, lv], m_mip_w[mi, lv] = \
+                    mip_base[(t_id, min(lv, last))]
 
         # i32 base offsets: exact at any pool size (f32 loses integers
         # past 2^24 texels — see ops/megakernel.py _mat_const)
@@ -497,16 +611,22 @@ class Scene:
             tri_uv=tens(_pad_rows(uv3.astype(np.float32), padded)),
             tri_vn=tens(_pad_rows(vn3.astype(np.float32), padded)),
             tri_mat=tens(_pad_rows(face_mat, padded)),
+            tri_valid=tens(_pad_rows(np.ones((num_faces,), np.float32),
+                                     padded)),
             tri_orig=tens(_pad_rows(orig_ids, padded)),
             tri_tangent=tens(_pad_rows(tangent, padded)),
             tri_bitangent=tens(_pad_rows(bitangent, padded)),
             blk_lo=tens(blk_lo),
             blk_hi=tens(blk_hi),
+            bvh_pack=tens(bvh_pack),
             mat_ambient=tens(
                 np.array([m.ambient for m in materials], np.float32)),
             mat_specular=tens(
                 np.array([m.specular for m in materials], np.float32)),
             mat_light=tens(np.array(mat_light, np.float32).reshape(-1, 3)),
+            mat_tex=tens(np.array(mat_tex, np.int32)),
+            textures=tens(tex_stack),
+            tex_hw=tens(tex_hw),
             tex_packed=tens(pool_d.view(np.int16)),
             mat_tex_base=tens(m_tex_base),
             mat_tex_h=tens(m_tex_h),
@@ -516,9 +636,16 @@ class Scene:
             mat_bump_base=tens(m_bump_base),
             mat_bump_h=tens(m_bump_h),
             mat_bump_w=tens(m_bump_w),
+            tex_mips=tens(mip_pool.view(np.int16)),
+            mat_mip_base=tens(m_mip_base),
+            mat_mip_h=tens(m_mip_h),
+            mat_mip_w=tens(m_mip_w),
+            tri_uvscale=tens(_pad_rows(uvscale, padded)),
             gpack=tens(gpack_np),
             spack=tens(spack_np),
             num_faces=num_faces,
             num_spheres=len(spheres),
+            bvh_nodes=bvh_nodes,
+            mip_levels=mip_levels,
         )
         return Scene(config=config, data=data, mesh_names=mesh_names)

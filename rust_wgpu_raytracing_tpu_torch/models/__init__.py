@@ -1,1 +1,2 @@
-"""Primitive models: analytic spheres and triangle lists."""
+"""Primitive models: analytic spheres, triangle lists and the single
+triangle (dead code in the reference, kept for API completeness)."""

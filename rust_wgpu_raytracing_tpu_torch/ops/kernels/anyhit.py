@@ -22,12 +22,11 @@ from __future__ import annotations
 
 import torch
 
+from ..intersect import K_EPSILON
 from . import common
 from .build import check, library
 from .common import (TILE_R, admitted_tiles, block_rows, box_args,
                      is_cuda_call, open_boxes, ptr, require, stream_ptr)
-
-K_EPSILON = 1e-6
 
 
 def _check(tlb, order, planes, fpack, dc, block_f):

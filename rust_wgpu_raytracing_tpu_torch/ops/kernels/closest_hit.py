@@ -27,6 +27,7 @@ from __future__ import annotations
 import torch
 
 from ..composite import depth_constants
+from ..intersect import K_EPSILON
 from ..rounding import sqrt
 from . import common
 from .build import check, library
@@ -34,7 +35,6 @@ from .common import (INT_MAX, TILE_R, admitted_tiles, block_rows, box_args,
                      is_cuda_call, open_boxes, ptr, require, stream_ptr)
 
 F32_INF = float("inf")
-K_EPSILON = 1e-6
 
 def _check(tlb, order, dx, dy, dz, texit, fpack, oterm, sph, block_f):
     n_tiles, nb = tlb.shape

@@ -39,8 +39,13 @@ Memory: JAX fuses the flat scan into one XLA loop; here its (tiles,
 clusters, 3) temporaries would take GBs at 1080p past 500k faces, so
 _mask_words scans a chunk of tiles at a time (the words are the same).
 
-Not ported here (see ROADMAP.md): mip sampling, row-slab sharding and
-gp staging, and the TPU measurement flags RT_PT_KREFINE (the top-K
+mip=True (RenderConfig.mip) shades the split frame's mesh pass from the
+texture pyramid (ops/miptex.py): a ray-cone LOD and two taps of the
+pyramid pool, each through the texture filter kernel K6, in place of
+the one-gather texshade kernel (K2); the fused frame does not take it.
+
+Not ported here (see ROADMAP.md): row-slab sharding and gp staging, and
+the TPU measurement flags RT_PT_KREFINE (the top-K
 cluster refinement of the streamed bounce mask), RT_AH_PERRAY and
 RT_TEX_ROW_GATHER (all off by default in JAX). The one-hot matrix-unit
 winner fetch of expand_tf_gbuffer is a TPU device that yields the same
@@ -74,8 +79,6 @@ BLOCK_F = 32
 STREAM_BATCH = 8
 # (tile, cluster) pairs per step of the flat scan (see module docstring)
 CULL_CHUNK_PAIRS = 1 << 22
-
-_ROADMAP = "not ported to the PyTorch/CUDA package yet; see ROADMAP.md"
 
 
 def _rcp(c) -> float:
@@ -1036,26 +1039,22 @@ def winner_occlusion(scene: SceneData, origin, dx, dy, dz, relevant, w_t,
     return occ | _spheres_occlude_planar(scene, px, py, pz, sdx, sdy, sdz)
 
 
-def check_supported(scene: SceneData, *, accel: str = "cull",
-                    mip: bool = False) -> None:
-    """Raise NotImplementedError for what this port does not render yet
-    (never silently render something else), ValueError for an unknown
-    accel."""
+def check_supported(scene: SceneData, *, accel: str = "cull") -> None:
+    """Raise ValueError for an unknown accel (every scene and every
+    other option renders)."""
     del scene  # every mesh size renders
-    if mip:
-        raise NotImplementedError(f"mip sampling is {_ROADMAP}")
     if accel not in ("brute", "cull", "bvh"):
         raise ValueError(f"unknown accel {accel!r}")
 
 
 def fused_eligible(scene: SceneData, *, shadows: bool,
-                   normal_mapping: bool) -> bool:
+                   normal_mapping: bool, mip: bool = False) -> bool:
     """Whether the fused frame can draw this scene (JAX
-    ops/megakernel.py:2747-2748): a mesh whose face pack stays on chip,
-    and not normal mapping with shadows (the shadow gate needs the
-    perturbed normal, which only the split frame has)."""
+    ops/megakernel.py:2747-2770): a mesh whose face pack stays on chip,
+    not normal mapping with shadows (the shadow gate needs the perturbed
+    normal, which only the split frame has) and no mip sampling."""
     return (scene.num_faces > 0 and scene.padded_faces <= STREAM_FACES
-            and not (normal_mapping and shadows))
+            and not (normal_mapping and shadows) and not mip)
 
 
 def render_megakernel(scene: SceneData, uni_flat, *, width: int, height: int,
@@ -1069,23 +1068,25 @@ def render_megakernel(scene: SceneData, uni_flat, *, width: int, height: int,
 
     fused=None picks the fused frame (ops/fusedframe.py) for every
     eligible scene and the split frame otherwise, as the JAX package
-    does; fused=True on an ineligible scene raises ValueError. The split
-    frame: planar raygen -> closest-hit kernel (spheres fused) ->
-    [normal mapping] -> one-gather texture shade kernel -> composite ->
-    shadow any-hit kernel, bit for bit the JAX package's
-    render_megakernel(fused=False) under the same rounding rules.
-    `kernels` selects the kernel implementations (PLAIN composes the
-    frame from the plain PyTorch versions)."""
-    check_supported(scene, accel=accel, mip=mip)
+    does; fused=True on an ineligible scene (mip included) raises
+    ValueError. The split frame: planar raygen -> closest-hit kernel
+    (spheres fused) -> [normal mapping] -> one-gather texture shade
+    kernel (with mip: the ray-cone LOD and two pyramid taps through the
+    texture filter kernel) -> composite -> shadow any-hit kernel, bit for
+    bit the JAX package's render_megakernel(fused=False) under the same
+    rounding rules. A scene without a mesh ignores mip. `kernels`
+    selects the kernel implementations (PLAIN composes the frame from
+    the plain PyTorch versions)."""
+    check_supported(scene, accel=accel)
     eligible = fused_eligible(scene, shadows=shadows,
-                              normal_mapping=normal_mapping)
+                              normal_mapping=normal_mapping, mip=mip)
     if fused is None:
         fused = eligible
     if fused:
         if not eligible:
             raise ValueError(
-                "the fused frame needs a mesh of at most STREAM_FACES faces "
-                "and no normal mapping with shadows; use fused=False")
+                "the fused frame needs a mesh of at most STREAM_FACES faces, "
+                "no normal mapping with shadows and no mip; use fused=False")
         from .fusedframe import render_frame_fused
 
         return render_frame_fused(
@@ -1240,11 +1241,25 @@ def render_megakernel(scene: SceneData, uni_flat, *, width: int, height: int,
         spc_g = _mat_const(scene, gb.mat, lambda k: scene.mat_specular[k, 1])
         spc_b = _mat_const(scene, gb.mat, lambda k: scene.mat_specular[k, 2])
 
-        taps, fxw, fyw = gather_packed_taps(scene.tex_packed, tex_base,
-                                            hw_h, hw_w, tex_u, tex_v)
-        pr, pg, pb = kernels.texshade(taps, fxw, fyw, lam, spec,
-                                      amb_r, amb_g, amb_b,
-                                      spc_r, spc_g, spc_b)
+        if mip and scene.mip_levels > 0:
+            # trilinear minification (JAX megakernel.py:2981-2995): two
+            # pyramid taps (K6 each) and the shade in plain ops, in place
+            # of the texshade kernel
+            from .miptex import ray_cone_lod, sample_mip_trilinear
+
+            row_w = shape[1] if shape is not None else width
+            lod = ray_cone_lod(scene, gb, dx, dy, dz, row_w)
+            tr, tg, tb = sample_mip_trilinear(scene, gb.mat, lod, tex_u,
+                                              tex_v, kernels=kernels)
+            pr = amb_r + tr * lam + spc_r * spec
+            pg = amb_g + tg * lam + spc_g * spec
+            pb = amb_b + tb * lam + spc_b * spec
+        else:
+            taps, fxw, fyw = gather_packed_taps(scene.tex_packed, tex_base,
+                                                hw_h, hw_w, tex_u, tex_v)
+            pr, pg, pb = kernels.texshade(taps, fxw, fyw, lam, spec,
+                                          amb_r, amb_g, amb_b,
+                                          spc_r, spc_g, spc_b)
         extra = None
         if shadows:
             extra = [amb_r, amb_g, amb_b, gb.t, nx, ny, nz,

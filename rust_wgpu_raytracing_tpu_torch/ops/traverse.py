@@ -5,9 +5,9 @@ exit, per-tile ray bounds, the per-ray superblock admission of the
 streamed bounce sweep). Every expression keeps the JAX operation order,
 so the masks and schedules are bit-identical to the JAX ones.
 accel="bvh" renders through the two-level LBVH cut (ops/hier_cull.py,
-the JAX package's traverse_pallas); the skip-pointer walk
-bvh_walk_mask_words, which no JAX render path runs, is not ported (see
-ROADMAP.md).
+the JAX package's traverse_pallas); the stackless skip-pointer walk over
+SceneData.bvh_pack, bvh_walk_mask_words, is here as in the JAX package,
+where no render path runs it either.
 """
 
 from __future__ import annotations
@@ -17,6 +17,9 @@ import torch
 F32_INF = float("inf")
 # (ray, superblock) pairs per step of perray_super_any
 SUPER_ANY_PAIRS = 1 << 24
+# steps of bvh_walk_mask_words between its checks for a live tile (each
+# check reads one flag on the host)
+WALK_CHECK_STEPS = 64
 
 
 def slab_interval_ok(a, b, dn, dp):
@@ -220,3 +223,42 @@ def perray_super_any(slo, shi, ox, oy, oz, dx, dy, dz, tile_r: int,
             ok = ok & act[:, None]
         cols.append(ok.reshape(n_tiles, tile_r, c1 - c0).any(dim=1))
     return torch.cat(cols, dim=1)
+
+
+def bvh_walk_mask_words(bvh_pack, n_nodes: int, omin, omax, dmin, dmax,
+                        nwords: int):
+    """Stackless skip-pointer LBVH walk -> packed cluster mask words (JAX
+    ops/traverse.py bvh_walk_mask_words).
+
+    bvh_pack: (9, M) f32 DFS node pack (ops/bvh.py linearize_bvh). Tile
+    bounds (T, 3) from tile_ray_bounds. Returns (T, nwords) i32, bit
+    c%32 of word c//32 set iff cluster c's leaf AABB passed the tile's
+    cone test. Every tile holds one pointer and steps in lockstep with
+    the others: one gather of the node, the slab test, the leaf's bit,
+    then hit_next or miss_next. JAX's loop tests for a live tile at
+    every step; here the test (a host read) comes every
+    WALK_CHECK_STEPS steps. Pointers only increase and a finished tile's
+    steps change nothing, so the words do not depend on the interval."""
+    t_cnt = omin.shape[0]
+    dev = omin.device
+    rows = torch.arange(t_cnt, device=dev)
+    # column nwords takes the bits of the steps that set none
+    words = torch.zeros((t_cnt, nwords + 1), dtype=torch.int32, device=dev)
+    ptr = torch.zeros((t_cnt,), dtype=torch.int64, device=dev)
+    one = torch.ones((), dtype=torch.int32, device=dev)
+    while bool((ptr < n_nodes).any()):
+        for _ in range(WALK_CHECK_STEPS):
+            active = ptr < n_nodes
+            rec = bvh_pack.index_select(1, ptr.clamp_max(n_nodes - 1))
+            lo = rec[0:3].T
+            hi = rec[3:6].T
+            hit = slab_interval_ok(lo - omax, hi - omin, dmin, dmax) & active
+            set_bit = hit & (rec[8] >= 0.0)
+            cl = rec[8].to(torch.int32)
+            widx = torch.where(set_bit, cl >> 5, nwords).long()
+            bit = torch.where(set_bit, one << (cl & 31), 0)
+            # a leaf is visited at most once per tile: or == add
+            words[rows, widx] = words[rows, widx] | bit
+            nxt = torch.where(hit, rec[6], rec[7]).to(torch.int64)
+            ptr = torch.where(active, nxt, ptr)
+    return words[:, :nwords].contiguous()

@@ -23,11 +23,17 @@ package.
 
 RenderConfig.variant picks the frame program as in the JAX package:
 "split" and "fused" are fixed choices ("fused" raises ValueError on a
-scene the fused frame cannot draw); "auto" renders split where the
-fused frame is not eligible and otherwise times both at the first
-render() (1 warm-up, then 8 frames each; CUDA events on the card, the
-host clock on the CPU) and keeps the faster. variant_chosen and
-variant_ms record the outcome.
+scene the fused frame cannot draw, and with mip); "auto" renders split
+where the fused frame is not eligible (mip included) and otherwise
+times both at the first render() (1 warm-up, then 8 frames each; CUDA
+events on the card, the host clock on the CPU) and keeps the faster.
+variant_chosen and variant_ms record the outcome.
+
+backend="oracle" draws every frame through ops/oracle.render_oracle,
+the brute-force executable spec (every ray against every face), on the
+same device; variant_chosen stays None, as in the JAX package. "auto"
+and "megakernel" take the frame programs above. The path tracer takes
+precedence over either backend, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -45,6 +51,7 @@ from ..core.scene import Scene
 from ..io.image_out import encode_u8_device, write_png
 from ..ops.megakernel import (check_supported, fused_eligible,
                               render_megakernel)
+from ..ops.oracle import render_oracle
 from ..ops.pathtrace import PRNGKey, fold_in, render_pathtrace
 
 _ROADMAP = "not ported to the PyTorch/CUDA package yet; see ROADMAP.md"
@@ -70,7 +77,7 @@ class Renderer:
         self.pathtrace = rc.pt_bounces > 0
         self._accum = None
         self._spp_done = 0
-        if not self.pathtrace:
+        if not self.pathtrace and self.backend == "megakernel":
             if rc.variant not in ("split", "fused", "auto"):
                 raise ValueError(f"unknown frame variant {rc.variant!r}")
             if rc.variant == "fused" and (
@@ -84,10 +91,9 @@ class Renderer:
         self.variant_chosen = None  # decided at the first render for auto
         if self.pathtrace:
             check_supported(self.data)  # PT always culls, as in JAX
-        else:
-            check_supported(self.data, accel=rc.accel, mip=rc.mip)
-            eligible = fused_eligible(self.data, shadows=rc.shadows,
-                                      normal_mapping=self._normal_mapping)
+        elif self.backend == "megakernel":
+            check_supported(self.data, accel=rc.accel)
+            eligible = self._fused_eligible()
             if rc.variant == "fused" and not eligible:
                 raise ValueError("variant='fused' needs a mesh of at most "
                                  "STREAM_FACES faces; use 'split' or "
@@ -109,16 +115,33 @@ class Renderer:
     def _normal_mapping(self) -> bool:
         return any(m.normal_mapping for m in self.config.meshes)
 
+    def _fused_eligible(self) -> bool:
+        rc = self.config.render
+        return fused_eligible(self.data, shadows=rc.shadows,
+                              normal_mapping=self._normal_mapping,
+                              mip=rc.mip)
+
     @staticmethod
     def _pick_backend(backend: str) -> str:
         if backend in ("auto", "megakernel"):
             return "megakernel"
-        raise NotImplementedError(f"backend {backend!r} is {_ROADMAP}")
+        if backend == "oracle":
+            return backend
+        if backend == "megakernel_gp":
+            raise NotImplementedError(f"backend {backend!r} is {_ROADMAP}")
+        raise ValueError(f"unknown backend {backend!r}")
 
     def _frame(self, uni, variant=None):
         rc = self.config.render
         if self.pathtrace:
             return self._pathtrace_frame(uni)
+        if self.backend == "oracle":
+            return render_oracle(
+                self.data, uni, width=self.width, height=self.height,
+                near=rc.kernel_near, far=rc.kernel_far,
+                background=tuple(self.config.background),
+                shadows=rc.shadows, quantize=rc.quantize_rgba8,
+                normal_mapping=self._normal_mapping)
         return render_megakernel(
             self.data, uni, width=self.width, height=self.height,
             near=rc.kernel_near, far=rc.kernel_far,
@@ -193,7 +216,8 @@ class Renderer:
         """Returns the device-resident (color, depth) tensors.
         block=True waits for the frame (torch.cuda.synchronize)."""
         uni = self.camera.uniforms().flat()
-        if self.variant_chosen is None and not self.pathtrace:
+        if self.variant_chosen is None and not self.pathtrace and \
+                self.backend == "megakernel":
             self._autotune(uni)
         if self.device.type == "cuda":
             start = torch.cuda.Event(enable_timing=True)
@@ -235,9 +259,8 @@ class Renderer:
                 self.config.render, width=width, height=height))
         self._reset_accumulation()
         rc = self.config.render
-        if not self.pathtrace and rc.variant == "auto" and fused_eligible(
-                self.data, shadows=rc.shadows,
-                normal_mapping=self._normal_mapping):
+        if not self.pathtrace and self.backend == "megakernel" and \
+                rc.variant == "auto" and self._fused_eligible():
             # as JAX's _build_frame_fn: the next render re-times both
             # programs at the new size
             self.variant_chosen = None

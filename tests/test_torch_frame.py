@@ -162,10 +162,10 @@ def test_present_and_save_png(tmp_path):
 
 
 @pytest.mark.parametrize("change,exc", [
-    # the fused frame is ported; with mip it raises ValueError, the
-    # variant check coming before the unported mip's NotImplementedError
+    # the fused frame cannot take mip sampling (the split frame does)
     (dict(variant="fused", mip=True), ValueError),
-    (dict(mip=True), NotImplementedError),
+    # mip renders, but not with an unknown accel
+    (dict(mip=True, accel="octree"), ValueError),
     (dict(accel="octree"), ValueError),
     (dict(variant="bogus"), ValueError),
 ])
@@ -201,18 +201,23 @@ def test_streamed_renderer_matches_jax(accel):
 
 
 def test_unported_scenes_raise():
+    """Normal mapping with mip sampling and the oracle backend render
+    (the split frame; the oracle's own frame); the geometry-parallel
+    backend is not ported and raises, naming ROADMAP.md."""
     import dataclasses as dc
 
     cfg = port_config(terrain_config(jcfg, width=32, height=32))
-    # normal mapping is ported; with mip sampling (unported) it raises
-    # the mip NotImplementedError
     nm = dc.replace(cfg, meshes=(dc.replace(cfg.meshes[0],
                                             normal_mapping=True),),
                     render=dc.replace(cfg.render, mip=True))
+    r = Renderer(nm, device="cpu")
+    assert r.variant_chosen == "split"
+    color, depth = r.render()
+    assert color.shape == (32, 32, 3) and bool((depth < 1).any())
+    color, depth = Renderer(cfg, backend="oracle", device="cpu").render()
+    assert color.shape == (32, 32, 3) and bool((depth < 1).any())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Renderer(nm, device="cpu")
-    with pytest.raises(NotImplementedError):
-        Renderer(cfg, backend="oracle", device="cpu")
+        Renderer(cfg, backend="megakernel_gp", device="cpu")
 
 
 def test_device_is_explicit():

@@ -1,6 +1,6 @@
-"""PyTorch port: it runs where JAX cannot be imported (the frame, the CLI
-and the path tracer), and no file of the port imports JAX or the JAX
-package."""
+"""PyTorch port: it runs where JAX cannot be imported (the frame, the CLI,
+the path tracer, the oracle and mip sampling), and no file of the port
+imports JAX or the JAX package."""
 
 import re
 import subprocess
@@ -50,6 +50,14 @@ big = dc.replace(cfg, meshes=(dc.replace(cfg.meshes[0],
 rb = pt.Renderer(big, device="cpu")
 color, depth = rb.render(block=True)
 assert rb.data.padded_faces > 16384 and bool((depth < 1).any())
+ro = pt.Renderer(cfg, backend="oracle", device="cpu")
+color, depth = ro.render(block=True)
+assert tuple(color.shape) == (32, 32, 3) and bool((depth < 1).any())
+rm = pt.Renderer(dc.replace(cfg, render=dc.replace(cfg.render, mip=True)),
+                 device="cpu")
+color, depth = rm.render(block=True)
+assert rm.variant_chosen == "split" and bool((depth < 1).any())
+from rust_wgpu_raytracing_tpu_torch.ops.traverse import bvh_walk_mask_words
 assert not [m for m, mod in sys.modules.items() if mod is not None and (
     m == "jax" or m.startswith("jax.") or m.startswith("jaxlib")
     or m.split(".")[0] == "rust_wgpu_raytracing_tpu")]
@@ -76,7 +84,9 @@ def test_no_port_file_imports_jax():
     assert len(files) > 20
     # the modules of the streamed path and of accel="bvh" are covered
     for mod in ("ops/hier_cull.py", "ops/kernels/hier_cull.py",
-                "ops/kernels/stream_sweep.py", "ops/traverse.py"):
+                "ops/kernels/stream_sweep.py", "ops/traverse.py",
+                "ops/oracle.py", "ops/raygen.py", "ops/intersect.py",
+                "ops/miptex.py", "ops/bvh.py", "models/triangle.py"):
         assert PORT / mod in files, mod
     offenders = [str(f.relative_to(REPO)) for f in files
                  if pattern.search(f.read_text())]

@@ -13,7 +13,8 @@ import torch
 
 from rust_wgpu_raytracing_tpu import config as jcfg
 from rust_wgpu_raytracing_tpu.core.scene import Scene as JScene
-from rust_wgpu_raytracing_tpu_torch.core.scene import (Scene, SceneData,
+from rust_wgpu_raytracing_tpu_torch.core.scene import (STATIC_FIELDS, Scene,
+                                                       SceneData,
                                                        scene_data_from_numpy)
 from test_torch_host import (cube_config, port_config, terrain_config,
                              textured_config, write_textured_assets)
@@ -31,10 +32,13 @@ CONFIGS = {
 
 def port_fields():
     return [f.name for f in dataclasses.fields(SceneData)
-            if f.name not in ("num_faces", "num_spheres")]
+            if f.name not in STATIC_FIELDS]
 
 
 def assert_same_scene(port: SceneData, jax_data):
+    """Every field the port keeps (the oracle's texture stack, the mip
+    pyramid and its tables, the LBVH pack included) and every static
+    count equal to the JAX scene's."""
     for name in port_fields():
         got = getattr(port, name).numpy()
         want = np.asarray(getattr(jax_data, name))
@@ -42,8 +46,17 @@ def assert_same_scene(port: SceneData, jax_data):
             want = want.view(np.int16)
         assert got.dtype == want.dtype, name
         np.testing.assert_array_equal(got, want, err_msg=name)
-    assert port.num_faces == jax_data.num_faces
-    assert port.num_spheres == jax_data.num_spheres
+    for name in STATIC_FIELDS:
+        assert getattr(port, name) == getattr(jax_data, name), name
+
+
+def carry(jd):
+    """The bridge: a JAX SceneData's arrays and counts into the port."""
+    fields = {f.name: np.asarray(getattr(jd, f.name))
+              for f in dataclasses.fields(jd)
+              if not f.metadata.get("static")}
+    return scene_data_from_numpy(
+        fields, **{k: getattr(jd, k) for k in STATIC_FIELDS})
 
 
 @pytest.mark.parametrize("name", sorted(CONFIGS))
@@ -67,12 +80,7 @@ def test_textured_scene_matches_jax(tmp_path, monkeypatch):
 def test_scene_data_from_numpy_carries_jax_scene():
     cfg = CONFIGS["terrain23_spheres"]()
     jd = JScene.build(cfg).data
-    fields = {f.name: np.asarray(getattr(jd, f.name))
-              for f in dataclasses.fields(jd)
-              if not f.metadata.get("static")}
-    carried = scene_data_from_numpy(fields, num_faces=jd.num_faces,
-                                    num_spheres=jd.num_spheres)
-    assert_same_scene(carried, jd)
+    assert_same_scene(carry(jd), jd)
 
 
 def test_streamed_jax_scene_carried_renders_the_port_frame():
@@ -85,11 +93,7 @@ def test_streamed_jax_scene_carried_renders_the_port_frame():
     cfg = terrain_config(jcfg, grid=92, width=48, height=32)
     jd = JScene.build(cfg).data
     assert jd.spack.shape == (jd.padded_faces, 128)
-    fields = {f.name: np.asarray(getattr(jd, f.name))
-              for f in dataclasses.fields(jd)
-              if not f.metadata.get("static")}
-    carried = scene_data_from_numpy(fields, num_faces=jd.num_faces,
-                                    num_spheres=jd.num_spheres)
+    carried = carry(jd)
     own = Scene.build(port_config(cfg)).data
     uni = Camera.from_config(port_config(cfg).camera,
                              48 / 32).uniforms().flat()
@@ -103,8 +107,8 @@ def test_streamed_jax_scene_carried_renders_the_port_frame():
 def test_scene_data_from_numpy_roundtrip():
     data = Scene.build(port_config(CONFIGS["cube_spheres"]())).data
     fields = {k: v.numpy() for k, v in data.tensors().items()}
-    back = scene_data_from_numpy(fields, num_faces=data.num_faces,
-                                 num_spheres=data.num_spheres)
+    back = scene_data_from_numpy(
+        fields, **{k: getattr(data, k) for k in STATIC_FIELDS})
     for k, v in data.tensors().items():
         assert torch.equal(getattr(back, k), v), k
     assert back.padded_faces == data.padded_faces
@@ -153,11 +157,7 @@ def test_scene_without_bump_maps_has_empty_pool():
 
 def test_scene_data_from_numpy_carries_bump_pool(bump_scene):
     jd = JScene.build(bump_scene).data
-    fields = {f.name: np.asarray(getattr(jd, f.name))
-              for f in dataclasses.fields(jd)
-              if not f.metadata.get("static")}
-    carried = scene_data_from_numpy(fields, num_faces=jd.num_faces,
-                                    num_spheres=jd.num_spheres)
+    carried = carry(jd)
     for name in BUMP_FIELDS:
         want = np.asarray(getattr(jd, name))
         if want.dtype == np.uint16:
@@ -192,3 +192,51 @@ def test_png_textures_load_without_pil(tmp_path, monkeypatch):
         raw.rgb_linear, rgba[..., :3].astype(np.float32) / 255.0)
     with pytest.raises(ImportError):
         load_texture_file(str(tmp_path / "gray.png"))
+
+
+# the fields the oracle, mip sampling and the LBVH walk read
+NEW_FIELDS = ("tri_valid", "mat_tex", "textures", "tex_hw", "tex_mips",
+              "mat_mip_base", "mat_mip_h", "mat_mip_w", "tri_uvscale",
+              "bvh_pack", "bvh_nodes", "mip_levels")
+
+
+@pytest.fixture(scope="module")
+def two_mesh_scenes(tmp_path_factory):
+    """(port Scene.build, JAX Scene.build, the JAX scene carried across)
+    of the bump-mapped box beside builtin:terrain:23: two materials, a
+    diffuse and a bump texture, a 4-level pyramid, a 129-node LBVH."""
+    import os
+
+    root = tmp_path_factory.mktemp("two_mesh")
+    write_textured_assets(str(root), bump=True)
+    old = os.environ.get("RWRT_ASSETS")
+    os.environ["RWRT_ASSETS"] = str(root)
+    try:
+        box = textured_config(jcfg, bump=True)
+        cfg = dataclasses.replace(
+            box, meshes=box.meshes + terrain_config(jcfg).meshes)
+        jd = JScene.build(cfg).data
+        port = Scene.build(port_config(cfg)).data
+    finally:
+        if old is None:
+            del os.environ["RWRT_ASSETS"]
+        else:
+            os.environ["RWRT_ASSETS"] = old
+    return port, jd, carry(jd)
+
+
+@pytest.mark.parametrize("name", NEW_FIELDS)
+def test_new_field_matches_jax(two_mesh_scenes, name):
+    """Scene.build's field equals JAX's, and the bridge carries JAX's."""
+    port, jd, carried = two_mesh_scenes
+    want = getattr(jd, name)
+    for got in (getattr(port, name), getattr(carried, name)):
+        if name in STATIC_FIELDS:
+            assert got == want
+            continue
+        want = np.asarray(want)
+        if want.dtype == np.uint16:
+            want = want.view(np.int16)
+        assert got.numpy().dtype == want.dtype
+        np.testing.assert_array_equal(got.numpy(), want)
+    assert port.mip_levels == 4 and port.bvh_nodes > 100
