@@ -133,7 +133,39 @@ program on its own, and checks them:
    bench_configs.py config 9 (build_lbvh + linearize_bvh, NumPy, host
    clock); bvh_walk_mask_words on the card at the 1080p frame's tiles,
    its words a superset of the flat scan's, and equal to them on
-   builtin:terrain:23 at 128x128 (the JAX package's test_accel.py case).
+   builtin:terrain:23 at 128x128 (the JAX package's test_accel.py case);
+11. instancing with the per-frame refit (BASELINE config 5,
+   bench_configs.py config 5's frame loop: InstancedScene.instantiate +
+   render_megakernel, the angle up 0.05 a frame, eye (0, 0, 18)) on
+   builtin:terrain:23 (968 faces an instance): 64 instances (65,536
+   padded faces, streamed) at 3840x2160 and 1920x1080 under cull and bvh
+   without shadows, and at 1080p with shadows; 16 instances (16,384
+   faces, all on chip) at 1080p with shadows, fused and split. Each cell
+   WARMUP + 10 frames with the launch counters set to 0 before and read
+   after (K9, K2; K5 under bvh; K11 with shadows; K4 or K1, with K2 and
+   K3, for 16): the refit alone and the frame (refit + render) by CUDA
+   events, medians, and the peak device memory. At one camera: bvh ==
+   cull bitwise, fused vs split at the frame bar, the kernel-run frame
+   against the plain-composed one bitwise (at 640x360), each kernel of
+   the 1080p frames against its plain version (K9 and K11 on 8 batches),
+   and the card's refit against the CPU refit field by field (0 ulp);
+12. the raster pipeline (plain PyTorch): a seeded textured cube loaded by
+   load_model_raster and drawn over reference_instance_grid(10) (1,200
+   triangles) by RasterEncoder.draw_model_instanced at 600x600 and
+   1920x1080 (ms per draw, median of 10); at 160x160 the card against
+   the CPU (clip coordinates, winner keys and depth bitwise, colour
+   within 1 u8 level) and the output at chunk sizes 1 and 7 against the
+   default;
+13. the runtime shells on the card: FrameLoop over the smoke scene for
+   10 frames with key events, pipelined and not; RenderServer on
+   127.0.0.1 fetched through urllib (/frame.png decodes to the presented
+   frame, /stats is JSON, /key answers); a 4-bounce path trace of the
+   heightfield at 960x540 checkpointed at 3 spp and resumed to 6, equal
+   to the uninterrupted 6-spp image bitwise.
+
+The kernels line's launches are each kernel's count from the first
+path run of phases 4-7 that uses it, plus its counts on the instanced
+paths of phase 11.
 
 `python3 chip_smoke.py --profile` runs only phases 1-2 and then
 profiles 5 frames of each frame program at the smoke view, 5 samples
@@ -159,11 +191,15 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 import numpy as np
 
 WIDTH, HEIGHT = 1920, 1080
 WARMUP, FRAMES = 3, 12
+# device_ms's fallback: a sleep (~25 ms at the H100's 1.98 GHz) that the
+# timed launches queue behind, so their host work does not space them
+SLEEP_CYCLES = 50_000_000
 SMOKE_EYE, SMOKE_TARGET = (0.0, -2.0, -1.0), (0.0, 0.0, -3.2)
 DENSE_EYE, DENSE_TARGET = (0.0, -0.3, -2.2), (0.0, 0.0, -3.0)
 NM_GRID = 91  # vertices per side: 2 * 90^2 = 16,200 faces
@@ -223,6 +259,22 @@ ORACLE_FRAMES = 2
 # the mip phase's far view of the nm heightfield: ~15 units away the
 # pyramid's level 2 serves most hit pixels at 1080p
 MIP_FAR_EYE, MIP_FAR_TARGET = (0.0, -4.0, 12.0), (0.0, 0.0, -3.0)
+# the instancing phase: bench_configs.py config 5 (64 instances at 4K and
+# 1080p, per-frame refit) with builtin:terrain:23 (968 faces) as the base
+# mesh; the timed frames after WARMUP, and the angle of the checks
+INST_MESH, INST_EYE = "builtin:terrain:23", (0.0, 0.0, 18.0)
+INST_FRAMES, INST_ANGLE = 10, 0.3
+INST_4K, INST_CHECK = (3840, 2160), (640, 360)
+INST_FIELDS = ("tri_p0", "tri_n", "tri_d", "tri_g", "tri_c",
+               "tri_inv_denom", "tri_uv", "tri_vn", "tri_mat", "tri_valid",
+               "tri_orig", "tri_tangent", "tri_bitangent", "tri_uvscale",
+               "blk_lo", "blk_hi", "spack", "gpack")
+# the raster phase: the reference's 10x10 instance grid seen from above
+# its front edge; timed draws; the card-vs-CPU check's size
+RASTER_EYE, RASTER_DRAWS, RASTER_CHECK = (0.0, 12.0, 20.0), 10, 160
+# the shells phase: frame-loop frames; the checkpointed path trace's size
+# and its samples at the checkpoint and at the end
+SHELL_FRAMES, CKPT_W, CKPT_H, CKPT_SPP = 23, 960, 540, (3, 6)
 
 
 def say(msg: str) -> None:
@@ -740,6 +792,42 @@ def batch_args(args, sel):
         [take(a) for a in args[3:]]
 
 
+def subset_check(K, flat, errs, view, name, args, kw, n_batches=8):
+    """A streamed sweep (K9-K11) on all batches against its plain version
+    on n_batches of them (the most admitted blocks among them); its
+    max_abs_err into errs. Returns (the subset's arguments, a note)."""
+    import torch
+
+    wrapper = {f.__name__: f for f in K.KERNELS}
+    plain = {f.__name__: p for f, p in zip(K.KERNELS, K.PLAIN)}
+    mask3 = args[0]
+    nb, nsub = mask3.shape[0], mask3.shape[1] - 1
+    top, adm = heaviest_batch(mask3, args[2])
+    spread = [int(i) for i in np.linspace(0, nb - 1, n_batches)]
+    pick = sorted({top} | set([i for i in spread
+                               if i != top][:n_batches - 1]))
+    sel = torch.tensor(pick, device=mask3.device)
+    sub = batch_args(args, sel)
+    got = flat(name, wrapper[name](*args, **kw))
+    want = flat(name, plain[name](*sub, **kw))
+    torch.cuda.synchronize()
+    got = [g.view(nb, -1).index_select(0, sel).reshape(-1) for g in got]
+    err = max(max_abs_err(x, y) for x, y in zip(got, want))
+    exact = all(torch.equal(x, y) for x, y in zip(got, want))
+    if name in SIGNED_T:  # a zero t with its sign
+        exact = exact and torch.equal(got[0].view(torch.int32),
+                                      want[0].view(torch.int32))
+    say(f"[kernel] {view}: {name} {'OK' if exact else 'MISMATCH'} vs "
+        f"plain on {len(sel)} of {nb} batches ({len(sel) * nsub} "
+        f"subtiles, the batch with the most admitted blocks ({int(adm[top])}"
+        f") among them), the kernel run on all {nb}; max_abs_err "
+        f"{err!r}; bitwise {exact}")
+    if not exact:
+        raise AssertionError(f"{name} disagrees with its plain version")
+    errs[name] = max(errs.get(name, 0.0), err)
+    return sub, f"plain on {len(sel)} of {nb} batches"
+
+
 def bound(moved: int, ops: int, ops_s: float = FP32_OPS_S):
     """(bound_ms, bound_by): the least time the card could take."""
     t_bytes, t_ops = moved / HBM_BYTES_S, ops / ops_s
@@ -762,12 +850,15 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, reps: int, kernel: str) -> float:
+def device_ms(fn, reps: int, kernel: str) -> tuple:
     """The mean device time (ms) a call of fn spends in the kernels whose
-    name holds `kernel`, over `reps` calls, from torch.profiler's trace.
-    CUDA events around back-to-back calls time the host where a kernel
-    takes less than its wrapper's host work (K5: ~40 us of Python a
-    call); the trace times the kernel itself."""
+    name holds `kernel`, over `reps` calls, and how it was timed: from
+    torch.profiler's trace, or, where the trace holds no device event of
+    the kernel (CUPTI gave none), by CUDA events around `reps` calls
+    queued behind torch.cuda._sleep, so that they run back to back on the
+    device. CUDA events around back-to-back calls time the host where a
+    kernel takes less than its wrapper's host work (K5: ~40 us of Python
+    a call); both ways time the kernel itself."""
     import torch
 
     fn()
@@ -781,7 +872,19 @@ def device_ms(fn, reps: int, kernel: str) -> float:
     cuda = torch.autograd.DeviceType.CUDA
     us = sum(e.time_range.elapsed_us() for e in prof.events()
              if e.device_type == cuda and kernel in e.name)
-    return us / reps / 1e3
+    if us > 0:
+        return us / reps / 1e3, f"torch.profiler, {reps} launches"
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda._sleep(SLEEP_CYCLES)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return (start.elapsed_time(end) / reps,
+            f"no device event in torch.profiler's trace: CUDA events "
+            f"around {reps} launches queued behind a "
+            f"{SLEEP_CYCLES}-cycle sleep")
 
 
 def mask_walk_note(name, args, kw, outs, ms, mesh=None) -> str:
@@ -1180,41 +1283,12 @@ def stream_phase(card, K, Renderer, drive, record, check, results, errs,
     check("stream frame, bvh shadow wavefront", "hier_cull",
           *calls["bvh"]["hier_cull"][1])
 
-    def subset_check(view, name, args, kw, n_batches=8):
-        """The kernel on all batches against the plain version on
-        n_batches of them (the most admitted blocks among them)."""
-        mask3 = args[0]
-        nb, nsub = mask3.shape[0], mask3.shape[1] - 1
-        top, adm = heaviest_batch(mask3, args[2])
-        spread = [int(i) for i in np.linspace(0, nb - 1, n_batches)]
-        pick = sorted({top} | set([i for i in spread
-                                   if i != top][:n_batches - 1]))
-        sel = torch.tensor(pick, device=mask3.device)
-        sub = batch_args(args, sel)
-        got = flat(name, wrapper[name](*args, **kw))
-        want = flat(name, plain[name](*sub, **kw))
-        torch.cuda.synchronize()
-        got = [g.view(nb, -1).index_select(0, sel).reshape(-1) for g in got]
-        err = max(max_abs_err(x, y) for x, y in zip(got, want))
-        exact = all(torch.equal(x, y) for x, y in zip(got, want))
-        if name in SIGNED_T:  # a zero t with its sign
-            exact = exact and torch.equal(got[0].view(torch.int32),
-                                          want[0].view(torch.int32))
-        say(f"[kernel] {view}: {name} {'OK' if exact else 'MISMATCH'} vs "
-            f"plain on {len(sel)} of {nb} batches ({len(sel) * nsub} "
-            f"subtiles, the batch with the most admitted blocks ({int(adm[top])}"
-            f") among them), the kernel run on all {nb}; max_abs_err "
-            f"{err!r}; bitwise {exact}")
-        if not exact:
-            raise AssertionError(f"{name} disagrees with its plain version")
-        errs[name] = max(errs.get(name, 0.0), err)
-        return sub, f"plain on {len(sel)} of {nb} batches"
-
     k9_args, k9_kw = calls["cull"]["stream_closest_hit"][0]
     k11_args, k11_kw = calls["cull"]["stream_anyhit"][0]
-    k9_sub = subset_check("stream frame, cull", "stream_closest_hit",
-                          k9_args, k9_kw)
-    k11_sub = subset_check("stream frame, cull (shadow wavefront)",
+    k9_sub = subset_check(K, flat, errs, "stream frame, cull",
+                          "stream_closest_hit", k9_args, k9_kw)
+    k11_sub = subset_check(K, flat, errs,
+                           "stream frame, cull (shadow wavefront)",
                            "stream_anyhit", k11_args, k11_kw)
     say(f"[stream] frame: {int(torch.isfinite(wrapper['stream_closest_hit'](*k9_args)[0]).sum())}"
         f" of {k9_args[3].numel()} rays hit; {int((k11_args[9] > 0).sum())}"
@@ -1297,10 +1371,12 @@ def stream_phase(card, K, Renderer, drive, record, check, results, errs,
     k10_args, k10_kw = pt_calls["stream_closest_hit_perray"][0]
     k11b_args, k11b_kw = pt_calls["stream_anyhit"][0]
     k9b_args, k9b_kw = pt_calls["stream_closest_hit"][0]
-    subset_check("pt primary rays", "stream_closest_hit", k9b_args, k9b_kw)
-    k10_sub = subset_check("pt bounce 1 (extension rays)",
+    subset_check(K, flat, errs, "pt primary rays", "stream_closest_hit",
+                 k9b_args, k9b_kw)
+    k10_sub = subset_check(K, flat, errs, "pt bounce 1 (extension rays)",
                            "stream_closest_hit_perray", k10_args, k10_kw)
-    k11b_sub = subset_check("pt bounce 1 (shadow rays of bounce 0)",
+    k11b_sub = subset_check(K, flat, errs,
+                            "pt bounce 1 (shadow rays of bounce 0)",
                             "stream_anyhit", k11b_args, k11b_kw)
     check_culled("pt bounce 1 (shadow rays of bounce 0)", "stream_anyhit",
                  k11b_sub)
@@ -1382,10 +1458,10 @@ def stream_phase(card, K, Renderer, drive, record, check, results, errs,
             note = mask_walk_note(name, args, kw, outs, ms) \
                 + walk_parts(name, args, kw, 10)
         else:
-            dev = device_ms(run_kernel, 20, "hier_cull_kernel")
-            note = (f"; device time {dev:.4f} ms a launch (torch.profiler, "
-                    f"20 launches; the events time the wrapper's host "
-                    f"work), bound {100 * bound_ms / dev:.1f}% of it")
+            dev, how = device_ms(run_kernel, 20, "hier_cull_kernel")
+            note = (f"; device time {dev:.4f} ms a launch ({how}; the "
+                    f"events time the wrapper's host work), bound "
+                    f"{100 * bound_ms / dev:.1f}% of it")
             if key == name:
                 results[name]["ms"] = dev
         tail_ms = tails.get({"stream_closest_hit": "frame K9",
@@ -1669,6 +1745,433 @@ def lbvh_phase(card, data, say):
         f"admitted; {ms:.3f} ms)")
     if not same:
         raise AssertionError("the LBVH walk differs from the flat scan")
+
+
+def inst_uni(w, h):
+    from rust_wgpu_raytracing_tpu_torch.config import CameraConfig
+    from rust_wgpu_raytracing_tpu_torch.core.camera import Camera
+
+    return Camera.from_config(CameraConfig(eye=INST_EYE),
+                              w / h).uniforms().flat()
+
+
+def inst_transforms(n: int, angle: float):
+    """bench_configs.py config 5's layout: an n-instance grid 2.5 apart
+    at z = -6, turned by `angle` about y."""
+    from rust_wgpu_raytracing_tpu_torch.ops.instances import grid_transforms
+
+    return grid_transforms(n, spacing=2.5, z=-6.0, angle=angle)
+
+
+def instancing_phase(card, ctx, say):
+    """Phase 11: BASELINE config 5 on builtin:terrain:23 (bench_configs.py
+    config 5's frame loop: InstancedScene.instantiate + render_megakernel, no
+    Renderer). Each cell: WARMUP + INST_FRAMES frames, the angle up 0.05
+    a frame, the launch counters set to 0 before and read after; the
+    refit alone and the frame (refit + render) by CUDA events, medians;
+    peak device memory. Then, at one camera: cull == bvh bitwise (4K,
+    1080p), fused vs split at the frame bar, the kernel-run frame against
+    the plain-composed one bitwise (at 640x360, where the plain streamed
+    sweeps take seconds), each kernel of the 1080p frames and of both 4K
+    frames against its plain version (K9, K11 on 8 batches), and
+    the card's refit against the CPU refit of the same transforms, field
+    by field (ulp gap printed, 0 required)."""
+    import torch
+
+    from rust_wgpu_raytracing_tpu_torch.config import MeshConfig
+    from rust_wgpu_raytracing_tpu_torch.ops.instances import InstancedScene
+    from rust_wgpu_raytracing_tpu_torch.ops.megakernel import \
+        render_megakernel
+
+    K = ctx.K
+    fields = {}
+    for n in (64, 16):
+        t0 = time.perf_counter()
+        fields[n] = InstancedScene.from_config(
+            MeshConfig(obj_path=INST_MESH), n, device="cuda")
+        fb = fields[n].base_faces.shape[0]
+        say(f"[inst] {n} x {INST_MESH}: {fields[n].fb_real} faces an "
+            f"instance, padded to {fb}, {n * fb} in the soup; host set-up "
+            f"{time.perf_counter() - t0:.2f} s")
+
+    def render(n, angle, w, h, kernels=K.KERNELS, **kw):
+        data = fields[n].instantiate(inst_transforms(n, angle))
+        return render_megakernel(data, inst_uni(w, h), width=w, height=h,
+                                 kernels=kernels, **kw)
+
+    stream_k = ("closest_hit", "frame", "anyhit")
+    onchip_k = ("stream_closest_hit", "stream_anyhit", "hier_cull")
+    cells = [
+        ("instances64-4k-terrain23, cull", 64, *INST_4K,
+         dict(accel="cull"), ("stream_closest_hit", "texshade"),
+         stream_k + ("stream_anyhit", "hier_cull")),
+        ("instances64-4k-terrain23, bvh", 64, *INST_4K, dict(accel="bvh"),
+         ("stream_closest_hit", "texshade", "hier_cull"),
+         stream_k + ("stream_anyhit",)),
+        ("instances64-1080p-terrain23, cull", 64, WIDTH, HEIGHT,
+         dict(accel="cull"), ("stream_closest_hit", "texshade"),
+         stream_k + ("stream_anyhit", "hier_cull")),
+        ("instances64-1080p-terrain23, bvh", 64, WIDTH, HEIGHT,
+         dict(accel="bvh"), ("stream_closest_hit", "texshade", "hier_cull"),
+         stream_k + ("stream_anyhit",)),
+        ("instances64-1080p-terrain23, cull, shadows", 64, WIDTH, HEIGHT,
+         dict(accel="cull", shadows=True),
+         ("stream_closest_hit", "stream_anyhit", "texshade"),
+         stream_k + ("hier_cull",)),
+        ("instances16-1080p-terrain23, fused, shadows", 16, WIDTH, HEIGHT,
+         dict(fused=True, shadows=True), ("frame", "texshade", "anyhit"),
+         ("closest_hit",) + onchip_k),
+        ("instances16-1080p-terrain23, split, shadows", 16, WIDTH, HEIGHT,
+         dict(fused=False, shadows=True),
+         ("closest_hit", "texshade", "anyhit"), ("frame",) + onchip_k),
+    ]
+    last = {}
+    for label, n, w, h, kw, need, absent in cells:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        K.reset_launch_counts()
+        refit, total = [], []
+        angle = 0.0
+        for i in range(WARMUP + INST_FRAMES):
+            angle += 0.05
+            tr = inst_transforms(n, angle)
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+            ev[0].record()
+            data = fields[n].instantiate(tr)
+            ev[1].record()
+            color, depth = render_megakernel(data, inst_uni(w, h), width=w,
+                                             height=h, **kw)
+            ev[2].record()
+            ev[2].synchronize()
+            if i >= WARMUP:
+                refit.append(ev[0].elapsed_time(ev[1]))
+                total.append(ev[0].elapsed_time(ev[2]))
+        launches = K.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        ctx.path_launches[f"inst:{label}"] = launches
+        missing = [k for k in need if launches[k] == 0]
+        extra = [k for k in absent if launches[k] != 0]
+        if missing or extra:
+            raise AssertionError(f"{label}: kernels of the path never "
+                                 f"launched {missing}, kernels off the path "
+                                 f"launched {extra}")
+        if tuple(color.shape) != (h, w, 3) or \
+                not bool(torch.isfinite(color).all()):
+            raise AssertionError(f"{label}: bad frame {tuple(color.shape)}")
+        hit = float((depth < 1).float().mean())
+        if hit < 0.005:  # config 5's camera sees the field small
+            raise AssertionError(f"{label}: the field covers {hit} of the "
+                                 f"frame")
+        refit.sort()
+        total.sort()
+        m = len(total) // 2
+        say(f"[timing] {card}: {label} ({w}x{h}): refit median "
+            f"{refit[m]:.3f} ms (min {refit[0]:.3f}, max {refit[-1]:.3f}), "
+            f"frame (refit + render) median {total[m]:.3f} ms (min "
+            f"{total[0]:.3f}, max {total[-1]:.3f}) over {INST_FRAMES} frames "
+            f"after {WARMUP} warm-up (CUDA events), "
+            f"{w * h / (total[m] * 1e-3) / 1e6:.1f} Mrays/s; peak device "
+            f"memory {peak / 2**30:.3f} GiB, {(peak - resident) / 2**30:.3f}"
+            f" above the {resident / 2**30:.3f} GiB resident before the "
+            f"cell; {hit:.4f} of pixels hit; "
+            f"launches {({k: v for k, v in launches.items() if v})}")
+        last[label] = (color, depth)
+    del data, color, depth
+
+    for res in ("4k", "1080p"):
+        (ca, da), (cb, db) = (last[f"instances64-{res}-terrain23, {a}"]
+                              for a in ("cull", "bvh"))
+        same = torch.equal(ca, cb) and torch.equal(da, db)
+        say(f"[frame] instances64-{res}: bvh vs cull bitwise {same}")
+        if not same:
+            raise AssertionError("the instanced bvh frame differs from cull")
+    (fc, fd), (sc, sd) = (last[f"instances16-1080p-terrain23, {v}, shadows"]
+                          for v in ("fused", "split"))
+    dmax, exact, bitwise = frame_bar(fc, sc)
+    say(f"[frame] instances16-1080p: fused vs split (quantized): "
+        f"{int((fc != sc).sum())} of {fc.numel()} subpixels differ, max "
+        f"linear u8 delta {dmax}, exact {exact:.6f}, bitwise {bitwise}; "
+        f"depth equal {bool(torch.equal(fd, sd))}")
+    if dmax > 1 or exact < 0.999:
+        raise AssertionError("instanced fused frame disagrees with split")
+    del last
+
+    # the kernel-run frame against the plain-composed one, one camera
+    w, h = INST_CHECK
+    for n, kw in ((16, dict(fused=True, shadows=True)),
+                  (16, dict(fused=False, shadows=True)),
+                  (64, dict(accel="cull", shadows=True)),
+                  (64, dict(accel="bvh", shadows=True))):
+        a, ad = render(n, INST_ANGLE, w, h, **kw)
+        b, bd = render(n, INST_ANGLE, w, h, kernels=K.PLAIN, **kw)
+        same = torch.equal(a, b) and torch.equal(ad, bd)
+        say(f"[frame] {n} instances {w}x{h} {kw}: kernels vs plain-composed "
+            f"frame bitwise {same} (mean colour {float(a.mean()):.5f})")
+        if not same:
+            raise AssertionError("instanced frame differs from its plain "
+                                 "twin")
+
+    # each kernel of the 1080p and 4K frames against its plain version
+    hd = (WIDTH, HEIGHT)
+    for n, (w, h), kw in ((16, hd, dict(fused=True, shadows=True)),
+                          (16, hd, dict(fused=False, shadows=True)),
+                          (64, hd, dict(accel="cull", shadows=True)),
+                          (64, hd, dict(accel="bvh")),
+                          (64, INST_4K, dict(accel="cull")),
+                          (64, INST_4K, dict(accel="bvh"))):
+        view = f"{n} instances {w}x{h} {kw}"
+        calls = ctx.record(lambda ks: render(n, INST_ANGLE, w, h,
+                                             kernels=ks, **kw))
+        for name, c in sorted(calls.items()):
+            for args, kwargs in c:
+                if name in ("stream_closest_hit", "stream_anyhit"):
+                    subset_check(K, ctx.flat, ctx.errs, view, name, args,
+                                 kwargs)
+                else:
+                    ctx.check(view, name, args, kwargs)
+        del calls
+
+    # the card's refit against the CPU refit of the same transforms
+    cpu = InstancedScene.from_config(MeshConfig(obj_path=INST_MESH), 64,
+                                     device="cpu")
+    tr = inst_transforms(64, INST_ANGLE)
+    gpu_sd, cpu_sd = fields[64].instantiate(tr), cpu.instantiate(tr)
+    gaps = {}
+    for f in INST_FIELDS:
+        a, b = getattr(gpu_sd, f).cpu(), getattr(cpu_sd, f)
+        if a.shape != b.shape:
+            raise AssertionError(f"refit {f}: {a.shape} vs {b.shape}")
+        if a.dtype == torch.float32:
+            both_inf = torch.isinf(a) & (a == b)
+            gaps[f] = ulp_gap(torch.where(both_inf, 0.0, a),
+                              torch.where(both_inf, 0.0, b))
+        else:
+            gaps[f] = 0 if torch.equal(a, b) else -1
+    say(f"[inst] refit on the card vs on the CPU (64 instances, "
+        f"{gpu_sd.padded_faces} faces), max ulp gap per field: {gaps}")
+    if any(g != 0 for g in gaps.values()):
+        raise AssertionError("the card's refit differs from the CPU's")
+
+
+def write_raster_assets(root: str) -> str:
+    """builtin:cube as an OBJ with a material whose map_Kd is a seeded
+    16x16 PNG, written with the port's stdlib encoder; the OBJ's name."""
+    from rust_wgpu_raytracing_tpu_torch.io.image_out import encode_png
+    from rust_wgpu_raytracing_tpu_torch.io.obj import make_cube
+
+    m = make_cube()
+    lines = ["mtllib rcube.mtl", "o rcube"]
+    lines += [f"v {a:.6f} {b:.6f} {c:.6f}" for a, b, c in m.positions]
+    lines += [f"vt {a:.6f} {b:.6f}" for a, b in m.uvs]
+    lines.append("usemtl rmat")
+    lines += [f"f {a + 1}/{a + 1} {b + 1}/{b + 1} {c + 1}/{c + 1}"
+              for a, b, c in m.faces]
+    with open(os.path.join(root, "rcube.obj"), "w") as fh:
+        fh.write("\n".join(lines) + "\n")
+    with open(os.path.join(root, "rcube.mtl"), "w") as fh:
+        fh.write("newmtl rmat\nKa 0.1 0.1 0.1\nKd 0.8 0.8 0.8\n"
+                 "map_Kd rcube.png\n")
+    img = np.random.default_rng(20261017).integers(0, 256, (16, 16, 3),
+                                                   dtype=np.uint8)
+    with open(os.path.join(root, "rcube.png"), "wb") as fh:
+        fh.write(encode_png(img))
+    return "rcube.obj"
+
+
+def raster_view_proj(w: int, h: int):
+    """The forward CameraUniform (OPENGL_TO_WGPU @ proj @ view) looking
+    at the reference's instance grid from above its front edge."""
+    from rust_wgpu_raytracing_tpu_torch.config import CameraConfig
+    from rust_wgpu_raytracing_tpu_torch.core import math3d
+    from rust_wgpu_raytracing_tpu_torch.core.camera import Camera
+
+    cam = Camera.from_config(CameraConfig(eye=RASTER_EYE, target=(0, 0, 0)),
+                             w / h)
+    return (math3d.OPENGL_TO_WGPU @ cam.view_proj_matrix()).astype(
+        np.float32)
+
+
+def raster_phase(card, say):
+    """Phase 12: the raster pipeline (plain PyTorch: the JAX module runs
+    no Pallas kernel). load_model_raster on a seeded textured cube, drawn
+    over reference_instance_grid(10) (100 cubes, 1,200 triangles) by
+    RasterEncoder.draw_model_instanced at 600x600 and 1920x1080: ms per
+    draw (a fresh encoder each, 1 warm-up, RASTER_DRAWS draws, CUDA
+    events, median). At 160x160: the card against the CPU, winner keys
+    and depth bitwise, colour within 1 u8 level; the output at chunk
+    sizes 1, 7 and the default equal."""
+    import torch
+
+    from rust_wgpu_raytracing_tpu_torch.ops import raster as R
+
+    root = tempfile.mkdtemp(prefix="rt_raster_")
+    try:
+        model = R.load_model_raster(os.path.join(root,
+                                                 write_raster_assets(root)))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    grid = R.reference_instance_grid(10)
+    mesh = model.meshes[0]
+    say(f"[raster] {grid.shape[0]} instances x {mesh.faces.shape[0]} "
+        f"triangles = {grid.shape[0] * mesh.faces.shape[0]}")
+
+    def draw(w, h, device):
+        enc = R.RasterEncoder(w, h, device=device)
+        return enc.draw_model_instanced(model, grid, raster_view_proj(w, h))
+
+    for w, h in ((600, 600), (WIDTH, HEIGHT)):
+        draw(w, h, "cuda")
+        times = []
+        for _ in range(RASTER_DRAWS):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            enc = draw(w, h, "cuda")
+            ev[1].record()
+            ev[1].synchronize()
+            times.append(ev[0].elapsed_time(ev[1]))
+        times.sort()
+        cover = float((enc.depth.data < 1).float().mean())
+        say(f"[timing] {card}: raster-grid-{'600' if w == 600 else '1080p'}"
+            f" ({w}x{h}): draw_model_instanced median "
+            f"{times[len(times) // 2]:.3f} ms (min {times[0]:.3f}, max "
+            f"{times[-1]:.3f}) over {RASTER_DRAWS} draws after 1 warm-up "
+            f"(CUDA events, a fresh encoder each); {cover:.4f} of pixels "
+            f"covered, MAX_CHUNK_PAIRS {R.MAX_CHUNK_PAIRS}")
+        if cover < 0.05 or not bool(torch.isfinite(enc.color).all()):
+            raise AssertionError("raster draw covers too little")
+
+    n = RASTER_CHECK
+    vp = raster_view_proj(n, n)
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        clip, uv = R.instance_triangles(mesh, grid, vp, device=dev)
+        win = R.rasterize_winners(R.screen_triangles(clip, n, n), n, n)
+        enc = draw(n, n, dev)
+        outs[dev] = (clip.cpu(), win[1].cpu(), enc.depth.data.cpu(),
+                     enc.color.cpu())
+    same_clip = torch.equal(outs["cuda"][0], outs["cpu"][0])
+    same_keys = torch.equal(outs["cuda"][1], outs["cpu"][1])
+    same_depth = torch.equal(outs["cuda"][2], outs["cpu"][2])
+    dmax = int((u8(outs["cuda"][3]) - u8(outs["cpu"][3])).abs().max())
+    say(f"[raster] {n}x{n}, card vs CPU: clip coordinates bitwise "
+        f"{same_clip}, winner keys bitwise {same_keys}, depth bitwise "
+        f"{same_depth}, colour max linear u8 delta {dmax} (bound 1)")
+    if not (same_keys and same_depth) or dmax > 1:
+        raise AssertionError("the raster draw on the card differs from the "
+                             "CPU's")
+    tc, tu = R.instance_triangles(mesh, grid, vp, device="cuda")
+    tex = torch.as_tensor(model.materials[mesh.material].diffuse,
+                          device="cuda")
+    ref = R.rasterize(tc, tu, n, n, tex)
+    for chunk in (1, 7):
+        c, d = R.rasterize(tc, tu, n, n, tex, chunk=chunk)
+        same = torch.equal(c, ref[0]) and torch.equal(d, ref[1])
+        say(f"[raster] chunk {chunk} vs the default chunk: bitwise {same}")
+        if not same:
+            raise AssertionError("the raster output depends on the chunk")
+
+
+def shells_phase(card, Renderer, say):
+    """Phase 13: the runtime shells on the card. FrameLoop over the smoke
+    scene (fused) for SHELL_FRAMES frames with key events, pipelined and
+    not, twice each in turn (presented count; the Profiler's mean and p99
+    ms, the whole step()'s median after WARMUP); RenderServer on 127.0.0.1
+    fetched through urllib (/frame.png decodes to the presented frame,
+    /stats is JSON); a 4-bounce path trace of the heightfield (pt_config
+    at CKPT_W x CKPT_H) checkpointed at CKPT_SPP[0] samples and resumed
+    to CKPT_SPP[1]: equal to the uninterrupted run bitwise."""
+    import dataclasses as dc
+    import urllib.request
+
+    import torch
+
+    from rust_wgpu_raytracing_tpu_torch.io.checkpoint import (
+        load_checkpoint, save_checkpoint)
+    from rust_wgpu_raytracing_tpu_torch.io.image_out import read_png
+    from rust_wgpu_raytracing_tpu_torch.runtime.frame_loop import FrameLoop
+    from rust_wgpu_raytracing_tpu_torch.runtime.server import RenderServer
+
+    for pipeline in (True, False, True, False):
+        r = Renderer(smoke_config("fused"), device="cuda")
+        shown, walls = [], []
+        loop = FrameLoop(r, present=shown.append, pipeline=pipeline)
+        for i in range(SHELL_FRAMES):
+            loop.push_key("d" if i < SHELL_FRAMES // 2 else "w", True)
+            t0 = time.perf_counter()
+            loop.step()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        loop.flush()
+        last = r.present_image()
+        s = loop.profiler.summary()
+        ok = len(shown) == SHELL_FRAMES and all(
+            x.shape == (HEIGHT, WIDTH, 3) for x in shown) and \
+            np.array_equal(shown[-1], last)
+        steady = sorted(walls[WARMUP:])
+        say(f"[shell] {card}: FrameLoop(pipeline={pipeline}) "
+            f"{SHELL_FRAMES} frames with key events: {len(shown)} presented,"
+            f" last = the latest frame {np.array_equal(shown[-1], last)}; "
+            f"step (render + present fetch) mean {s['mean_ms']:.3f} ms, p99 "
+            f"{s['p99_ms']:.3f} ms; whole step() median "
+            f"{steady[len(steady) // 2]:.3f} ms (min {steady[0]:.3f}, max "
+            f"{steady[-1]:.3f}) after {WARMUP} warm-up (host clock)")
+        if not ok:
+            raise AssertionError("the frame loop presented wrong frames")
+
+    loop = FrameLoop(Renderer(smoke_config("fused"), device="cuda"))
+    srv = RenderServer(loop, port=0)
+    srv.serve_async()
+    root = tempfile.mkdtemp(prefix="rt_shell_")
+    try:
+        loop.push_key("a", True)
+        loop.run(n_frames=3)
+        base = f"http://127.0.0.1:{srv.port}"
+        png = urllib.request.urlopen(base + "/frame.png", timeout=30).read()
+        with open(os.path.join(root, "frame.png"), "wb") as fh:
+            fh.write(png)
+        same = np.array_equal(read_png(os.path.join(root, "frame.png")),
+                              srv.latest)
+        stats = json.loads(urllib.request.urlopen(base + "/stats",
+                                                  timeout=30).read())
+        key = urllib.request.urlopen(base + "/key?k=w&p=1",
+                                     timeout=30).read()
+    finally:
+        srv.shutdown()
+        shutil.rmtree(root, ignore_errors=True)
+    say(f"[shell] RenderServer on 127.0.0.1:{srv.port}: /frame.png "
+        f"{len(png)} bytes, decodes to the presented frame {same}; /stats "
+        f"{stats}; /key {key!r}")
+    if not same or stats["frames_rendered"] != 3 or key != b"ok":
+        raise AssertionError("the HTTP shell served wrong data")
+
+    cfg = pt_config()
+    cfg = dc.replace(cfg, render=dc.replace(
+        cfg.render, width=CKPT_W, height=CKPT_H, pt_spp=CKPT_SPP[1]))
+    full = Renderer(cfg, device="cuda")
+    for _ in range(CKPT_SPP[1]):
+        want, _ = full.render()
+    part = Renderer(cfg, device="cuda")
+    for _ in range(CKPT_SPP[0]):
+        part.render()
+    root = tempfile.mkdtemp(prefix="rt_ckpt_")
+    try:
+        path = os.path.join(root, "pt.ckpt")
+        save_checkpoint(path, part)
+        size = os.path.getsize(path)
+        resumed = load_checkpoint(path, device="cuda")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    spp0 = resumed.spp_done
+    while resumed.spp_done < CKPT_SPP[1]:
+        got, _ = resumed.render()
+    same = torch.equal(got, want)
+    say(f"[shell] checkpoint of the {cfg.render.pt_bounces}-bounce path "
+        f"trace at {CKPT_W}x{CKPT_H}: saved at {spp0} spp ({size} bytes), "
+        f"resumed to {resumed.spp_done}: equal to the uninterrupted "
+        f"{full.spp_done}-spp image bitwise {same}")
+    if not same or spp0 != CKPT_SPP[0]:
+        raise AssertionError("the resumed path trace differs")
 
 
 def main() -> int:
@@ -2439,6 +2942,17 @@ def main() -> int:
     lbvh_phase(card, stream_data, say)
     del stream_data
 
+    # --- 11. instancing with the per-frame refit (BASELINE config 5) ------
+    ctx = types.SimpleNamespace(K=K, record=record, check=check, flat=flat,
+                                errs=errs, path_launches=path_launches)
+    instancing_phase(card, ctx, say)
+
+    # --- 12. the raster pipeline ------------------------------------------
+    raster_phase(card, say)
+
+    # --- 13. the runtime shells -------------------------------------------
+    shells_phase(card, Renderer, say)
+
     # each kernel's launches from the first path run that uses it
     launches = {}
     for path in ("auto", "nm", "pt", "stream_cull", "stream_bvh",
@@ -2446,6 +2960,15 @@ def main() -> int:
         for name, count in path_launches[path].items():
             if count and name not in launches:
                 launches[name] = count
+    # plus their launches on the instanced paths (phase 11)
+    inst_paths = [p for p in path_launches if p.startswith("inst:")]
+    for name in names:
+        launches[name] = launches.get(name, 0) + sum(
+            path_launches[p][name] for p in inst_paths)
+        results[name]["max_abs_err"] = max(results[name]["max_abs_err"],
+                                           errs.get(name, 0.0))
+    say(f"[inst] launches on the instanced paths: "
+        f"{ {n: sum(path_launches[p][n] for p in inst_paths) for n in names} }")
     base = "rust_wgpu_raytracing_tpu_torch/csrc/"
     replaces = {
         "closest_hit": "rust_wgpu_raytracing_tpu/ops/megakernel.py:382",

@@ -8,9 +8,12 @@ with textures, normal mapping, mip sampling, hard shadows, accel
 "brute", "cull" or "bvh") and the progressive path tracer
 (RenderConfig.pt_bounces > 0); meshes above STREAM_FACES faces take the
 streamed sweeps. Renderer(backend="oracle") draws through the
-brute-force oracle (ops/oracle.py), the executable spec. What is not
-ported yet (instancing, several cards) raises NotImplementedError and
-is listed in ROADMAP.md.
+brute-force oracle (ops/oracle.py), the executable spec. Instancing
+with the per-frame refit (ops/instances.py), the forward raster
+pipeline (ops/raster.py) and the runtime shells (runtime/frame_loop.py,
+server.py, window.py, limits.py; io/checkpoint.py) are here too. What
+is not ported yet (several cards) raises NotImplementedError and is
+listed in ROADMAP.md.
 
 The host modules (config, camera, controllers, OBJ/MTL import, scene
 assembly) are copies of the JAX package's, because importing any module

@@ -96,6 +96,12 @@ GP_G2 = 32  # 32-34 edge plane g2 (h2 recompute)
 GP_C1 = 35  # plane constants c1/c2 (per-ray-origin h recompute)
 GP_C2 = 36
 GPACK_ROWS = 37
+# the streaming-record column of each gpack row (the JAX package's
+# GPACK_SRC_COLS): gpack == spack[:, GPACK_SRC_COLS].T for a fresh record
+GPACK_SRC_COLS = ([12, 13, 14, 15] + list(range(16, 22)) + [22]
+                  + list(range(30, 39)) + list(range(24, 30))
+                  + [0, 1, 2] + [6, 7, 8] + [9, 10, 11]
+                  + [SC_DC + 2, SC_DC + 3])
 
 
 def _pad_rows(a: np.ndarray, n: int, fill=0) -> np.ndarray:

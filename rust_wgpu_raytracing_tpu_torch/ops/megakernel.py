@@ -39,6 +39,12 @@ Memory: JAX fuses the flat scan into one XLA loop; here its (tiles,
 clusters, 3) temporaries would take GBs at 1080p past 500k faces, so
 _mask_words scans a chunk of tiles at a time (the words are the same).
 
+Stale tables: a scene whose streaming record or winner-attribute table
+does not cover its faces (a refit whose records were not rebuilt) gets
+them rebuilt from its tensors (_stream_pack, _gpack_stream), in one
+shot: JAX chunks the record build only for the TPU's (8, 128) tiles
+(pack_stream_columns_chunked), which the card does not need.
+
 mip=True (RenderConfig.mip) shades the split frame's mesh pass from the
 texture pyramid (ops/miptex.py): a ray-cone LOD and two taps of the
 pyramid pool, each through the texture filter kernel K6, in place of
@@ -61,8 +67,9 @@ import torch
 
 from ..core.camera import CameraUniforms
 from ..core.scene import (GP_C1, GP_C2, GP_G1, GP_G2, GP_INVD, GP_MAT,
-                          GP_N, GP_TAN, GP_UN, GP_UV, GP_VN, SC_DC,
-                          STREAM_COLS, STREAM_FACES, SUPER_F, SceneData)
+                          GP_N, GP_TAN, GP_UN, GP_UV, GP_VN, GPACK_SRC_COLS,
+                          SC_DC, STREAM_COLS, STREAM_FACES, SUPER_F,
+                          SceneData)
 from .composite import to_nonlinear_depth
 from .hier_cull import hier_cull_fits, hier_cull_words
 from .rounding import ftz, sqrt
@@ -161,15 +168,16 @@ def expand_tf_gbuffer(scene: SceneData, t, face, dx, dy, dz,
                       oterm=None, with_nm: bool = False,
                       oxyz=None) -> GBuffer:
     """Resolve the G-buffer from the sweep's (t, face): ONE gather of the
-    winner faces' gpack columns, then h1/h2/ndotd and the shading
-    attributes recomputed with the kernels' own expressions on the
-    winner's values. Shared-origin rays pass the frame's exact
+    winner faces' gpack columns (_gpack_stream: the scene's table, or
+    one derived from the streaming record where it is stale), then
+    h1/h2/ndotd and the shading attributes recomputed with the kernels'
+    own expressions on the winner's values. Shared-origin rays pass the frame's exact
     origin-term floats `oterm`; per-ray-origin rays (bounces) pass
     oxyz=(ox, oy, oz), and the origin terms are recomputed per ray as
     the per-ray sweep computes them. with_nm adds the interpolated
     vertex normal and the face's tangent frame. Miss rays (t == inf)
     zero every attribute."""
-    gp = scene.gpack
+    gp = _gpack_stream(scene)
     idx = face.clamp(0, gp.shape[1] - 1).long()
     a = gp.index_select(1, idx)  # (GPACK_ROWS, R)
     hit = torch.isfinite(t)
@@ -344,18 +352,49 @@ def _stream_setup(scene: SceneData, stream: Optional[bool]):
 
 
 def _stream_pack(scene: SceneData) -> torch.Tensor:
-    """The (F, STREAM_COLS) streaming record: SceneData.spack when the
-    scene has one (Scene.build past STREAM_FACES), else built from the
-    scene's tensors (a small scene forced onto the streamed path), as
-    JAX's _stream_pack / pack_stream_columns build it."""
-    f = scene.padded_faces
-    if scene.spack.shape[0] == f:
+    """The (F, STREAM_COLS) streaming record: SceneData.spack when it
+    covers the scene's faces (Scene.build past STREAM_FACES, an
+    instanced refit), else built from the scene's tensors by
+    pack_stream_columns (a small scene forced onto the streamed path),
+    as JAX's _stream_pack builds it."""
+    if scene.spack.shape[0] == scene.padded_faces:
         return scene.spack
-    dev = scene.tri_d.device
+    return pack_stream_columns(scene)
+
+
+def pack_stream_columns(scene: SceneData) -> torch.Tensor:
+    """The streaming record built from the scene's tensors in one shot
+    (JAX pack_stream_columns): pack_face_columns' 40 columns, then
+    [d, c0, c1, c2] at SC_DC, then zeros. JAX also keeps a chunked twin
+    (pack_stream_columns_chunked) because the one-shot build's narrow
+    operands pad to the TPU's (8, 128) tiles and ran out of memory at 2M
+    faces; here the record is (F, 128) f32 and nothing more (1 GB at 2M
+    faces on an 80 GB card), and the values are the same."""
+    f = scene.padded_faces
     return torch.cat([pack_face_columns(scene), scene.tri_d[:, None],
                       scene.tri_c,
                       torch.zeros((f, STREAM_COLS - SC_DC - 4),
-                                  dtype=torch.float32, device=dev)], dim=1)
+                                  dtype=torch.float32,
+                                  device=scene.tri_d.device)], dim=1)
+
+
+def gpack_from_stream(spack: torch.Tensor) -> torch.Tensor:
+    """The (GPACK_ROWS, F) winner-attribute table derived from a full
+    streaming record (JAX gpack_from_stream), in one gather."""
+    cols = torch.tensor(GPACK_SRC_COLS, dtype=torch.int64,
+                        device=spack.device)
+    return spack.index_select(1, cols).t().contiguous()
+
+
+def _gpack_stream(scene: SceneData) -> torch.Tensor:
+    """The winner-attribute table (JAX _gpack_stream): SceneData.gpack
+    when it covers the scene's faces, else derived from the streaming
+    record. Every reader of the table goes through here, so a stale
+    table (one whose width is not padded_faces) is rebuilt, never
+    indexed."""
+    if scene.gpack.shape[1] == scene.padded_faces:
+        return scene.gpack
+    return gpack_from_stream(_stream_pack(scene))
 
 
 def _super_aabbs(scene: SceneData, n_super: int):

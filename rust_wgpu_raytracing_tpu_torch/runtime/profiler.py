@@ -16,6 +16,9 @@ that is not on a CUDA device.
 count_ops counts the torch operations a call dispatches, with each
 kernel call as one: the host's launches, on any device (on the CPU,
 where there is no trace, it is the only way to see them).
+
+Profiler keeps the interactive loop's rolling frame times
+(runtime/frame_loop.py, the server's /stats), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -24,7 +27,10 @@ import collections
 import contextlib
 import time
 import warnings
+from dataclasses import dataclass, field
+from typing import Dict, List
 
+import numpy as np
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
@@ -140,3 +146,31 @@ def profile_frames(renderer, frames: int = 5, warmup: int = 3,
         "top": [(a.key, a.count, a.self_device_time_total / 1e3)
                 for a in rows[:top] if a.self_device_time_total > 0],
     }
+
+
+@dataclass
+class Profiler:
+    """Rolling frame statistics for the interactive loop (the JAX
+    package's runtime/profiler.Profiler): the last `window` frame times
+    in ms, host clock."""
+
+    window: int = 60
+    _times: List[float] = field(default_factory=list)
+
+    def record(self, frame_ms: float):
+        self._times.append(frame_ms)
+        if len(self._times) > self.window:
+            self._times.pop(0)
+
+    @property
+    def mean_ms(self) -> float:
+        return float(np.mean(self._times)) if self._times else float("nan")
+
+    @property
+    def p99_ms(self) -> float:
+        return (float(np.percentile(self._times, 99)) if self._times
+                else float("nan"))
+
+    def summary(self) -> Dict[str, float]:
+        return {"mean_ms": self.mean_ms, "p99_ms": self.p99_ms,
+                "frames": len(self._times)}

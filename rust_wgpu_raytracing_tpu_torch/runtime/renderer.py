@@ -9,7 +9,8 @@ aspect), as in the JAX package.
 
 The Renderer renders on the card by default (device="cuda", which
 raises when there is none); device="cpu" runs the same frame through
-the kernels' plain PyTorch versions.
+the kernels' plain PyTorch versions. limits= validates the scene against
+a runtime.limits.DeviceLimits first, as in the JAX package.
 
 RenderConfig.pt_bounces > 0 switches to progressive path tracing
 (ops/pathtrace.py), as in the JAX package: each render() adds one
@@ -69,7 +70,19 @@ def resolve_device(device) -> torch.device:
 
 class Renderer:
     def __init__(self, config: SceneConfig, backend: str = "auto", *,
-                 device="cuda"):
+                 device="cuda", limits=None):
+        """limits: an optional runtime.limits.DeviceLimits, validated as
+        wgpu validates pipelines at creation (the reference's wasm build
+        requests crippled limits, src/lib.rs:136-170,287-297); raises
+        ValueError listing every violation, as the JAX package does."""
+        if limits is not None:
+            from .limits import validate_limits
+
+            bad = validate_limits(config, limits)
+            if bad:
+                raise ValueError(
+                    "scene does not validate under device limits:\n  "
+                    + "\n  ".join(bad))
         self.device = resolve_device(device)
         self.backend = self._pick_backend(backend)
         rc = config.render
@@ -272,11 +285,45 @@ class Renderer:
             self.render()
         return self._last[0]
 
-    def present_image(self, srgb: bool = True) -> np.ndarray:
-        """(H,W,3) u8 top-down image of the latest frame, encoded on the
-        device so only the u8 image crosses to the host."""
-        img = encode_u8_device(self._latest_color(), srgb=srgb)
-        return img.cpu().numpy()[::-1]
+    def present_image(self, srgb: bool = True, color=None) -> np.ndarray:
+        """(H,W,3) u8 top-down image of the latest frame, or of `color`
+        (an older frame: the pipelined FrameLoop presents frame k-1 while
+        frame k renders), encoded on the device so only the u8 image
+        crosses to the host."""
+        return self.fetch_image(srgb=srgb, color=color)()
+
+    def fetch_image(self, srgb: bool = True, color=None):
+        """Queue present_image's encode and its copy to the host; returns
+        a function that waits for the copy and returns the image. On the
+        card the copy goes to pinned memory without blocking the host, so
+        work queued after it (the next frame) is enqueued while the copy
+        runs, and the wait covers the copy alone."""
+        if color is None:
+            color = self._latest_color()
+        img = encode_u8_device(color, srgb=srgb)
+        if img.device.type != "cuda":
+            return lambda: img.numpy()[::-1]
+        host = torch.empty(img.shape, dtype=img.dtype, pin_memory=True)
+        host.copy_(img, non_blocking=True)
+        copied = torch.cuda.Event()
+        copied.record()
+
+        def wait() -> np.ndarray:
+            copied.synchronize()
+            return host.numpy()[::-1]
+        return wait
+
+    def reset_device(self):
+        """Rebuild the Renderer's device state: wait for the card, free
+        its cached blocks and upload the scene anew (FrameLoop's recovery
+        from a lost device, followed by a resize). Raises where the card
+        is still unusable."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+            torch.cuda.empty_cache()
+        self.data = self.scene.data.to(self.device)
+        self._last = None
+        self._events = None
 
     def save_png(self, path: str, srgb: bool = True):
         write_png(path, self._latest_color(), srgb=srgb)

@@ -1,6 +1,7 @@
 """PyTorch port: it runs where JAX cannot be imported (the frame, the CLI,
-the path tracer, the oracle and mip sampling), and no file of the port
-imports JAX or the JAX package."""
+the path tracer, the oracle, mip sampling, instancing, the raster
+pipeline and the runtime shells), and no file of the port imports JAX or
+the JAX package."""
 
 import re
 import subprocess
@@ -32,7 +33,8 @@ color, depth = r.render(block=True)
 assert tuple(color.shape) == (32, 32, 3) and bool((depth < 1).any())
 with open({cfg_path!r}, "w") as fh:
     fh.write(cfg.to_json())
-assert main(["--scene", {cfg_path!r}, "--width", "32", "--height", "24",
+assert main(["--shell", "headless", "--scene", {cfg_path!r}, "--width", "32",
+             "--height", "24",
              "--shadows", "--frames", "2", "--device", "cpu",
              "--out", {png!r}]) == 0
 assert read_png({png!r}).shape == (24, 32, 3)
@@ -58,6 +60,42 @@ rm = pt.Renderer(dc.replace(cfg, render=dc.replace(cfg.render, mip=True)),
 color, depth = rm.render(block=True)
 assert rm.variant_chosen == "split" and bool((depth < 1).any())
 from rust_wgpu_raytracing_tpu_torch.ops.traverse import bvh_walk_mask_words
+from rust_wgpu_raytracing_tpu_torch.ops.instances import (InstancedScene,
+                                                          grid_transforms)
+from rust_wgpu_raytracing_tpu_torch.ops.megakernel import render_megakernel
+inst = InstancedScene.from_config(pt.MeshConfig(obj_path="builtin:cube"), 4,
+                                  device="cpu")
+data = inst.instantiate(grid_transforms(4, z=-6.0, angle=0.3))
+uni = pt.Camera.from_config(pt.CameraConfig(eye=(0.3, -0.5, -1.5),
+                                            target=(0.0, 0.0, -6.0)),
+                            1.0).uniforms().flat()
+color, depth = render_megakernel(data, uni, width=32, height=32)
+assert bool((depth < 1).any())
+from rust_wgpu_raytracing_tpu_torch.ops import raster
+enc = raster.RasterEncoder(24, 24, device="cpu")
+mesh = raster.RasterMesh("tri", np.array([[-1, -1, 0], [1, -1, 0], [0, 1, 0]],
+                                         np.float32),
+                         np.zeros((3, 2), np.float32),
+                         np.zeros((3, 3), np.float32),
+                         np.array([[0, 1, 2]], np.int32))
+enc.draw_mesh(mesh, raster.RasterMaterial("m", np.ones((2, 2, 3),
+                                                       np.float32)),
+              np.eye(4, dtype=np.float32))
+assert bool((enc.depth.data < 1).any())
+from rust_wgpu_raytracing_tpu_torch.runtime.frame_loop import FrameLoop
+from rust_wgpu_raytracing_tpu_torch.runtime.limits import default_limits
+from rust_wgpu_raytracing_tpu_torch.runtime.server import RenderServer
+from rust_wgpu_raytracing_tpu_torch.runtime.window import image_to_ppm
+from rust_wgpu_raytracing_tpu_torch.io.checkpoint import (load_checkpoint,
+                                                          save_checkpoint)
+from rust_wgpu_raytracing_tpu_torch.utils.logging import log_frame_stats
+loop = FrameLoop(pt.Renderer(cfg, device="cpu", limits=default_limits()))
+srv = RenderServer(loop, port=0)
+srv.serve_async()
+loop.run(n_frames=2)
+srv.shutdown()
+save_checkpoint({ckpt!r}, loop.renderer)
+assert load_checkpoint({ckpt!r}, device="cpu").frame_count == 2
 assert not [m for m, mod in sys.modules.items() if mod is not None and (
     m == "jax" or m.startswith("jax.") or m.startswith("jaxlib")
     or m.split(".")[0] == "rust_wgpu_raytracing_tpu")]
@@ -68,7 +106,8 @@ print("rendered without jax")
 def test_port_renders_without_jax(tmp_path):
     code = _RENDER_WITHOUT_JAX.format(repo=str(REPO),
                                       cfg_path=str(tmp_path / "scene.json"),
-                                      png=str(tmp_path / "frame.png"))
+                                      png=str(tmp_path / "frame.png"),
+                                      ckpt=str(tmp_path / "run.ckpt"))
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=300)
     assert res.returncode == 0, res.stderr[-4000:]
@@ -86,7 +125,10 @@ def test_no_port_file_imports_jax():
     for mod in ("ops/hier_cull.py", "ops/kernels/hier_cull.py",
                 "ops/kernels/stream_sweep.py", "ops/traverse.py",
                 "ops/oracle.py", "ops/raygen.py", "ops/intersect.py",
-                "ops/miptex.py", "ops/bvh.py", "models/triangle.py"):
+                "ops/miptex.py", "ops/bvh.py", "models/triangle.py",
+                "ops/instances.py", "ops/raster.py", "runtime/frame_loop.py",
+                "runtime/limits.py", "runtime/server.py", "runtime/window.py",
+                "io/checkpoint.py", "utils/logging.py"):
         assert PORT / mod in files, mod
     offenders = [str(f.relative_to(REPO)) for f in files
                  if pattern.search(f.read_text())]

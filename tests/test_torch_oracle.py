@@ -358,9 +358,9 @@ def test_renderer_oracle_backend(tmp_path):
     scene = tmp_path / "scene.json"
     scene.write_text(cfg.to_json())
     png = str(tmp_path / "oracle.png")
-    assert main(["--scene", str(scene), "--width", "48", "--height", "32",
-                 "--shadows", "--backend", "oracle", "--device", "cpu",
-                 "--out", png]) == 0
+    assert main(["--shell", "headless", "--scene", str(scene), "--width",
+                 "48", "--height", "32", "--shadows", "--backend", "oracle",
+                 "--device", "cpu", "--out", png]) == 0
     assert read_png(png).shape == (32, 48, 3)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Renderer(cfg, backend="megakernel_gp", device="cpu")
