@@ -161,12 +161,39 @@ program on its own, and checks them:
    127.0.0.1 fetched through urllib (/frame.png decodes to the presented
    frame, /stats is JSON, /key answers); a 4-bounce path trace of the
    heightfield at 960x540 checkpointed at 3 spp and resumed to 6, equal
-   to the uninterrupted 6-spp image bitwise.
+   to the uninterrupted 6-spp image bitwise;
+14. multi-device rendering (parallel/): a set of 2 gloo ranks and one of
+   4 (parallel.launch.spawn, started at once, all on cuda:0; the kernels
+   were built in phase 2). Each rank times its cases with CUDA events
+   (MD_REPS frames, medians), records every kernel call of each case and
+   holds each kernel against its plain version on its first call's
+   arguments (the streamed sweeps on 8 batches), and prints its
+   peak device memory. 2 ranks: the smoke scene's row slabs (dp=2) fused
+   and split with shadows (each slab also against its plain-composed
+   twin; the gather timed after a barrier), stream-1080p-terrain512's
+   slabs under cull and bvh, render_pathtrace_gp over 2 shards of the
+   1080p heightfield (4 bounces), and render_sharded_gp from phase 5's
+   camera on a face's plane (grid48, 640x360, rays at t = +0.0 and
+   -0.0) with the merged primary G-buffer's t. 4 ranks: dp=4 smoke slabs,
+   render_sharded_gp on the smoke scene lit and shadowed (gp=4; the
+   shard's own frame timed beside it) and on builtin:terrain:512
+   shadowed (131k faces a shard, streamed), dp=2 x gp=2,
+   render_pathtrace_gp on pt-540p-terrain512 (gp=4),
+   render_pathtrace_sharded dp=2 x sp=2, make_train_step dp=2 x sp=2 at
+   1080p for MD_STEPS steps on dryrun_multichip's scene, and
+   Renderer(backend="megakernel_gp") inside the group. Here every frame,
+   sample and mean is held bitwise against its single-device
+   counterpart, the train step's loss must descend and its first update
+   match the single-rank whole-image gradient (the mean of sp ranks 0
+   and 1's jitter) within 1e-3 relative; the launches summed over ranks
+   per path, each path's kernels required.
 
 The kernels line's launches are each kernel's count from the first
 path run of phases 4-7 that uses it, plus its counts on the instanced
-paths of phase 11.
+paths of phase 11 and on the slab and gp paths of phase 14 (summed over
+the ranks).
 
+`python3 chip_smoke.py --multi` runs only phases 1-2 and 14.
 `python3 chip_smoke.py --profile` runs only phases 1-2 and then
 profiles 5 frames of each frame program at the smoke view, 5 samples
 of the path tracer, and 5 frames / samples of the streamed cells
@@ -183,6 +210,7 @@ result. The last line is the result JSON.
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import json
 import os
@@ -2174,6 +2202,509 @@ def shells_phase(card, Renderer, say):
         raise AssertionError("the resumed path trace differs")
 
 
+# ---------------------------------------------------------------------------
+# phase 14: multi-device rendering, gloo ranks sharing the card
+# ---------------------------------------------------------------------------
+
+# timed frames a rank after one warm-up; train steps
+MD_REPS, MD_STEPS, MD_LR = 3, 5, 8.0
+STREAMED = ("stream_closest_hit", "stream_closest_hit_perray",
+            "stream_anyhit")
+
+
+def flat_out(name, out):
+    """A kernel's outputs as a tuple of tensors (closest_hit: its sphere
+    planes too, where there are any)."""
+    if name == "closest_hit":
+        return (out[0], out[1], *(out[2] or ()))
+    return (out,) if name in ("anyhit", "stream_anyhit",
+                              "hier_cull") else tuple(out)
+
+
+def _recording(K):
+    """A KernelSet that records every call's arguments, and the record:
+    {name: [(args, kwargs), ...]} in call order."""
+    calls = {}
+
+    def wrap(fn):
+        def call(*args, **kwargs):
+            calls.setdefault(fn.__name__, []).append((args, kwargs))
+            return fn(*args, **kwargs)
+        call.__name__ = fn.__name__
+        return call
+    return K.KernelSet(*(wrap(f) for f in K.KERNELS)), calls
+
+
+def _check_calls(K, calls, view, errs):
+    """Each recorded kernel against its plain version on its first call's
+    arguments (the streamed sweeps on 8 batches, subset_check), every
+    plane equal by value (t bitwise for the shared-origin sweeps)."""
+    import torch
+
+    wrapper = {f.__name__: f for f in K.KERNELS}
+    plain = {f.__name__: p for f, p in zip(K.KERNELS, K.PLAIN)}
+    for name, lst in sorted(calls.items()):
+        args, kw = lst[0]
+        if name in STREAMED:
+            subset_check(K, flat_out, errs, view, name, args, kw)
+            continue
+        got = flat_out(name, wrapper[name](*args, **kw))
+        want = flat_out(name, plain[name](*args, **kw))
+        torch.cuda.synchronize()
+        exact = all(torch.equal(x, y) for x, y in zip(got, want))
+        if name in SIGNED_T:
+            exact = exact and torch.equal(got[0].view(torch.int32),
+                                          want[0].view(torch.int32))
+        if not exact:
+            raise AssertionError(f"{view}: {name} disagrees with its "
+                                 f"plain version")
+        errs[name] = max(errs.get(name, 0.0), max(
+            max_abs_err(x, y) for x, y in zip(got, want)))
+    say(f"[multi] {view}: {sum(len(v) for v in calls.values())} kernel "
+        f"calls; {sorted(calls)} each OK vs plain (its first call)")
+
+
+def _median_ms(fn, reps=MD_REPS):
+    import torch
+
+    fn()
+    times = []
+    for _ in range(reps):
+        start, end = (torch.cuda.Event(enable_timing=True)
+                      for _ in range(2))
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def _host_ms(fn, barrier=False):
+    """fn's result and its host time in ms, the card synchronized before
+    and after (barrier: every rank waits for the others first, so that a
+    collective's time holds no wait for a slower rank)."""
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.synchronize()
+    if barrier:
+        dist.barrier()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _md_run(K, label, run, report, errs, check=True):
+    """run(kernels) once with the counters at 0 and every call recorded;
+    the launches into report; the calls checked against plain."""
+    import torch
+
+    ks, calls = _recording(K)
+    K.reset_launch_counts()
+    out = run(ks)
+    torch.cuda.synchronize()
+    report["launches"][label] = K.launch_counts()
+    if check:
+        _check_calls(K, calls, f"{label}, rank {report['rank']}", errs)
+    return out
+
+
+def _md_scene(cfg):
+    from rust_wgpu_raytracing_tpu_torch.core.camera import Camera
+    from rust_wgpu_raytracing_tpu_torch.core.scene import Scene
+
+    rc = cfg.render
+    return (Scene.build(cfg).data.to("cuda"),
+            Camera.from_config(cfg.camera, rc.width / rc.height)
+            .uniforms().flat())
+
+
+def _md_dp_frames(K, mesh, data, uni, report, errs, tag, accels=("cull",),
+                  fused_options=(None,), plain_slab=True):
+    """The dp cases of one scene: each program's slab (timed; against its
+    plain-composed twin, or, plain_slab False, each kernel it launched
+    against its plain version), the gather (timed) and the whole
+    frame."""
+    import torch
+
+    from rust_wgpu_raytracing_tpu_torch.ops.megakernel import \
+        render_megakernel
+
+    h = HEIGHT
+    rows = h // mesh.size("dp")
+    row0 = mesh.index("dp") * rows
+    out = {}
+    for accel in accels:
+        for fused in fused_options:
+            label = f"{tag} dp={mesh.size('dp')} " + (
+                accel if fused is None else
+                ("fused" if fused else "split"))
+
+            def slab(ks, fused=fused, accel=accel):
+                return render_megakernel(
+                    data, uni, width=WIDTH, height=rows, shadows=True,
+                    row0=row0, total_height=h, fused=fused, accel=accel,
+                    kernels=ks)[0]
+            c = _md_run(K, label, slab, report, errs,
+                        check=not plain_slab)
+            if plain_slab and not torch.equal(c, slab(K.PLAIN)):
+                raise AssertionError(f"{label}: rank {report['rank']}'s "
+                                     f"slab != its plain-composed slab")
+            ms = _median_ms(lambda: slab(K.KERNELS))
+            whole, gather = _host_ms(lambda: mesh.gather_rows(c, h),
+                                     barrier=True)
+            report["ms"][label] = {"slab_ms": ms, "gather_ms": gather}
+            out[label] = whole
+    return out
+
+
+def md_ranks(n):
+    """The phase's cases on each of n gloo ranks sharing cuda:0; returns
+    (rank 0's whole results, every rank's report)."""
+    import torch
+    import torch.distributed as dist
+
+    from rust_wgpu_raytracing_tpu_torch import Renderer
+    from rust_wgpu_raytracing_tpu_torch.ops import kernels as K
+    from rust_wgpu_raytracing_tpu_torch.ops.megakernel import (
+        gbuffer, render_megakernel)
+    from rust_wgpu_raytracing_tpu_torch.ops.pathtrace import (
+        PRNGKey, fold_in)
+    from rust_wgpu_raytracing_tpu_torch.parallel import geometry_sharding \
+        as G
+    from rust_wgpu_raytracing_tpu_torch.testing.raycull import \
+        plane_camera_config
+    from rust_wgpu_raytracing_tpu_torch.parallel import tile_sharding as T
+    from rust_wgpu_raytracing_tpu_torch.parallel.mesh import make_gp_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    report = {"rank": dist.get_rank(), "launches": {}, "ms": {}}
+    errs = {}
+    res = {}
+    smoke, smoke_uni = _md_scene(smoke_config())
+    dp_mesh = T.make_render_mesh(device="cuda")
+    report["device"] = str(dp_mesh.device)
+    res.update(_md_dp_frames(K, dp_mesh, smoke, smoke_uni, report, errs,
+                             "smoke", fused_options=(True, False)))
+    stream, stream_uni = _md_scene(stream_config())
+    if n == 2:
+        res.update(_md_dp_frames(K, dp_mesh, stream, stream_uni, report,
+                                 errs, "stream", accels=("cull", "bvh"),
+                                 plain_slab=False))
+        pt, pt_uni = _md_scene(pt_config())
+        gp2 = make_gp_mesh(device="cuda")
+        res["pt gp=2"] = _md_run(K, "pt gp=2", lambda ks: G.render_pathtrace_gp(
+            pt, pt_uni, PRNGKey(PT_SEED), gp2, width=WIDTH, height=HEIGHT,
+            bounces=PT_BOUNCES, kernels=ks), report, errs)
+        # a camera on a face's plane: zero t of both signs through the
+        # merges (phase 5's view, grid48)
+        plane, plane_uni = _md_scene(plane_camera_config(
+            "grid48.obj", 48, 600, 640, 360))
+        res["plane gp=2"] = _md_run(K, "plane gp=2", lambda ks:
+                                    G.render_sharded_gp(
+                                        plane, plane_uni, gp2, width=640,
+                                        height=360, shadows=True,
+                                        kernels=ks), report, errs)
+        origin, rays = md_rays(plane_uni, 640, 360)
+        local = G.local_shard(*G.shard_scene_faces(plane, 2),
+                              gp2.index("gp"))
+        res["plane gp=2 t"] = G._merge_gbuffer(gp2, gbuffer(
+            local, origin, *rays, with_spheres=False)[0],
+            local.padded_faces).t
+    else:
+        gp4 = make_gp_mesh(device="cuda")
+        for shadows in (False, True):
+            label = f"smoke gp=4 {'shadowed' if shadows else 'lit'}"
+
+            def gp_frame(ks, shadows=shadows, mesh=gp4):
+                return G.render_sharded_gp(smoke, smoke_uni, mesh,
+                                           width=WIDTH, height=HEIGHT,
+                                           shadows=shadows, kernels=ks)
+            res[label] = _md_run(K, label, gp_frame, report, errs)
+            local = G.local_shard(*G.shard_scene_faces(smoke, 4),
+                                  gp4.index("gp"))
+            report["ms"][label] = {
+                "frame_ms": _median_ms(lambda: gp_frame(K.KERNELS)),
+                "shard_frame_ms": _median_ms(lambda: render_megakernel(
+                    local, smoke_uni, width=WIDTH, height=HEIGHT,
+                    shadows=shadows))}
+        label = "stream gp=4 shadowed"
+        res[label] = _md_run(K, label, lambda ks: G.render_sharded_gp(
+            stream, stream_uni, gp4, width=WIDTH, height=HEIGHT,
+            shadows=True, kernels=ks), report, errs)
+        report["ms"][label] = {"frame_ms": _median_ms(
+            lambda: G.render_sharded_gp(stream, stream_uni, gp4,
+                                        width=WIDTH, height=HEIGHT,
+                                        shadows=True), reps=2)}
+        dpgp = make_gp_mesh(dp=2, device="cuda")
+        res["smoke dp=2 x gp=2"] = _md_run(
+            K, "smoke dp=2 x gp=2", lambda ks: G.render_sharded_gp(
+                smoke, smoke_uni, dpgp, width=WIDTH, height=HEIGHT,
+                shadows=True, kernels=ks), report, errs)
+        pts_uni = md_uni(pt_stream_config())
+        res["pt540 gp=4"] = _md_run(K, "pt540 gp=4",
+                                    lambda ks: G.render_pathtrace_gp(
+                                        stream, pts_uni, fold_in(
+                                            PRNGKey(PT_SEED), 0), gp4,
+                                        width=PTS_W, height=PTS_H,
+                                        bounces=PTS_BOUNCES, kernels=ks),
+                                    report, errs)
+        pt, pt_uni = _md_scene(pt_config())
+        dpsp = T.make_render_mesh(sp=2, device="cuda")
+        res["pt dp=2 x sp=2"] = _md_run(
+            K, "pt dp=2 x sp=2", lambda ks: T.render_pathtrace_sharded(
+                pt, pt_uni, PRNGKey(PT_SEED), dpsp, width=WIDTH,
+                height=HEIGHT, bounces=PT_BOUNCES, kernels=ks), report,
+            errs)
+        tr, tr_uni = _md_scene(T.dryrun_scene(WIDTH, HEIGHT))
+        from rust_wgpu_raytracing_tpu_torch.ops.oracle import render_oracle
+
+        target = render_oracle(tr, tr_uni, width=WIDTH, height=HEIGHT,
+                               quantize=False)[0]
+        params = {"sphere_color": tr.sphere_color + 0.4,
+                  "mat_ambient": tr.mat_ambient + 0.2}
+        step = T.make_train_step(tr, dpsp, width=WIDTH, height=HEIGHT,
+                                 lr=MD_LR)
+        losses, steps_ms = [], []
+        for i in range(MD_STEPS):
+            (params, loss), ms = _host_ms(
+                lambda i=i: step(params, tr, tr_uni, target, i))
+            losses.append(float(loss))
+            steps_ms.append(ms)
+            if i == 0:
+                res["train step1"] = {k: v.clone() for k, v in
+                                      params.items()}
+        res["train losses"] = losses
+        report["ms"]["train dp=2 x sp=2"] = {"step_ms": float(
+            np.median(steps_ms))}
+        cfg = smoke_config()
+        rg = Renderer(cfg, backend="megakernel_gp", device="cuda")
+        K.reset_launch_counts()
+        res["Renderer gp=4"] = rg.render(block=True)
+        report["launches"]["Renderer gp=4"] = K.launch_counts()
+        report["renderer"] = (rg.variant_chosen, rg._gp_mesh.size("gp"),
+                              str(rg.device))
+    report["peak_mb"] = torch.cuda.max_memory_allocated() / 2 ** 20
+    report["errs"] = errs
+    reports = [None] * n
+    dist.all_gather_object(reports, report)
+    return res, reports
+
+
+def md_rays(uni_flat, width, height):
+    """The camera origin and the planar primary rays (scanlines) of a
+    view, on the card."""
+    import torch
+
+    from rust_wgpu_raytracing_tpu_torch.core.camera import CameraUniforms
+    from rust_wgpu_raytracing_tpu_torch.ops.megakernel import raygen_planar
+
+    uni = CameraUniforms.unflat(uni_flat)
+    return (torch.as_tensor(uni.origin, dtype=torch.float32, device="cuda"),
+            raygen_planar(width, height, uni, device="cuda"))
+
+
+def md_uni(cfg):
+    """The camera vector of a config's view."""
+    from rust_wgpu_raytracing_tpu_torch.core.camera import Camera
+
+    rc = cfg.render
+    return Camera.from_config(cfg.camera, rc.width / rc.height) \
+        .uniforms().flat()
+
+
+def multidevice_phase(card, K, errs, say):
+    """Phase 14: the sharded functions on gloo ranks sharing cuda:0 (a
+    set of 2 ranks and one of 4, at once), each result against its
+    single-device counterpart here, bitwise. Returns the launches summed
+    over ranks by path."""
+    import torch
+
+    from rust_wgpu_raytracing_tpu_torch.ops.megakernel import (
+        gbuffer, render_megakernel)
+    from rust_wgpu_raytracing_tpu_torch.ops.pathtrace import (
+        PRNGKey, fold_in, render_pathtrace)
+    from rust_wgpu_raytracing_tpu_torch.parallel import tile_sharding as T
+    from rust_wgpu_raytracing_tpu_torch.parallel.launch import spawn
+
+    from rust_wgpu_raytracing_tpu_torch.testing.raycull import (
+        plane_camera_config, write_grid_mesh)
+
+    write_grid_mesh(os.path.join(os.environ["RWRT_ASSETS"], "grid48.obj"),
+                    48)
+    # the 2-rank and the 4-rank set run at once: 6 processes share the
+    # card, and each rank's times are taken under that sharing
+    got, reports = {}, []
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        runs = {n: pool.submit(spawn, md_ranks, n, n, backend="gloo",
+                               timeout=900) for n in (2, 4)}
+    say(f"[multi] {card}: 2 and 4 gloo ranks on cuda:0 at once ran their "
+        f"cases in {time.perf_counter() - t0:.1f} s (spawn and scene "
+        f"builds included)")
+    for n, run in runs.items():
+        res, reps = run.result()
+        for rep in reps:
+            say(f"[multi] {n} ranks, rank {rep['rank']} on "
+                f"{rep['device']}: peak device memory "
+                f"{rep['peak_mb']:.1f} MB; ms "
+                f"{json.dumps(rep['ms'], sort_keys=True)}")
+            for name, e in rep["errs"].items():
+                errs[name] = max(errs.get(name, 0.0), e)
+        got.update({(n, k): v for k, v in res.items()})
+        reports.append(reps)
+
+    def dev(a):
+        if isinstance(a, torch.Tensor):
+            return a.to("cuda")
+        return torch.as_tensor(np.asarray(a)).to("cuda")
+
+    def same(label, a, b):
+        a, b = dev(a), dev(b)
+        ok = a.shape == b.shape and torch.equal(
+            a.view(torch.int32), b.view(torch.int32))
+        diff = int((a != b).sum()) if a.shape == b.shape else -1
+        say(f"[multi] {label}: {'OK' if ok else 'MISMATCH'} bitwise vs "
+            f"the single-device result ({diff} of {b.numel()} values "
+            f"differ)")
+        if not ok:
+            raise AssertionError(f"{label} != its single-device result")
+
+    smoke, smoke_uni = _md_scene(smoke_config())
+    for fused in (True, False):
+        single = render_megakernel(smoke, smoke_uni, width=WIDTH,
+                                   height=HEIGHT, shadows=True, fused=fused)
+        name = "fused" if fused else "split"
+        for n in (2, 4):
+            same(f"smoke dp={n} {name} frame", got[(n, f"smoke dp={n} "
+                                                    f"{name}")], single[0])
+    for shadows in (False, True):
+        single = render_megakernel(smoke, smoke_uni, width=WIDTH,
+                                   height=HEIGHT, shadows=shadows,
+                                   fused=None if not shadows else False)
+        tag = "shadowed" if shadows else "lit"
+        c, d = got[(4, f"smoke gp=4 {tag}")]
+        same(f"smoke gp=4 {tag} colour", c, single[0])
+        same(f"smoke gp=4 {tag} depth", d, single[1])
+        if shadows:
+            c, d = got[(4, "smoke dp=2 x gp=2")]
+            same("smoke dp=2 x gp=2 colour", c, single[0])
+            same("smoke dp=2 x gp=2 depth", d, single[1])
+            c, _ = got[(4, "Renderer gp=4")]
+            same("Renderer(backend='megakernel_gp') gp=4 frame", c,
+                 single[0])
+    del smoke
+    stream, stream_uni = _md_scene(stream_config())
+    for accel in ("cull", "bvh"):
+        single = render_megakernel(stream, stream_uni, width=WIDTH,
+                                   height=HEIGHT, shadows=True, accel=accel)
+        same(f"stream dp=2 {accel} frame", got[(2, f"stream dp=2 {accel}")],
+             single[0])
+        if accel == "cull":
+            c, d = got[(4, "stream gp=4 shadowed")]
+            same("stream gp=4 shadowed colour", c, single[0])
+            same("stream gp=4 shadowed depth", d, single[1])
+    plane, plane_uni = _md_scene(plane_camera_config("grid48.obj", 48, 600,
+                                                     640, 360))
+    c, d = render_megakernel(plane, plane_uni, width=640, height=360,
+                             shadows=True, fused=False)
+    same("plane camera gp=2 colour", got[(2, "plane gp=2")][0], c)
+    same("plane camera gp=2 depth", got[(2, "plane gp=2")][1], d)
+    origin, rays = md_rays(plane_uni, 640, 360)
+    t = gbuffer(plane, origin, *rays, with_spheres=False)[0].t
+    zero = t == 0.0
+    say(f"[multi] plane camera: {int((zero & torch.signbit(t)).sum())} "
+        f"rays at t = -0.0, {int((zero & ~torch.signbit(t)).sum())} at "
+        f"+0.0")
+    same("plane camera gp=2 merged primary t (sign of a zero included)",
+         got[(2, "plane gp=2 t")], t)
+    del plane
+    pts_uni = md_uni(pt_stream_config())
+    single = render_pathtrace(stream, pts_uni, fold_in(PRNGKey(PT_SEED), 0),
+                              width=PTS_W, height=PTS_H,
+                              bounces=PTS_BOUNCES)
+    same("pt-540p-terrain512 gp=4 sample", got[(4, "pt540 gp=4")], single)
+    del stream
+    pt, pt_uni = _md_scene(pt_config())
+    key = PRNGKey(PT_SEED)
+    single = render_pathtrace(pt, pt_uni, key, width=WIDTH, height=HEIGHT,
+                              bounces=PT_BOUNCES)
+    same("pt heightfield gp=2 sample", got[(2, "pt gp=2")], single)
+    rows = HEIGHT // 2
+    slabs = [sum(render_pathtrace(pt, pt_uni, fold_in(fold_in(key, spi),
+                                                        dpi),
+                                  width=WIDTH, height=rows, row0=dpi * rows,
+                                  total_height=HEIGHT, bounces=PT_BOUNCES)
+                 for spi in range(2)) * 0.5 for dpi in range(2)]
+    same("render_pathtrace_sharded dp=2 x sp=2 mean",
+         got[(4, "pt dp=2 x sp=2")], torch.cat(slabs))
+    del pt
+
+    # the train step against single-rank whole-image steps: the mean of
+    # the gradients at sp rank 0's and 1's jitter keys
+    tr, tr_uni = _md_scene(T.dryrun_scene(WIDTH, HEIGHT))
+    from rust_wgpu_raytracing_tpu_torch.ops.oracle import render_oracle
+
+    target = render_oracle(tr, tr_uni, width=WIDTH, height=HEIGHT,
+                           quantize=False)[0]
+    p0 = {"sphere_color": tr.sphere_color + 0.4,
+          "mat_ambient": tr.mat_ambient + 0.2}
+    grads = []
+    for spi in range(2):
+        p = {k: v.clone().requires_grad_(True) for k, v in p0.items()}
+        c, _ = T._render_rows(T._apply_params(tr, p), tr_uni, WIDTH, HEIGHT,
+                              0, HEIGHT, jitter=T._jitter(
+                                  fold_in(PRNGKey(0), spi), WIDTH, HEIGHT,
+                                  "cuda"))
+        loss = ((c - target) ** 2).mean()
+        grads.append(torch.autograd.grad(loss, [p[k] for k in sorted(p)]))
+    losses = got[(4, "train losses")]
+    worst = 0.0
+    for i, k in enumerate(sorted(p0)):
+        want = p0[k] - MD_LR * (grads[0][i] + grads[1][i]) * 0.5
+        g = dev(got[(4, "train step1")][k])
+        rel = float(((g - p0[k]) - (want - p0[k])).abs().max()
+                    / (want - p0[k]).abs().max())
+        worst = max(worst, rel)
+    say(f"[multi] train step dp=2 x sp=2 at {WIDTH}x{HEIGHT}: losses "
+        f"{losses}; the first update against the single-rank whole-image "
+        f"steps' mean gradient: max relative gap {worst!r} (bound 1e-3)")
+    if not losses[-1] < losses[0] or worst > 1e-3:
+        raise AssertionError("the sharded train step does not descend or "
+                             "does not match the single-rank gradient")
+
+    launches = {}
+    for reps in reports:
+        for rep in reps:
+            for label, counts in rep["launches"].items():
+                acc = launches.setdefault(label, {})
+                for name, c in counts.items():
+                    acc[name] = acc.get(name, 0) + c
+    for label, counts in sorted(launches.items()):
+        say(f"[multi] launches on {label}, summed over ranks: "
+            f"{ {k: v for k, v in counts.items() if v} }")
+    need = {"smoke dp=2 fused": ("frame", "texshade", "anyhit"),
+            "smoke dp=2 split": ("closest_hit", "texshade", "anyhit"),
+            "stream dp=2 cull": ("stream_closest_hit", "stream_anyhit"),
+            "stream dp=2 bvh": ("hier_cull", "stream_closest_hit"),
+            "smoke gp=4 lit": ("frame", "texshade"),
+            "smoke gp=4 shadowed": ("closest_hit", "anyhit", "texshade"),
+            "stream gp=4 shadowed": ("stream_closest_hit", "stream_anyhit"),
+            "pt540 gp=4": ("stream_closest_hit", "stream_closest_hit_perray",
+                           "stream_anyhit", "texfilter"),
+            "pt gp=2": ("closest_hit", "extend_shadow", "anyhit",
+                        "texfilter"),
+            "Renderer gp=4": ("texshade",)}
+    for label, names in need.items():
+        missing = [k for k in names if not launches[label].get(k)]
+        if missing:
+            raise AssertionError(f"{label}: kernels of the path never "
+                                 f"launched {missing}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2234,6 +2765,16 @@ def main() -> int:
             f"cudaOccupancyMaxActiveBlocksPerMultiprocessor)")
 
     from rust_wgpu_raytracing_tpu_torch import Renderer
+
+    if "--multi" in sys.argv[1:]:  # phase 14 alone
+        from rust_wgpu_raytracing_tpu_torch.ops import kernels as K
+
+        asset_dir = tempfile.mkdtemp(prefix="rt_nm_")
+        os.environ["RWRT_ASSETS"] = asset_dir
+        write_nm_assets(asset_dir)
+        multidevice_phase(card, K, {}, say)
+        shutil.rmtree(asset_dir, ignore_errors=True)
+        return 0
 
     if "--profile" in sys.argv[1:]:
         from rust_wgpu_raytracing_tpu_torch.runtime.profiler import \
@@ -2307,15 +2848,8 @@ def main() -> int:
     def record(run):
         """run(kernels) with every kernel call's arguments recorded:
         {name: [(args, kwargs), ...]} in call order."""
-        calls = {}
-
-        def recorder(fn):
-            def call(*args, **kwargs):
-                calls.setdefault(fn.__name__, []).append((args, kwargs))
-                return fn(*args, **kwargs)
-            return call
-
-        run(K.KernelSet(*(recorder(f) for f in K.KERNELS)))
+        ks, calls = _recording(K)
+        run(ks)
         torch.cuda.synchronize()
         return calls
 
@@ -2341,11 +2875,7 @@ def main() -> int:
                  "stream_closest_hit_perray": "t, face",
                  "stream_anyhit": "occ"}
 
-    def flat(name, out):
-        if name == "closest_hit":  # the sphere planes, where there are any
-            return (out[0], out[1], *(out[2] or ()))
-        return (out,) if name in ("anyhit", "stream_anyhit",
-                                  "hier_cull") else tuple(out)
+    flat = flat_out
 
     errs = {}
 
@@ -2953,6 +3483,9 @@ def main() -> int:
     # --- 13. the runtime shells -------------------------------------------
     shells_phase(card, Renderer, say)
 
+    # --- 14. multi-device rendering: gloo ranks sharing the card ----------
+    md_launches = multidevice_phase(card, K, errs, say)
+
     # each kernel's launches from the first path run that uses it
     launches = {}
     for path in ("auto", "nm", "pt", "stream_cull", "stream_bvh",
@@ -2969,6 +3502,10 @@ def main() -> int:
                                            errs.get(name, 0.0))
     say(f"[inst] launches on the instanced paths: "
         f"{ {n: sum(path_launches[p][n] for p in inst_paths) for n in names} }")
+    # plus their launches on the slab and gp paths of phase 14, summed
+    # over the ranks
+    for name in names:
+        launches[name] += sum(c.get(name, 0) for c in md_launches.values())
     base = "rust_wgpu_raytracing_tpu_torch/csrc/"
     replaces = {
         "closest_hit": "rust_wgpu_raytracing_tpu/ops/megakernel.py:382",

@@ -11,9 +11,10 @@ streamed sweeps. Renderer(backend="oracle") draws through the
 brute-force oracle (ops/oracle.py), the executable spec. Instancing
 with the per-frame refit (ops/instances.py), the forward raster
 pipeline (ops/raster.py) and the runtime shells (runtime/frame_loop.py,
-server.py, window.py, limits.py; io/checkpoint.py) are here too. What
-is not ported yet (several cards) raises NotImplementedError and is
-listed in ROADMAP.md.
+server.py, window.py, limits.py; io/checkpoint.py) are here too, and so
+is multi-device rendering on torch.distributed (parallel/: row slabs and
+samples, face shards with Renderer(backend="megakernel_gp"), the
+sharded inverse-rendering train step).
 
 The host modules (config, camera, controllers, OBJ/MTL import, scene
 assembly) are copies of the JAX package's, because importing any module

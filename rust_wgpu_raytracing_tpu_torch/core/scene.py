@@ -310,6 +310,26 @@ def scene_data_from_numpy(fields: Dict[str, np.ndarray],
     return SceneData(**out, **static)
 
 
+TRAIN_PARAMS = ("sphere_color", "mat_ambient")
+
+
+def params_from_numpy(arrays: Dict[str, np.ndarray], *,
+                      device="cpu") -> Dict[str, torch.Tensor]:
+    """The train step's parameters (parallel/tile_sharding.
+    make_train_step) from NumPy arrays keyed by name, e.g. a JAX step's
+    params through np.asarray: f32 tensors on `device`."""
+    return {k: torch.as_tensor(np.asarray(arrays[k], np.float32),
+                               device=device).clone()
+            for k in TRAIN_PARAMS}
+
+
+def params_to_numpy(params: Dict[str, torch.Tensor]) -> Dict[str,
+                                                            np.ndarray]:
+    """The train step's parameters as NumPy arrays (f32, on the host)."""
+    return {k: params[k].detach().cpu().numpy().astype(np.float32)
+            for k in TRAIN_PARAMS}
+
+
 def _precompute_faces(positions: np.ndarray, uvs: np.ndarray, normals: np.ndarray,
                       faces: np.ndarray):
     """Per-face edge-plane precompute (see module docstring)."""

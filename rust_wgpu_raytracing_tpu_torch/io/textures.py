@@ -81,3 +81,14 @@ def solid_texture(color, size: int = 4, name: str = "solid") -> TextureData:
     rgb = np.broadcast_to(np.asarray(color, dtype=np.float32), (size, size, 3)).copy()
     u8 = np.clip(rgb * 255.0 + 0.5, 0, 255).astype(np.uint8)
     return TextureData(name=name, rgb_linear=rgb, rgb_u8=u8)
+
+
+def checkerboard_texture(size: int = 64, cells: int = 8,
+                         name: str = "checker") -> TextureData:
+    """Procedural test texture (standalone test asset)."""
+    yy, xx = np.mgrid[0:size, 0:size]
+    cell = ((yy * cells // size) + (xx * cells // size)) % 2
+    rgb = np.where(cell[..., None] == 0, 0.2, 0.9).astype(np.float32)
+    rgb = rgb * np.array([1.0, 0.8, 0.6], dtype=np.float32)
+    u8 = np.clip(rgb * 255.0 + 0.5, 0, 255).astype(np.uint8)
+    return TextureData(name=name, rgb_linear=rgb, rgb_u8=u8)

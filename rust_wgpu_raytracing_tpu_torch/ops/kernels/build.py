@@ -19,6 +19,7 @@ division and sqrt stay IEEE-rounded.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import glob
 import hashlib
 import os
@@ -106,6 +107,19 @@ def build(verbose: bool = False) -> str:
     if os.path.exists(path):
         return path
     os.makedirs(BUILD_DIR, exist_ok=True)
+    # processes building at once (ranks at their first launch) take turns:
+    # the first builds, the others find its library when they get the lock
+    with open(os.path.join(BUILD_DIR, ".lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            if os.path.exists(path):
+                return path
+            return _build(path, verbose)
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+
+
+def _build(path: str, verbose: bool) -> str:
     tag = f"{os.getpid()}.tmp"
     nvcc = _nvcc()
     extra = ["--ptxas-options=-v"] if verbose else []

@@ -50,8 +50,9 @@ texture pyramid (ops/miptex.py): a ray-cone LOD and two taps of the
 pyramid pool, each through the texture filter kernel K6, in place of
 the one-gather texshade kernel (K2); the fused frame does not take it.
 
-Not ported here (see ROADMAP.md): row-slab sharding and gp staging, and
-the TPU measurement flags RT_PT_KREFINE (the top-K
+Row slabs and gp staging (row0, total_height, emit_shadow_planes) serve
+parallel/. Not ported here (see ROADMAP.md): the TPU measurement flags
+RT_PT_KREFINE (the top-K
 cluster refinement of the streamed bounce mask), RT_AH_PERRAY and
 RT_TEX_ROW_GATHER (all off by default in JAX). The one-hot matrix-unit
 winner fetch of expand_tf_gbuffer is a TPU device that yields the same
@@ -807,16 +808,19 @@ def _directions(m, const, xr, yr):
 
 
 def ndc_planes(width, rows, total_height, tile_h=None, tile_w=None, *,
-               device):
+               device, row0=None):
     """Pixel-centre NDC coordinates (xr, yr), (R,) f32 each, of a
     width x rows grid: W-major scanlines, or (tile_h x tile_w)-pixel
     screen tiles when tile_h is given (rows % tile_h == 0, width % tile_w
     == 0). NDC y divides by total_height (the true image height), so
     padding rows lie beyond the frame and visible pixels keep their
-    rays."""
+    rays. row0 (a whole number) offsets the rows: the grid is the row
+    slab [row0, row0 + rows) of a total_height-tall image."""
     if tile_h is None:
         x = torch.arange(width, dtype=torch.float32, device=device)
         y = torch.arange(rows, dtype=torch.float32, device=device)
+        if row0 is not None:
+            y = y + float(row0)
         x_nds = (2.0 * (x + 0.5)) * _rcp(width) - 1.0
         y_nds = (2.0 * (y + 0.5)) * _rcp(total_height) - 1.0
         return x_nds.repeat(rows), y_nds.repeat_interleave(width)
@@ -827,21 +831,26 @@ def ndc_planes(width, rows, total_height, tile_h=None, tile_w=None, *,
     within = ridx % tsz
     py = (tile // tiles_x) * tile_h + within // tile_w
     px = (tile % tiles_x) * tile_w + within % tile_w
+    yb = py.to(torch.float32)
+    if row0 is not None:
+        yb = yb + float(row0)
     xr = (2.0 * (px.to(torch.float32) + 0.5)) * _rcp(width) - 1.0
-    yr = (2.0 * (py.to(torch.float32) + 0.5)) * _rcp(total_height) - 1.0
+    yr = (2.0 * (yb + 0.5)) * _rcp(total_height) - 1.0
     return xr, yr
 
 
-def raygen_planar(width, height, uni: CameraUniforms, *, device):
+def raygen_planar(width, height, uni: CameraUniforms, *, device,
+                  row0=None, total_height=None):
     """Planar pixelToRay (sphere/compute.wgsl:87-101): returns dx, dy, dz
-    (R,) f32 flat W-major (texel row 0 first)."""
+    (R,) f32 flat W-major (texel row 0 first). row0/total_height select
+    the row slab [row0, row0 + height) of a taller image."""
     m, const = _ray_matrix(uni)
-    return _directions(m, const, *ndc_planes(width, height, height,
-                                             device=device))
+    return _directions(m, const, *ndc_planes(
+        width, height, total_height or height, device=device, row0=row0))
 
 
 def raygen_planar_tiled(width, height, uni: CameraUniforms, *, device,
-                        total_height=None, tile_h: int = 8,
+                        row0=None, total_height=None, tile_h: int = 8,
                         tile_w: int = 128):
     """raygen_planar with rays ordered by (tile_h x tile_w)-PIXEL SCREEN
     TILES, so each 1024-ray schedule tile is a compact screen block and
@@ -852,7 +861,7 @@ def raygen_planar_tiled(width, height, uni: CameraUniforms, *, device,
     m, const = _ray_matrix(uni)
     return _directions(m, const, *ndc_planes(
         width, height, total_height or height, tile_h, tile_w,
-        device=device))
+        device=device, row0=row0))
 
 
 def tiled_to_image(plane, width, height, tile_h: int = 8,
@@ -885,6 +894,19 @@ def _pick_tile_shape(width: int, height: int):
     if choice[2] > 2 * height:
         return None
     return choice
+
+
+def _frame_shape(width: int, height: int, row0, total_height):
+    """The frame's ray order: (tile_h, tile_w, render_h) screen tiles or
+    None (scanlines). A row slab (row0 given) must not render past its
+    rows, so where _pick_tile_shape pads them it takes 8 x 128 tiles
+    when they fit the slab and scanlines otherwise (a 1080p frame's
+    540-row slab takes scanlines)."""
+    shape = _pick_tile_shape(width, height)
+    if shape is not None and row0 is not None and shape[2] != height:
+        shape = ((8, 128, height) if height % 8 == 0 and width % 128 == 0
+                 else None)
+    return shape
 
 
 def _norm3(x, y, z):
@@ -1047,16 +1069,13 @@ def _spheres_occlude_planar(scene, px, py, pz, dx, dy, dz, t_min=1e-3):
     return occ
 
 
-def winner_occlusion(scene: SceneData, origin, dx, dy, dz, relevant, w_t,
-                     w_nx, w_ny, w_nz, w_lx, w_ly, w_lz, *,
-                     accel: str = "cull", kernels: KernelSet = KERNELS):
-    """The single deferred shadow pass of the visible surface (both
-    frames): a shadow ray from each relevant pixel's winning hit point,
-    offset 1e-3 along its normal, toward its light; the other rays are
-    parked (far origin, zero direction) so the tile cull drops them.
-    Returns (R,) bool: occluded by the mesh (the any-hit kernel; past
-    STREAM_FACES on the Morton-sorted wavefront, anyhit_reordered, as
-    JAX) or by a sphere."""
+def shadow_wavefront(origin, dx, dy, dz, relevant, w_t, w_nx, w_ny, w_nz,
+                     w_lx, w_ly, w_lz):
+    """The shadow rays of the visible surface (both frames): from each
+    relevant pixel's winning hit point, offset 1e-3 along its normal,
+    toward its light; the other rays are parked (far origin, zero
+    direction) so the tile cull drops them. Returns (px, py, pz, sdx,
+    sdy, sdz)."""
     ll = sqrt(w_lx * w_lx + w_ly * w_ly + w_lz * w_lz)
     ll = torch.where(ll > 0, ll, 1.0)
     park = 1e9
@@ -1067,15 +1086,34 @@ def winner_occlusion(scene: SceneData, origin, dx, dy, dz, relevant, w_t,
     px = torch.where(relevant, origin[0] + dx * ts + w_nx * 1e-3, park)
     py = torch.where(relevant, origin[1] + dy * ts + w_ny * 1e-3, park)
     pz = torch.where(relevant, origin[2] + dz * ts + w_nz * 1e-3, park)
-    occ = torch.zeros(relevant.shape, dtype=torch.bool,
-                      device=relevant.device)
-    if scene.num_faces > 0:
-        ah = (anyhit_reordered
-              if _should_stream(scene.padded_faces, BLOCK_F)
-              else anyhit_rays)
-        occ = ah(scene, px, py, pz, sdx, sdy, sdz, relevant, accel=accel,
-                 kernels=kernels)
-    return occ | _spheres_occlude_planar(scene, px, py, pz, sdx, sdy, sdz)
+    return px, py, pz, sdx, sdy, sdz
+
+
+def mesh_occlusion(scene: SceneData, px, py, pz, sdx, sdy, sdz, relevant, *,
+                   accel: str = "cull", kernels: KernelSet = KERNELS):
+    """(R,) bool: the shadow rays occluded by the mesh (the any-hit
+    kernel; past STREAM_FACES on the Morton-sorted wavefront,
+    anyhit_reordered, as JAX)."""
+    if scene.num_faces == 0:
+        return torch.zeros(relevant.shape, dtype=torch.bool,
+                           device=relevant.device)
+    ah = (anyhit_reordered if _should_stream(scene.padded_faces, BLOCK_F)
+          else anyhit_rays)
+    return ah(scene, px, py, pz, sdx, sdy, sdz, relevant, accel=accel,
+              kernels=kernels)
+
+
+def winner_occlusion(scene: SceneData, origin, dx, dy, dz, relevant, w_t,
+                     w_nx, w_ny, w_nz, w_lx, w_ly, w_lz, *,
+                     accel: str = "cull", kernels: KernelSet = KERNELS):
+    """The single deferred shadow pass of the visible surface (both
+    frames) on shadow_wavefront's rays. Returns (R,) bool: occluded by
+    the mesh (mesh_occlusion) or by a sphere."""
+    rays = shadow_wavefront(origin, dx, dy, dz, relevant, w_t, w_nx, w_ny,
+                            w_nz, w_lx, w_ly, w_lz)
+    occ = mesh_occlusion(scene, *rays, relevant, accel=accel,
+                         kernels=kernels)
+    return occ | _spheres_occlude_planar(scene, *rays)
 
 
 def check_supported(scene: SceneData, *, accel: str = "cull") -> None:
@@ -1101,9 +1139,21 @@ def render_megakernel(scene: SceneData, uni_flat, *, width: int, height: int,
                       background=(0.0, 0.0, 0.0), shadows: bool = False,
                       quantize: bool = True, normal_mapping: bool = False,
                       accel: str = "cull", fused: Optional[bool] = None,
-                      mip: bool = False, kernels: KernelSet = KERNELS):
+                      mip: bool = False, row0=None, total_height=None,
+                      emit_shadow_planes: bool = False,
+                      kernels: KernelSet = KERNELS):
     """One frame on the scene's device. Returns (color (H,W,3) f32,
     depth (H,W) f32).
+
+    row0/total_height render the row slab [row0, row0 + height) of a
+    total_height-tall image (the dp axis of parallel/), in either
+    program, with the rays of those rows (_frame_shape picks their
+    order). emit_shadow_planes stops the split shadowed frame at its
+    shadow wavefront and returns JAX's dict of (R,) planes in the frame's
+    ray order: depth, cr..cb, w_ar..w_ab, covered, relevant, px..pz and
+    sdx..sdz (the gp axis merges them and traces the merged wavefront,
+    parallel/geometry_sharding.py); present_planar(shape=_frame_shape(
+    ...)) finishes them.
 
     fused=None picks the fused frame (ops/fusedframe.py) for every
     eligible scene and the split frame otherwise, as the JAX package
@@ -1120,7 +1170,10 @@ def render_megakernel(scene: SceneData, uni_flat, *, width: int, height: int,
     eligible = fused_eligible(scene, shadows=shadows,
                               normal_mapping=normal_mapping, mip=mip)
     if fused is None:
-        fused = eligible
+        fused = eligible and not emit_shadow_planes
+    if emit_shadow_planes and not (shadows and not fused):
+        raise ValueError("emit_shadow_planes stages the split shadowed "
+                         "frame: pass shadows=True and fused=False")
     if fused:
         if not eligible:
             raise ValueError(
@@ -1132,7 +1185,7 @@ def render_megakernel(scene: SceneData, uni_flat, *, width: int, height: int,
             scene, uni_flat, width=width, height=height, near=near,
             far=far, background=background, shadows=shadows,
             quantize=quantize, accel=accel, normal_mapping=normal_mapping,
-            kernels=kernels)
+            row0=row0, total_height=total_height, kernels=kernels)
 
     device = scene.tri_n.device
     uni = CameraUniforms.unflat(np.asarray(
@@ -1140,16 +1193,17 @@ def render_megakernel(scene: SceneData, uni_flat, *, width: int, height: int,
         np.float32))
     origin = torch.as_tensor(uni.origin, dtype=torch.float32, device=device)
 
-    # JAX's _frame_shape; without row slabs it is _pick_tile_shape
-    shape = _pick_tile_shape(width, height)
+    shape = _frame_shape(width, height, row0, total_height)
     if shape is not None:
         tile_h, tile_w, render_h = shape
-        dx, dy, dz = raygen_planar_tiled(width, render_h, uni, device=device,
-                                         total_height=height,
-                                         tile_h=tile_h, tile_w=tile_w)
+        dx, dy, dz = raygen_planar_tiled(
+            width, render_h, uni, device=device, row0=row0,
+            total_height=total_height or height, tile_h=tile_h,
+            tile_w=tile_w)
     else:
         render_h = height
-        dx, dy, dz = raygen_planar(width, height, uni, device=device)
+        dx, dy, dz = raygen_planar(width, height, uni, device=device,
+                                   row0=row0, total_height=total_height)
     r = width * render_h
 
     def full(v):
@@ -1316,9 +1370,18 @@ def render_megakernel(scene: SceneData, uni_flat, *, width: int, height: int,
         # trace only pixels whose shading the occlusion bit can change:
         # where lam == 0 and spec == 0 the lit and shadowed colours are
         # bitwise equal
-        occ = winner_occlusion(scene, origin, dx, dy, dz, covered & w_rel,
-                               w_t, w_nx, w_ny, w_nz, w_lx, w_ly, w_lz,
-                               accel=accel, kernels=kernels)
+        relevant = covered & w_rel
+        rays = shadow_wavefront(origin, dx, dy, dz, relevant, w_t, w_nx,
+                                w_ny, w_nz, w_lx, w_ly, w_lz)
+        if emit_shadow_planes:
+            return dict(cr=cr, cg=cg, cb=cb, depth=depth, w_ar=w_ar,
+                        w_ag=w_ag, w_ab=w_ab, covered=covered,
+                        relevant=relevant,
+                        **dict(zip(("px", "py", "pz", "sdx", "sdy", "sdz"),
+                                   rays)))
+        occ = (mesh_occlusion(scene, *rays, relevant, accel=accel,
+                              kernels=kernels)
+               | _spheres_occlude_planar(scene, *rays))
         shadowed = covered & occ
         cr = torch.where(shadowed, w_ar, cr)
         cg = torch.where(shadowed, w_ag, cg)
@@ -1326,3 +1389,42 @@ def render_megakernel(scene: SceneData, uni_flat, *, width: int, height: int,
 
     return present_planar(cr, cg, cb, depth, width=width, height=height,
                           shape=shape, quantize=quantize)
+
+
+# ---------------------------------------------------------------------------
+# drop-ins for the oracle's intersection queries (JAX: intersect_tris_pallas,
+# occluded_tris_pallas)
+# ---------------------------------------------------------------------------
+
+def intersect_tris_pallas(scene: SceneData, origin, dirs, *,
+                          kernels: KernelSet = KERNELS):
+    """ops.intersect.intersect_tris through the closest-hit sweep
+    (gbuffer): dirs (..., 3) from the shared origin (3,). Returns the
+    oracle's TriHit, shaped like dirs[..., 0]."""
+    from .intersect import TriHit
+
+    shape = dirs.shape[:-1]
+    d2 = dirs.reshape(-1, 3)
+    gb, _ = gbuffer(scene, origin, d2[:, 0].contiguous(),
+                    d2[:, 1].contiguous(), d2[:, 2].contiguous(),
+                    with_spheres=False, kernels=kernels)
+    return TriHit(t=gb.t.reshape(shape),
+                  face=gb.face.to(torch.int64).reshape(shape),
+                  u=gb.u.reshape(shape), v=gb.v.reshape(shape),
+                  n_dot_d=gb.nd.reshape(shape))
+
+
+def occluded_tris_pallas(scene: SceneData, origins, dirs, t_min=1e-3, *,
+                         kernels: KernelSet = KERNELS):
+    """ops.intersect.occluded_tris through the any-hit sweep
+    (anyhit_rays), whose shadow epsilon is fixed at 1e-3 (t_min is
+    ignored, as in JAX): origins broadcast to dirs (..., 3)."""
+    del t_min
+    shape = dirs.shape[:-1]
+    d2 = dirs.reshape(-1, 3)
+    o2 = origins.expand(dirs.shape).reshape(-1, 3)
+    act = torch.ones(d2.shape[0], dtype=torch.bool, device=d2.device)
+    occ = anyhit_rays(scene, *(o2[:, k].contiguous() for k in range(3)),
+                      *(d2[:, k].contiguous() for k in range(3)), act,
+                      kernels=kernels)
+    return occ.reshape(shape)

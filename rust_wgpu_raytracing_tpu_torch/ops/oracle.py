@@ -62,6 +62,49 @@ def _shadow_lit(scene: SceneData, p, light_dir, hit):
     return lit.index_put((idx,), ~occ)
 
 
+def trace_rays(scene: SceneData, origin, dirs, *, near: float = 0.01,
+               far: float = 100.0, background=(0.0, 0.0, 0.0),
+               shadows: bool = False, normal_mapping: bool = False):
+    """The oracle's passes for rays (R, 3) from one origin: the spheres in
+    config order, each with its hard-shadow test, then the mesh pass,
+    each folded with composite_pass. Returns (color (R, 3), depth (R,)),
+    unquantized. Differentiable in the scene's colours (the sharded train
+    step, parallel/tile_sharding.py)."""
+    color, depth = clear(dirs.shape[:1], background, device=dirs.device)
+
+    # --- sphere passes, in config order (src/lib.rs:1106-1148) ---
+    for i in range(scene.num_spheres):
+        sh = intersect_sphere(scene.sphere_center[i], scene.sphere_radius[i],
+                              origin, dirs)
+        hit = torch.isfinite(sh.t)
+        safe_n = torch.where(hit[:, None], sh.normal, 0.0)
+        lit = None
+        if shadows:
+            p = (origin + dirs * torch.where(hit, sh.t, 0.0)[:, None]
+                 + safe_n * SHADOW_EPS)
+            lit = _shadow_lit(scene, p, scene.sphere_light[i], hit)
+        pc = shade_sphere(scene, i, safe_n, dirs, lit=lit)
+        color, depth = composite_pass(color, depth, pc, sh.t, hit, near, far)
+
+    # --- mesh pass (src/lib.rs:1174-1184) ---
+    if scene.num_faces > 0:
+        th = intersect_tris(scene, origin, dirs)
+        hit = torch.isfinite(th.t)
+        lit = None
+        if shadows:
+            n = _normalize(scene.tri_n[th.face])
+            n = torch.where(th.n_dot_d[:, None] > 0.0, -n, n)
+            light = scene.mat_light[scene.tri_mat[th.face].long()]
+            p = (origin + dirs * torch.where(hit, th.t, 0.0)[:, None]
+                 + n * SHADOW_EPS)
+            lit = _shadow_lit(scene, p, light, hit)
+        pc = shade_mesh_hit(scene, th.face, th.u, th.v, th.n_dot_d, dirs,
+                            lit=lit, normal_mapping=normal_mapping)
+        pc = torch.where(hit[:, None], pc, 0.0)
+        color, depth = composite_pass(color, depth, pc, th.t, hit, near, far)
+    return color, depth
+
+
 def render_oracle(scene: SceneData, uni_flat, *, width: int, height: int,
                   near: float = 0.01, far: float = 100.0,
                   background=(0.0, 0.0, 0.0), shadows: bool = False,
@@ -84,41 +127,10 @@ def render_oracle(scene: SceneData, uni_flat, *, width: int, height: int,
                        max_block_rays)
     colors, depths = [], []
     for r0 in range(0, height * width, block):
-        dirs = dirs_all[r0:r0 + block]
-        color, depth = clear(dirs.shape[:1], background, device=device)
-
-        # --- sphere passes, in config order (src/lib.rs:1106-1148) ---
-        for i in range(scene.num_spheres):
-            sh = intersect_sphere(scene.sphere_center[i],
-                                  scene.sphere_radius[i], origin, dirs)
-            hit = torch.isfinite(sh.t)
-            safe_n = torch.where(hit[:, None], sh.normal, 0.0)
-            lit = None
-            if shadows:
-                p = (origin + dirs * torch.where(hit, sh.t, 0.0)[:, None]
-                     + safe_n * SHADOW_EPS)
-                lit = _shadow_lit(scene, p, scene.sphere_light[i], hit)
-            pc = shade_sphere(scene, i, safe_n, dirs, lit=lit)
-            color, depth = composite_pass(color, depth, pc, sh.t, hit,
-                                          near, far)
-
-        # --- mesh pass (src/lib.rs:1174-1184) ---
-        if scene.num_faces > 0:
-            th = intersect_tris(scene, origin, dirs)
-            hit = torch.isfinite(th.t)
-            lit = None
-            if shadows:
-                n = _normalize(scene.tri_n[th.face])
-                n = torch.where(th.n_dot_d[:, None] > 0.0, -n, n)
-                light = scene.mat_light[scene.tri_mat[th.face].long()]
-                p = (origin + dirs * torch.where(hit, th.t, 0.0)[:, None]
-                     + n * SHADOW_EPS)
-                lit = _shadow_lit(scene, p, light, hit)
-            pc = shade_mesh_hit(scene, th.face, th.u, th.v, th.n_dot_d, dirs,
-                                lit=lit, normal_mapping=normal_mapping)
-            pc = torch.where(hit[:, None], pc, 0.0)
-            color, depth = composite_pass(color, depth, pc, th.t, hit,
-                                          near, far)
+        color, depth = trace_rays(scene, origin, dirs_all[r0:r0 + block],
+                                  near=near, far=far, background=background,
+                                  shadows=shadows,
+                                  normal_mapping=normal_mapping)
         colors.append(color)
         depths.append(depth)
 

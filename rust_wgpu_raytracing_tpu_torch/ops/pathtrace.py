@@ -39,8 +39,12 @@ them (rounding.ftz). cos and sin are torch's, within 1 ulp of XLA's
 (tests/test_torch_pathtrace.py); everything else is bitwise the JAX
 package's.
 
-Not ported: row slabs (row0/total_height) and the gp hooks
-(chp_fn/es_fn/ah_fn) of the JAX function (ROADMAP.md).
+- Row slabs and hooks: row0/total_height trace the row slab [row0,
+  row0 + height) of a taller image (parallel/'s dp axis); chp_fn, es_fn
+  and ah_fn replace the three mesh-intersection passes (the primary
+  closest hit, the fused extend+shadow sweep and the last bounce's
+  any-hit), on the compacted loop too: the gp axis injects wrappers
+  that merge the face shards' results (parallel/geometry_sharding.py).
 """
 
 from __future__ import annotations
@@ -124,19 +128,22 @@ def uniform(key, n: int, *, device) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def _jittered_dirs(width, height, uni: CameraUniforms, key, tile, *,
-                   device):
+                   device, row0=None, total_height=None):
     """Raygen with a per-pixel sub-pixel jitter. With `tile` = (tile_h,
     tile_w, hpad) the rays come in screen-tile order over a row-padded
-    grid (raygen_planar_tiled's order); otherwise W-major scanlines."""
+    grid (raygen_planar_tiled's order); otherwise W-major scanlines.
+    row0/total_height: the row slab of a taller image (the jitter stays
+    scaled by the slab's height, as in JAX)."""
     m, const = _ray_matrix(uni)
+    th = total_height or height
     if tile is not None:
         tile_h, tile_w, hpad = tile
         r = width * hpad
-        xr, yr = ndc_planes(width, hpad, height, tile_h, tile_w,
-                            device=device)
+        xr, yr = ndc_planes(width, hpad, th, tile_h, tile_w,
+                            device=device, row0=row0)
     else:
         r = width * height
-        xr, yr = ndc_planes(width, height, height, device=device)
+        xr, yr = ndc_planes(width, height, th, device=device, row0=row0)
     kx, ky = split(key)
     xr = xr + (uniform(kx, r, device=device) - 0.5) * _f32(2.0 / width)
     yr = yr + (uniform(ky, r, device=device) - 0.5) * _f32(2.0 / height)
@@ -236,7 +243,8 @@ def _compact_tiles(active, tile_r: int):
 
 
 def _bounce_loop(scene: SceneData, gb, sph, ox, oy, oz, dx, dy, dz, active,
-                 ids, ks, *, bounces, bg, has_mesh, kernels):
+                 ids, ks, *, bounces, bg, has_mesh, kernels, es_fn=None,
+                 ah_fn=None):
     """The per-lane path state machine: next-event estimation and cosine
     bounces over a planar wavefront of any length, full (ids=None) or
     compacted (ids = the lanes' ids for by-id draws). Returns the
@@ -328,9 +336,12 @@ def _bounce_loop(scene: SceneData, gb, sph, ox, oy, oz, dx, dy, dz, active,
         occ = torch.zeros(r, dtype=torch.bool, device=dev)
         gb_next = None
         if has_mesh and not last:
-            gb_next, occ = extend_shadow_rays(
+            gb_next, occ = (es_fn or extend_shadow_rays)(
                 scene, nox, noy, noz, ndx, ndy, ndz, px, py, pz,
                 sdx, sdy, sdz, hit, kernels=kernels)
+        elif has_mesh and ah_fn is not None:
+            occ = ah_fn(scene, px, py, pz, sdx, sdy, sdz, hit,
+                        kernels=kernels)
         elif has_mesh and _should_stream(scene.padded_faces, BLOCK_F):
             # streamed: the Morton-sorted wavefront (act-aware there)
             occ = anyhit_reordered(scene, px, py, pz, sdx, sdy, sdz, hit,
@@ -368,7 +379,9 @@ def _bounce_loop(scene: SceneData, gb, sph, ox, oy, oz, dx, dy, dz, active,
 def render_pathtrace(scene: SceneData, uni_flat, key, *, width: int,
                      height: int, bounces: int = 4, spp: int = 1,
                      background=(0.0, 0.0, 0.0), accum=None,
-                     compact_cap=None, kernels: KernelSet = KERNELS):
+                     compact_cap=None, row0=None, total_height=None,
+                     chp_fn=None, es_fn=None, ah_fn=None,
+                     kernels: KernelSet = KERNELS):
     """Trace `spp` paths per pixel on the scene's device; returns the SUM
     of radiance (H, W, 3), plus `accum` when given (the Renderer divides
     by the samples accumulated). key: a (k0, k1) key from PRNGKey /
@@ -381,7 +394,14 @@ def render_pathtrace(scene: SceneData, uni_flat, key, *, width: int,
     an int is an explicit capacity in lanes. The frame is the same bits either way. The sweeps always
     take the flat cull mask, as in the JAX package. `kernels` picks the
     kernel implementations (PLAIN composes the frame from the plain
-    PyTorch versions)."""
+    PyTorch versions).
+
+    row0/total_height: the row slab [row0, row0 + height) of a
+    total_height-tall image. chp_fn(scene, origin, dx, dy, dz, kernels=)
+    -> GBuffer, es_fn (extend_shadow_rays' signature) -> (GBuffer, occ)
+    and ah_fn(scene, px, py, pz, dx, dy, dz, active, kernels=) -> occ
+    replace the primary closest hit, the fused extend+shadow sweep and
+    the last bounce's any-hit (module docstring)."""
     check_supported(scene)
     device = scene.tri_n.device
     uni = CameraUniforms.unflat(np.asarray(
@@ -398,22 +418,28 @@ def render_pathtrace(scene: SceneData, uni_flat, key, *, width: int,
         streamed = has_mesh and _should_stream(scene.padded_faces, BLOCK_F)
         compact_cap = (r // 8) if (has_mesh and not streamed
                                    and r % tr == 0 and r >= 8 * tr) else None
-    loop_kw = dict(bounces=bounces, bg=bg, has_mesh=has_mesh, kernels=kernels)
+    loop_kw = dict(bounces=bounces, bg=bg, has_mesh=has_mesh, kernels=kernels,
+                   es_fn=es_fn, ah_fn=ah_fn)
 
     acc = [torch.zeros(r, dtype=torch.float32, device=device)
            for _ in range(3)]
     for s in range(spp):
         ks = fold_in(key, s)
         dx, dy, dz = _jittered_dirs(width, height, uni, ks, tile,
-                                    device=device)
+                                    device=device, row0=row0,
+                                    total_height=total_height)
         ox, oy, oz = (torch.full((r,), float(v), dtype=torch.float32,
                                  device=device) for v in uni.origin)
 
         # primary closest hit (shared origin, spheres separate); later
         # bounces come from the fused extend+shadow sweep
-        gb = (gbuffer(scene, origin, dx, dy, dz, with_spheres=False,
-                      kernels=kernels)[0]
-              if has_mesh else None)
+        if not has_mesh:
+            gb = None
+        elif chp_fn is not None:
+            gb = chp_fn(scene, origin, dx, dy, dz, kernels=kernels)
+        else:
+            gb = gbuffer(scene, origin, dx, dy, dz, with_spheres=False,
+                         kernels=kernels)[0]
         sph = [sphere_pass_planar(scene, i, origin, dx, dy, dz)
                for i in range(scene.num_spheres)]
 

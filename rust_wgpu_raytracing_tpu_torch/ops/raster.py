@@ -38,10 +38,9 @@ Pipeline state, as in the commented wgpu pipeline (src/lib.rs:679-729):
 
 Every f32 expression keeps the JAX operation order, so the winners and
 the depth are JAX's bit for bit on the same clip coordinates. The
-vertex stage (VP @ M @ p over every instance) sums its products in index
-order; XLA's CPU dot sums a single instance's four products pairwise, so
-a one-instance draw's clip coordinates can be a few ulp off JAX's
-(tests/test_torch_raster.py records the gap).
+vertex stage (VP @ M @ p over every instance) sums each element's four
+products in the order XLA's CPU dot takes at that shape (_dot4), so the
+clip coordinates are JAX's too.
 """
 
 from __future__ import annotations
@@ -53,6 +52,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from .rounding import fma
 from .shade import sample_texture_bilinear
 
 F32_INF = float("inf")
@@ -375,13 +375,28 @@ def load_model_raster(obj_path: str) -> RasterModel:
     return RasterModel(rmeshes, rmats)
 
 
-def _matmul_index_order(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a @ b over the last two axes (broadcast batch), each element the
-    products summed in index order."""
-    out = a[..., :, 0:1] * b[..., 0:1, :]
-    for k in range(1, a.shape[-1]):
-        out = out + a[..., :, k:k + 1] * b[..., k:k + 1, :]
-    return out
+def _dot4(a: torch.Tensor, b: torch.Tensor, m: int, n: int) -> torch.Tensor:
+    """a @ b over the last two axes (broadcast batch) with an inner
+    dimension of 4, each element's four products summed as XLA's CPU dot
+    sums them for the (m x 4) @ (4 x n) matrix product it lowers the
+    einsum to (measured by shape with --xla_cpu_max_isa=SSE4_2, jax
+    0.9.0):
+    - n == 1 (a matrix-vector product): in index order;
+    - m == 4 and n < 8, or m >= 20 and n < 48: a fused multiply-add
+      chain in index order (the library kernel XLA calls there fuses);
+    - otherwise pairwise, (p0 + p1) + (p2 + p3). With m >= 20 and
+      n >= 48 XLA's order varies with m (pairwise at most m, a fused
+      chain or neither at others), and the port's sum can be an ulp off."""
+    p = [a[..., :, k:k + 1] * b[..., k:k + 1, :] for k in range(4)]
+    if n == 1:
+        return ((p[0] + p[1]) + p[2]) + p[3]
+    if (m == 4 and n < 8) or (m >= 20 and n < 48):
+        acc = p[0]
+        for k in range(1, 4):
+            acc = fma(a[..., :, k:k + 1].expand_as(acc),
+                      b[..., k:k + 1, :].expand_as(acc), acc)
+        return acc
+    return (p[0] + p[1]) + (p[2] + p[3])
 
 
 def instance_triangles(mesh: RasterMesh, model_mats, view_proj, *,
@@ -397,8 +412,11 @@ def instance_triangles(mesh: RasterMesh, model_mats, view_proj, *,
     pos_h = torch.cat([pos, torch.ones((pos.shape[0], 1),
                                        dtype=torch.float32, device=device)],
                       dim=1)
-    mvp = _matmul_index_order(f32(view_proj)[None], mm)  # (I, 4, 4)
-    clip = _matmul_index_order(mvp, pos_h.t()[None]).transpose(1, 2)
+    n_inst, n_vert = mm.shape[0], pos.shape[0]
+    # einsum("ab,ibc->iac"): (4 x 4) @ (4 x 4I); "iab,vb->iva": (4I x 4)
+    # @ (4 x V)
+    mvp = _dot4(f32(view_proj)[None], mm, 4, 4 * n_inst)  # (I, 4, 4)
+    clip = _dot4(mvp, pos_h.t()[None], 4 * n_inst, n_vert).transpose(1, 2)
     faces = torch.as_tensor(np.asarray(mesh.faces, np.int64), device=device)
     tri_clip = clip[:, faces].reshape(-1, 3, 4)
     uvf = f32(mesh.tex_coords)[faces]  # (F, 3, 2)

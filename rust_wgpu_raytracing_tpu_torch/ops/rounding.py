@@ -30,3 +30,25 @@ def sqrt(x: torch.Tensor) -> torch.Tensor:
 def ftz(x: torch.Tensor) -> torch.Tensor:
     """x with denormal values flushed to zero."""
     return torch.where(x.abs() < FLT_MIN, 0.0, x)
+
+
+def fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """f32 a * b + c rounded once (a fused multiply-add), on any device.
+
+    The product of two f32 values is exact in f64; the f64 sum s rounds,
+    and rounding s again to f32 is the single rounding of the exact sum
+    except where s lies exactly halfway between two f32 values and the
+    f64 sum dropped a remainder e: the exact sum is then past the
+    midpoint on e's side, and the result steps to that neighbour."""
+    p = a.to(torch.float64) * b.to(torch.float64)
+    c64 = c.to(torch.float64)
+    s = p + c64
+    bv = s - p
+    e = (p - (s - bv)) + (c64 - bv)  # s + e == p + c exactly (TwoSum)
+    r = s.to(torch.float32)
+    d = s - r.to(torch.float64)
+    toward = torch.where(d > 0, float("inf"), float("-inf")).to(r.dtype)
+    nb = torch.nextafter(r, toward)
+    mid = (r.to(torch.float64) + nb.to(torch.float64)) * 0.5
+    step = (d != 0) & (s == mid) & (e * d > 0)
+    return torch.where(step, nb, r)

@@ -33,8 +33,14 @@ variant_chosen and variant_ms record the outcome.
 backend="oracle" draws every frame through ops/oracle.render_oracle,
 the brute-force executable spec (every ray against every face), on the
 same device; variant_chosen stays None, as in the JAX package. "auto"
-and "megakernel" take the frame programs above. The path tracer takes
-precedence over either backend, as in the JAX package.
+and "megakernel" take the frame programs above. backend="megakernel_gp"
+draws through parallel/geometry_sharding.render_sharded_gp with the face
+soup sharded over the ranks of the initialized process group (every
+rank builds the Renderer, each on its own device: cuda:(rank % cards)
+for device="cuda"); without a process group it renders one shard on
+this process's device, as the JAX package does on one device. Its
+variant_chosen is "gp". The path tracer takes precedence over every
+backend, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -54,8 +60,6 @@ from ..ops.megakernel import (check_supported, fused_eligible,
                               render_megakernel)
 from ..ops.oracle import render_oracle
 from ..ops.pathtrace import PRNGKey, fold_in, render_pathtrace
-
-_ROADMAP = "not ported to the PyTorch/CUDA package yet; see ROADMAP.md"
 
 
 def resolve_device(device) -> torch.device:
@@ -83,8 +87,15 @@ class Renderer:
                 raise ValueError(
                     "scene does not validate under device limits:\n  "
                     + "\n  ".join(bad))
-        self.device = resolve_device(device)
         self.backend = self._pick_backend(backend)
+        self._gp_mesh = None
+        if self.backend == "megakernel_gp":
+            from ..parallel.mesh import make_gp_mesh
+
+            self._gp_mesh = make_gp_mesh(device=device)
+            self.device = self._gp_mesh.device
+        else:
+            self.device = resolve_device(device)
         rc = config.render
         self.config = config
         self.pathtrace = rc.pt_bounces > 0
@@ -114,6 +125,9 @@ class Renderer:
             if rc.variant != "auto" or not eligible:
                 self.variant_chosen = ("fused" if rc.variant == "fused"
                                        else "split")
+        elif self.backend == "megakernel_gp":
+            check_supported(self.data, accel=rc.accel)
+            self.variant_chosen = "gp"
         self.camera = Camera.from_config(
             config.camera, aspect=rc.width / rc.height)
         self.controller = CircleCameraController(speed=0.2)
@@ -138,10 +152,8 @@ class Renderer:
     def _pick_backend(backend: str) -> str:
         if backend in ("auto", "megakernel"):
             return "megakernel"
-        if backend == "oracle":
+        if backend in ("oracle", "megakernel_gp"):
             return backend
-        if backend == "megakernel_gp":
-            raise NotImplementedError(f"backend {backend!r} is {_ROADMAP}")
         raise ValueError(f"unknown backend {backend!r}")
 
     def _frame(self, uni, variant=None):
@@ -155,6 +167,16 @@ class Renderer:
                 background=tuple(self.config.background),
                 shadows=rc.shadows, quantize=rc.quantize_rgba8,
                 normal_mapping=self._normal_mapping)
+        if self.backend == "megakernel_gp":
+            from ..parallel.geometry_sharding import render_sharded_gp
+
+            return render_sharded_gp(
+                self.data, uni, self._gp_mesh, width=self.width,
+                height=self.height, near=rc.kernel_near, far=rc.kernel_far,
+                background=tuple(self.config.background),
+                shadows=rc.shadows, quantize=rc.quantize_rgba8,
+                normal_mapping=self._normal_mapping, accel=rc.accel,
+                mip=rc.mip)
         return render_megakernel(
             self.data, uni, width=self.width, height=self.height,
             near=rc.kernel_near, far=rc.kernel_far,

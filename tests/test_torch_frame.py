@@ -202,8 +202,9 @@ def test_streamed_renderer_matches_jax(accel):
 
 def test_unported_scenes_raise():
     """Normal mapping with mip sampling and the oracle backend render
-    (the split frame; the oracle's own frame); the geometry-parallel
-    backend is not ported and raises, naming ROADMAP.md."""
+    (the split frame; the oracle's own frame); so does the
+    geometry-parallel backend, which outside a process group renders its
+    one shard: the megakernel frame bit for bit."""
     import dataclasses as dc
 
     cfg = port_config(terrain_config(jcfg, width=32, height=32))
@@ -216,8 +217,11 @@ def test_unported_scenes_raise():
     assert color.shape == (32, 32, 3) and bool((depth < 1).any())
     color, depth = Renderer(cfg, backend="oracle", device="cpu").render()
     assert color.shape == (32, 32, 3) and bool((depth < 1).any())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Renderer(cfg, backend="megakernel_gp", device="cpu")
+    rg = Renderer(cfg, backend="megakernel_gp", device="cpu")
+    assert rg.variant_chosen == "gp"
+    color, depth = rg.render()
+    want = Renderer(cfg, device="cpu").render()
+    assert torch.equal(color, want[0]) and torch.equal(depth, want[1])
 
 
 def test_device_is_explicit():

@@ -10,6 +10,7 @@ kernel test files, whose card tests (marked gpu) run where JAX is not
 installed.
 """
 
+import contextlib
 import dataclasses
 import os
 import subprocess
@@ -43,7 +44,8 @@ torch.set_num_threads(min(2, torch.get_num_threads()))
 # shared helpers
 # ---------------------------------------------------------------------------
 
-def jax_reference(module: str, func: str, out_dir, **kwargs) -> dict:
+def jax_reference(module: str, func: str, out_dir, host_devices: int = 1,
+                  **kwargs) -> dict:
     """Run `module.func(out_path, **kwargs)` (a function of a tests/
     module that computes JAX results and np.savez-es them) in a fresh
     interpreter, and return the saved arrays.
@@ -54,13 +56,16 @@ def jax_reference(module: str, func: str, out_dir, **kwargs) -> dict:
     the TPU kernels nor the port round that way. With the cap every XLA
     operation rounds on its own, so the port is held to BIT equality
     with the JAX package. Pallas kernels run with interpret=True, as the
-    JAX package's own tests run them."""
+    JAX package's own tests run them. host_devices > 1 gives XLA that
+    many virtual CPU devices (the sharded references' meshes)."""
     out = Path(out_dir) / f"{module}.{func}.npz"
     code = (f"import sys; sys.path[:0] = [{str(REPO)!r}, {str(TESTS)!r}]; "
             "import jax; jax.config.update('jax_platforms', 'cpu'); "
             f"import {module} as m; m.{func}({str(out)!r}, **{kwargs!r})")
-    env = dict(os.environ, JAX_PLATFORMS="cpu",
-               XLA_FLAGS=REFERENCE_XLA_FLAGS)
+    flags = REFERENCE_XLA_FLAGS
+    if host_devices > 1:
+        flags += f" --xla_force_host_platform_device_count={host_devices}"
+    env = dict(os.environ, JAX_PLATFORMS="cpu", XLA_FLAGS=flags)
     res = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=900)
     if res.returncode != 0:
@@ -95,6 +100,33 @@ def cube_config(cfg_mod, width=64, height=64, shadows=False):
                                    scale=0.9),),
         render=cfg_mod.RenderConfig(width=width, height=height,
                                     shadows=shadows))
+
+
+def sphere_cube_config(cfg_mod, width=64, height=32):
+    """tests/test_sharding.py's small scene: one sphere and builtin:cube
+    under the default camera."""
+    return cfg_mod.SceneConfig(
+        spheres=(cfg_mod.SphereConfig(center=(0.5, 0.2, -3.0),
+                                      radius=0.6),),
+        meshes=(cfg_mod.MeshConfig(obj_path="builtin:cube",
+                                   translation=(-0.6, 0.0, -3.0),
+                                   scale=0.8),),
+        camera=cfg_mod.CameraConfig(),
+        render=cfg_mod.RenderConfig(width=width, height=height))
+
+
+@contextlib.contextmanager
+def stream_faces(n, *modules):
+    """STREAM_FACES set to n in each module (core.scene and ops.megakernel
+    of either package) for the block: smaller meshes stream."""
+    old = [m.STREAM_FACES for m in modules]
+    for m in modules:
+        m.STREAM_FACES = n
+    try:
+        yield
+    finally:
+        for m, v in zip(modules, old):
+            m.STREAM_FACES = v
 
 
 def write_textured_assets(root, bump: bool = False) -> str:

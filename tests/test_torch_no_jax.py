@@ -1,7 +1,8 @@
 """PyTorch port: it runs where JAX cannot be imported (the frame, the CLI,
 the path tracer, the oracle, mip sampling, instancing, the raster
-pipeline and the runtime shells), and no file of the port imports JAX or
-the JAX package."""
+pipeline, the runtime shells, row slabs, the sharded functions on two
+gloo ranks and the geometry-parallel Renderer), and no file of the port
+imports JAX or the JAX package."""
 
 import re
 import subprocess
@@ -96,6 +97,26 @@ loop.run(n_frames=2)
 srv.shutdown()
 save_checkpoint({ckpt!r}, loop.renderer)
 assert load_checkpoint({ckpt!r}, device="cpu").frame_count == 2
+uni = pt.Camera.from_config(cfg.camera, 1.0).uniforms().flat()
+data = pt.Scene.build(cfg).data
+whole = render_megakernel(data, uni, width=32, height=32, shadows=True)[0]
+slabs = [render_megakernel(data, uni, width=32, height=16, shadows=True,
+                           fused=fused, row0=r0, total_height=32)[0]
+         for fused in (False, True) for r0 in (0, 16)]
+import torch
+assert torch.equal(torch.cat(slabs[:2]), whole)
+assert torch.equal(torch.cat(slabs[2:]), whole)
+from rust_wgpu_raytracing_tpu_torch.ops.pathtrace import (PRNGKey,
+                                                          render_pathtrace)
+assert bool(torch.isfinite(render_pathtrace(
+    data, uni, PRNGKey(1), width=32, height=16, bounces=1, row0=16,
+    total_height=32)).all())
+from rust_wgpu_raytracing_tpu_torch.parallel.launch import spawn
+from rust_wgpu_raytracing_tpu_torch.parallel.tile_sharding import \
+    dryrun_multichip
+spawn(dryrun_multichip, 2, 2, device="cpu")
+rg = pt.Renderer(cfg, backend="megakernel_gp", device="cpu")
+assert torch.equal(rg.render()[0], whole)
 assert not [m for m, mod in sys.modules.items() if mod is not None and (
     m == "jax" or m.startswith("jax.") or m.startswith("jaxlib")
     or m.split(".")[0] == "rust_wgpu_raytracing_tpu")]
@@ -128,7 +149,10 @@ def test_no_port_file_imports_jax():
                 "ops/miptex.py", "ops/bvh.py", "models/triangle.py",
                 "ops/instances.py", "ops/raster.py", "runtime/frame_loop.py",
                 "runtime/limits.py", "runtime/server.py", "runtime/window.py",
-                "io/checkpoint.py", "utils/logging.py"):
+                "io/checkpoint.py", "utils/logging.py",
+                "parallel/__init__.py", "parallel/mesh.py",
+                "parallel/launch.py", "parallel/tile_sharding.py",
+                "parallel/geometry_sharding.py"):
         assert PORT / mod in files, mod
     offenders = [str(f.relative_to(REPO)) for f in files
                  if pattern.search(f.read_text())]

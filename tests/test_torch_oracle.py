@@ -347,7 +347,8 @@ def test_oracle_matches_terrain_golden():
 def test_renderer_oracle_backend(tmp_path):
     """Renderer(backend="oracle") draws render_oracle's frame on the
     device it is given (variant_chosen None, as in the JAX package); the
-    CLI's --backend oracle writes it."""
+    CLI's --backend oracle writes it; "megakernel_gp" is a backend too
+    (variant_chosen "gp") and an unknown name raises."""
     cfg = port_config(terrain_config(jcfg, width=48, height=32))
     r = Renderer(cfg, backend="oracle", device="cpu")
     assert r.backend == "oracle" and r.variant_chosen is None
@@ -362,7 +363,7 @@ def test_renderer_oracle_backend(tmp_path):
                  "48", "--height", "32", "--shadows", "--backend", "oracle",
                  "--device", "cpu", "--out", png]) == 0
     assert read_png(png).shape == (32, 48, 3)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Renderer(cfg, backend="megakernel_gp", device="cpu")
+    assert Renderer(cfg, backend="megakernel_gp",
+                    device="cpu").variant_chosen == "gp"
     with pytest.raises(ValueError, match="backend"):
         Renderer(cfg, backend="bogus", device="cpu")

@@ -161,6 +161,21 @@ def cube_arrays():
                 faces=m.faces), tex
 
 
+# (instances, vertices) of the vertex stage's two einsums held against
+# XLA's: each branch of raster._dot4's rule
+DOT_SHAPES = ((1, 1), (1, 3), (1, 8), (1, 24), (2, 5), (4, 64), (5, 3),
+              (16, 40), (100, 3), (100, 24))
+
+
+def dot_inputs(n_inst, n_vert):
+    """Seeded view-projection, model matrices and homogeneous vertices."""
+    rng = np.random.default_rng(1000 * n_inst + n_vert)
+    return (rng.normal(size=(4, 4)).astype(np.float32),
+            rng.normal(size=(n_inst, 4, 4)).astype(np.float32),
+            np.concatenate([rng.normal(size=(n_vert, 3)),
+                            np.ones((n_vert, 1))], 1).astype(np.float32))
+
+
 # ---------------------------------------------------------------------------
 # the JAX side (runs in the jax_reference subprocess)
 # ---------------------------------------------------------------------------
@@ -238,6 +253,12 @@ def jax_raster_reference(out):
                   @ np.diag([4.0, 4.0, 4.0, 1.0]).astype(np.float32))
     res["enc_cube.color"] = np.asarray(enc.color)
     res["enc_cube.depth"] = np.asarray(enc.depth.data)
+    for n_inst, n_vert in DOT_SHAPES:
+        vp, mm, pos_h = dot_inputs(n_inst, n_vert)
+        mvp = jnp.einsum("ab,ibc->iac", vp, mm)
+        res[f"dot{n_inst}x{n_vert}.mvp"] = np.asarray(mvp)
+        res[f"dot{n_inst}x{n_vert}.clip"] = np.asarray(
+            jnp.einsum("iab,vb->iva", mvp, pos_h))
     np.savez(out, **res)
 
 
@@ -409,12 +430,10 @@ def test_encoder_reference_grid_matches_jax(ref):
 
 
 def test_encoder_draw_mesh_matches_jax(ref):
-    """draw_mesh of a textured cube over a cleared colour. The port's
-    vertex stage sums VP @ M @ p in index order; XLA's CPU dot sums one
-    instance's four products pairwise, so the clip coordinates, and with
-    them the depth, are a few ulp off JAX's (3 ulp measured here).
-    Tolerances: the covered pixels equal, depth within 4 ulp, colour
-    within 2e-6."""
+    """draw_mesh of a textured cube over a cleared colour: one instance,
+    whose vertex stage XLA's CPU dot sums pairwise (raster._dot4 takes
+    its order by shape). The covered pixels equal; colour and depth bit
+    for bit (tolerance: none)."""
     cube, tex = cube_arrays()
     enc = R.RasterEncoder(40, 40, clear_color=(0.1, 0.2, 0.3), device="cpu")
     enc.draw_mesh(R.RasterMesh(name="cube", **cube),
@@ -424,10 +443,25 @@ def test_encoder_draw_mesh_matches_jax(ref):
     want = ref["enc_cube.depth"]
     assert bool((depth < 1.0).any())
     np.testing.assert_array_equal(depth < 1.0, want < 1.0)
-    gap = np.abs(bits(depth).astype(np.int64) - bits(want))
-    assert gap.max() <= 4, f"depth {gap.max()} ulp from JAX"
-    np.testing.assert_allclose(enc.color.numpy(), ref["enc_cube.color"],
-                               rtol=0, atol=2e-6)
+    np.testing.assert_array_equal(bits(depth), bits(want))
+    np.testing.assert_array_equal(bits(enc.color.numpy()),
+                                  bits(ref["enc_cube.color"]))
+
+
+@pytest.mark.parametrize("n_inst,n_vert", DOT_SHAPES)
+def test_vertex_stage_sums_as_xla(ref, n_inst, n_vert):
+    """instance_triangles' two products (VP @ M, then MVP @ p) on seeded
+    normal inputs, where every summation order rounds differently:
+    bit for bit XLA's CPU einsums at each shape of raster._dot4's rule."""
+    vp, mm, pos_h = dot_inputs(n_inst, n_vert)
+    mvp = R._dot4(torch.from_numpy(vp)[None], torch.from_numpy(mm), 4,
+                  4 * n_inst)
+    clip = R._dot4(mvp, torch.from_numpy(pos_h).t()[None], 4 * n_inst,
+                   n_vert).transpose(1, 2)
+    np.testing.assert_array_equal(bits(mvp.numpy()),
+                                  bits(ref[f"dot{n_inst}x{n_vert}.mvp"]))
+    np.testing.assert_array_equal(bits(clip.numpy()),
+                                  bits(ref[f"dot{n_inst}x{n_vert}.clip"]))
 
 
 def test_load_model_raster_keeps_raw_uvs(tmp_path, monkeypatch):
