@@ -13,7 +13,7 @@ program on its own, and checks them:
 2. build: the CUDA kernels from rust_wgpu_raytracing_tpu_torch/csrc
    (one nvcc per source, in parallel, linked into one shared library in
    the git-ignored build/kernels/); ptxas's registers and spills, and
-   the per-ray culled walks' (K1, K3, K8-K11), K4's (per mode) and K5's
+   the per-ray culled walks' (K1, K3, K7-K11), K4's (per mode) and K5's
    registers, spills, shared memory and blocks an SM;
 3. each kernel against its plain PyTorch version on the card, on the
    very arguments the 1080p frames give it: closest hit, texshade and
@@ -49,12 +49,13 @@ program on its own, and checks them:
 5. the progressive path tracer (BASELINE config 4's path at the
    heightfield: 4 bounces, 1920x1080): the per-ray closest hit (K7) and
    the fused extend+shadow sweep (K8) against their plain versions on
-   the bounce-1 wavefront of a traced sample (K8 also without its
+   the bounce-1 wavefront of a traced sample (both also without their
    boxes), the any-hit kernel on the last bounce's act-aware arguments
    and the closest hit on the primary sweep's (both also without boxes),
-   K8 against K7 + K3 on the same rays (t, face, occ equal), K8's
-   admitted and entered (ray, block) pairs, K1, K3, K4 (all four modes)
-   and K8-K11 against their plain versions on the seeded adversarial set
+   K8 against K7 + K3 on the same rays (t, face, occ equal), K7's and
+   K8's admitted and entered (ray, block) pairs, K1, K3, K4 (all four
+   modes) and K7-K11 against their plain versions on the seeded
+   adversarial set
    (raycull.write_grid_mesh x raycull.adversarial_rays, K1, K4 and K9 x
    raycull.adversarial_camera, with and without boxes), the split frame
    (all on chip and streamed) and the fused frame (both shadow modes)
@@ -87,8 +88,9 @@ program on its own, and checks them:
    multiply-add as two operations; the kernels build with -fmad=false,
    so every multiply and add issues alone, and the text line also
    gives the operations bound at that issue rate (33.5 T/s); the per-ray
-   culled walks (K1, K3, K4, K8) also the mask walk's bound and their
-   walk's parts (walk_parts);
+   culled walks (K1, K3, K4, K7, K8) also their face tests' bound alone
+   (the box tests not counted), the mask walk's bound and their walk's
+   parts (walk_parts); K7 beside K8 on the same bounce-1 rays;
 7. streaming scale (meshes above STREAM_FACES, the JAX package's
    bench_configs.py configs 6 and 8 on builtin:terrain:512, 522,242
    faces): the 1080p shadowed frame through Renderer(device="cuda")
@@ -130,8 +132,13 @@ program on its own, and checks them:
    the share of hit pixels above LOD 1 printed: the pyramid's deeper
    levels); K6's time, plain time and bound at the mip frame's first tap;
 10. the LBVH (stream-1080p-terrain512's scene): the host build of
-   bench_configs.py config 9 (build_lbvh + linearize_bvh, NumPy, host
-   clock); bvh_walk_mask_words on the card at the 1080p frame's tiles,
+   bench_configs.py config 9 (build_lbvh + linearize_bvh, host clock,
+   best of 3) by the native C++ builder (native/rtnative.cpp, built with
+   g++ into build/native/; the phase fails if it did not build) and by
+   the NumPy build, their arrays equal, and the builder Scene.build
+   takes; io/obj.load_obj of the scene's mesh written as an OBJ file by
+   the native C++ parser and by the Python parser (host clock, arrays
+   equal); bvh_walk_mask_words on the card at the 1080p frame's tiles,
    its words a superset of the flat scan's, and equal to them on
    builtin:terrain:23 at 128x128 (the JAX package's test_accel.py case);
 11. instancing with the per-frame refit (BASELINE config 5,
@@ -246,7 +253,7 @@ OPS_SHARED, OPS_PERRAY = 27, 51
 # per axis two subtractions, two products, a max and a min) and of a
 # tile's cone terms (six reciprocals)
 OPS_BOX, OPS_CONE = 18, 6
-# FP32 operations of one per-ray box test of K8 and K10 (rt_common.cuh
+# FP32 operations of one per-ray box test of the culled walks (rt_common.cuh
 # ray_box_enter): per axis two subtractions, two products with 1/d, a
 # min, a max and the running max and min, 8; then the entry's product
 # and difference and the exit's product and two sums, 5. The ray's terms
@@ -523,11 +530,11 @@ def sched_reach(name, args, outs):
 
 def culled_walk(name, args, kw, outs, mesh=None):
     """raycull.walk_counts of K8's two halves (closest hit, shadow) or of
-    K1, K3, K9, K10 or K11, at these arguments and outputs: the pairs the
-    per-ray culled walk must test at least. K1's arguments end with the
-    sphere block (the origin first) and the boxes, K9's with the origin
-    and the boxes (origin, blk_lo, blk_hi), K3's and K11's with the
-    boxes. K4 (its const vector holds the origin; the boxes last) counts
+    K1, K3, K7, K9, K10 or K11, at these arguments and outputs: the pairs
+    the per-ray culled walk must test at least. K1's arguments end with
+    the sphere block (the origin first) and the boxes, K9's with the
+    origin and the boxes (origin, blk_lo, blk_hi), K3's, K7's and K11's
+    with the boxes. K4 (its const vector holds the origin; the boxes last) counts
     its sweep as K1's on the same rays and, in mode "inkernel", its
     shadow loop as K3's over the live shadow rays and the clusters their
     cone admits: mesh = (t, face), the sweep's winners (K4's outputs do
@@ -565,6 +572,11 @@ def culled_walk(name, args, kw, outs, mesh=None):
         return (walk_counts(sched_pairs(args[0], sched_reach(
             name, args, outs)), args[12], args[13], *args[2:8],
             args[8] > 0, occ=outs[0]),)
+    if name == "closest_hit_perray":
+        reach = torch.minimum(outs[0], args[8]).view(-1, 1024).amax(1)
+        return (walk_counts(sched_pairs(args[0], reach), args[11], args[12],
+                            *args[2:8], aimed(*args[2:5]),
+                            t_final=outs[0]),)
     if name == "extend_shadow":
         n_tiles = args[2].shape[0] // 1024
         nb = args[15].shape[0] // kw["block_f"]
@@ -595,7 +607,16 @@ def culled_walk(name, args, kw, outs, mesh=None):
                         t_final=outs[0]),)
 
 
-def kernel_work(name, args, kw, outs, mesh=None, walk="culled"):
+def note_box_tests(counts, walks) -> None:
+    """Add the culled walks' box tests to counts["box_tests"] (a dict, or
+    None for no count)."""
+    if counts is not None:
+        counts["box_tests"] = counts.get("box_tests", 0) + sum(
+            n["box_tests"] for n in walks)
+
+
+def kernel_work(name, args, kw, outs, mesh=None, walk="culled",
+                counts=None):
     """(bytes, FP32 operations) of one call at these arguments: every
     input read once and every output written once; the face tests these
     rays need, or the texture kernels' per-ray mix. The sweeps count
@@ -613,7 +634,7 @@ def kernel_work(name, args, kw, outs, mesh=None, walk="culled"):
     face pack, origin terms and plane constants only in the staged rows
     and in each hit's winner row (columns 0-22 and two origin terms).
 
-    K1, K3 and K8-K11 walk per ray (csrc/cull_walk.cuh), and their count
+    K1, K3 and K7-K11 walk per ray (csrc/cull_walk.cuh), and their count
     follows that walk (culled_walk, raycull.walk_counts): a box test
     (OPS_RAYBOX) for every admitted (ray, block) pair of an aimed ray,
     of an active shadow ray that ends unoccluded, and one per occluded
@@ -626,7 +647,7 @@ def kernel_work(name, args, kw, outs, mesh=None, walk="culled"):
     live ray (a shadow ray until it is occluded, so at least once), and
     keep a pair whenever its entry lies at or below the ray's best t so
     far, which never drops below the final t; an occluded ray needed at
-    least the block that occluded it. The schedule walks (K1, K3) count
+    least the block that occluded it. The schedule walks (K1, K3, K7) count
     only the blocks within the tile's reach and the streamed walks
     (K9-K11) only the words within the subtile's reach (the largest
     min(t, root exit), or for K3 and K11 root exit of a ray that ends
@@ -634,18 +655,22 @@ def kernel_work(name, args, kw, outs, mesh=None, walk="culled"):
     (OPS_SHARED), their staged rows the face pack's 12 columns and the
     origin terms' 4.
 
-    walk="mask" counts K1, K3, K4 and K8-K11 as the TPU kernels walk:
+    walk="mask" counts K1, K3, K4 and K7-K11 as the TPU kernels walk:
     every lane that can take a test against every admitted block (the
     schedule walks up to the tile's reach, K4's in-kernel shadow loop as
     K3's over the clusters its cone admits, K8 every set bit of each
     half's mask, the streamed sweeps the words up to each subtile's
-    reach), the bound the mask walk would have."""
+    reach), the bound the mask walk would have.
+
+    A culled walk also adds its box tests to counts["box_tests"] where
+    counts is a dict (face_test_note)."""
     import torch
 
     moved = tensor_bytes(args) + tensor_bytes(outs)
     bf = kw.get("block_f", 1)
     if walk == "culled" and name == "frame":
         walks = culled_walk(name, args, kw, outs, mesh)
+        note_box_tests(counts, walks)
         ops = walks[0]["box_tests"] * OPS_RAYBOX \
             + walks[0]["face_pairs"] * bf * OPS_SHARED
         if len(walks) == 2:
@@ -664,18 +689,21 @@ def kernel_work(name, args, kw, outs, mesh=None, walk="culled"):
         return moved, ops
     if walk == "culled" and name == "extend_shadow":
         ext, shadow = culled_walk(name, args, kw, outs)
+        note_box_tests(counts, (ext, shadow))
         ops = (ext["box_tests"] + shadow["box_tests"]) * OPS_RAYBOX + (
             ext["face_pairs"] + shadow["face_pairs"]) * bf * OPS_PERRAY
         moved = tensor_bytes(args[:15] + args[17:]) + tensor_bytes(outs) \
             + max(ext["blocks"], shadow["blocks"]) * bf * 16 * 4
         return moved, ops
     # the schedule walks: the face pack and its plane constants or origin
-    # terms are read only in the staged rows
-    if walk == "culled" and name in ("closest_hit", "anyhit"):
+    # terms (at args[r0], args[r0 + 1]) are read only in the staged rows
+    sched_walks = {"closest_hit": 6, "anyhit": 10, "closest_hit_perray": 9}
+    if walk == "culled" and name in sched_walks:
         (n,) = culled_walk(name, args, kw, outs)
+        note_box_tests(counts, (n,))
         ops = n["box_tests"] * OPS_RAYBOX + n["face_pairs"] * bf * (
             OPS_SHARED if name == "closest_hit" else OPS_PERRAY)
-        r0 = 6 if name == "closest_hit" else 10
+        r0 = sched_walks[name]
         moved = tensor_bytes(args[:r0] + args[r0 + 2:]) + tensor_bytes(outs) \
             + n["blocks"] * bf * 16 * 4
         return moved, ops
@@ -687,6 +715,7 @@ def kernel_work(name, args, kw, outs, mesh=None, walk="culled"):
     if walk == "culled" and name in record:
         r0, r1, per = record[name]
         (n,) = culled_walk(name, args, kw, outs)
+        note_box_tests(counts, (n,))
         ops = n["box_tests"] * OPS_RAYBOX + n["face_pairs"] * 32 * per
         moved = tensor_bytes(args[:r0] + args[r1:]) + tensor_bytes(outs) \
             + n["blocks"] * 32 * 16 * 4
@@ -925,17 +954,28 @@ def mask_walk_note(name, args, kw, outs, ms, mesh=None) -> str:
             f"{100 * mw_ms / ms:.1f}% of it")
 
 
+def face_test_note(moved: int, ops: int, box_tests: int, ms) -> str:
+    """The bound of a per-ray culled walk's face tests alone: its bytes
+    and operations (kernel_work) less its box tests' operations, the
+    culling's own work, as a note to a timing line."""
+    ft_ms, ft_by = bound(moved, ops - box_tests * OPS_RAYBOX)
+    return (f"; the face tests' bound alone {ft_ms:.4f} ms by {ft_by} "
+            f"({box_tests} box tests not counted), {100 * ft_ms / ms:.1f}% "
+            f"of it")
+
+
 # the shared-origin closest-hit sweeps, whose t is held bitwise: a zero t
 # keeps its sign (a camera on a face's plane draws the face by it)
 SIGNED_T = ("closest_hit", "stream_closest_hit")
 # the index of the per-ray culled walks' first box argument (blk_lo)
 BOX_ARG = {"closest_hit": 9, "anyhit": 12, "frame": 10, "extend_shadow": 17,
+           "closest_hit_perray": 11,
            "stream_closest_hit_perray": 11, "stream_closest_hit": 10,
            "stream_anyhit": 12}
 
 
 def walk_parts(name, args, kw, reps: int) -> str:
-    """Times of parts of a per-ray culled walk (K1, K3, K8-K11) on these
+    """Times of parts of a per-ray culled walk (K1, K3, K7-K11) on these
     arguments, as a note to a timing line: with boxes no ray enters
     (valid boxes at 1e6: the box tests and the chunk overheads alone, no
     face test) and, for K8, each half alone (the other half's mask words
@@ -1012,16 +1052,16 @@ def texel_offset_phase(check, say):
 
 
 def raycull_phase(record, check, say):
-    """K1, K3, K4 and K8-K11 against their plain versions on the seeded
+    """K1, K3, K4 and K7-K11 against their plain versions on the seeded
     adversarial set: raycull.write_grid_mesh's two meshes (8- and 32-face
     clusters, faces in their boxes' planes, edges shared by blocks, NaN
     padding faces and +inf padding boxes) under the five ray sets of
-    raycull.adversarial_rays (K3, K8, K10, K11) and the six cameras of
+    raycull.adversarial_rays (K3, K7, K8, K10, K11) and the six cameras of
     raycull.adversarial_camera (K1, K4, K9: the ray sets' kinds from one
     origin and a camera on a face's plane), the arguments from the port's
     own glue on the card (gbuffer and anyhit_rays on the all-on-chip
     sweeps and forced onto the streamed ones, extend_shadow_rays,
-    gbuffer_perray, raycull.frame_args: K4 in all four modes on the
+    gbuffer_perray on both sweeps, raycull.frame_args: K4 in all four modes on the
     meshes with the reference's spheres and a grazing light); every
     output equal, with the boxes and without. Then the hazard of a zero
     t: the split frame from a camera on a face's plane
@@ -1076,12 +1116,15 @@ def raycull_phase(record, check, say):
                     MK.extend_shadow_rays(data, *o, *d, *so, *sd, act,
                                           kernels=ks),
                     MK.gbuffer_perray(data, *o, *d, stream=True, kernels=ks),
+                    MK.gbuffer_perray(data, *o, *d, stream=False,
+                                      kernels=ks),
                     MK.anyhit_rays(data, *so, *sd, act, stream=True,
                                    kernels=ks),
                     MK.anyhit_rays(data, *so, *sd, act, stream=False,
                                    kernels=ks)))
                 for name in ("extend_shadow", "stream_closest_hit_perray",
-                             "stream_anyhit", "anyhit"):
+                             "closest_hit_perray", "stream_anyhit",
+                             "anyhit"):
                     args, kw = calls[name][0]
                     check(view, name, args, kw)
                     check(view, name, args[:BOX_ARG[name]], kw,
@@ -1668,10 +1711,65 @@ def mip_phase(card, K, Renderer, drive, record, path_launches, say):
         f"operations), {100 * bound_ms / ms:.1f}% of it")
 
 
+def write_terrain_obj(path: str, n: int) -> int:
+    """Write builtin:terrain:n (io/obj.make_terrain) as an OBJ file with
+    positions, texture coordinates and normals (9 significant digits:
+    every float32 read back exactly), one group and no material; returns
+    its face count."""
+    from rust_wgpu_raytracing_tpu_torch.io.obj import make_terrain
+
+    m = make_terrain(n)
+    f = m.faces.astype(np.int64) + 1
+    with open(path, "w") as out:
+        np.savetxt(out, m.positions, fmt="v %.9g %.9g %.9g")
+        np.savetxt(out, m.uvs, fmt="vt %.9g %.9g")
+        np.savetxt(out, m.normals, fmt="vn %.9g %.9g %.9g")
+        np.savetxt(out, np.repeat(f, 3, axis=1),
+                   fmt="f %d/%d/%d %d/%d/%d %d/%d/%d")
+    return len(f)
+
+
+def obj_parse_timing(card, say):
+    """The OBJ import of the streamed scene's mesh (builtin:terrain:512,
+    written as an OBJ file): io/obj.load_obj by the native C++ parser
+    (best of 3) and by the pure-Python parser (once), host clock, their
+    arrays equal."""
+    from rust_wgpu_raytracing_tpu_torch.io.obj import load_obj
+
+    root = tempfile.mkdtemp(prefix="rt_obj_")
+    try:
+        path = os.path.join(root, f"terrain{STREAM_GRID}.obj")
+        n_faces = write_terrain_obj(path, STREAM_GRID)
+        mb = os.path.getsize(path) / 2**20
+        runs, meshes = {True: [], False: []}, {}
+        for use_native, reps in ((True, 3), (False, 1)):
+            for _ in range(reps):
+                t0 = time.perf_counter()
+                meshes[use_native], _ = load_obj(path, use_native=use_native)
+                runs[use_native].append(time.perf_counter() - t0)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    (a,), (b,) = meshes[True], meshes[False]
+    same = all(x.dtype == y.dtype and np.array_equal(x, y) for x, y in zip(
+        (a.positions, a.uvs, a.normals, a.faces),
+        (b.positions, b.uvs, b.normals, b.faces)))
+    say(f"[obj] {card}: load_obj of terrain:{STREAM_GRID} as an OBJ file "
+        f"({n_faces} faces, {mb:.1f} MiB): native C++ "
+        f"{min(runs[True]) * 1e3:.1f} ms (best of 3), pure Python "
+        f"{runs[False][0] * 1e3:.1f} ms (one parse); host clock on the card "
+        f"machine's CPU, not the card; arrays equal: {same}")
+    if not same:
+        raise AssertionError("the native and Python OBJ parsers differ")
+
+
 def lbvh_phase(card, data, say):
     """Phase 10: the LBVH on the streamed scene (the bvh frame's scene):
     the host build of bench_configs.py config 9 (cluster-centre Morton
-    codes, build_lbvh + linearize_bvh, best of 3, host clock); on the card
+    codes, build_lbvh + linearize_bvh, best of 3, host clock) by the
+    native C++ builder (native/rtnative.cpp, built with g++ at first use;
+    the phase fails where it did not build) and by the NumPy build, their
+    arrays equal; the OBJ import of the scene's mesh by both parsers
+    (obj_parse_timing); on the card
     bvh_walk_mask_words over the scene's bvh_pack at the tiles of the
     cell's 1080p frame (its configured camera), a superset of the flat
     scan's words (CUDA events, the call's host checks included); and on
@@ -1679,6 +1777,7 @@ def lbvh_phase(card, data, say):
     JAX package's tests/test_accel.py)."""
     import torch
 
+    from rust_wgpu_raytracing_tpu_torch import native
     from rust_wgpu_raytracing_tpu_torch.config import (CameraConfig,
                                                        MeshConfig,
                                                        RenderConfig,
@@ -1700,21 +1799,45 @@ def lbvh_phase(card, data, say):
     codes = morton3d((lo + hi) * 0.5)
     order = np.argsort(codes, kind="stable")
     codes, lo, hi = codes[order], lo[order].copy(), hi[order].copy()
-    runs = []
+    if not native.available():
+        raise AssertionError(
+            f"the native host library did not build (g++ "
+            f"{shutil.which('g++')!r}, RWRT_NO_NATIVE "
+            f"{os.environ.get('RWRT_NO_NATIVE')!r})")
+    gxx = subprocess.run(["g++", "--version"], capture_output=True,
+                         text=True).stdout.splitlines()[0]
+    runs = {True: [], False: []}
+    trees, packs = {}, {}
     for _ in range(3):
-        t0 = time.perf_counter()
-        tree = build_lbvh(codes, lo, hi)
-        t1 = time.perf_counter()
-        pack = linearize_bvh(tree)
-        runs.append((t1 - t0, time.perf_counter() - t1))
-    b, l = min(runs, key=sum)
-    say(f"[lbvh] {card}: host build of {len(codes)} cluster leaves "
-        f"(terrain:{STREAM_GRID}, {data.num_faces} faces; bench_configs.py "
-        f"config 9's leaves): build_lbvh + linearize_bvh "
-        f"{(b + l) * 1e3:.2f} ms (build {b * 1e3:.2f}, linearize "
-        f"{l * 1e3:.2f}; best of 3, host clock: NumPy on the card machine's "
-        f"CPU, not the card), pack {pack.shape}; the scene's own bvh_pack "
+        for use_native in (True, False):
+            t0 = time.perf_counter()
+            trees[use_native] = build_lbvh(codes, lo, hi,
+                                           use_native=use_native)
+            t1 = time.perf_counter()
+            packs[use_native] = linearize_bvh(trees[use_native])
+            runs[use_native].append((t1 - t0, time.perf_counter() - t1))
+    same = all(np.array_equal(getattr(trees[True], f),
+                              getattr(trees[False], f))
+               for f in ("left", "right", "parent", "node_lo", "node_hi")) \
+        and np.array_equal(packs[True], packs[False])
+    lib = os.path.relpath(native.library_path())
+    for use_native, label in ((True, f"native C++ ({lib}, {gxx})"),
+                              (False, "NumPy")):
+        b, l = min(runs[use_native], key=sum)
+        say(f"[lbvh] {card}: host build of {len(codes)} cluster leaves "
+            f"(terrain:{STREAM_GRID}, {data.num_faces} faces; "
+            f"bench_configs.py config 9's leaves) by the {label} builder: "
+            f"build_lbvh + linearize_bvh {(b + l) * 1e3:.3f} ms (build "
+            f"{b * 1e3:.3f}, linearize {l * 1e3:.3f}; best of 3, host "
+            f"clock on the card machine's CPU, not the card)")
+    say(f"[lbvh] the two builders' arrays (left, right, parent, node_lo, "
+        f"node_hi, the linearized pack {packs[True].shape}) equal: {same}; "
+        f"Scene.build's builder: native C++ (build_lbvh's default, the "
+        f"library built); the scene's own bvh_pack "
         f"{tuple(data.bvh_pack.shape)}, {data.bvh_nodes} nodes")
+    if not same:
+        raise AssertionError("the native and NumPy LBVH builds differ")
+    obj_parse_timing(card, say)
 
     def words_of(d, u, width, height, tiled):
         """(walk words, flat-scan words), (T, nwords) each, and the walk's
@@ -2737,9 +2860,9 @@ def main() -> int:
     build.library()
     say(f"[build] {os.path.relpath(lib_path)} in "
         f"{time.perf_counter() - t0:.1f} s (flags: {' '.join(build.NVCC_FLAGS)})")
-    for name in ("closest_hit", "anyhit", "extend_shadow",
-                 "stream_closest_hit", "stream_closest_hit_perray",
-                 "stream_anyhit"):
+    for name in ("closest_hit", "anyhit", "closest_hit_perray",
+                 "extend_shadow", "stream_closest_hit",
+                 "stream_closest_hit_perray", "stream_anyhit"):
         out = (ctypes.c_int * 4)()
         err = getattr(build.library(), f"rt_{name}_resources")(out)
         if err:
@@ -3195,6 +3318,9 @@ def main() -> int:
         pt_data, *so, *sd, act > 0, kernels=ks))["anyhit"][0]
     k8 = check("pt bounce 1", "extend_shadow", es_args, es_kw)
     k7 = check("pt bounce 1", "closest_hit_perray", k7_args, k7_kw)
+    check("pt bounce 1", "closest_hit_perray", k7_args[:BOX_ARG[
+        "closest_hit_perray"]], k7_kw,
+        " (no boxes: every ray of an admitted block)")
     check("pt last bounce", "anyhit", ah_args, ah_kw, " (act-aware mask)")
     check("pt last bounce", "anyhit", ah_args[:12], ah_kw,
           " (act-aware mask, no boxes: every ray of an admitted block)")
@@ -3226,6 +3352,11 @@ def main() -> int:
     check("pt bounce 1", "extend_shadow", es_args[:17], es_kw,
           " (no boxes: every ray of an admitted block)")
     ext, shadow = culled_walk("extend_shadow", es_args, es_kw, k8)
+    (k7n,) = culled_walk("closest_hit_perray", k7_args, k7_kw, k7)
+    say(f"[pt] K7 bounce 1, (ray, block) pairs of the blocks within its "
+        f"tiles' reach: admitted {k7n['admitted']}, entered "
+        f"{k7n['entered']}, entered at or below the final t "
+        f"{k7n['face_pairs']} ({k7n['blocks']} distinct blocks)")
     say(f"[pt] K8 bounce 1, (ray, block) pairs: closest hit admitted "
         f"{ext['admitted']}, entered {ext['entered']}, entered at or below "
         f"the final t {ext['face_pairs']} ({ext['blocks']} distinct blocks); "
@@ -3355,8 +3486,8 @@ def main() -> int:
 
     def bound_note(name, args, kw, outs, ms):
         """A timing line's bound: the culled walk's, then the unfused
-        rate's and, for the per-ray culled walks, the mask walk's bound
-        and the walk's parts."""
+        rate's and, for the per-ray culled walks, the face tests' bound
+        alone, the mask walk's bound and the walk's parts."""
         mesh = None
         if name == "frame":
             # the frame's sweep is K1's: its mesh winners, from K1 on these
@@ -3364,7 +3495,8 @@ def main() -> int:
             mesh = wrapper["closest_hit"](
                 args[0], args[1], *args[3:9], args[2][:3].contiguous(),
                 *args[10:12], block_f=kw["block_f"])[:2]
-        moved, ops = kernel_work(name, args, kw, outs, mesh)
+        counts = {}
+        moved, ops = kernel_work(name, args, kw, outs, mesh, counts=counts)
         bound_ms, bound_by = bound(moved, ops)
         unfused_ms, _ = bound(moved, ops, FP32_UNFUSED_S)
         note = (f"bound {bound_ms:.4f} ms by {bound_by} ({moved} bytes, "
@@ -3372,7 +3504,8 @@ def main() -> int:
                 f"{unfused_ms:.4f} ms at the unfused issue rate, "
                 f"{100 * unfused_ms / ms:.1f}% of it")
         if name in BOX_ARG:
-            note += mask_walk_note(name, args, kw, outs, ms, mesh) \
+            note += face_test_note(moved, ops, counts["box_tests"], ms) \
+                + mask_walk_note(name, args, kw, outs, ms, mesh) \
                 + walk_parts(name, args, kw, 20)
         if name in ("closest_hit", "anyhit"):
             note += longest_walk(name, args, kw, outs, 20)
@@ -3454,6 +3587,11 @@ def main() -> int:
         if name in ("closest_hit", "anyhit"):
             for label, (o_args, o_kw) in [(at, main_call)] + others:
                 ray_major_sweep(name, label, o_args, o_kw)
+    k7_ms = results["closest_hit_perray"]["ms"]
+    k8_ms = results["extend_shadow"]["ms"]
+    say(f"[timing] {card}: on the path tracer's bounce-1 extension rays K7 "
+        f"(closest hit alone) {k7_ms:.4f} ms, K8 (closest hit + the shadow "
+        f"rays' any hit) {k8_ms:.4f} ms: K7 below K8 {k7_ms < k8_ms}")
     say(f"[timing] {card}: medians fused {medians['fused']:.3f} ms, split "
         f"{medians['split']:.3f} ms")
 

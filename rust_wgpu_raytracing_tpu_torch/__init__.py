@@ -17,8 +17,16 @@ samples, face shards with Renderer(backend="megakernel_gp"), the
 sharded inverse-rendering train step).
 
 The host modules (config, camera, controllers, OBJ/MTL import, scene
-assembly) are copies of the JAX package's, because importing any module
-of that package imports JAX. This package never imports JAX.
+assembly, the native C++ host library of native/) are copies of the JAX
+package's, because importing any module of that package imports JAX.
+This package never imports JAX. Left out as TPU-only: utils/
+compile_cache.py (XLA's persistent compilation cache), the profiler's
+tunnel-sync calibration (runtime/profiler.py), the one-hot matrix-unit
+winner fetch (ops/megakernel.py), RT_STREAM_BATCH (the Pallas grid's
+batch; ops/megakernel.STREAM_BATCH is its default), the opt-in mask and
+gather switches RT_AH_PERRAY, RT_PT_KREFINE and RT_TEX_ROW_GATHER (none
+faster than the default on the H100; PERF.md) and the TPU tools
+(tools/prof_*.py, tools/tpu_*.sh, tools/lower_smoke.py).
 
     from rust_wgpu_raytracing_tpu_torch import Renderer
     r = Renderer(cfg, device="cuda")   # or device="cpu"

@@ -33,7 +33,7 @@
 // against every admitted block; a shadow tile of a frame admits tens of
 // blocks but a ray enters a few of their boxes, and a ray leaves the
 // walk once occluded. The face test is rt_common.cuh perray_hit_cols,
-// perray_hit (_ah_block) term for term (-fmad=false).
+// _ah_block term for term (-fmad=false).
 #include "cull_walk.cuh"
 
 namespace {

@@ -1,6 +1,7 @@
 // The per-ray culled walk of K1 (closest_hit.cu), K3 (anyhit.cu), K4's
 // in-kernel shadow loop (frame.cu; its sweep walks the same chunks with
-// the rays in registers), K8 (extend_shadow.cu) and the streamed sweeps
+// the rays in registers), K7 (closest_hit_perray.cu), K8
+// (extend_shadow.cu) and the streamed sweeps
 // K9, K10 and K11 (stream_sweep.cu): a tile's admitted face
 // blocks are taken in chunks of a few blocks, and each block's faces are
 // tested only for the rays whose own line enters the block's box
@@ -93,7 +94,7 @@ struct Chunk {
   float red[NW];
 };
 
-// shared memory of a closest-hit walk; K8 adds the shadow rays
+// shared memory of a closest-hit walk (K7, K10); K8 adds the shadow rays
 struct Walk {
   unsigned long long best[TILE_R];  // (t bits << 32 | face) per ray
   Rays ext;                         // the closest-hit rays
@@ -113,7 +114,7 @@ struct Dirs {
   float d[3][TILE_R];
 };
 
-// The closest-hit rays of a walk, with per-ray origins (K8, K10): every
+// The closest-hit rays of a walk, with per-ray origins (K7, K8, K10): every
 // hit has t >= 1e-3 > 0, so t's bits are the key's.
 struct PerRayExt {
   static constexpr bool SIGNED_ZERO = false;
@@ -526,7 +527,7 @@ __device__ __forceinline__ unsigned fill_chunk(Chunk& ch, unsigned word,
   return word;
 }
 
-// Fill the chunk from a tile's front-to-back schedule (K1, K3): the
+// Fill the chunk from a tile's front-to-back schedule (K1, K3, K7): the
 // blocks ord[p], ord[p + 1], ... (at most `slots`, none past nb) as long
 // as their entry bound tl[block] is at most b, each slot with its box and
 // the halves `flag`: warp 0 loads, then the block synchronises. Returns

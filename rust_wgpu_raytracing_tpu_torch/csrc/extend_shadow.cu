@@ -30,8 +30,8 @@
 // hemisphere samples admits hundreds of blocks, but a ray enters only a
 // few boxes. Both wavefronts' rays live in shared memory (86 KB a block,
 // two blocks an SM), so the registers hold no ray planes. The face tests
-// are rt_common.cuh perray_hit_cols, perray_hit term for term
-// (-fmad=false).
+// are rt_common.cuh perray_hit_cols, _chp_block_tv and _ah_block term
+// for term (-fmad=false).
 #include "cull_walk.cuh"
 
 namespace {

@@ -1,7 +1,7 @@
 // Shared pieces of the ray-tracing kernels: the face tests and the
 // per-ray box test (closest_hit.cu, anyhit.cu, frame.cu,
-// closest_hit_perray.cu, extend_shadow.cu, stream_sweep.cu; the per-ray
-// culled walk of all but closest_hit_perray.cu is cull_walk.cuh).
+// closest_hit_perray.cu, extend_shadow.cu, stream_sweep.cu; their
+// per-ray culled walk is cull_walk.cuh).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -30,28 +30,11 @@ __device__ __forceinline__ float shared_origin_t(const float* g, float x,
 }
 
 // The per-ray-origin face test (JAX _chp_block_tv and _ah_block, term
-// for term): staged columns 12-15 are the plane constants [d, c0, c1,
-// c2] from dc. Sets t and returns whether the ray (origin u, v, w;
-// direction x, y, z) hits the face at t >= 1e-3.
-__device__ __forceinline__ bool perray_hit(const float* g, float x, float y,
-                                           float z, float u, float v, float w,
-                                           float& t) {
-  const float ndotd = g[0] * x + g[1] * y + g[2] * z;
-  const float ndoto = g[0] * u + g[1] * v + g[2] * w;
-  t = -(ndoto + g[12]) / ndotd;
-  const float h0 = (g[3] * u + g[4] * v + g[5] * w - g[13]) +
-                   t * (g[3] * x + g[4] * y + g[5] * z);
-  const float h1 = (g[6] * u + g[7] * v + g[8] * w - g[14]) +
-                   t * (g[6] * x + g[7] * y + g[8] * z);
-  const float h2 = (g[9] * u + g[10] * v + g[11] * w - g[15]) +
-                   t * (g[9] * x + g[10] * y + g[11] * z);
-  return fabsf(ndotd) >= K_EPSILON && t >= 1e-3f && h0 >= 0.0f &&
-         h1 >= 0.0f && h2 >= 0.0f;
-}
-
-// perray_hit over a column-major staging: column c of the face at
+// for term) over a column-major staging: column c of the face at
 // g[c * stride] (cull_walk.cuh stages a chunk's faces so, one face per
-// lane). The same expression, term for term.
+// lane); columns 12-15 are the plane constants [d, c0, c1, c2] from dc.
+// Sets t and returns whether the ray (origin u, v, w; direction x, y, z)
+// hits the face at t >= 1e-3.
 __device__ __forceinline__ bool perray_hit_cols(const float* g, int stride,
                                                 float x, float y, float z,
                                                 float u, float v, float w,

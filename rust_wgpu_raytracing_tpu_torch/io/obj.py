@@ -17,9 +17,10 @@ Semantics matched to tobj:
   of the respective array;
 - missing vt/vn are filled with zeros (tobj fills missing texcoords with 0).
 
-The JAX package also carries a native C++ parser for large files; the
-port keeps only this pure-Python parser, which is the JAX package's
-reference implementation (same meshes, same materials).
+A native C++ parser (native/rtnative.cpp, the port's copy of the JAX
+package's) serves single-group files when its library builds; this
+module's pure-Python parser is the reference implementation and the
+fallback (same meshes, same materials).
 """
 
 from __future__ import annotations
@@ -93,9 +94,63 @@ def _parse_index(token: str, length: int) -> int:
     return i - 1 if i > 0 else length + i
 
 
-def load_obj(path: str) -> Tuple[List[ObjMesh], List[ObjMaterial]]:
-    """Parse an OBJ file (+ its mtllib) into single-indexed SoA meshes."""
+def load_obj(path: str, use_native: Optional[bool] = None
+             ) -> Tuple[List[ObjMesh], List[ObjMaterial]]:
+    """Parse an OBJ file (+ its mtllib) into single-indexed SoA meshes.
+
+    use_native: True forces the C++ parser (native/rtnative.cpp), False
+    forces pure Python, None (default) picks native when available for
+    single-group files (multi-group files use the Python path, which
+    splits per-mesh vertex pools).
+    """
+    if use_native is not False:
+        result = _load_obj_native(path)
+        if result is not None:
+            return result
+        if use_native is True:
+            raise RuntimeError("native OBJ parser unavailable or file "
+                               "needs the python path")
     return _load_obj_python(path)
+
+
+def _load_obj_native(path: str):
+    from .. import native as nat
+
+    try:
+        parsed = nat.obj_parse_native(path)
+    except ValueError:
+        return None
+    if parsed is None:
+        return None
+    pos, uv, nrm, faces, fmat, starts, mtllib, mat_names = parsed
+    if len(starts) != 1:
+        return None  # multi-group: python path splits per-mesh pools
+    if len(fmat) and len(np.unique(np.asarray(fmat))) > 1:
+        # multiple usemtl runs inside one group: tobj splits a model
+        # whenever the material changes — the python path implements
+        # that split (per-mesh vertex pools), so defer to it
+        return None
+
+    materials: List[ObjMaterial] = []
+    if mtllib:
+        mtl_path = os.path.join(os.path.dirname(path), mtllib)
+        if os.path.exists(mtl_path):
+            materials = parse_mtl(mtl_path)
+    if not materials:
+        materials = [ObjMaterial(name="default", ambient=(0.01,) * 3,
+                                 diffuse=(0.8,) * 3, specular=(0.17,) * 3)]
+    name_to_id = {m.name: i for i, m in enumerate(materials)}
+    # the native parser numbers usemtl names by first appearance; remap
+    # to MTL order (mesh-level material = first face's material, matching
+    # the python path / tobj's mesh.material_id)
+    mat_id = 0
+    if len(fmat) and mat_names:
+        first = mat_names[int(fmat[0])] if int(fmat[0]) < len(mat_names) else ""
+        mat_id = name_to_id.get(first, 0)
+
+    mesh = ObjMesh(name=os.path.basename(path), positions=pos, uvs=uv,
+                   normals=nrm, faces=faces, material_id=mat_id)
+    return [mesh], materials
 
 
 def _load_obj_python(path: str) -> Tuple[List[ObjMesh], List[ObjMaterial]]:

@@ -16,10 +16,12 @@ runs that walk, in the JAX package either: accel="bvh" culls with the
 two-level cut of the same Morton clusters (32 clusters to a superblock,
 ops/hier_cull.py).
 
-All steps are NumPy on the host and run once per scene build. The port
-carries no native code: build_lbvh is the JAX package's NumPy build
-(its use_native=False path), vectorized over all internal nodes with a
-fixed number of search steps, and gives the same arrays.
+All steps run on the host once per scene build. build_lbvh takes the
+C++ builder of native/rtnative.cpp (the port's copy of the JAX
+package's) by default, as the JAX package's does; where the library is
+unavailable, or with use_native=False, it runs the JAX package's NumPy
+build, vectorized over all internal nodes with a fixed number of
+search steps. Both give the same arrays.
 """
 
 from __future__ import annotations
@@ -147,12 +149,21 @@ def _delta(codes: np.ndarray, i: np.ndarray, j: np.ndarray) -> np.ndarray:
 
 
 def build_lbvh(codes_sorted: np.ndarray, leaf_lo: np.ndarray,
-               leaf_hi: np.ndarray) -> LBVH:
-    """Karras binary radix tree from SORTED Morton codes + leaf AABBs:
-    the JAX package's NumPy build, each step over all internal nodes at
-    once (the searches run a fixed number of doubling and halving steps,
-    each node keeping its own bounds)."""
+               leaf_hi: np.ndarray, use_native: bool = True) -> LBVH:
+    """Karras binary radix tree from SORTED Morton codes + leaf AABBs.
+    Uses the C++ builder (native/rtnative.cpp) when available; else the
+    JAX package's NumPy build, each step over all internal nodes at once
+    (the searches run a fixed number of doubling and halving steps, each
+    node keeping its own bounds)."""
     n = len(codes_sorted)
+    if use_native and n > 1:
+        from .. import native as nat
+
+        built = nat.lbvh_build_native(codes_sorted, leaf_lo, leaf_hi)
+        if built is not None:
+            left, right, parent, node_lo, node_hi = built
+            return LBVH(left=left, right=right, parent=parent,
+                        node_lo=node_lo, node_hi=node_hi, n_leaves=n)
     assert n >= 1
     if n == 1:
         return LBVH(left=np.zeros(0, np.int32), right=np.zeros(0, np.int32),

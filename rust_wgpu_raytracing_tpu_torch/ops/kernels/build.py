@@ -48,7 +48,7 @@ _SIGNATURES = {
     "rt_frame": [_VOIDP] * 12 + [_INT] * 7 + [_FLOAT] * 2 + [_VOIDP]
     + [_VOIDP],
     "rt_texfilter": [_VOIDP] * 3 + [_INT] + [_VOIDP] + [_VOIDP],
-    "rt_closest_hit_perray": [_VOIDP] * 11 + [_INT] * 4 + [_VOIDP] * 2
+    "rt_closest_hit_perray": [_VOIDP] * 13 + [_INT] * 4 + [_VOIDP] * 2
     + [_VOIDP],
     "rt_extend_shadow": [_VOIDP] * 19 + [_INT] * 5 + [_VOIDP] * 3
     + [_VOIDP],
@@ -62,6 +62,7 @@ _SIGNATURES = {
     # (int out[4]): registers, spilled bytes, shared bytes, blocks an SM
     "rt_closest_hit_resources": [_VOIDP],
     "rt_anyhit_resources": [_VOIDP],
+    "rt_closest_hit_perray_resources": [_VOIDP],
     "rt_extend_shadow_resources": [_VOIDP],
     "rt_stream_closest_hit_resources": [_VOIDP],
     "rt_stream_closest_hit_perray_resources": [_VOIDP],

@@ -12,6 +12,13 @@ face=0). The plain version loops over face blocks, vectorised over the
 admitted tiles' rays, without early termination (the merge does not
 depend on visit order, and termination only drops blocks that cannot
 win). It is the unit the fused extend+shadow kernel (K8) is held to.
+
+The kernel also takes the face blocks' boxes (blk_lo, blk_hi: one row
+per block, the union of its cluster AABBs) and tests a block's faces
+only for the rays whose own line enters its box at or below their best
+t so far (testing/raycull.py sched_perray_culled models that walk), by
+pairs. The winner is the same, so the plain version ignores the boxes.
+Without boxes the kernel admits every aimed ray of an admitted block.
 """
 
 from __future__ import annotations
@@ -21,8 +28,8 @@ import torch
 from .anyhit import perray_plane_test
 from .build import check, library
 from .closest_hit import merge_block
-from .common import (TILE_R, admitted_tiles, block_rows, is_cuda_call, ptr,
-                     require, stream_ptr)
+from .common import (TILE_R, admitted_tiles, block_rows, box_args,
+                     is_cuda_call, open_boxes, ptr, require, stream_ptr)
 
 F32_INF = float("inf")
 
@@ -47,22 +54,25 @@ def _check(tlb, order, planes, texit, fpack, dc, block_f):
 
 
 def closest_hit_perray(tlb, order, dx, dy, dz, ox, oy, oz, texit, fpack, dc,
-                       *, block_f: int):
+                       blk_lo=None, blk_hi=None, *, block_f: int):
     """(t (R,) f32, face (R,) i32) for R = tiles * 1024 rays with per-ray
     origins. tlb/order (T, nb) and texit (R,) as for closest_hit; dc
-    (F, 8): [d, c0, c1, c2, ...]."""
+    (F, 8): [d, c0, c1, c2, ...]; blk_lo / blk_hi (nb, 3) f32 the
+    blocks' boxes, or None."""
     planes = (dx, dy, dz, ox, oy, oz)
     n_tiles, nb = _check(tlb, order, planes, texit, fpack, dc, block_f)
-    if not is_cuda_call(tlb, order, *planes, texit, fpack, dc):
+    boxes = box_args(blk_lo, blk_hi, nb)
+    if not is_cuda_call(tlb, order, *planes, texit, fpack, dc, *boxes):
         return closest_hit_perray_plain(tlb, order, *planes, texit, fpack,
-                                        dc, block_f=block_f)
+                                        dc, *boxes, block_f=block_f)
+    lo, hi = boxes or open_boxes(nb, dx.device)
     r = dx.shape[0]
     t = torch.empty(r, dtype=torch.float32, device=dx.device)
     face = torch.empty(r, dtype=torch.int32, device=dx.device)
     err = library().rt_closest_hit_perray(
         ptr(tlb), ptr(order), *[ptr(p) for p in planes], ptr(texit),
-        ptr(fpack), ptr(dc), n_tiles, nb, block_f, fpack.shape[1], ptr(t),
-        ptr(face), stream_ptr(dx.device))
+        ptr(fpack), ptr(dc), ptr(lo), ptr(hi), n_tiles, nb, block_f,
+        fpack.shape[1], ptr(t), ptr(face), stream_ptr(dx.device))
     check(err, "rt_closest_hit_perray")
     closest_hit_perray.launches += 1
     return t, face
@@ -72,10 +82,13 @@ closest_hit_perray.launches = 0
 
 
 def closest_hit_perray_plain(tlb, order, dx, dy, dz, ox, oy, oz, texit,
-                             fpack, dc, *, block_f: int):
+                             fpack, dc, blk_lo=None, blk_hi=None, *,
+                             block_f: int):
     """Plain PyTorch version of closest_hit_perray (same arguments, same
-    results bit for bit)."""
-    del order, texit  # visit order and termination cannot change a winner
+    results bit for bit): every ray of an admitted block, the boxes
+    unread."""
+    # visit order and termination cannot change a winner
+    del order, texit, blk_lo, blk_hi
     return closest_perray_blocks(admitted_tiles(tlb), dx, dy, dz, ox, oy,
                                  oz, fpack, dc, block_f)
 

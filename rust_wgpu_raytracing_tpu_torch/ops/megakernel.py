@@ -51,12 +51,13 @@ pyramid pool, each through the texture filter kernel K6, in place of
 the one-gather texshade kernel (K2); the fused frame does not take it.
 
 Row slabs and gp staging (row0, total_height, emit_shadow_planes) serve
-parallel/. Not ported here (see ROADMAP.md): the TPU measurement flags
-RT_PT_KREFINE (the top-K
-cluster refinement of the streamed bounce mask), RT_AH_PERRAY and
-RT_TEX_ROW_GATHER (all off by default in JAX). The one-hot matrix-unit
-winner fetch of expand_tf_gbuffer is a TPU device that yields the same
-values as the plain gather used here.
+parallel/. The one-hot matrix-unit winner fetch of expand_tf_gbuffer is
+a TPU device that yields the same values as the plain gather used here.
+Not ported (see ROADMAP.md): the JAX package's opt-in mask and gather
+switches RT_AH_PERRAY, RT_PT_KREFINE and RT_TEX_ROW_GATHER (all off by
+default there, none changing an output bit). On the H100 each one was
+slower than its default or within the run-to-run spread (PERF.md), so the
+port keeps the default paths only.
 """
 
 from __future__ import annotations
@@ -83,7 +84,9 @@ from .traverse import (perray_super_any, ray_root_exit, slab_interval_entry,
 F32_INF = float("inf")
 BLOCK_F = 32
 # subtiles of 1024 rays per streamed batch (JAX STREAM_BATCH, its
-# RT_STREAM_BATCH default): they share one order row and stop row
+# RT_STREAM_BATCH default; the variable sizes the Pallas grid's batch, a
+# TPU measurement knob, and is not read here): they share one order row
+# and stop row
 STREAM_BATCH = 8
 # (tile, cluster) pairs per step of the flat scan (see module docstring)
 CULL_CHUNK_PAIRS = 1 << 22
@@ -623,7 +626,7 @@ def gbuffer_perray(scene: SceneData, ox, oy, oz, dx, dy, dz, *,
     zero-direction rays out of the tile bounds and first clears the
     words no live ray's forward line meets (perray_super_any) and hands
     K10 the blocks' boxes, which it tests per ray (_block_boxes); the
-    all-on-chip branch runs K7."""
+    all-on-chip branch runs K7, with the same boxes."""
     f = scene.padded_faces
     stream, block_f = _stream_setup(scene, stream)
     nrays = dx.shape[0]
@@ -650,7 +653,8 @@ def gbuffer_perray(scene: SceneData, ox, oy, oz, dx, dy, dz, *,
                                         TILE_R, f, block_f)
         t, face = kernels.closest_hit_perray(
             tlb, order, *planes, texit, pack_face_columns(scene),
-            _plane_consts(scene), block_f=block_f)
+            _plane_consts(scene), *_block_boxes(scene, f, block_f),
+            block_f=block_f)
     return expand_tf_gbuffer(scene, t[:nrays], face[:nrays], dx, dy, dz,
                              oxyz=(ox, oy, oz))
 

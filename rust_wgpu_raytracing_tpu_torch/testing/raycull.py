@@ -1,13 +1,15 @@
 """Plain models of the per-ray cluster culling in kernels K1, K3, K4 and
-K8-K11.
+K7-K11.
 
-K1 and K3 (csrc/closest_hit.cu, csrc/anyhit.cu), K4 (csrc/frame.cu), K8
-(csrc/extend_shadow.cu) and the streamed sweeps K9, K10, K11
+K1 and K3 (csrc/closest_hit.cu, csrc/anyhit.cu), K4 (csrc/frame.cu), K7
+(csrc/closest_hit_perray.cu), K8 (csrc/extend_shadow.cu) and the
+streamed sweeps K9, K10, K11
 (csrc/stream_sweep.cu) test a face block only against the rays whose own
 forward line enters the block's box (ops/traverse.ray_box_enter), and a
 closest-hit ray only where that entry lies at or below the ray's best t
 so far. Their outputs stay those of the unculled plain versions
-(closest_hit_plain, anyhit_plain, frame_plain, extend_shadow_plain,
+(closest_hit_plain, anyhit_plain, frame_plain, closest_hit_perray_plain,
+extend_shadow_plain,
 stream_closest_hit_plain, stream_closest_hit_perray_plain,
 stream_anyhit_plain), which compute the TPU kernels' function: a ray
 whose line misses a conservatively widened box cannot hit a face inside
@@ -20,11 +22,11 @@ CPU tests can hold the culled walks against the unculled versions bit
 for bit, counts the work a culled walk needs (`walk_counts`, read by
 chip_smoke.py's bounds), and makes the seeded adversarial inputs the
 tests and chip_smoke.py hold the kernels to (`write_grid_mesh`,
-`adversarial_rays`, `adversarial_camera`, `plane_camera_config`). K1's
-and K3's models
-(`sched_closest_culled`, `sched_anyhit_culled`) follow the kernels' walk
-of the front-to-back schedule: chunks of the tile's visit order under
-the bound refreshed after each chunk; K4's (`frame_culled`) walks the
+`adversarial_rays`, `adversarial_camera`, `plane_camera_config`). K1's,
+K3's and K7's models
+(`sched_closest_culled`, `sched_anyhit_culled`, `sched_perray_culled`)
+follow the kernels' walk of the front-to-back schedule: chunks of the
+tile's visit order under the bound refreshed after each chunk; K4's (`frame_culled`) walks the
 schedule as K1's and its in-kernel shadow rays as K3's, over the static
 cluster order and the wavefront's admission
 (`inkernel_shadow_culled`). K9's and K11's models
@@ -76,23 +78,31 @@ def culled_closest(tiles_of_block, blo, bhi, dx, dy, dz, ox, oy, oz, fpack,
         x, y, z, u, v, w = (p[idx] for p in (dx, dy, dz, ox, oy, oz))
         ok, entry = ray_box_enter(blo[j], bhi[j], u, v, w, x, y, z)
         keep = ((x != 0.0) | (y != 0.0) | (z != 0.0)) & ok & (entry <= t[idx])
-        idx = idx[keep]
-        if idx.numel() == 0:
-            continue
-        rows = slice(j * block_f, (j + 1) * block_f)
-        tt, valid = perray_plane_test(fpack[rows], dc[rows], *(
-            p[idx] for p in (dx, dy, dz, ox, oy, oz)))
-        tm = torch.where(valid, tt, F32_INF)
-        tmin = tm.amin(dim=0)
-        lane = torch.arange(block_f, dtype=torch.int32,
-                            device=dx.device)[:, None]
-        new_face = torch.where(tm == tmin, lane, INT_MAX).amin(dim=0) \
-            + j * block_f
-        prev_t, prev_f = t[idx], face[idx]
-        better = (tmin < prev_t) | ((tmin == prev_t) & (new_face < prev_f))
-        t[idx] = torch.where(better, tmin, prev_t)
-        face[idx] = torch.where(better, new_face, prev_f)
+        merge_perray(t, face, idx[keep], (dx, dy, dz, ox, oy, oz), fpack, dc,
+                     j, block_f)
     return t, face
+
+
+def merge_perray(t, face, ray, planes, fpack, dc, j: int, block_f: int):
+    """Test face block j against the rays `ray` (per-ray origins; planes
+    dx, dy, dz, ox, oy, oz) and merge its winners into (t, face) in
+    place: the block's winner is its first face at the least t, and it
+    replaces the incumbent by the lexicographic (t, face) rule."""
+    if ray.numel() == 0:
+        return
+    rows = slice(j * block_f, (j + 1) * block_f)
+    tt, valid = perray_plane_test(fpack[rows], dc[rows], *(
+        p[ray] for p in planes))
+    tm = torch.where(valid, tt, F32_INF)
+    tmin = tm.amin(dim=0)
+    lane = torch.arange(block_f, dtype=torch.int32,
+                        device=t.device)[:, None]
+    new_face = torch.where(tm == tmin, lane, INT_MAX).amin(dim=0) \
+        + j * block_f
+    prev_t, prev_f = t[ray], face[ray]
+    better = (tmin < prev_t) | ((tmin == prev_t) & (new_face < prev_f))
+    t[ray] = torch.where(better, tmin, prev_t)
+    face[ray] = torch.where(better, new_face, prev_f)
 
 
 def culled_anyhit(tiles_of_block, blo, bhi, dx, dy, dz, ox, oy, oz, act,
@@ -144,7 +154,7 @@ def _slots(block_f: int) -> int:
 
 def sched_walk(tl, order, b: float, slots: int, bound, visit,
                stop_below_zero: bool) -> None:
-    """One tile's walk of the front-to-back schedule (K1, K3): chunks of
+    """One tile's walk of the front-to-back schedule (K1, K3, K7): chunks of
     up to `slots` blocks of the visit order `order` (a list) taken while
     their entry bound tl[block] is at most b; a chunk that ends early (a
     block fails the bound, or the order runs out) ends the walk.
@@ -207,6 +217,37 @@ def sched_closest_culled(tlb, order, dx, dy, dz, texit, fpack, oterm, sph,
     if n_sph == 0:
         return t, face, None
     return t, face, sphere_winner(sph, n_sph, dx, dy, dz, near, far)
+
+
+def sched_perray_culled(tlb, order, dx, dy, dz, ox, oy, oz, texit, fpack,
+                        dc, blk_lo, blk_hi, *, block_f: int):
+    """K7's culled walk in plain PyTorch: (t, face) as
+    closest_hit_perray's, blk_lo/blk_hi (nb, 3) the face blocks' boxes.
+    Each tile walks its schedule (sched_walk) under the bound max(min(best
+    t, root exit)); in a chunk a block tests only the aimed rays whose own
+    line enters its box at or below their best t at the chunk's start."""
+    planes = (dx, dy, dz, ox, oy, oz)
+    t = torch.full_like(dx, F32_INF)
+    face = torch.zeros(dx.shape[0], dtype=torch.int32, device=dx.device)
+    lane = torch.arange(TILE_R, device=dx.device)
+    for u in range(tlb.shape[0]):
+        idx = u * TILE_R + lane
+        x, y, z, a, b, c = (p[idx] for p in planes)
+        aimed = (x != 0.0) | (y != 0.0) | (z != 0.0)
+
+        def visit(chunk):
+            best = t[idx].clone()
+            for j in chunk:
+                ok, entry = ray_box_enter(blk_lo[j], blk_hi[j], a, b, c, x,
+                                          y, z)
+                merge_perray(t, face, idx[aimed & ok & (entry <= best)],
+                             planes, fpack, dc, j, block_f)
+
+        def bound():
+            return float(torch.minimum(t[idx], texit[idx]).max())
+        sched_walk(tlb[u].tolist(), order[u].tolist(), bound(),
+                   _slots(block_f), bound, visit, False)
+    return t, face
 
 
 def sched_anyhit_culled(tlb, order, dx, dy, dz, ox, oy, oz, act, texit,

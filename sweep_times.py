@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Time the port's all-on-chip sweeps K1 (closest_hit), K3 (anyhit) and
-K4 (frame), and the LBVH-cut cull K5 (hier_cull), on one NVIDIA GPU,
-against another checkout of the port if asked.
+"""Time the port's all-on-chip sweeps K1 (closest_hit), K3 (anyhit), K4
+(frame), K7 (closest_hit_perray) and K8 (extend_shadow), and the
+LBVH-cut cull K5 (hier_cull), on one NVIDIA GPU, against another
+checkout of the port if asked.
 
     python3 sweep_times.py [--against DIR]
 
@@ -11,7 +12,9 @@ and at the dense view (K1's primary sweep, K3's shadow rays), the fused
 frame at both views and at the Renderer's orbit frames 4-8 (the frames
 chip_smoke.py --profile profiles; K4 in each of its four modes on the
 same arguments), the path tracer's first sample (K1's primary sweep,
-K3's last-bounce shadow rays) and the streamed terrain:512 frame under
+K3's last-bounce shadow rays, K8's bounce-1 wavefront and K7 on its
+extension rays, K7's arguments from the checkout's own gbuffer_perray)
+and the streamed terrain:512 frame under
 accel="bvh" (K5's primary and shadow-wavefront culls). A time is the
 mean of 20 launches after one, by CUDA events (K5's by its kernels'
 device time in torch.profiler's trace: its wrapper's host work takes
@@ -50,6 +53,7 @@ def child(root: str) -> None:
     from rust_wgpu_raytracing_tpu_torch.core.camera import Camera
     from rust_wgpu_raytracing_tpu_torch.config import CameraConfig
     from rust_wgpu_raytracing_tpu_torch.ops import kernels as K
+    from rust_wgpu_raytracing_tpu_torch.ops import megakernel as MK
     from rust_wgpu_raytracing_tpu_torch.ops.kernels import build
     from rust_wgpu_raytracing_tpu_torch.ops.megakernel import \
         render_megakernel
@@ -129,10 +133,17 @@ def child(root: str) -> None:
         width=cs.WIDTH, height=cs.HEIGHT, bounces=cs.PT_BOUNCES, spp=1,
         background=tuple(pt_cfg.background), compact_cap="auto",
         kernels=ks))
+    es_args = calls["extend_shadow"][0][0]  # the bounce-1 wavefront
+    d, o = es_args[2:5], es_args[5:8]
+    k7 = record(lambda ks: MK.gbuffer_perray(pt.data, *o, *d, kernels=ks))
     cases += [("closest_hit", "the path tracer's primary sweep",
                calls["closest_hit"][0]),
               ("anyhit", "the path tracer's last bounce",
-               calls["anyhit"][-1])]
+               calls["anyhit"][-1]),
+              ("extend_shadow", "the path tracer's bounce 1",
+               calls["extend_shadow"][0]),
+              ("closest_hit_perray", "the path tracer's bounce 1 (its "
+               "extension rays)", k7["closest_hit_perray"][0])]
     del pt
     scfg = cs.stream_config("bvh")
     sdata = Renderer(scfg, device="cuda").data
@@ -150,8 +161,8 @@ def child(root: str) -> None:
         sets = sets if isinstance(sets, list) else [sets]
         if name == "hier_cull":  # shorter than its wrapper's host work
             ms = float(np.mean([cs.device_ms(
-                lambda: wrapper[name](*args, **kw), 20, "hier_cull_kernel")
-                for args, kw in sets]))
+                lambda: wrapper[name](*args, **kw), 20,
+                "hier_cull_kernel")[0] for args, kw in sets]))
         else:
             ms = float(np.mean([
                 cs.time_ms(lambda: wrapper[name](*args, **kw), 20)

@@ -352,7 +352,7 @@ def test_obj_parser_matches_jax(jax_host, tmp_path):
     name = write_textured_assets(str(tmp_path))
     path = str(tmp_path / name)
     jm, jmat = jobj.load_obj(path, use_native=False)
-    pm, pmat = pobj.load_obj(path)
+    pm, pmat = pobj.load_obj(path, use_native=False)
     assert [m.name for m in pm] == [m.name for m in jm]
     assert [dataclasses.asdict(m) for m in pmat] == \
         [dataclasses.asdict(m) for m in jmat]

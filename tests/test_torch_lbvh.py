@@ -49,7 +49,7 @@ def leaves(n, seed, dup_every=0):
 def test_build_matches_jax_numpy_build(n, seed, dup):
     codes, lo, hi = leaves(n, seed, dup)
     want = jbvh.build_lbvh(codes, lo, hi, use_native=False)
-    got = bvh.build_lbvh(codes, lo, hi)
+    got = bvh.build_lbvh(codes, lo, hi, use_native=False)
     assert got.n_leaves == want.n_leaves == n
     for name in TREE_FIELDS:
         g, w = getattr(got, name), getattr(want, name)
@@ -62,7 +62,7 @@ def test_build_matches_jax_numpy_build(n, seed, dup):
 def test_refit_matches_jax():
     codes, lo, hi = leaves(300, 7)
     want = jbvh.build_lbvh(codes, lo, hi, use_native=False)
-    got = bvh.build_lbvh(codes, lo, hi)
+    got = bvh.build_lbvh(codes, lo, hi, use_native=False)
     rng = np.random.default_rng(8)
     moved = (rng.normal(0, 0.1, lo.shape) + lo).astype(np.float32)
     want.refit(moved, moved + 0.05)

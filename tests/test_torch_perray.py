@@ -6,7 +6,10 @@ The rays are a path tracer's bounce wavefront: seeded origins on and
 around the surface with directions spread over the sphere, and some
 rays parked as dead paths are (origin 1e9, zero direction). Both sides
 get the same schedule, planes, face pack and plane constants (computed
-by JAX, carried across as NumPy): t and face must be BITWISE equal. The
+by JAX, carried across as NumPy): t and face must be BITWISE equal,
+with the face blocks' boxes (which the kernel's per-ray culled walk
+reads and the plain version ignores; testing/raycull.py
+sched_perray_culled models the walk) and without. The
 port's own glue (gbuffer_perray: mask, schedule, K7, and
 expand_tf_gbuffer with per-ray origin terms) must give every G-buffer
 plane by value.
@@ -24,6 +27,8 @@ from rust_wgpu_raytracing_tpu_torch.core.scene import Scene
 from rust_wgpu_raytracing_tpu_torch.ops import megakernel as P
 from rust_wgpu_raytracing_tpu_torch.ops.kernels import (
     closest_hit_perray, closest_hit_perray_plain)
+from rust_wgpu_raytracing_tpu_torch.testing.raycull import \
+    sched_perray_culled
 from test_torch_host import (cuda_device, jax_config,  # noqa: F401
                              jax_reference, terrain_config,
                              textured_config, write_textured_assets)
@@ -135,6 +140,22 @@ def test_closest_hit_perray_matches_jax_kernel(ref, name):
 
 
 @pytest.mark.parametrize("name", sorted(CASES))
+def test_closest_hit_perray_with_boxes_matches_jax_kernel(ref, assets, name):
+    """With the port's block boxes (gbuffer_perray's _block_boxes): the
+    plain version and the culled walk's model, bitwise JAX's kernel."""
+    args, bf = case_inputs(ref, name)
+    data = port_data(CASES[name][0], assets)
+    boxes = P._block_boxes(data, data.padded_faces, bf)
+    n = ref[f"{name}_t"].shape[0]
+    for t, face in (closest_hit_perray(*args, *boxes, block_f=bf),
+                    sched_perray_culled(*args, *boxes, block_f=bf)):
+        np.testing.assert_array_equal(t[:n].numpy().view(np.int32),
+                                      ref[f"{name}_t"].view(np.int32))
+        np.testing.assert_array_equal(face[:n].numpy(),
+                                      ref[f"{name}_face"])
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
 def test_port_gbuffer_perray_matches_jax(ref, assets, name):
     """The port's glue from the raw wavefront: mask, schedule, K7 and the
     G-buffer expanded with per-ray origin terms (expand_tf_gbuffer's
@@ -197,10 +218,13 @@ def test_port_inputs_match_jax_inputs(ref, assets):
 @pytest.mark.parametrize("name", sorted(CASES))
 def test_closest_hit_perray_cuda_matches_plain(name, assets, cuda_device):
     args, bf = port_inputs(name, assets, cuda_device)
-    before = closest_hit_perray.launches
-    t, face = closest_hit_perray(*args, block_f=bf)
-    torch.cuda.synchronize()
-    assert closest_hit_perray.launches == before + 1
+    data = port_data(CASES[name][0], assets, cuda_device)
+    boxes = P._block_boxes(data, data.padded_faces, bf)
     pt, pf = closest_hit_perray_plain(*args, block_f=bf)
-    assert torch.isfinite(t).any()
-    assert torch.equal(t, pt) and torch.equal(face, pf)
+    for a in (args, args + list(boxes)):
+        before = closest_hit_perray.launches
+        t, face = closest_hit_perray(*a, block_f=bf)
+        torch.cuda.synchronize()
+        assert closest_hit_perray.launches == before + 1
+        assert torch.isfinite(t).any()
+        assert torch.equal(t, pt) and torch.equal(face, pf)

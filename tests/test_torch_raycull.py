@@ -1,6 +1,7 @@
 """PyTorch port: the per-ray cluster culling of kernels K1 (the
 shared-origin closest hit), K3 (the shadow any-hit), K4 (the fused frame
-kernel: its sweep and its in-kernel shadow loop), K8 (the path tracer's
+kernel: its sweep and its in-kernel shadow loop), K7 (the per-ray-origin
+closest hit), K8 (the path tracer's
 fused extend + shadow sweep), K9 (the streamed shared-origin closest
 hit), K10 (the streamed per-ray closest hit) and K11 (the streamed
 shadow any-hit).
@@ -9,11 +10,12 @@ The kernels test a face block only for the rays whose own line enters
 the block's box (ops/traverse.ray_box_enter, the plain twin of
 csrc/rt_common.cuh ray_box_enter), a closest-hit ray only where that
 entry lies at or below its best t so far. testing/raycull.py models
-that walk in plain PyTorch (K1's and K3's models follow the kernels'
-chunks of the front-to-back schedule, K4's the same sweep and K3's walk
+that walk in plain PyTorch (K1's, K3's and K7's models follow the
+kernels' chunks of the front-to-back schedule, K4's the same sweep and K3's walk
 over the static cluster order, K9's and K11's their word walk, split
 into work items); here the model is held against the unculled plain
-versions (closest_hit_plain, anyhit_plain, frame_plain, extend_shadow_plain,
+versions (closest_hit_plain, anyhit_plain, frame_plain,
+closest_hit_perray_plain, extend_shadow_plain,
 stream_closest_hit_plain, stream_closest_hit_perray_plain,
 stream_anyhit_plain, the TPU kernels' function) BITWISE: t, face and
 occ, K1's and K9's zero t with its sign (a camera on a face's plane
@@ -31,7 +33,7 @@ for K1, K4 and K9 one camera of each kind and a camera on a face's
 plane (zero t); K4's scene adds the reference's spheres and a light a
 few degrees above the grids' plane (grazing shadow rays, whose origins
 lie inside the clusters' boxes). Then the wavefronts of 64x64 path
-traces of a heightfield (K1 primary, K8 bounce 1, K3 last bounce) and of
+traces of a heightfield (K1 primary, K7 and K8 bounce 1, K3 last bounce) and of
 a streamed one (K9, K10, K11). The arguments come from the port's own
 glue (extend_shadow_rays, gbuffer, gbuffer_perray, anyhit_rays,
 raycull.frame_args), which hands the kernels the boxes. The card tests
@@ -56,6 +58,7 @@ from rust_wgpu_raytracing_tpu_torch.testing.raycull import (
     ADVERSARIAL_KINDS, CAMERA_KINDS, adversarial_camera, adversarial_rays,
     extend_shadow_culled, frame_args, frame_culled, item_walks, mask_pairs,
     plane_camera_config, sched_anyhit_culled, sched_closest_culled,
+    sched_perray_culled,
     sched_pairs, stream_anyhit_culled, stream_pairs, stream_perray_culled,
     stream_shared_culled, walk_counts, write_grid_mesh)
 from rust_wgpu_raytracing_tpu_torch.ops.kernels import common, stream_sweep
@@ -177,6 +180,15 @@ def k8_args(data, o, d, so, sd, act):
     return calls["extend_shadow"][0]
 
 
+def k7_args(data, o, d):
+    """closest_hit_perray's arguments from the port's glue (gbuffer_perray
+    on the all-on-chip sweep)."""
+    calls = {}
+    P.gbuffer_perray(data, *tens(o), *tens(d), stream=False,
+                     kernels=recorder(calls))
+    return calls["closest_hit_perray"][0]
+
+
 def k10_args(data, o, d):
     """stream_closest_hit_perray's arguments from the port's glue."""
     calls = {}
@@ -221,6 +233,27 @@ def test_culled_k8_equals_plain(meshes, mesh, kind):
     assert int(torch.isfinite(want[0]).sum()) > 50
     if kind != "in_plane":
         assert int((want[2] > 0).sum()) > 50
+
+
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("mesh", sorted(MESHES))
+def test_culled_k7_equals_plain(meshes, mesh, kind):
+    """K7's walk (chunks of the front-to-back schedule, per-ray boxes from
+    each ray's own origin) against the unculled plain version, bitwise."""
+    data = meshes[mesh]
+    seed = 1400 + KINDS.index(kind) + 10 * sorted(MESHES).index(mesh)
+    o, d, _, _, _ = rays(kind, mesh, data, seed)
+    args, kw = k7_args(data, o, d)
+    bf = kw["block_f"]
+    assert len(args) == 13 and bf == (8 if mesh == "bf8" else 32)
+    assert args[11] is data.blk_lo and args[12] is data.blk_hi
+    want = K.closest_hit_perray_plain(*args, **kw)
+    assert_bits(K.closest_hit_perray_plain(*args[:11], **kw), want,
+                ("t", "face"))
+    assert_bits(sched_perray_culled(*args, **kw), want, ("t", "face"))
+    assert winner_entered(want[0], want[1], args[11], args[12], *args[2:8],
+                          bf)
+    assert int(torch.isfinite(want[0]).sum()) > 50
 
 
 @pytest.mark.parametrize("kind", KINDS)
@@ -452,6 +485,29 @@ def test_pt_bounce1_k8_culled_equals_plain(fields):
     assert s["face_pairs"] <= s["box_tests"] <= s["admitted"] + int(
         (want[2] > 0).sum())
     assert s["entered"] < s["admitted"]
+
+
+def test_pt_bounce1_k7_culled_equals_plain(fields):
+    """K7 on K8's bounce-1 extension rays (the bowl's 4,608 faces), its
+    arguments from gbuffer_perray: the culled walk bitwise the plain
+    version and K8's closest-hit half."""
+    data, (es_args, es_kw) = pt_wavefront(fields[49], "extend_shadow")
+    d, o = es_args[2:5], es_args[5:8]
+    calls = {}
+    P.gbuffer_perray(data, *o, *d, kernels=recorder(calls))
+    args, kw = calls["closest_hit_perray"][0]
+    assert kw["block_f"] == 32 and len(args) == 13
+    want = K.closest_hit_perray_plain(*args, **kw)
+    assert_bits(sched_perray_culled(*args, **kw), want, ("t", "face"))
+    assert_bits(K.extend_shadow_plain(*es_args, **es_kw)[:2], want,
+                ("t", "face"))
+    assert int(torch.isfinite(want[0]).sum()) > 150
+    aimed = (args[2] != 0) | (args[3] != 0) | (args[4] != 0)
+    reach = torch.minimum(want[0], args[8]).view(-1, 1024).amax(1)
+    n = walk_counts(sched_pairs(args[0], reach), args[11], args[12],
+                    *args[2:8], aimed, t_final=want[0])
+    # the culled walk tests a small share of the mask walk's pairs
+    assert n["face_pairs"] <= n["entered"] < n["admitted"] / 4
 
 
 def test_pt_primary_k1_culled_equals_plain(fields):
@@ -842,7 +898,7 @@ def test_block_boxes_follow_the_blocks(meshes):
 
 def gpu_inputs(meshes, mesh, kind, device):
     """(kernel, plain version, arguments on the card, keywords) of K1
-    (camera `kind`) and, for a ray set `kind`, K8, K10 and K3."""
+    (camera `kind`) and, for a ray set `kind`, K8, K10, K3 and K7."""
     data = meshes[mesh]
     origin, d = adversarial_camera(kind, MESHES[mesh], data.blk_lo,
                                    data.blk_hi, 350 + CAMERA_KINDS.index(kind))
@@ -853,7 +909,9 @@ def gpu_inputs(meshes, mesh, kind, device):
                   (K.stream_closest_hit_perray,
                    K.stream_closest_hit_perray_plain,
                    k10_args(data, r[0], r[1])),
-                  (K.anyhit, K.anyhit_plain, k3_args(data, *r[2:]))]
+                  (K.anyhit, K.anyhit_plain, k3_args(data, *r[2:])),
+                  (K.closest_hit_perray, K.closest_hit_perray_plain,
+                   k7_args(data, r[0], r[1]))]
     move = (lambda a: a.to(device) if isinstance(a, torch.Tensor) else a)
     return [(fn, plain, [move(a) for a in args], kw)
             for fn, plain, (args, kw) in cases]
@@ -864,7 +922,7 @@ def gpu_inputs(meshes, mesh, kind, device):
 @pytest.mark.parametrize("mesh", sorted(MESHES))
 def test_culling_kernels_cuda_match_plain(meshes, mesh, kind, cuda_device,
                                           monkeypatch):
-    """K8, K10, K3 and K1 on the card, with the boxes and without (K1 and
+    """K8, K10, K3, K7 and K1 on the card, with the boxes and without (K1 and
     K3 also with every chunk ray-major and every chunk by pairs), against
     their plain versions on the adversarial sets: every output equal, K1's
     t bitwise (a zero t with its sign)."""
