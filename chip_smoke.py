@@ -316,6 +316,33 @@ def say(msg: str) -> None:
     print(msg, flush=True)
 
 
+def profile_frames(renderer, frames: int = 5, warmup: int = 3) -> dict:
+    """Profile `frames` renders (after `warmup` unprofiled ones), each
+    with update() first and render(block=True), with rtbench/trace.py:
+    device operations, device ms and the busy share a frame, host syncs a
+    frame (torch's sync debug mode) and the operations with the most
+    device time ([name, seconds])."""
+    from rtbench import trace
+
+    def run(n):
+        for _ in range(n):
+            renderer.update()
+            renderer.render(block=True)
+
+    run(warmup)
+    with trace.host_syncs() as syncs:
+        traced = trace.profile(run, frames)
+    ops = traced.device_ops
+    return {"frames": frames,
+            "device_kernels_per_frame": len(ops) / frames,
+            "device_ms_per_frame": sum(e - s for _, s, e in ops)
+            / frames / 1e3,
+            "busy_share": traced.busy_us() / traced.window_us,
+            "wall_ms_per_frame": traced.window_us / frames / 1e3,
+            "host_syncs_per_frame": len(syncs) / frames,
+            "top": traced.by_name()}
+
+
 def smoke_config(variant: str = "auto"):
     from rust_wgpu_raytracing_tpu_torch.config import (
         CameraConfig, MeshConfig, RenderConfig, SceneConfig, reference_scene)
@@ -2841,6 +2868,7 @@ def main() -> int:
     say(f"[env] torch {torch.__version__}, torch.version.cuda "
         f"{torch.version.cuda}, device {torch.cuda.get_device_name(0)}, "
         f"count {torch.cuda.device_count()}")
+    from rust_wgpu_raytracing_tpu_torch.runtime import profiler
     from rust_wgpu_raytracing_tpu_torch.ops.kernels import build
 
     nvcc = subprocess.run([build._nvcc(), "--version"], capture_output=True,
@@ -2900,9 +2928,6 @@ def main() -> int:
         return 0
 
     if "--profile" in sys.argv[1:]:
-        from rust_wgpu_raytracing_tpu_torch.runtime.profiler import \
-            profile_frames
-
         asset_dir = tempfile.mkdtemp(prefix="rt_nm_")
         os.environ["RWRT_ASSETS"] = asset_dir
         write_nm_assets(asset_dir)
@@ -2919,8 +2944,8 @@ def main() -> int:
             prof = profile_frames(rv)
             top = prof.pop("top")
             say(f"[profile] {card}: {variant} frame {json.dumps(prof)}")
-            for name, count, ms in top:
-                say(f"[profile]   {variant}: {name} x{count} {ms:.3f} ms")
+            for name, seconds in top:
+                say(f"[profile]   {variant}: {name} {seconds * 1e3:.3f} ms")
         from rust_wgpu_raytracing_tpu_torch.ops import kernels as K
         from rust_wgpu_raytracing_tpu_torch.ops.pathtrace import (
             PRNGKey, render_pathtrace)
@@ -3115,7 +3140,7 @@ def main() -> int:
             raise AssertionError("in-kernel shadows disagree with sched")
 
     # K4 at the Renderer's orbit frames as torch.profiler sees them
-    # (--profile, runtime/profiler.profile_frames: WARMUP unprofiled
+    # (--profile, profile_frames: WARMUP unprofiled
     # frames, then 5, each after update() with the orbit key held)
     orbit = Renderer(smoke_config("fused"), device="cuda")
     orbit.controller.process_key("d", True)
@@ -3291,7 +3316,7 @@ def main() -> int:
             bounces=PT_BOUNCES, spp=1, background=tuple(pt_cfg.background),
             compact_cap=compact_cap, kernels=kernels)
 
-    compacted = render_pathtrace.compacted
+    compacted = profiler.counters().get("pt.compacted", 0)
     pt_frame = None
 
     def first_sample(ks):
@@ -3299,8 +3324,8 @@ def main() -> int:
         pt_frame = trace(ks)
 
     calls = record(first_sample)
-    branch = ("compacted" if render_pathtrace.compacted > compacted
-              else "full")
+    branch = ("compacted" if profiler.counters().get("pt.compacted", 0)
+              > compacted else "full")
     say(f"[pt] heightfield {pt_data.num_faces} faces + "
         f"{pt_data.num_spheres} spheres, {WIDTH}x{HEIGHT}, {PT_BOUNCES} "
         f"bounces, one sample: kernel calls "
@@ -3367,9 +3392,9 @@ def main() -> int:
     pt_plain = trace(K.PLAIN)
     pt_full = trace(K.KERNELS, compact_cap=None)
     # room for every tile: the compacted loop runs whatever is live
-    compacted = render_pathtrace.compacted
+    compacted = profiler.counters().get("pt.compacted", 0)
     pt_compact = trace(K.KERNELS, compact_cap=2 * WIDTH * HEIGHT)
-    ran_compact = render_pathtrace.compacted == compacted + 1
+    ran_compact = profiler.counters().get("pt.compacted", 0) == compacted + 1
     torch.cuda.synchronize()
     same_plain = torch.equal(pt_frame, pt_plain)
     same_full = torch.equal(pt_frame, pt_full)
@@ -3387,9 +3412,10 @@ def main() -> int:
                              "full-loop or compacted twin")
 
     # the Renderer: samples accumulate up to pt_spp, orbit key released
-    from rust_wgpu_raytracing_tpu_torch.runtime.profiler import host_syncs
+    from rtbench.trace import host_syncs
 
     K.reset_launch_counts()
+    profiler.reset_counters("syncs.")
     pt_times, first = [], None
     with host_syncs() as syncs:
         t0 = time.perf_counter()
@@ -3403,9 +3429,12 @@ def main() -> int:
         torch.cuda.synchronize()
         pt_wall = time.perf_counter() - t0
     path_launches["pt"] = K.launch_counts()
+    waits = {k: v for k, v in profiler.counters().items()
+             if k.startswith("syncs.")}
     say(f"[path] path tracer, {PT_SPP} samples: launches "
         f"{path_launches['pt']}, host syncs {len(syncs)} (torch's sync "
-        f"debug mode, render(block=True)'s synchronize not counted)")
+        f"debug mode, render(block=True)'s synchronize not counted); the "
+        f"program's waits {waits}")
     missing = [k for k in ("closest_hit", "extend_shadow", "anyhit",
                            "texfilter") if path_launches["pt"][k] == 0]
     extra = [k for k in ("frame", "texshade", "closest_hit_perray")

@@ -7,10 +7,13 @@ The frame kernel (kernels.frame, K4) runs the closest-hit sweep, the
 winner's shading attributes, the sphere passes, the Blinn-Phong
 factors and the composite in one launch; it gets the face blocks'
 boxes (_block_boxes: the cluster AABBs), which it tests per ray. The
-tail gathers the texels once and shades them (K2), traces the winner
-shadow wavefront with the scheduled any-hit kernel (K3, shadow_mode
-"sched"), perturbs the normal through the bump sample (K6, normal
-mapping), selects the colours, quantizes and de-tiles.
+tail traces the winner shadow wavefront with the scheduled any-hit
+kernel (K3, shadow_mode "sched"), perturbs the normal through the bump
+sample (K6, normal mapping), gathers the texels once and shades them
+(K2), selects the colours, quantizes and de-tiles. The phases are the
+spans "frame.raygen", "frame.gbuffer" (the cull mask, the schedule and
+K4), "frame.shadow", "frame.shade" and "frame.present"
+(runtime/profiler.py).
 
 shadow_mode: "sched" (and "auto") emits the winner's shadow-ray inputs
 and traces them with K3 over the split frame's per-tile schedule;
@@ -30,6 +33,7 @@ import torch
 
 from ..core.camera import CameraUniforms
 from ..core.scene import SceneData
+from ..runtime.profiler import span, wait
 from .kernels import KERNELS, KernelSet
 from .kernels.common import TILE_R
 from .megakernel import (_block_boxes, _frame_shape, _mask_words, _mat_const,
@@ -92,21 +96,25 @@ def render_frame_fused(scene: SceneData, uni_flat, *, width: int,
         raise ValueError(f"shadow_mode {shadow_mode!r}, expected one of "
                          f"{SHADOW_MODES}")
     device = scene.tri_n.device
-    uni = CameraUniforms.unflat(np.asarray(
-        uni_flat.cpu() if isinstance(uni_flat, torch.Tensor) else uni_flat,
-        np.float32))
-    origin = torch.as_tensor(uni.origin, dtype=torch.float32, device=device)
+    with span("frame.raygen"):
+        uni = CameraUniforms.unflat(np.asarray(
+            uni_flat.cpu() if isinstance(uni_flat, torch.Tensor)
+            else uni_flat, np.float32))
+        with wait("uniforms"):
+            origin = torch.as_tensor(uni.origin, dtype=torch.float32,
+                                     device=device)
 
-    shape = _frame_shape(width, height, row0, total_height)
-    if shape is not None:
-        tile_h, tile_w, render_h = shape
-        dx, dy, dz = raygen_planar_tiled(
-            width, render_h, uni, device=device, row0=row0,
-            total_height=total_height or height, tile_h=tile_h,
-            tile_w=tile_w)
-    else:
-        dx, dy, dz = raygen_planar(width, height, uni, device=device,
-                                   row0=row0, total_height=total_height)
+        shape = _frame_shape(width, height, row0, total_height)
+        if shape is not None:
+            tile_h, tile_w, render_h = shape
+            dx, dy, dz = raygen_planar_tiled(
+                width, render_h, uni, device=device, row0=row0,
+                total_height=total_height or height, tile_h=tile_h,
+                tile_w=tile_w)
+        else:
+            dx, dy, dz = raygen_planar(width, height, uni, device=device,
+                                       row0=row0,
+                                       total_height=total_height)
 
     f = scene.padded_faces
     nb = scene.blk_lo.shape[0]
@@ -114,19 +122,6 @@ def render_frame_fused(scene: SceneData, uni_flat, *, width: int,
     ns = scene.num_spheres
     nmat = scene.mat_ambient.shape[0]
     nrays = dx.shape[0]
-    dxp, dyp, dzp = (_pad1(v, TILE_R) for v in (dx, dy, dz))
-
-    fpack = pack_face_columns(scene)
-    oterm = pack_origin_cols(scene, origin)
-    dc = torch.cat([scene.tri_d[:, None], scene.tri_c,
-                    torch.zeros((f, 4), dtype=torch.float32, device=device)],
-                   dim=1)
-    o = (origin[0], origin[1], origin[2])
-    mask, nwords = _mask_words(scene, accel, *o, dxp, dyp, dzp, TILE_R,
-                               block_f, f, kernels=kernels)
-    tlb, order, texit = _vmem_sched(scene, mask, nwords, *o, dxp, dyp, dzp,
-                                    TILE_R, f, block_f)
-
     use_sched = shadows and shadow_mode != "inkernel"
     if normal_mapping:
         mode = "nm"
@@ -134,60 +129,82 @@ def render_frame_fused(scene: SceneData, uni_flat, *, width: int,
         mode = "none"
     else:
         mode = "sched" if use_sched else "inkernel"
-    outs = kernels.frame(tlb, order, frame_const(scene, origin), dxp, dyp,
-                         dzp, texit, fpack, oterm, dc,
-                         *_block_boxes(scene, f, block_f), ns=ns, nmat=nmat,
-                         block_f=block_f, near=near, far=far, mode=mode)
-    outs = [p[:nrays] for p in outs]
+    with span("frame.gbuffer"):
+        dxp, dyp, dzp = (_pad1(v, TILE_R) for v in (dx, dy, dz))
+        fpack = pack_face_columns(scene)
+        oterm = pack_origin_cols(scene, origin)
+        dc = torch.cat([scene.tri_d[:, None], scene.tri_c,
+                        torch.zeros((f, 4), dtype=torch.float32,
+                                    device=device)], dim=1)
+        o = (origin[0], origin[1], origin[2])
+        mask, nwords = _mask_words(scene, accel, *o, dxp, dyp, dzp, TILE_R,
+                                   block_f, f, kernels=kernels)
+        tlb, order, texit = _vmem_sched(scene, mask, nwords, *o, dxp, dyp,
+                                        dzp, TILE_R, f, block_f)
+        outs = kernels.frame(tlb, order, frame_const(scene, origin), dxp,
+                             dyp, dzp, texit, fpack, oterm, dc,
+                             *_block_boxes(scene, f, block_f), ns=ns,
+                             nmat=nmat, block_f=block_f, near=near, far=far,
+                             mode=mode)
+        outs = [p[:nrays] for p in outs]
     depth, kind, occ, uvx, uvy, mat, lam, spec = outs[:8]
-
-    # ---- tail: one texture gather + shade, shadows, final select ----
-    def mc(getter):
-        return _mat_const(scene, mat, getter)
-
-    amb = [mc(lambda k, c=c: scene.mat_ambient[k, c]) for c in range(3)]
-    spc = [mc(lambda k, c=c: scene.mat_specular[k, c]) for c in range(3)]
-
-    lam_mesh, spec_mesh = lam, spec
-    if normal_mapping:
-        nx, ny, nz = perturb_normal(scene, mat, *outs[8:20], uvx,
-                                    1.0 - uvy, kernels=kernels)
-        light = [mc(lambda k, c=c: scene.mat_light[k, c]) for c in range(3)]
-        lam_mesh, spec_mesh = blinn_phong_planar(nx, ny, nz, dx, dy, dz,
-                                                 light)
-
-    taps, fxw, fyw = gather_packed_taps(
-        scene.tex_packed, mc(lambda k: scene.mat_tex_base[k]),
-        mc(lambda k: scene.mat_tex_h[k]), mc(lambda k: scene.mat_tex_w[k]),
-        uvx, 1.0 - uvy)
-    mr, mg, mb = kernels.texshade(taps, fxw, fyw, lam_mesh, spec_mesh,
-                                  *amb, *spc)
 
     if use_sched:
         # the split frame's shadow pass on the winner planes
-        w_rel = outs[15]
-        occ = winner_occlusion(scene, origin, dx, dy, dz,
-                               (kind > 0.0) & (w_rel > 0.0), *outs[8:15],
-                               accel=accel, kernels=kernels).to(torch.float32)
+        with span("frame.shadow"):
+            w_rel = outs[15]
+            occ = winner_occlusion(
+                scene, origin, dx, dy, dz, (kind > 0.0) & (w_rel > 0.0),
+                *outs[8:15], accel=accel,
+                kernels=kernels).to(torch.float32)
 
-    cr, cg, cb = (torch.full((nrays,), float(np.float32(v)),
-                             dtype=torch.float32, device=device)
-                  for v in background)
-    shadowed = (kind > 0.0) & (occ > 0.0)
-    for s in range(ns):
-        sel = kind == float(s + 1)
-        col = scene.sphere_color[s]
-        co = scene.sphere_coeff[s]
-        shade = co[0] + co[1] * lam
-        pr = col[0] * shade + co[2] * spec
-        pg = col[1] * shade + co[2] * spec
-        pb = col[2] * shade + co[2] * spec
-        cr = torch.where(sel, torch.where(shadowed, col[0] * co[0], pr), cr)
-        cg = torch.where(sel, torch.where(shadowed, col[1] * co[0], pg), cg)
-        cb = torch.where(sel, torch.where(shadowed, col[2] * co[0], pb), cb)
-    mesh_sel = kind == float(ns + 1)
-    cr = torch.where(mesh_sel, torch.where(shadowed, amb[0], mr), cr)
-    cg = torch.where(mesh_sel, torch.where(shadowed, amb[1], mg), cg)
-    cb = torch.where(mesh_sel, torch.where(shadowed, amb[2], mb), cb)
-    return present_planar(cr, cg, cb, depth, width=width, height=height,
-                          shape=shape, quantize=quantize)
+    # ---- tail: one texture gather + shade, final select ----
+    def mc(getter):
+        return _mat_const(scene, mat, getter)
+
+    with span("frame.shade"):
+        amb = [mc(lambda k, c=c: scene.mat_ambient[k, c]) for c in range(3)]
+        spc = [mc(lambda k, c=c: scene.mat_specular[k, c])
+               for c in range(3)]
+
+        lam_mesh, spec_mesh = lam, spec
+        if normal_mapping:
+            nx, ny, nz = perturb_normal(scene, mat, *outs[8:20], uvx,
+                                        1.0 - uvy, kernels=kernels)
+            light = [mc(lambda k, c=c: scene.mat_light[k, c])
+                     for c in range(3)]
+            lam_mesh, spec_mesh = blinn_phong_planar(nx, ny, nz, dx, dy, dz,
+                                                     light)
+
+        taps, fxw, fyw = gather_packed_taps(
+            scene.tex_packed, mc(lambda k: scene.mat_tex_base[k]),
+            mc(lambda k: scene.mat_tex_h[k]),
+            mc(lambda k: scene.mat_tex_w[k]), uvx, 1.0 - uvy)
+        mr, mg, mb = kernels.texshade(taps, fxw, fyw, lam_mesh, spec_mesh,
+                                      *amb, *spc)
+
+        cr, cg, cb = (torch.full((nrays,), float(np.float32(v)),
+                                 dtype=torch.float32, device=device)
+                      for v in background)
+        shadowed = (kind > 0.0) & (occ > 0.0)
+        for s in range(ns):
+            sel = kind == float(s + 1)
+            col = scene.sphere_color[s]
+            co = scene.sphere_coeff[s]
+            shade = co[0] + co[1] * lam
+            pr = col[0] * shade + co[2] * spec
+            pg = col[1] * shade + co[2] * spec
+            pb = col[2] * shade + co[2] * spec
+            cr = torch.where(sel, torch.where(shadowed, col[0] * co[0], pr),
+                             cr)
+            cg = torch.where(sel, torch.where(shadowed, col[1] * co[0], pg),
+                             cg)
+            cb = torch.where(sel, torch.where(shadowed, col[2] * co[0], pb),
+                             cb)
+        mesh_sel = kind == float(ns + 1)
+        cr = torch.where(mesh_sel, torch.where(shadowed, amb[0], mr), cr)
+        cg = torch.where(mesh_sel, torch.where(shadowed, amb[1], mg), cg)
+        cb = torch.where(mesh_sel, torch.where(shadowed, amb[2], mb), cb)
+    with span("frame.present"):
+        return present_planar(cr, cg, cb, depth, width=width,
+                              height=height, shape=shape, quantize=quantize)

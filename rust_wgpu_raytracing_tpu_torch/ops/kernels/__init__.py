@@ -1,5 +1,6 @@
 """The port's hand-written CUDA kernels, each with its plain PyTorch
-version and a launch counter.
+version and a launch counter (the recorder's "launches.<wrapper>",
+runtime/profiler.py; launch_counts() reads them).
 
 | kernel | wrapper | CUDA source | replaces (JAX package) |
 | --- | --- | --- | --- |
@@ -25,6 +26,7 @@ from __future__ import annotations
 
 from typing import Callable, NamedTuple
 
+from ...runtime import profiler
 from .anyhit import anyhit, anyhit_plain
 from .closest_hit import closest_hit, closest_hit_plain
 from .closest_hit_perray import closest_hit_perray, closest_hit_perray_plain
@@ -66,9 +68,11 @@ PLAIN = KernelSet(closest_hit_plain, anyhit_plain, texshade_plain,
 
 
 def launch_counts() -> dict:
-    return {f.__name__: f.launches for f in KERNELS}
+    """Launches of each wrapper since the last reset, by wrapper name."""
+    counts = profiler.counters()
+    return {f.__name__: counts.get("launches." + f.__name__, 0)
+            for f in KERNELS}
 
 
 def reset_launch_counts() -> None:
-    for f in KERNELS:
-        f.launches = 0
+    profiler.reset_counters("launches.")

@@ -1,13 +1,13 @@
 """Shadow any-hit for per-ray origins (kernel K3).
 
 The wrapper `anyhit` launches csrc/anyhit.cu for CUDA tensors and runs
-`anyhit_plain` for CPU tensors; `anyhit.launches` counts kernel
-launches. Both compute the JAX package's _make_anyhit_kernel: occ = 1
-where an active ray hits some face of a block its tile's schedule
-admits at t >= 1e-3. The plain version loops over face blocks,
-vectorised over the admitted tiles' rays, without early termination
-(an OR over hits does not depend on visit order, and termination only
-drops blocks no live ray can reach).
+`anyhit_plain` for CPU tensors; each launch adds 1 to the counter
+`launches.anyhit` (runtime/profiler.py). Both compute the JAX package's
+_make_anyhit_kernel: occ = 1 where an active ray hits some face of a
+block its tile's schedule admits at t >= 1e-3. The plain version loops
+over face blocks, vectorised over the admitted tiles' rays, without
+early termination (an OR over hits does not depend on visit order, and
+termination only drops blocks no live ray can reach).
 
 The kernel also takes the face blocks' boxes (blk_lo, blk_hi: one row
 per block, the union of its cluster AABBs) and tests a block's faces
@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import torch
 
+from ...runtime.profiler import count
 from ..intersect import K_EPSILON
 from . import common
 from .build import check, library
@@ -66,11 +67,8 @@ def anyhit(tlb, order, dx, dy, dz, ox, oy, oz, act, texit, fpack, dc,
         ptr(dc), ptr(lo), ptr(hi), n_tiles, nb, block_f, fpack.shape[1],
         common.RAY_MAJOR["anyhit"], ptr(occ), stream_ptr(dx.device))
     check(err, "rt_anyhit")
-    anyhit.launches += 1
+    count("launches.anyhit")
     return occ
-
-
-anyhit.launches = 0
 
 
 def anyhit_plain(tlb, order, dx, dy, dz, ox, oy, oz, act, texit, fpack, dc,

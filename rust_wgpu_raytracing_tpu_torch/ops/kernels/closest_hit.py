@@ -2,7 +2,8 @@
 
 The wrapper `closest_hit` launches csrc/closest_hit.cu for CUDA tensors
 and runs `closest_hit_plain` for CPU tensors; it never falls back from
-one to the other. `closest_hit.launches` counts kernel launches.
+one to the other. Each launch adds 1 to the counter
+`launches.closest_hit` (runtime/profiler.py).
 
 Both compute the JAX package's _make_closest_hit_kernel: for each ray
 the lexicographic (t, face) winner over the faces of every face block
@@ -26,6 +27,7 @@ from __future__ import annotations
 
 import torch
 
+from ...runtime.profiler import count
 from ..composite import depth_constants
 from ..intersect import K_EPSILON
 from ..rounding import sqrt
@@ -89,11 +91,8 @@ def closest_hit(tlb, order, dx, dy, dz, texit, fpack, oterm, sph,
         common.RAY_MAJOR["closest_hit"], ptr(t), ptr(face),
         *[ptr(p) for p in planes], stream_ptr(dx.device))
     check(err, "rt_closest_hit")
-    closest_hit.launches += 1
+    count("launches.closest_hit")
     return t, face, (tuple(planes) if n_sph else None)
-
-
-closest_hit.launches = 0
 
 
 def closest_hit_plain(tlb, order, dx, dy, dz, texit, fpack, oterm, sph,

@@ -2,8 +2,8 @@
 
 The wrapper `closest_hit_perray` launches csrc/closest_hit_perray.cu for
 CUDA tensors and runs `closest_hit_perray_plain` for CPU tensors; it
-never falls back from one to the other. `closest_hit_perray.launches`
-counts kernel launches.
+never falls back from one to the other. Each launch adds 1 to the
+counter `launches.closest_hit_perray` (runtime/profiler.py).
 
 Both compute the JAX package's _make_closest_hit_perray_kernel: for
 each ray the lexicographic (t, face) winner at t >= 1e-3 over the faces
@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import torch
 
+from ...runtime.profiler import count
 from .anyhit import perray_plane_test
 from .build import check, library
 from .closest_hit import merge_block
@@ -74,11 +75,8 @@ def closest_hit_perray(tlb, order, dx, dy, dz, ox, oy, oz, texit, fpack, dc,
         ptr(fpack), ptr(dc), ptr(lo), ptr(hi), n_tiles, nb, block_f,
         fpack.shape[1], ptr(t), ptr(face), stream_ptr(dx.device))
     check(err, "rt_closest_hit_perray")
-    closest_hit_perray.launches += 1
+    count("launches.closest_hit_perray")
     return t, face
-
-
-closest_hit_perray.launches = 0
 
 
 def closest_hit_perray_plain(tlb, order, dx, dy, dz, ox, oy, oz, texit,

@@ -2,8 +2,8 @@
 
 The wrapper `extend_shadow` launches csrc/extend_shadow.cu for CUDA
 tensors and runs `extend_shadow_plain` for CPU tensors; it never falls
-back from one to the other. `extend_shadow.launches` counts kernel
-launches.
+back from one to the other. Each launch adds 1 to the counter
+`launches.extend_shadow` (runtime/profiler.py).
 
 Both compute the JAX package's _make_fused_extend_shadow_kernel: one
 walk over the face blocks of the union of two packed activity masks,
@@ -27,6 +27,7 @@ from __future__ import annotations
 
 import torch
 
+from ...runtime.profiler import count
 from .anyhit import anyhit_blocks
 from .build import check, library
 from .closest_hit_perray import closest_perray_blocks
@@ -85,11 +86,8 @@ def extend_shadow(words_a, words_b, dx, dy, dz, ox, oy, oz, sdx, sdy, sdz,
         ptr(dc), ptr(lo), ptr(hi), n_tiles, nwords, nb, block_f,
         fpack.shape[1], ptr(t), ptr(face), ptr(occ), stream_ptr(dx.device))
     check(err, "rt_extend_shadow")
-    extend_shadow.launches += 1
+    count("launches.extend_shadow")
     return t, face, occ
-
-
-extend_shadow.launches = 0
 
 
 def mask_tiles(words, n_tiles: int, nb: int):

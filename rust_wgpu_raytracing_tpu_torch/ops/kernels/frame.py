@@ -1,13 +1,14 @@
 """The fused frame kernel (kernel K4).
 
 The wrapper `frame` launches csrc/frame.cu for CUDA tensors and runs
-`frame_plain` for CPU tensors; `frame.launches` counts kernel launches.
-Both compute the JAX package's fusedframe._make_frame_kernel: per
-1024-ray tile, the closest-hit (t, face) sweep, the winner's shading
-attributes, the analytic sphere passes, Blinn-Phong factors with the
-light direction per material (and `pow32`), and the composite in the
-reference's pass order by strict nonlinear depth. The mode picks the
-branch and the planes written, each (R,) f32, in this order:
+`frame_plain` for CPU tensors; each launch adds 1 to the counter
+`launches.frame` (runtime/profiler.py). Both compute the JAX package's
+fusedframe._make_frame_kernel: per 1024-ray tile, the closest-hit (t,
+face) sweep, the winner's shading attributes, the analytic sphere
+passes, Blinn-Phong factors with the light direction per material (and
+`pow32`), and the composite in the reference's pass order by strict
+nonlinear depth. The mode picks the branch and the planes written, each
+(R,) f32, in this order:
 
     all modes  depth, kind, occ, uvx, uvy, mat, lam, spec
     "sched"    + wt, wnx, wny, wnz, wlx, wly, wlz, wrel  (the winner's
@@ -54,6 +55,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ...runtime.profiler import count
 from ..composite import depth_constants
 from ..rounding import ftz, sqrt
 from ..traverse import slab_interval_entry, tile_ray_bounds
@@ -184,11 +186,8 @@ def frame(tlb, order, const, dx, dy, dz, texit, fpack, oterm, dc,
         common.RAY_MAJOR["anyhit"], inv_near, rcp_span, ptr(out),
         stream_ptr(dx.device))
     check(err, "rt_frame")
-    frame.launches += 1
+    count("launches.frame")
     return tuple(out.unbind(0))
-
-
-frame.launches = 0
 
 
 def _resolve(t, face, fpack, oterm, dx, dy, dz, nm: bool):

@@ -1,12 +1,12 @@
 """The two-level LBVH-cut cull of accel="bvh" (kernel K5).
 
 The wrapper `hier_cull` launches csrc/hier_cull.cu for CUDA tensors and
-runs `hier_cull_plain` for CPU tensors; `hier_cull.launches` counts
-kernel launches. Both compute the JAX package's
-traverse_pallas._make_smem_kernel: for each tile's ray cone (12 bound
-planes) and each superblock, the slab test of the superblock's union
-box and, where it passes, of its 32 cluster boxes, packed into one i32
-word (bit c = cluster 32 s + c). The plain version tests a chunk of
+runs `hier_cull_plain` for CPU tensors; each launch adds 1 to the
+counter `launches.hier_cull` (runtime/profiler.py). Both compute the JAX
+package's traverse_pallas._make_smem_kernel: for each tile's ray cone
+(12 bound planes) and each superblock, the slab test of the superblock's
+union box and, where it passes, of its 32 cluster boxes, packed into one
+i32 word (bit c = cluster 32 s + c). The plain version tests a chunk of
 superblocks for every tile at once.
 """
 
@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import torch
 
+from ...runtime.profiler import count
 from .build import check, library
 from .common import is_cuda_call, ptr, require, stream_ptr
 
@@ -46,11 +47,8 @@ def hier_cull(sup, clus, bounds):
     err = library().rt_hier_cull(ptr(sup), ptr(clus), ptr(bounds), n_tiles,
                                  n_super, ptr(words), stream_ptr(sup.device))
     check(err, "rt_hier_cull")
-    hier_cull.launches += 1
+    count("launches.hier_cull")
     return words
-
-
-hier_cull.launches = 0
 
 
 def _cone(bounds):

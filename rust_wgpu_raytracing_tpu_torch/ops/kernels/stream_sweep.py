@@ -41,6 +41,7 @@ from __future__ import annotations
 import torch
 
 from ...core.scene import SC_DC
+from ...runtime.profiler import count
 from .anyhit import anyhit_blocks
 from .build import check, library
 from .closest_hit import closest_shared_blocks
@@ -113,11 +114,8 @@ def stream_closest_hit(mask3, order2, tlb3, dx, dy, dz, texit, spack,
         stream_ptr(dx.device))
     del held
     check(err, "rt_stream_closest_hit")
-    stream_closest_hit.launches += 1
+    count("launches.stream_closest_hit")
     return unpack_keys(key)
-
-
-stream_closest_hit.launches = 0
 
 
 def unpack_keys(key):
@@ -194,11 +192,8 @@ def stream_closest_hit_perray(mask3, order2, tlb3, dx, dy, dz, ox, oy, oz,
         ptr(spack), ptr(lo), ptr(hi), n_sub, nsub, n_super, spack.shape[1],
         SC_DC, ptr(t), ptr(face), stream_ptr(dx.device))
     check(err, "rt_stream_closest_hit_perray")
-    stream_closest_hit_perray.launches += 1
+    count("launches.stream_closest_hit_perray")
     return t, face
-
-
-stream_closest_hit_perray.launches = 0
 
 
 def stream_anyhit(mask3, order2, tlb3, dx, dy, dz, ox, oy, oz, act, texit,
@@ -222,11 +217,8 @@ def stream_anyhit(mask3, order2, tlb3, dx, dy, dz, ox, oy, oz, act, texit,
         spack.shape[1], SC_DC, ptr(occ), stream_ptr(dx.device))
     del held
     check(err, "rt_stream_anyhit")
-    stream_anyhit.launches += 1
+    count("launches.stream_anyhit")
     return occ
-
-
-stream_anyhit.launches = 0
 
 
 def admitted_subtiles(mask3, tlb3):

@@ -1,16 +1,18 @@
 """Bilinear texture mix (kernel K6).
 
 The wrapper `texfilter` launches csrc/texfilter.cu for CUDA tensors and
-runs `texfilter_plain` for CPU tensors; `texfilter.launches` counts
-kernel launches. Both compute the JAX package's _texfilter_kernel: per
-channel the bilinear mix of the 12 u16 taps scaled by the f32 constant
-1/65535, with no shading (the normal-mapping bump sample).
+runs `texfilter_plain` for CPU tensors; each launch adds 1 to the
+counter `launches.texfilter` (runtime/profiler.py). Both compute the JAX
+package's _texfilter_kernel: per channel the bilinear mix of the 12 u16
+taps scaled by the f32 constant 1/65535, with no shading (the
+normal-mapping bump sample).
 """
 
 from __future__ import annotations
 
 import torch
 
+from ...runtime.profiler import count
 from .build import check, library
 from .common import is_cuda_call, ptr, require, stream_ptr
 from .texshade import TAP_SCALE
@@ -34,11 +36,8 @@ def texfilter(taps, fx, fy):
     err = library().rt_texfilter(ptr(taps), ptr(fx), ptr(fy), n, ptr(out),
                                  stream_ptr(fx.device))
     check(err, "rt_texfilter")
-    texfilter.launches += 1
+    count("launches.texfilter")
     return out[0], out[1], out[2]
-
-
-texfilter.launches = 0
 
 
 def texfilter_plain(taps, fx, fy):

@@ -1,10 +1,11 @@
 """Bilinear texture mix + Blinn-Phong combine (kernel K2).
 
 The wrapper `texshade` launches csrc/texshade.cu for CUDA tensors and
-runs `texshade_plain` for CPU tensors; `texshade.launches` counts kernel
-launches. Both compute the JAX package's _texshade_kernel:
-p = ambient + tex * lam + specular * spec per channel, tex the bilinear
-mix of the 12 u16 taps scaled by the f32 constant 1/65535.
+runs `texshade_plain` for CPU tensors; each launch adds 1 to the counter
+`launches.texshade` (runtime/profiler.py). Both compute the JAX
+package's _texshade_kernel: p = ambient + tex * lam + specular * spec
+per channel, tex the bilinear mix of the 12 u16 taps scaled by the f32
+constant 1/65535.
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ...runtime.profiler import count
 from .build import check, library
 from .common import is_cuda_call, ptr, require, stream_ptr
 
@@ -40,11 +42,8 @@ def texshade(taps, fx, fy, lam, spec, ar, ag, ab, sr, sg, sb):
                                 *[ptr(o) for o in out],
                                 stream_ptr(fx.device))
     check(err, "rt_texshade")
-    texshade.launches += 1
+    count("launches.texshade")
     return tuple(out)
-
-
-texshade.launches = 0
 
 
 def texshade_plain(taps, fx, fy, lam, spec, ar, ag, ab, sr, sg, sb):

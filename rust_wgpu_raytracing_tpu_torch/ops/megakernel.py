@@ -72,6 +72,7 @@ from ..core.scene import (GP_C1, GP_C2, GP_G1, GP_G2, GP_INVD, GP_MAT,
                           GP_N, GP_TAN, GP_UN, GP_UV, GP_VN, GPACK_SRC_COLS,
                           SC_DC, STREAM_COLS, STREAM_FACES, SUPER_F,
                           SceneData)
+from ..runtime.profiler import span, wait
 from .composite import to_nonlinear_depth
 from .hier_cull import hier_cull_fits, hier_cull_words
 from .rounding import ftz, sqrt
@@ -1167,7 +1168,9 @@ def render_megakernel(scene: SceneData, uni_flat, *, width: int, height: int,
     kernel (with mip: the ray-cone LOD and two pyramid taps through the
     texture filter kernel) -> composite -> shadow any-hit kernel, bit for
     bit the JAX package's render_megakernel(fused=False) under the same
-    rounding rules. A scene without a mesh ignores mip. `kernels`
+    rounding rules; its phases are the spans "frame.raygen",
+    "frame.gbuffer", "frame.shade", "frame.shadow" and "frame.present"
+    (runtime/profiler.py). A scene without a mesh ignores mip. `kernels`
     selects the kernel implementations (PLAIN composes the frame from
     the plain PyTorch versions)."""
     check_supported(scene, accel=accel)
@@ -1192,22 +1195,26 @@ def render_megakernel(scene: SceneData, uni_flat, *, width: int, height: int,
             row0=row0, total_height=total_height, kernels=kernels)
 
     device = scene.tri_n.device
-    uni = CameraUniforms.unflat(np.asarray(
-        uni_flat.cpu() if isinstance(uni_flat, torch.Tensor) else uni_flat,
-        np.float32))
-    origin = torch.as_tensor(uni.origin, dtype=torch.float32, device=device)
+    with span("frame.raygen"):
+        uni = CameraUniforms.unflat(np.asarray(
+            uni_flat.cpu() if isinstance(uni_flat, torch.Tensor)
+            else uni_flat, np.float32))
+        with wait("uniforms"):
+            origin = torch.as_tensor(uni.origin, dtype=torch.float32,
+                                     device=device)
 
-    shape = _frame_shape(width, height, row0, total_height)
-    if shape is not None:
-        tile_h, tile_w, render_h = shape
-        dx, dy, dz = raygen_planar_tiled(
-            width, render_h, uni, device=device, row0=row0,
-            total_height=total_height or height, tile_h=tile_h,
-            tile_w=tile_w)
-    else:
-        render_h = height
-        dx, dy, dz = raygen_planar(width, height, uni, device=device,
-                                   row0=row0, total_height=total_height)
+        shape = _frame_shape(width, height, row0, total_height)
+        if shape is not None:
+            tile_h, tile_w, render_h = shape
+            dx, dy, dz = raygen_planar_tiled(
+                width, render_h, uni, device=device, row0=row0,
+                total_height=total_height or height, tile_h=tile_h,
+                tile_w=tile_w)
+        else:
+            render_h = height
+            dx, dy, dz = raygen_planar(width, height, uni, device=device,
+                                       row0=row0,
+                                       total_height=total_height)
     r = width * render_h
 
     def full(v):
@@ -1216,9 +1223,6 @@ def render_megakernel(scene: SceneData, uni_flat, *, width: int, height: int,
 
     def plane(v):  # a 0-dim constant as an (R,) plane
         return v.expand(r)
-
-    cr, cg, cb = full(background[0]), full(background[1]), full(background[2])
-    depth = full(1.0)
 
     def composite(state, pr, pg, pb, t, hit, extra=None):
         cr, cg, cb, depth = state[:4]
@@ -1232,167 +1236,185 @@ def render_megakernel(scene: SceneData, uni_flat, *, width: int, height: int,
         return out, write
 
     has_mesh = scene.num_faces > 0
-    state = [cr, cg, cb, depth]
-    if shadows:
-        # winner planes for the single deferred shadow pass: ambient-only
-        # color, hit point inputs and light dir of the VISIBLE surface
-        # (only the last pass that wins the depth test reaches the screen)
-        zero = full(0.0)
-        state += [zero, zero, zero, zero, zero, zero, zero, zero, zero,
-                  full(1.0), torch.zeros(r, dtype=torch.bool, device=device)]
-        covered = torch.zeros(r, dtype=torch.bool, device=device)
-
     sph_out = None
     if has_mesh:
-        gb, sph_out = gbuffer(scene, origin, dx, dy, dz, accel=accel,
-                              near=near, far=far, with_nm=normal_mapping,
-                              kernels=kernels)
+        with span("frame.gbuffer"):
+            gb, sph_out = gbuffer(scene, origin, dx, dy, dz, accel=accel,
+                                  near=near, far=far,
+                                  with_nm=normal_mapping, kernels=kernels)
 
-    # --- sphere passes, in config order (src/lib.rs:1106-1148) ---
-    if sph_out is not None:
-        # fused winner: per-ray constants resolve by sphere id, then ONE
-        # Blinn-Phong + composite with the same strict nonlinear-depth rule
-        st, sid, nx, ny, nz = sph_out
-        hit = torch.isfinite(st)
-
-        def sph_const(getter):
-            out = plane(getter(0))
-            for k in range(1, scene.num_spheres):
-                out = torch.where(sid == float(k), getter(k), out)
-            return out
-
-        lx = sph_const(lambda k: scene.sphere_light[k, 0])
-        ly = sph_const(lambda k: scene.sphere_light[k, 1])
-        lz = sph_const(lambda k: scene.sphere_light[k, 2])
-        c0 = sph_const(lambda k: scene.sphere_coeff[k, 0])
-        c1 = sph_const(lambda k: scene.sphere_coeff[k, 1])
-        c2 = sph_const(lambda k: scene.sphere_coeff[k, 2])
-        kr = sph_const(lambda k: scene.sphere_color[k, 0])
-        kg = sph_const(lambda k: scene.sphere_color[k, 1])
-        kb = sph_const(lambda k: scene.sphere_color[k, 2])
-        lam, spec = blinn_phong_planar(nx, ny, nz, dx, dy, dz, (lx, ly, lz))
-        shade = c0 + c1 * lam
-        pr = kr * shade + c2 * spec
-        pg = kg * shade + c2 * spec
-        pb = kb * shade + c2 * spec
-        extra = None
+    with span("frame.shade"):
+        cr, cg, cb = (full(background[0]), full(background[1]),
+                      full(background[2]))
+        depth = full(1.0)
+        state = [cr, cg, cb, depth]
         if shadows:
-            extra = [kr * c0, kg * c0, kb * c0, st, nx, ny, nz,
-                     lx, ly, lz, (lam > 0.0) | (spec > 0.0)]
-        state, write = composite(state, pr, pg, pb, st, hit, extra)
-        if shadows:
-            covered = covered | write
-    else:
-        for i in range(scene.num_spheres):
-            t, hit, nx, ny, nz = sphere_pass_planar(scene, i, origin,
-                                                    dx, dy, dz)
-            light = scene.sphere_light[i]
-            lam, spec = blinn_phong_planar(nx, ny, nz, dx, dy, dz, light)
-            coeff = scene.sphere_coeff[i]
-            col = scene.sphere_color[i]
-            shade = coeff[0] + coeff[1] * lam
-            pr = col[0] * shade + coeff[2] * spec
-            pg = col[1] * shade + coeff[2] * spec
-            pb = col[2] * shade + coeff[2] * spec
+            # winner planes for the single deferred shadow pass:
+            # ambient-only color, hit point inputs and light dir of the
+            # VISIBLE surface (only the last pass that wins the depth test
+            # reaches the screen)
+            zero = full(0.0)
+            state += [zero, zero, zero, zero, zero, zero, zero, zero, zero,
+                      full(1.0),
+                      torch.zeros(r, dtype=torch.bool, device=device)]
+            covered = torch.zeros(r, dtype=torch.bool, device=device)
+
+        # --- sphere passes, in config order (src/lib.rs:1106-1148) ---
+        if sph_out is not None:
+            # fused winner: per-ray constants resolve by sphere id, then ONE
+            # Blinn-Phong + composite with the same strict nonlinear-depth rule
+            st, sid, nx, ny, nz = sph_out
+            hit = torch.isfinite(st)
+
+            def sph_const(getter):
+                out = plane(getter(0))
+                for k in range(1, scene.num_spheres):
+                    out = torch.where(sid == float(k), getter(k), out)
+                return out
+
+            lx = sph_const(lambda k: scene.sphere_light[k, 0])
+            ly = sph_const(lambda k: scene.sphere_light[k, 1])
+            lz = sph_const(lambda k: scene.sphere_light[k, 2])
+            c0 = sph_const(lambda k: scene.sphere_coeff[k, 0])
+            c1 = sph_const(lambda k: scene.sphere_coeff[k, 1])
+            c2 = sph_const(lambda k: scene.sphere_coeff[k, 2])
+            kr = sph_const(lambda k: scene.sphere_color[k, 0])
+            kg = sph_const(lambda k: scene.sphere_color[k, 1])
+            kb = sph_const(lambda k: scene.sphere_color[k, 2])
+            lam, spec = blinn_phong_planar(nx, ny, nz, dx, dy, dz,
+                                           (lx, ly, lz))
+            shade = c0 + c1 * lam
+            pr = kr * shade + c2 * spec
+            pg = kg * shade + c2 * spec
+            pb = kb * shade + c2 * spec
             extra = None
             if shadows:
-                extra = [plane(col[0] * coeff[0]), plane(col[1] * coeff[0]),
-                         plane(col[2] * coeff[0]), t, nx, ny, nz,
-                         plane(light[0]), plane(light[1]), plane(light[2]),
-                         (lam > 0.0) | (spec > 0.0)]
-            state, write = composite(state, pr, pg, pb, t, hit, extra)
+                extra = [kr * c0, kg * c0, kb * c0, st, nx, ny, nz,
+                         lx, ly, lz, (lam > 0.0) | (spec > 0.0)]
+            state, write = composite(state, pr, pg, pb, st, hit, extra)
+            if shadows:
+                covered = covered | write
+        else:
+            for i in range(scene.num_spheres):
+                t, hit, nx, ny, nz = sphere_pass_planar(scene, i, origin,
+                                                        dx, dy, dz)
+                light = scene.sphere_light[i]
+                lam, spec = blinn_phong_planar(nx, ny, nz, dx, dy, dz, light)
+                coeff = scene.sphere_coeff[i]
+                col = scene.sphere_color[i]
+                shade = coeff[0] + coeff[1] * lam
+                pr = col[0] * shade + coeff[2] * spec
+                pg = col[1] * shade + coeff[2] * spec
+                pb = col[2] * shade + coeff[2] * spec
+                extra = None
+                if shadows:
+                    extra = [plane(col[0] * coeff[0]),
+                             plane(col[1] * coeff[0]),
+                             plane(col[2] * coeff[0]), t, nx, ny, nz,
+                             plane(light[0]), plane(light[1]), plane(light[2]),
+                             (lam > 0.0) | (spec > 0.0)]
+                state, write = composite(state, pr, pg, pb, t, hit, extra)
+                if shadows:
+                    covered = covered | write
+
+        # --- mesh pass (closest-hit G-buffer + one-gather shading) ---
+        if has_mesh:
+            hit = torch.isfinite(gb.t)
+            flip = gb.nd > 0.0
+            nx = torch.where(flip, -gb.nx, gb.nx)
+            ny = torch.where(flip, -gb.ny, gb.ny)
+            nz = torch.where(flip, -gb.nz, gb.nz)
+
+            tex_base = _mat_const(scene, gb.mat,
+                                  lambda k: scene.mat_tex_base[k])
+            hw_h = _mat_const(scene, gb.mat, lambda k: scene.mat_tex_h[k])
+            hw_w = _mat_const(scene, gb.mat, lambda k: scene.mat_tex_w[k])
+            tex_u = gb.uvx
+            tex_v = 1.0 - gb.uvy  # V-flip (triangle_list/compute.wgsl:223)
+
+            if normal_mapping:
+                nx, ny, nz = perturb_normal(
+                    scene, gb.mat, nx, ny, nz, gb.vnx, gb.vny, gb.vnz,
+                    gb.tx, gb.ty, gb.tz, gb.bx, gb.by, gb.bz, tex_u, tex_v,
+                    kernels=kernels)
+
+            # per-pixel light dir can vary by material (reference quirk:
+            # per-kernel light dirs) — resolve via M-way select
+            lightx = _mat_const(scene, gb.mat, lambda k: scene.mat_light[k, 0])
+            lighty = _mat_const(scene, gb.mat, lambda k: scene.mat_light[k, 1])
+            lightz = _mat_const(scene, gb.mat, lambda k: scene.mat_light[k, 2])
+            lam, spec = blinn_phong_planar(nx, ny, nz, dx, dy, dz,
+                                           (lightx, lighty, lightz))
+            amb_r = _mat_const(scene, gb.mat,
+                               lambda k: scene.mat_ambient[k, 0])
+            amb_g = _mat_const(scene, gb.mat,
+                               lambda k: scene.mat_ambient[k, 1])
+            amb_b = _mat_const(scene, gb.mat,
+                               lambda k: scene.mat_ambient[k, 2])
+            spc_r = _mat_const(scene, gb.mat,
+                               lambda k: scene.mat_specular[k, 0])
+            spc_g = _mat_const(scene, gb.mat,
+                               lambda k: scene.mat_specular[k, 1])
+            spc_b = _mat_const(scene, gb.mat,
+                               lambda k: scene.mat_specular[k, 2])
+
+            if mip and scene.mip_levels > 0:
+                # trilinear minification (JAX megakernel.py:2981-2995): two
+                # pyramid taps (K6 each) and the shade in plain ops, in place
+                # of the texshade kernel
+                from .miptex import ray_cone_lod, sample_mip_trilinear
+
+                row_w = shape[1] if shape is not None else width
+                lod = ray_cone_lod(scene, gb, dx, dy, dz, row_w)
+                tr, tg, tb = sample_mip_trilinear(scene, gb.mat, lod, tex_u,
+                                                  tex_v, kernels=kernels)
+                pr = amb_r + tr * lam + spc_r * spec
+                pg = amb_g + tg * lam + spc_g * spec
+                pb = amb_b + tb * lam + spc_b * spec
+            else:
+                taps, fxw, fyw = gather_packed_taps(scene.tex_packed, tex_base,
+                                                    hw_h, hw_w, tex_u, tex_v)
+                pr, pg, pb = kernels.texshade(taps, fxw, fyw, lam, spec,
+                                              amb_r, amb_g, amb_b,
+                                              spc_r, spc_g, spc_b)
+            extra = None
+            if shadows:
+                extra = [amb_r, amb_g, amb_b, gb.t, nx, ny, nz,
+                         lightx, lighty, lightz, (lam > 0.0) | (spec > 0.0)]
+            state, write = composite(state, pr, pg, pb, gb.t, hit, extra)
             if shadows:
                 covered = covered | write
 
-    # --- mesh pass (closest-hit G-buffer + one-gather shading) ---
-    if has_mesh:
-        hit = torch.isfinite(gb.t)
-        flip = gb.nd > 0.0
-        nx = torch.where(flip, -gb.nx, gb.nx)
-        ny = torch.where(flip, -gb.ny, gb.ny)
-        nz = torch.where(flip, -gb.nz, gb.nz)
-
-        tex_base = _mat_const(scene, gb.mat, lambda k: scene.mat_tex_base[k])
-        hw_h = _mat_const(scene, gb.mat, lambda k: scene.mat_tex_h[k])
-        hw_w = _mat_const(scene, gb.mat, lambda k: scene.mat_tex_w[k])
-        tex_u = gb.uvx
-        tex_v = 1.0 - gb.uvy  # V-flip (triangle_list/compute.wgsl:223)
-
-        if normal_mapping:
-            nx, ny, nz = perturb_normal(
-                scene, gb.mat, nx, ny, nz, gb.vnx, gb.vny, gb.vnz,
-                gb.tx, gb.ty, gb.tz, gb.bx, gb.by, gb.bz, tex_u, tex_v,
-                kernels=kernels)
-
-        # per-pixel light dir can vary by material (reference quirk:
-        # per-kernel light dirs) — resolve via M-way select
-        lightx = _mat_const(scene, gb.mat, lambda k: scene.mat_light[k, 0])
-        lighty = _mat_const(scene, gb.mat, lambda k: scene.mat_light[k, 1])
-        lightz = _mat_const(scene, gb.mat, lambda k: scene.mat_light[k, 2])
-        lam, spec = blinn_phong_planar(nx, ny, nz, dx, dy, dz,
-                                       (lightx, lighty, lightz))
-        amb_r = _mat_const(scene, gb.mat, lambda k: scene.mat_ambient[k, 0])
-        amb_g = _mat_const(scene, gb.mat, lambda k: scene.mat_ambient[k, 1])
-        amb_b = _mat_const(scene, gb.mat, lambda k: scene.mat_ambient[k, 2])
-        spc_r = _mat_const(scene, gb.mat, lambda k: scene.mat_specular[k, 0])
-        spc_g = _mat_const(scene, gb.mat, lambda k: scene.mat_specular[k, 1])
-        spc_b = _mat_const(scene, gb.mat, lambda k: scene.mat_specular[k, 2])
-
-        if mip and scene.mip_levels > 0:
-            # trilinear minification (JAX megakernel.py:2981-2995): two
-            # pyramid taps (K6 each) and the shade in plain ops, in place
-            # of the texshade kernel
-            from .miptex import ray_cone_lod, sample_mip_trilinear
-
-            row_w = shape[1] if shape is not None else width
-            lod = ray_cone_lod(scene, gb, dx, dy, dz, row_w)
-            tr, tg, tb = sample_mip_trilinear(scene, gb.mat, lod, tex_u,
-                                              tex_v, kernels=kernels)
-            pr = amb_r + tr * lam + spc_r * spec
-            pg = amb_g + tg * lam + spc_g * spec
-            pb = amb_b + tb * lam + spc_b * spec
-        else:
-            taps, fxw, fyw = gather_packed_taps(scene.tex_packed, tex_base,
-                                                hw_h, hw_w, tex_u, tex_v)
-            pr, pg, pb = kernels.texshade(taps, fxw, fyw, lam, spec,
-                                          amb_r, amb_g, amb_b,
-                                          spc_r, spc_g, spc_b)
-        extra = None
-        if shadows:
-            extra = [amb_r, amb_g, amb_b, gb.t, nx, ny, nz,
-                     lightx, lighty, lightz, (lam > 0.0) | (spec > 0.0)]
-        state, write = composite(state, pr, pg, pb, gb.t, hit, extra)
-        if shadows:
-            covered = covered | write
-
-    cr, cg, cb, depth = state[:4]
+        cr, cg, cb, depth = state[:4]
 
     # --- single deferred shadow pass for the visible surface ---
     if shadows:
-        (w_ar, w_ag, w_ab, w_t, w_nx, w_ny, w_nz,
-         w_lx, w_ly, w_lz, w_rel) = state[4:]
-        # trace only pixels whose shading the occlusion bit can change:
-        # where lam == 0 and spec == 0 the lit and shadowed colours are
-        # bitwise equal
-        relevant = covered & w_rel
-        rays = shadow_wavefront(origin, dx, dy, dz, relevant, w_t, w_nx,
-                                w_ny, w_nz, w_lx, w_ly, w_lz)
-        if emit_shadow_planes:
-            return dict(cr=cr, cg=cg, cb=cb, depth=depth, w_ar=w_ar,
-                        w_ag=w_ag, w_ab=w_ab, covered=covered,
-                        relevant=relevant,
-                        **dict(zip(("px", "py", "pz", "sdx", "sdy", "sdz"),
-                                   rays)))
-        occ = (mesh_occlusion(scene, *rays, relevant, accel=accel,
-                              kernels=kernels)
-               | _spheres_occlude_planar(scene, *rays))
-        shadowed = covered & occ
-        cr = torch.where(shadowed, w_ar, cr)
-        cg = torch.where(shadowed, w_ag, cg)
-        cb = torch.where(shadowed, w_ab, cb)
+        with span("frame.shadow"):
+            (w_ar, w_ag, w_ab, w_t, w_nx, w_ny, w_nz,
+             w_lx, w_ly, w_lz, w_rel) = state[4:]
+            # trace only pixels whose shading the occlusion bit can change:
+            # where lam == 0 and spec == 0 the lit and shadowed colours are
+            # bitwise equal
+            relevant = covered & w_rel
+            rays = shadow_wavefront(origin, dx, dy, dz, relevant, w_t, w_nx,
+                                    w_ny, w_nz, w_lx, w_ly, w_lz)
+            if emit_shadow_planes:
+                return dict(cr=cr, cg=cg, cb=cb, depth=depth, w_ar=w_ar,
+                            w_ag=w_ag, w_ab=w_ab, covered=covered,
+                            relevant=relevant,
+                            **dict(zip(("px", "py", "pz", "sdx", "sdy", "sdz"),
+                                       rays)))
+            occ = (mesh_occlusion(scene, *rays, relevant, accel=accel,
+                                  kernels=kernels)
+                   | _spheres_occlude_planar(scene, *rays))
+            shadowed = covered & occ
+            cr = torch.where(shadowed, w_ar, cr)
+            cg = torch.where(shadowed, w_ag, cg)
+            cb = torch.where(shadowed, w_ab, cb)
 
-    return present_planar(cr, cg, cb, depth, width=width, height=height,
-                          shape=shape, quantize=quantize)
+    with span("frame.present"):
+        return present_planar(cr, cg, cb, depth, width=width,
+                              height=height, shape=shape, quantize=quantize)
 
 
 # ---------------------------------------------------------------------------

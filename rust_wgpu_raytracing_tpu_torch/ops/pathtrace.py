@@ -26,10 +26,15 @@ cosine-weighted bounces, one jittered path per pixel and sample.
 - Tile compaction (compact_cap): the hit wavefront after the primary
   pass is gathered tile by tile into a smaller wavefront, as JAX does
   under lax.cond; here the live-tile count comes to the host once per
-  sample (a host sync; runtime/profiler.py counts the syncs) and picks
-  the branch (render_pathtrace.compacted counts the compacted samples).
+  sample (a host sync, the wait "compact") and picks the branch (the
+  counters "pt.compacted" and "pt.full" count the samples of each).
   The compacted wavefront holds exactly the live tiles. Both branches
   give the same bits.
+- Spans (runtime/profiler.py): a sample's phases are "pt.raygen",
+  "pt.primary", "pt.compact" (the count, and the compacted loop inside
+  it), one "pt.bounce" per bounce (attribute bounce=i) and, once a
+  call, "pt.accumulate"; the host waits on the card at the waits
+  "uniforms" (the camera origin's copy), "background" and "compact".
 
 Float semantics as in ops/megakernel.py: JAX's operation order, every
 product rounded on its own, XLA's constant folding written out (the
@@ -56,6 +61,7 @@ import torch
 
 from ..core.camera import CameraUniforms
 from ..core.scene import SceneData
+from ..runtime.profiler import count, span, wait
 from .kernels import KERNELS, KernelSet
 from .kernels.common import TILE_R
 from .megakernel import (BLOCK_F, GBuffer, _directions, _f32, _mat_const,
@@ -259,119 +265,120 @@ def _bounce_loop(scene: SceneData, gb, sph, ox, oy, oz, dx, dy, dz, active,
     lr, lg, lb = full(0.0), full(0.0), full(0.0)
 
     for bounce in range(bounces + 1):
-        kb = fold_in(ks, bounce + 1)
+        with span("pt.bounce", bounce=bounce):
+            kb = fold_in(ks, bounce + 1)
 
-        if gb is not None:
-            gb_hit = torch.isfinite(gb.t) & active
-            t, nx, ny, nz, is_mesh = _closest_surface(
-                gb_hit, gb, [(ts, hs & active, sx, sy, sz)
-                             for ts, hs, sx, sy, sz in sph])
-        else:
-            t = full(F32_INF)
-            nx = ny = nz = full(0.0)
-            is_mesh = torch.zeros(r, dtype=torch.bool, device=dev)
-            for ts, hs, sx, sy, sz in sph:
-                closer = hs & active & (ts < t)
-                t = torch.where(closer, ts, t)
-                nx = torch.where(closer, sx, nx)
-                ny = torch.where(closer, sy, ny)
-                nz = torch.where(closer, sz, nz)
+            if gb is not None:
+                gb_hit = torch.isfinite(gb.t) & active
+                t, nx, ny, nz, is_mesh = _closest_surface(
+                    gb_hit, gb, [(ts, hs & active, sx, sy, sz)
+                                 for ts, hs, sx, sy, sz in sph])
+            else:
+                t = full(F32_INF)
+                nx = ny = nz = full(0.0)
+                is_mesh = torch.zeros(r, dtype=torch.bool, device=dev)
+                for ts, hs, sx, sy, sz in sph:
+                    closer = hs & active & (ts < t)
+                    t = torch.where(closer, ts, t)
+                    nx = torch.where(closer, sx, nx)
+                    ny = torch.where(closer, sy, ny)
+                    nz = torch.where(closer, sz, nz)
 
-        hit = active & torch.isfinite(t)
-        # environment on miss
-        miss = active & ~hit
-        lr = lr + torch.where(miss, beta_r * bg[0], 0.0)
-        lg = lg + torch.where(miss, beta_g * bg[1], 0.0)
-        lb = lb + torch.where(miss, beta_b * bg[2], 0.0)
+            hit = active & torch.isfinite(t)
+            # environment on miss
+            miss = active & ~hit
+            lr = lr + torch.where(miss, beta_r * bg[0], 0.0)
+            lg = lg + torch.where(miss, beta_g * bg[1], 0.0)
+            lb = lb + torch.where(miss, beta_b * bg[2], 0.0)
 
-        # ---- albedo of the winning surface ----
-        if gb is not None:
-            tex_base = _mat_const(scene, gb.mat,
-                                  lambda k: scene.mat_tex_base[k])
-            hw_h = _mat_const(scene, gb.mat, lambda k: scene.mat_tex_h[k])
-            hw_w = _mat_const(scene, gb.mat, lambda k: scene.mat_tex_w[k])
-            ar, ag, ab = sample_packed_texture(
-                scene.tex_packed, tex_base, hw_h, hw_w, gb.uvx,
-                1.0 - gb.uvy, kernels=kernels)
-            lx = _mat_const(scene, gb.mat, lambda k: scene.mat_light[k, 0])
-            ly = _mat_const(scene, gb.mat, lambda k: scene.mat_light[k, 1])
-            lz = _mat_const(scene, gb.mat, lambda k: scene.mat_light[k, 2])
-        else:
-            ar = ag = ab = full(0.0)
-            lx, ly, lz = full(1.0), full(-1.0), full(-5.0)
-        for i in range(scene.num_spheres):
-            ts, hs = sph[i][:2]
-            sel = hit & ~is_mesh & hs & (ts == t)
-            ar = torch.where(sel, scene.sphere_color[i, 0], ar)
-            ag = torch.where(sel, scene.sphere_color[i, 1], ag)
-            ab = torch.where(sel, scene.sphere_color[i, 2], ab)
-            lx = torch.where(sel, scene.sphere_light[i, 0], lx)
-            ly = torch.where(sel, scene.sphere_light[i, 1], ly)
-            lz = torch.where(sel, scene.sphere_light[i, 2], lz)
+            # ---- albedo of the winning surface ----
+            if gb is not None:
+                tex_base = _mat_const(scene, gb.mat,
+                                      lambda k: scene.mat_tex_base[k])
+                hw_h = _mat_const(scene, gb.mat, lambda k: scene.mat_tex_h[k])
+                hw_w = _mat_const(scene, gb.mat, lambda k: scene.mat_tex_w[k])
+                ar, ag, ab = sample_packed_texture(
+                    scene.tex_packed, tex_base, hw_h, hw_w, gb.uvx,
+                    1.0 - gb.uvy, kernels=kernels)
+                lx = _mat_const(scene, gb.mat, lambda k: scene.mat_light[k, 0])
+                ly = _mat_const(scene, gb.mat, lambda k: scene.mat_light[k, 1])
+                lz = _mat_const(scene, gb.mat, lambda k: scene.mat_light[k, 2])
+            else:
+                ar = ag = ab = full(0.0)
+                lx, ly, lz = full(1.0), full(-1.0), full(-5.0)
+            for i in range(scene.num_spheres):
+                ts, hs = sph[i][:2]
+                sel = hit & ~is_mesh & hs & (ts == t)
+                ar = torch.where(sel, scene.sphere_color[i, 0], ar)
+                ag = torch.where(sel, scene.sphere_color[i, 1], ag)
+                ab = torch.where(sel, scene.sphere_color[i, 2], ab)
+                lx = torch.where(sel, scene.sphere_light[i, 0], lx)
+                ly = torch.where(sel, scene.sphere_light[i, 1], ly)
+                lz = torch.where(sel, scene.sphere_light[i, 2], lz)
 
-        # ---- next-event estimation toward the directional light ----
-        ll = sqrt(lx * lx + ly * ly + lz * lz)
-        ll = torch.where(ll > 0, ll, 1.0)
-        sdx, sdy, sdz = -lx / ll, -ly / ll, -lz / ll
-        ts_safe = torch.where(hit, t, 0.0)
-        px = ox + dx * ts_safe + nx * 1e-3
-        py = oy + dy * ts_safe + ny * 1e-3
-        pz = oz + dz * ts_safe + nz * 1e-3
+            # ---- next-event estimation toward the directional light ----
+            ll = sqrt(lx * lx + ly * ly + lz * lz)
+            ll = torch.where(ll > 0, ll, 1.0)
+            sdx, sdy, sdz = -lx / ll, -ly / ll, -lz / ll
+            ts_safe = torch.where(hit, t, 0.0)
+            px = ox + dx * ts_safe + nx * 1e-3
+            py = oy + dy * ts_safe + ny * 1e-3
+            pz = oz + dz * ts_safe + nz * 1e-3
 
-        last = bounce == bounces
-        if not last:
-            # the next extension wavefront: its closest hit does not
-            # depend on this bounce's occlusion, so both ray sets share
-            # one fused sweep
-            bdx, bdy, bdz = _cosine_sample(nx, ny, nz, kb, ids)
-            ndx = torch.where(hit, bdx, 0.0)
-            ndy = torch.where(hit, bdy, 0.0)
-            ndz = torch.where(hit, bdz, 0.0)
-            # park terminated paths far away so the tile cull drops them
-            far = 1e9
-            nox = torch.where(hit, px, far)
-            noy = torch.where(hit, py, far)
-            noz = torch.where(hit, pz, far)
+            last = bounce == bounces
+            if not last:
+                # the next extension wavefront: its closest hit does not
+                # depend on this bounce's occlusion, so both ray sets share
+                # one fused sweep
+                bdx, bdy, bdz = _cosine_sample(nx, ny, nz, kb, ids)
+                ndx = torch.where(hit, bdx, 0.0)
+                ndy = torch.where(hit, bdy, 0.0)
+                ndz = torch.where(hit, bdz, 0.0)
+                # park terminated paths far away so the tile cull drops them
+                far = 1e9
+                nox = torch.where(hit, px, far)
+                noy = torch.where(hit, py, far)
+                noz = torch.where(hit, pz, far)
 
-        occ = torch.zeros(r, dtype=torch.bool, device=dev)
-        gb_next = None
-        if has_mesh and not last:
-            gb_next, occ = (es_fn or extend_shadow_rays)(
-                scene, nox, noy, noz, ndx, ndy, ndz, px, py, pz,
-                sdx, sdy, sdz, hit, kernels=kernels)
-        elif has_mesh and ah_fn is not None:
-            occ = ah_fn(scene, px, py, pz, sdx, sdy, sdz, hit,
-                        kernels=kernels)
-        elif has_mesh and _should_stream(scene.padded_faces, BLOCK_F):
-            # streamed: the Morton-sorted wavefront (act-aware there)
-            occ = anyhit_reordered(scene, px, py, pz, sdx, sdy, sdz, hit,
-                                   kernels=kernels)
-        elif has_mesh:
-            # the last shadow wavefront is mostly dead lanes: fold the
-            # activity into the cull mask (act_cull)
-            occ = anyhit_rays(scene, px, py, pz, sdx, sdy, sdz, hit,
-                              act_cull=True, kernels=kernels)
-        occ = occ | _spheres_occlude_planar(scene, px, py, pz,
-                                            sdx, sdy, sdz)
-        lam = ftz((nx * sdx + ny * sdy + nz * sdz).clamp_min(0.0))
-        lam = torch.where(hit & ~occ, lam, 0.0)
-        lr = lr + ftz(ftz(beta_r * ar) * lam)
-        lg = lg + ftz(ftz(beta_g * ag) * lam)
-        lb = lb + ftz(ftz(beta_b * ab) * lam)
+            occ = torch.zeros(r, dtype=torch.bool, device=dev)
+            gb_next = None
+            if has_mesh and not last:
+                gb_next, occ = (es_fn or extend_shadow_rays)(
+                    scene, nox, noy, noz, ndx, ndy, ndz, px, py, pz,
+                    sdx, sdy, sdz, hit, kernels=kernels)
+            elif has_mesh and ah_fn is not None:
+                occ = ah_fn(scene, px, py, pz, sdx, sdy, sdz, hit,
+                            kernels=kernels)
+            elif has_mesh and _should_stream(scene.padded_faces, BLOCK_F):
+                # streamed: the Morton-sorted wavefront (act-aware there)
+                occ = anyhit_reordered(scene, px, py, pz, sdx, sdy, sdz, hit,
+                                       kernels=kernels)
+            elif has_mesh:
+                # the last shadow wavefront is mostly dead lanes: fold the
+                # activity into the cull mask (act_cull)
+                occ = anyhit_rays(scene, px, py, pz, sdx, sdy, sdz, hit,
+                                  act_cull=True, kernels=kernels)
+            occ = occ | _spheres_occlude_planar(scene, px, py, pz,
+                                                sdx, sdy, sdz)
+            lam = ftz((nx * sdx + ny * sdy + nz * sdz).clamp_min(0.0))
+            lam = torch.where(hit & ~occ, lam, 0.0)
+            lr = lr + ftz(ftz(beta_r * ar) * lam)
+            lg = lg + ftz(ftz(beta_g * ag) * lam)
+            lb = lb + ftz(ftz(beta_b * ab) * lam)
 
-        if last:
-            break
+            if last:
+                break
 
-        # ---- advance the wavefront ----
-        active = hit
-        dx, dy, dz = ndx, ndy, ndz
-        ox, oy, oz = nox, noy, noz
-        beta_r = ftz(beta_r * torch.where(active, ar, 0.0))
-        beta_g = ftz(beta_g * torch.where(active, ag, 0.0))
-        beta_b = ftz(beta_b * torch.where(active, ab, 0.0))
-        gb = gb_next
-        sph = [_sphere_perray(scene, i, ox, oy, oz, dx, dy, dz)
-               for i in range(scene.num_spheres)]
+            # ---- advance the wavefront ----
+            active = hit
+            dx, dy, dz = ndx, ndy, ndz
+            ox, oy, oz = nox, noy, noz
+            beta_r = ftz(beta_r * torch.where(active, ar, 0.0))
+            beta_g = ftz(beta_g * torch.where(active, ag, 0.0))
+            beta_b = ftz(beta_b * torch.where(active, ab, 0.0))
+            gb = gb_next
+            sph = [_sphere_perray(scene, i, ox, oy, oz, dx, dy, dz)
+                   for i in range(scene.num_spheres)]
 
     return lr, lg, lb
 
@@ -407,11 +414,14 @@ def render_pathtrace(scene: SceneData, uni_flat, key, *, width: int,
     uni = CameraUniforms.unflat(np.asarray(
         uni_flat.cpu() if isinstance(uni_flat, torch.Tensor) else uni_flat,
         np.float32))
-    origin = torch.as_tensor(uni.origin, dtype=torch.float32, device=device)
+    with wait("uniforms"):
+        origin = torch.as_tensor(uni.origin, dtype=torch.float32,
+                                 device=device)
     has_mesh = scene.num_faces > 0
     tile = _pick_tile_shape(width, height)
     r = width * (tile[2] if tile is not None else height)
-    bg = torch.tensor(background, dtype=torch.float32, device=device)
+    with wait("background"):
+        bg = torch.tensor(background, dtype=torch.float32, device=device)
     tr = TILE_R
 
     if compact_cap == "auto":
@@ -421,62 +431,68 @@ def render_pathtrace(scene: SceneData, uni_flat, key, *, width: int,
     loop_kw = dict(bounces=bounces, bg=bg, has_mesh=has_mesh, kernels=kernels,
                    es_fn=es_fn, ah_fn=ah_fn)
 
-    acc = [torch.zeros(r, dtype=torch.float32, device=device)
-           for _ in range(3)]
+    samples = []
     for s in range(spp):
         ks = fold_in(key, s)
-        dx, dy, dz = _jittered_dirs(width, height, uni, ks, tile,
-                                    device=device, row0=row0,
-                                    total_height=total_height)
-        ox, oy, oz = (torch.full((r,), float(v), dtype=torch.float32,
-                                 device=device) for v in uni.origin)
+        with span("pt.raygen"):
+            dx, dy, dz = _jittered_dirs(width, height, uni, ks, tile,
+                                        device=device, row0=row0,
+                                        total_height=total_height)
+            ox, oy, oz = (torch.full((r,), float(v), dtype=torch.float32,
+                                     device=device) for v in uni.origin)
 
         # primary closest hit (shared origin, spheres separate); later
         # bounces come from the fused extend+shadow sweep
-        if not has_mesh:
-            gb = None
-        elif chp_fn is not None:
-            gb = chp_fn(scene, origin, dx, dy, dz, kernels=kernels)
-        else:
-            gb = gbuffer(scene, origin, dx, dy, dz, with_spheres=False,
-                         kernels=kernels)[0]
-        sph = [sphere_pass_planar(scene, i, origin, dx, dy, dz)
-               for i in range(scene.num_spheres)]
+        with span("pt.primary"):
+            if not has_mesh:
+                gb = None
+            elif chp_fn is not None:
+                gb = chp_fn(scene, origin, dx, dy, dz, kernels=kernels)
+            else:
+                gb = gbuffer(scene, origin, dx, dy, dz, with_spheres=False,
+                             kernels=kernels)[0]
+            sph = [sphere_pass_planar(scene, i, origin, dx, dy, dz)
+                   for i in range(scene.num_spheres)]
 
         lanes = None
         if compact_cap is not None and r % tr == 0:
             # only lanes whose PRIMARY ray hit something enter the loop;
             # misses get one background add
-            hit0 = (torch.isfinite(gb.t) if gb is not None
-                    else torch.zeros(r, dtype=torch.bool, device=device))
-            for _, hs, *_rest in sph:
-                hit0 = hit0 | hs
-            tidx = _compact_tiles(hit0, tr)
-            if tidx.numel() <= max(1, int(compact_cap) // tr):
-                render_pathtrace.compacted += 1
-                lanes = _compact_loop(scene, gb, sph, (ox, oy, oz),
-                                      (dx, dy, dz), hit0, tidx, ks,
-                                      loop_kw)
+            with span("pt.compact"):
+                hit0 = (torch.isfinite(gb.t) if gb is not None
+                        else torch.zeros(r, dtype=torch.bool, device=device))
+                for _, hs, *_rest in sph:
+                    hit0 = hit0 | hs
+                with wait("compact"):
+                    tidx = _compact_tiles(hit0, tr)
+                if tidx.numel() <= max(1, int(compact_cap) // tr):
+                    lanes = _compact_loop(scene, gb, sph, (ox, oy, oz),
+                                          (dx, dy, dz), hit0, tidx, ks,
+                                          loop_kw)
+        count("pt.full" if lanes is None else "pt.compacted")
         if lanes is None:
             lanes = _bounce_loop(
                 scene, gb, sph, ox, oy, oz, dx, dy, dz,
                 active=torch.ones(r, dtype=torch.bool, device=device),
                 ids=None, ks=ks, **loop_kw)
-        acc = [a + p for a, p in zip(acc, lanes)]
+        samples.append(lanes)
 
-    if tile is not None:
-        tile_h, tile_w, hpad = tile
-        color = torch.stack(
-            [tiled_to_image(p, width, hpad, tile_h, tile_w)[:height]
-             for p in acc], dim=-1)
-    else:
-        color = torch.stack([p.reshape(height, width) for p in acc], dim=-1)
-    if accum is not None:
-        color = color + accum
+    with span("pt.accumulate"):
+        acc = [torch.zeros(r, dtype=torch.float32, device=device)
+               for _ in range(3)]
+        for lanes in samples:
+            acc = [a + p for a, p in zip(acc, lanes)]
+        if tile is not None:
+            tile_h, tile_w, hpad = tile
+            color = torch.stack(
+                [tiled_to_image(p, width, hpad, tile_h, tile_w)[:height]
+                 for p in acc], dim=-1)
+        else:
+            color = torch.stack([p.reshape(height, width) for p in acc],
+                                dim=-1)
+        if accum is not None:
+            color = color + accum
     return color
-
-
-render_pathtrace.compacted = 0  # samples that took the compacted loop
 
 
 def _compact_loop(scene, gb, sph, o, d, hit0, tidx, ks, loop_kw):

@@ -29,6 +29,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from . import profiler
 from .profiler import Profiler
 from .renderer import Renderer
 
@@ -120,8 +121,17 @@ class FrameLoop:
 
     # --- one iteration of the redraw cycle ---
     def step(self) -> Optional[np.ndarray]:
+        """One redraw: the spans "step", "update", "render",
+        "present.encode" and the wait "present" (runtime/profiler.py),
+        with frame_index as their step id."""
+        profiler.set_step(self.frame_index)
+        with profiler.span("step"):
+            return self._step()
+
+    def _step(self) -> Optional[np.ndarray]:
         self._drain_events()
-        self.renderer.update()
+        with profiler.span("update"):
+            self.renderer.update()
         t0 = time.perf_counter()
         # Present overlap: the previous frame's encode and its copy to
         # the host are queued ahead of this frame's kernels, and waited
@@ -130,11 +140,13 @@ class FrameLoop:
         # latency; run()/flush() present the last frame.
         pending = None
         if self.pipeline and self._inflight is not None:
-            pending = self.renderer.fetch_image(color=self._inflight)
+            with profiler.span("present.encode"):
+                pending = self.renderer.fetch_image(color=self._inflight)
             self._inflight = None
         color = None  # this step's framebuffer; None on a skipped frame
         try:
-            color, _ = self.renderer.render()
+            with profiler.span("render"):
+                color, _ = self.renderer.render()
         except Exception as err:
             kind = classify_render_error(err)
             if kind == "oom":
@@ -154,7 +166,8 @@ class FrameLoop:
                     self.renderer.reset_device()
                     self.renderer.resize(self.renderer.width,
                                          self.renderer.height)
-                    color, _ = self.renderer.render()
+                    with profiler.span("render"):
+                        color, _ = self.renderer.render()
                 except Exception:
                     self.running = False
                     raise err
@@ -168,9 +181,13 @@ class FrameLoop:
         if self.pipeline:
             self._inflight = color
             if pending is not None:
-                img = pending()
+                with profiler.wait("present"):
+                    img = pending()
         else:
-            img = self.renderer.present_image()
+            with profiler.span("present.encode"):
+                pending = self.renderer.fetch_image()
+            with profiler.wait("present"):
+                img = pending()
         self.profiler.record((time.perf_counter() - t0) * 1e3)
         if img is not None and self.present is not None:
             self.present(img)

@@ -41,6 +41,11 @@ for device="cuda"); without a process group it renders one shard on
 this process's device, as the JAX package does on one device. Its
 variant_chosen is "gp". The path tracer takes precedence over every
 backend, as in the JAX package.
+
+The set-up is timed by two spans (runtime/profiler.timed):
+"setup.scene_build" (Scene.build: the OBJ import, the packing and the
+LBVH) and "setup.upload" (the SceneData to the device); their lengths
+stay in the counters "ns.setup.scene_build" and "ns.setup.upload".
 """
 
 from __future__ import annotations
@@ -60,6 +65,7 @@ from ..ops.megakernel import (check_supported, fused_eligible,
                               render_megakernel)
 from ..ops.oracle import render_oracle
 from ..ops.pathtrace import PRNGKey, fold_in, render_pathtrace
+from . import profiler
 
 
 def resolve_device(device) -> torch.device:
@@ -109,8 +115,10 @@ class Renderer:
                 raise ValueError("variant='fused' needs a frame without "
                                  "mip and without normal mapping with "
                                  "shadows; use 'split' or 'auto'")
-        self.scene = Scene.build(config)
-        self.data = self.scene.data.to(self.device)
+        with profiler.timed("setup.scene_build"):
+            self.scene = Scene.build(config)
+        with profiler.timed("setup.upload"):
+            self.data = self.scene.data.to(self.device)
         self.variant_ms = {}
         self.variant_chosen = None  # decided at the first render for auto
         if self.pathtrace:

@@ -15,7 +15,8 @@ import torch
 from rust_wgpu_raytracing_tpu_torch import config as pcfg
 from rust_wgpu_raytracing_tpu_torch.core.scene import Scene
 from rust_wgpu_raytracing_tpu_torch.ops import megakernel as P
-from rust_wgpu_raytracing_tpu_torch.ops.kernels import anyhit, anyhit_plain
+from rust_wgpu_raytracing_tpu_torch.ops.kernels import (anyhit, anyhit_plain,
+                                                        launch_counts)
 from test_torch_host import (cuda_device, jax_config,  # noqa: F401
                              jax_reference, terrain_config)
 
@@ -87,9 +88,9 @@ def case_inputs(ref, name):
 
 @pytest.mark.parametrize("name", sorted(CASES))
 def test_anyhit_matches_jax_kernel(ref, name):
-    before = anyhit.launches
+    before = launch_counts()["anyhit"]
     occ = anyhit(*case_inputs(ref, name), block_f=int(ref["block_f"]))
-    assert anyhit.launches == before  # CPU tensors: plain version
+    assert launch_counts()["anyhit"] == before  # CPU tensors: plain version
     want = ref[f"{name}_occ"]
     assert want.any() and not want.all()
     assert set(np.unique(occ.numpy())) <= {0.0, 1.0}
@@ -145,9 +146,9 @@ def test_port_inputs_match_jax_inputs(ref):
 @pytest.mark.parametrize("name", sorted(CASES))
 def test_anyhit_cuda_matches_plain(name, cuda_device):
     args, bf = port_inputs(name, cuda_device)
-    before = anyhit.launches
+    before = launch_counts()["anyhit"]
     occ = anyhit(*args, block_f=bf)
     torch.cuda.synchronize()
-    assert anyhit.launches == before + 1
+    assert launch_counts()["anyhit"] == before + 1
     assert occ.any()
     assert torch.equal(occ, anyhit_plain(*args, block_f=bf))

@@ -17,7 +17,8 @@ from rust_wgpu_raytracing_tpu_torch.core.camera import Camera
 from rust_wgpu_raytracing_tpu_torch.core.scene import Scene
 from rust_wgpu_raytracing_tpu_torch.ops import megakernel as P
 from rust_wgpu_raytracing_tpu_torch.ops.kernels import (closest_hit,
-                                                        closest_hit_plain)
+                                                        closest_hit_plain,
+                                                        launch_counts)
 from test_torch_host import (cube_config, cuda_device,  # noqa: F401
                              jax_config, jax_reference, terrain_config)
 
@@ -100,9 +101,10 @@ def case_inputs(ref, name):
 @pytest.mark.parametrize("name", sorted(CASES))
 def test_closest_hit_matches_jax_kernel(ref, name):
     args, bf = case_inputs(ref, name)
-    before = closest_hit.launches
+    before = launch_counts()["closest_hit"]
     t, face, sph = closest_hit(*args, block_f=bf)
-    assert closest_hit.launches == before  # CPU tensors: plain version
+    # CPU tensors: plain version
+    assert launch_counts()["closest_hit"] == before
     n = ref[f"{name}_t"].shape[0]
     hits = np.isfinite(ref[f"{name}_t"])
     assert hits.any() and not hits.all()
@@ -179,10 +181,10 @@ def test_port_inputs_match_jax_inputs(ref):
 @pytest.mark.parametrize("name", sorted(CASES))
 def test_closest_hit_cuda_matches_plain(name, cuda_device):
     args, bf = port_inputs(name, cuda_device)
-    before = closest_hit.launches
+    before = launch_counts()["closest_hit"]
     t, face, sph = closest_hit(*args, block_f=bf)
     torch.cuda.synchronize()
-    assert closest_hit.launches == before + 1
+    assert launch_counts()["closest_hit"] == before + 1
     pt_, pf, psph = closest_hit_plain(*args, block_f=bf)
     assert torch.isfinite(t).any()
     assert torch.equal(t, pt_) and torch.equal(face, pf)

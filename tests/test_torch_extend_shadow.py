@@ -26,7 +26,7 @@ from rust_wgpu_raytracing_tpu_torch.core.scene import Scene
 from rust_wgpu_raytracing_tpu_torch.ops import megakernel as P
 from rust_wgpu_raytracing_tpu_torch.ops.kernels import (
     anyhit, anyhit_plain, closest_hit_perray, closest_hit_perray_plain,
-    extend_shadow, extend_shadow_plain)
+    extend_shadow, extend_shadow_plain, launch_counts)
 from test_torch_host import (cuda_device, jax_config,  # noqa: F401
                              jax_reference, terrain_config,
                              textured_config, write_textured_assets)
@@ -136,9 +136,9 @@ def case_inputs(ref, name):
 @pytest.mark.parametrize("name", sorted(CASES))
 def test_extend_shadow_matches_jax_kernel(ref, name):
     args, bf = case_inputs(ref, name)
-    before = extend_shadow.launches
+    before = launch_counts()["extend_shadow"]
     t, face, occ = extend_shadow(*args, block_f=bf)
-    assert extend_shadow.launches == before  # CPU: plain version
+    assert launch_counts()["extend_shadow"] == before  # CPU: plain version
     n = ref[f"{name}_t"].shape[0]
     want_t, want_occ = ref[f"{name}_t"], ref[f"{name}_occ"]
     assert np.isfinite(want_t).sum() > 100 and want_occ.sum() > 50
@@ -237,10 +237,10 @@ def test_extend_shadow_rejects_bad_inputs(ref):
 def test_extend_shadow_cuda_matches_plain_and_split(name, assets,
                                                     cuda_device):
     args, bf, data = port_inputs(name, assets, cuda_device)
-    before = extend_shadow.launches
+    before = launch_counts()["extend_shadow"]
     got = extend_shadow(*args, block_f=bf)
     torch.cuda.synchronize()
-    assert extend_shadow.launches == before + 1
+    assert launch_counts()["extend_shadow"] == before + 1
     want = extend_shadow_plain(*args, block_f=bf)
     for g, w in zip(got, want):
         assert torch.equal(g, w)

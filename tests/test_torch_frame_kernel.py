@@ -26,7 +26,8 @@ from rust_wgpu_raytracing_tpu_torch.core.camera import Camera
 from rust_wgpu_raytracing_tpu_torch.core.scene import Scene
 from rust_wgpu_raytracing_tpu_torch.ops import megakernel as P
 from rust_wgpu_raytracing_tpu_torch.ops.fusedframe import frame_const
-from rust_wgpu_raytracing_tpu_torch.ops.kernels import frame, frame_plain
+from rust_wgpu_raytracing_tpu_torch.ops.kernels import (frame, frame_plain,
+                                                        launch_counts)
 from rust_wgpu_raytracing_tpu_torch.ops.kernels.frame import N_OUT
 from rust_wgpu_raytracing_tpu_torch.testing.raycull import frame_culled
 from test_torch_host import (cuda_device, jax_config,  # noqa: F401
@@ -122,9 +123,9 @@ def case_args(ref, scene, mode):
 @pytest.mark.parametrize("scene,mode", CASES)
 def test_frame_plain_matches_jax_kernel(ref, scene, mode):
     args, kw = case_args(ref, scene, mode)
-    before = frame.launches
+    before = launch_counts()["frame"]
     outs = frame(*args, **kw)
-    assert frame.launches == before  # CPU tensors: plain version
+    assert launch_counts()["frame"] == before  # CPU tensors: plain version
     want = ref[f"{scene}_{mode}_outs"]
     assert len(outs) == want.shape[0] == N_OUT[mode]
     kind = want[1]
@@ -220,9 +221,9 @@ def test_frame_cuda_matches_plain(assets, monkeypatch, scene, mode,
     args, kw = port_args(scene, mode, cuda_device)
     want = frame_plain(*args, **kw)
     for a in (args, args[:10]):  # with the blocks' boxes and without
-        before = frame.launches
+        before = launch_counts()["frame"]
         outs = frame(*a, **kw)
         torch.cuda.synchronize()
-        assert frame.launches == before + 1
+        assert launch_counts()["frame"] == before + 1
         for i, (x, y) in enumerate(zip(outs, want)):
             assert torch.equal(x, y), f"plane {i}"

@@ -257,9 +257,9 @@ def test_hier_cull_words_match_jax(ref, scenes, name, cone):
                                bounds[1], nw)
     np.testing.assert_array_equal(sup.numpy(), ref[f"{key}_sup"])
     np.testing.assert_array_equal(clus.numpy(), ref[f"{key}_clus"])
-    before = K.hier_cull.launches
+    before = K.launch_counts()["hier_cull"]
     words = HC.hier_cull_words(data.blk_lo, data.blk_hi, *bounds, nwords=nw)
-    assert K.hier_cull.launches == before  # CPU: the plain version
+    assert K.launch_counts()["hier_cull"] == before  # CPU: the plain version
     want = ref[f"{key}_words"]
     assert (want != 0).any()
     np.testing.assert_array_equal(words.numpy(), want)
@@ -377,10 +377,10 @@ def test_hier_cull_cuda_matches_plain(name, cone, cuda_device):
     sup, clus = HC.cull_tables(data.blk_lo, data.blk_hi, bounds[0],
                                bounds[1], nw)
     args = (sup, clus, torch.cat([b.T for b in bounds]).contiguous())
-    before = K.hier_cull.launches
+    before = K.launch_counts()["hier_cull"]
     words = K.hier_cull(*args)
     torch.cuda.synchronize()
-    assert K.hier_cull.launches == before + 1
+    assert K.launch_counts()["hier_cull"] == before + 1
     assert bool((words != 0).any())
     assert torch.equal(words, K.hier_cull_plain(*args))
 
@@ -391,8 +391,8 @@ def test_hier_cull_cuda_edge_cases(name, cuda_device):
     """K5 on the card against its plain version on the edge cases (words
     bitwise)."""
     args = [a.to(cuda_device) for a in edge_args(name)]
-    before = K.hier_cull.launches
+    before = K.launch_counts()["hier_cull"]
     words = K.hier_cull(*args)
     torch.cuda.synchronize()
-    assert K.hier_cull.launches == before + 1
+    assert K.launch_counts()["hier_cull"] == before + 1
     assert torch.equal(words, K.hier_cull_plain(*args))

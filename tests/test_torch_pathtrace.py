@@ -29,7 +29,8 @@ from rust_wgpu_raytracing_tpu_torch.core.camera import Camera
 from rust_wgpu_raytracing_tpu_torch.core.scene import Scene
 from rust_wgpu_raytracing_tpu_torch.ops import kernels as K
 from rust_wgpu_raytracing_tpu_torch.ops import pathtrace as P
-from rust_wgpu_raytracing_tpu_torch.runtime.profiler import count_ops
+from rust_wgpu_raytracing_tpu_torch.runtime.profiler import (count_ops,
+                                                           counters)
 from rust_wgpu_raytracing_tpu_torch.runtime.renderer import Renderer
 from test_torch_host import (heightfield_config, jax_config, jax_reference,
                              terrain_config, textured_config,
@@ -151,11 +152,11 @@ def test_compact_equals_full(assets, size, cap, compacts):
     uni = Camera.from_config(cfg.camera, w / h).uniforms().flat()
     kw = dict(width=w, height=h, bounces=2, spp=2, background=BG)
     full = P.render_pathtrace(data, uni, P.PRNGKey(SEED), **kw)
-    compacted = P.render_pathtrace.compacted
+    compacted = counters().get("pt.compacted", 0)
     got = P.render_pathtrace(data, uni, P.PRNGKey(SEED), compact_cap=cap,
                              **kw)
-    assert (P.render_pathtrace.compacted - compacted) == (2 if compacts
-                                                          else 0)
+    assert (counters().get("pt.compacted", 0) - compacted) == (
+        2 if compacts else 0)
     assert torch.equal(got, full)
 
 
@@ -171,10 +172,10 @@ def test_compact_drops_dead_tiles():
     uni = Camera.from_config(cfg.camera, 1.0).uniforms().flat()
     kw = dict(width=64, height=64, bounces=3, spp=1, background=BG)
     full = P.render_pathtrace(data, uni, P.PRNGKey(SEED), **kw)
-    compacted = P.render_pathtrace.compacted
+    compacted = counters().get("pt.compacted", 0)
     got = P.render_pathtrace(data, uni, P.PRNGKey(SEED),
                              compact_cap=2 * 1024, **kw)
-    assert P.render_pathtrace.compacted == compacted + 1
+    assert counters().get("pt.compacted", 0) == compacted + 1
     assert torch.equal(got, full)
 
 
@@ -279,7 +280,7 @@ def test_streamed_pathtrace_matches_jax(tmp_path, name):
     cfg = stream_config()
     data = Scene.build(cfg).data
     uni = Camera.from_config(cfg.camera, 1.0).uniforms().flat()
-    compacted = P.render_pathtrace.compacted
+    compacted = counters().get("pt.compacted", 0)
     calls = {}
 
     def counted(fn):
@@ -292,7 +293,7 @@ def test_streamed_pathtrace_matches_jax(tmp_path, name):
         data, uni, P.PRNGKey(SEED), width=STREAM_W, height=STREAM_W,
         bounces=STREAM_CASES[name], spp=1, background=BG,
         compact_cap="auto", kernels=ks)
-    assert P.render_pathtrace.compacted == compacted
+    assert counters().get("pt.compacted", 0) == compacted
     want = jax_reference("test_torch_pathtrace", "jax_stream_pathtrace",
                          tmp_path, name=name)["sample"]
     assert want.max() > 0.05

@@ -26,7 +26,7 @@ from rust_wgpu_raytracing_tpu_torch import config as pcfg
 from rust_wgpu_raytracing_tpu_torch.core.scene import Scene
 from rust_wgpu_raytracing_tpu_torch.ops import megakernel as P
 from rust_wgpu_raytracing_tpu_torch.ops.kernels import (
-    closest_hit_perray, closest_hit_perray_plain)
+    closest_hit_perray, closest_hit_perray_plain, launch_counts)
 from rust_wgpu_raytracing_tpu_torch.testing.raycull import \
     sched_perray_culled
 from test_torch_host import (cuda_device, jax_config,  # noqa: F401
@@ -127,9 +127,10 @@ def case_inputs(ref, name):
 @pytest.mark.parametrize("name", sorted(CASES))
 def test_closest_hit_perray_matches_jax_kernel(ref, name):
     args, bf = case_inputs(ref, name)
-    before = closest_hit_perray.launches
+    before = launch_counts()["closest_hit_perray"]
     t, face = closest_hit_perray(*args, block_f=bf)
-    assert closest_hit_perray.launches == before  # CPU: plain version
+    # CPU: plain version
+    assert launch_counts()["closest_hit_perray"] == before
     n = ref[f"{name}_t"].shape[0]
     want_t, want_f = ref[f"{name}_t"], ref[f"{name}_face"]
     assert np.isfinite(want_t).sum() > 100  # the wavefront hits
@@ -222,9 +223,9 @@ def test_closest_hit_perray_cuda_matches_plain(name, assets, cuda_device):
     boxes = P._block_boxes(data, data.padded_faces, bf)
     pt, pf = closest_hit_perray_plain(*args, block_f=bf)
     for a in (args, args + list(boxes)):
-        before = closest_hit_perray.launches
+        before = launch_counts()["closest_hit_perray"]
         t, face = closest_hit_perray(*a, block_f=bf)
         torch.cuda.synchronize()
-        assert closest_hit_perray.launches == before + 1
+        assert launch_counts()["closest_hit_perray"] == before + 1
         assert torch.isfinite(t).any()
         assert torch.equal(t, pt) and torch.equal(face, pf)

@@ -934,10 +934,10 @@ def test_culling_kernels_cuda_match_plain(meshes, mesh, kind, cuda_device,
             if mode is not None:
                 monkeypatch.setitem(common.RAY_MAJOR, fn.__name__, mode)
             for a in (args, args[:-2]):
-                before = fn.launches
+                before = K.launch_counts()[fn.__name__]
                 got = fn(*a, **kw)
                 torch.cuda.synchronize()
-                assert fn.launches == before + 1
+                assert K.launch_counts()[fn.__name__] == before + 1
                 got = got if isinstance(got, tuple) else (got,)
                 for x, y in zip(got, want):  # K1's sphere planes: None
                     assert (x is None and y is None) or torch.equal(x, y), \
@@ -973,10 +973,10 @@ def test_streamed_culling_kernels_cuda_match_plain(meshes, mesh, kind,
         want = want if isinstance(want, tuple) else (want,)
         for a in (args, args[:n]):
             for _ in segs(monkeypatch):
-                before = fn.launches
+                before = K.launch_counts()[fn.__name__]
                 got = fn(*a)
                 torch.cuda.synchronize()
-                assert fn.launches == before + 1
+                assert K.launch_counts()[fn.__name__] == before + 1
                 got = got if isinstance(got, tuple) else (got,)
                 for x, y in zip(got, want):
                     assert torch.equal(x, y), fn.__name__
@@ -1003,10 +1003,10 @@ def test_frame_cuda_matches_plain_adversarial(frame_meshes, mesh, kind,
             if ray_major is not None:
                 monkeypatch.setitem(common.RAY_MAJOR, "anyhit", ray_major)
             for a in (args, args[:10]):
-                before = K.frame.launches
+                before = K.launch_counts()["frame"]
                 got = K.frame(*a, **kw)
                 torch.cuda.synchronize()
-                assert K.frame.launches == before + 1
+                assert K.launch_counts()["frame"] == before + 1
                 for i, (x, y) in enumerate(zip(got, want)):
                     assert torch.equal(x.view(torch.int32),
                                        y.view(torch.int32)), (mode, i)

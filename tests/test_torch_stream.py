@@ -195,13 +195,14 @@ def bounce_tensors():
 def test_stream_closest_hit_matches_jax_kernel(refs, name):
     """K9 (plain version here) on JAX's own schedule and record."""
     ref = refs(name)
-    before = K.stream_closest_hit.launches
+    before = K.launch_counts()["stream_closest_hit"]
     args = [t(ref[f"{name}_k9_{k}"]) for k in SCHED[:3]]
     rays = [P._pad1(t(v), 8 * 1024) for v in ref[f"{name}_rays"]]
     tt, face = K.stream_closest_hit(*args, *rays, t(ref[f"{name}_k9_texit"]),
                                     t(ref[f"{name}_spack"]),
                                     t(ref[f"{name}_k9_oterm"]))
-    assert K.stream_closest_hit.launches == before  # CPU: plain version
+    # CPU: plain version
+    assert K.launch_counts()["stream_closest_hit"] == before
     n = W * H
     assert np.isfinite(ref[f"{name}_k9_t"]).sum() > 1500
     bits_equal(tt[:n], ref[f"{name}_k9_t"], "t")
@@ -406,10 +407,10 @@ def test_stream_kernels_cuda_match_plain(name, cuda_device):
                        K.stream_closest_hit_perray_plain),
                       (K.stream_anyhit, K.stream_anyhit_plain)):
         a, kw = calls[fn.__name__]
-        before = fn.launches
+        before = K.launch_counts()[fn.__name__]
         got = fn(*a, **kw)
         torch.cuda.synchronize()
-        assert fn.launches == before + 1
+        assert K.launch_counts()[fn.__name__] == before + 1
         want = plain(*a, **kw)
         got = got if isinstance(got, tuple) else (got,)
         want = want if isinstance(want, tuple) else (want,)

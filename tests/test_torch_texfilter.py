@@ -10,7 +10,8 @@ import numpy as np
 import pytest
 import torch
 
-from rust_wgpu_raytracing_tpu_torch.ops.kernels import (texfilter,
+from rust_wgpu_raytracing_tpu_torch.ops.kernels import (launch_counts,
+                                                        texfilter,
                                                         texfilter_plain)
 from test_torch_host import cuda_device, jax_reference  # noqa: F401
 
@@ -48,9 +49,9 @@ def port_inputs(device="cpu"):
 
 
 def test_texfilter_matches_jax_kernel(ref):
-    before = texfilter.launches
+    before = launch_counts()["texfilter"]
     out = texfilter(*port_inputs())
-    assert texfilter.launches == before  # CPU tensors: plain version
+    assert launch_counts()["texfilter"] == before  # CPU tensors: plain version
     for got, k in zip(out, "rgb"):
         np.testing.assert_array_equal(got.numpy(), ref[k])
 
@@ -76,9 +77,9 @@ def test_texfilter_rejects_bad_inputs():
 @pytest.mark.gpu
 def test_texfilter_cuda_matches_plain(cuda_device):
     args = port_inputs(cuda_device)
-    before = texfilter.launches
+    before = launch_counts()["texfilter"]
     out = texfilter(*args)
     torch.cuda.synchronize()
-    assert texfilter.launches == before + 1
+    assert launch_counts()["texfilter"] == before + 1
     for a, b in zip(out, texfilter_plain(*args)):
         assert torch.equal(a, b)

@@ -11,7 +11,8 @@ import numpy as np
 import pytest
 import torch
 
-from rust_wgpu_raytracing_tpu_torch.ops.kernels import (texshade,
+from rust_wgpu_raytracing_tpu_torch.ops.kernels import (launch_counts,
+                                                        texshade,
                                                         texshade_plain)
 from test_torch_host import cuda_device, jax_reference  # noqa: F401
 
@@ -56,9 +57,9 @@ def port_inputs(device="cpu"):
 
 
 def test_texshade_matches_jax_kernel(ref):
-    before = texshade.launches
+    before = launch_counts()["texshade"]
     out = texshade(*port_inputs())
-    assert texshade.launches == before  # CPU tensors: plain version
+    assert launch_counts()["texshade"] == before  # CPU tensors: plain version
     for got, k in zip(out, ("pr", "pg", "pb")):
         np.testing.assert_array_equal(got.numpy(), ref[k])
 
@@ -84,10 +85,10 @@ def test_texshade_rejects_bad_inputs():
 @pytest.mark.gpu
 def test_texshade_cuda_matches_plain(cuda_device):
     args = port_inputs(cuda_device)
-    before = texshade.launches
+    before = launch_counts()["texshade"]
     out = texshade(*args)
     torch.cuda.synchronize()
-    assert texshade.launches == before + 1
+    assert launch_counts()["texshade"] == before + 1
     for a, b in zip(out, texshade_plain(*args)):
         assert torch.equal(a, b)
 
@@ -119,12 +120,13 @@ def test_texel_offsets_past_2_24_cuda(cuda_device):
         (base.float().long() != base.long()).all())
     taps, fx, fy = gather_packed_taps(pool, base, hh, ww, u, v)
     assert torch.equal(taps.cpu(), want)
-    before = texfilter.launches, texshade.launches
+    before = launch_counts()
     got = texfilter(taps, fx, fy)
     shaded = texshade(taps, fx, fy, *shade_planes(fx.shape[0], cuda_device))
     torch.cuda.synchronize()
-    assert (texfilter.launches, texshade.launches) == (before[0] + 1,
-                                                       before[1] + 1)
+    after = launch_counts()
+    assert (after["texfilter"], after["texshade"]) == (
+        before["texfilter"] + 1, before["texshade"] + 1)
     for a, b in zip(got, texfilter_plain(taps, fx, fy)):
         assert torch.equal(a, b)
     for a, b in zip(shaded, texshade_plain(
