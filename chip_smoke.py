@@ -104,7 +104,10 @@ program on its own, and checks them:
    versions, also without boxes; the kernel-run frame (cull, bvh) against
    the plain-composed one on builtin:terrain:128 at 640x360; the 540p
    3-bounce path tracer through the Renderer (1 warm-up + 3 samples; K9,
-   K10, K11, K6 launched, K1, K7, K8 not), K10 and K11 on 8 batches of
+   K10, K11, K6 and super_any launched, K1, K7, K8 not), super_any on
+   each of the sample's three bounce wavefronts against its plain twin
+   bitwise and timed at bounce 1 beside its bound (super_any_phase),
+   K10 and K11 on 8 batches of
    its bounce-1 wavefronts against plain (with and without boxes), one
    terrain:128 320x180 sample against the plain-composed one; K9's and
    K11's admitted, entered and needed (ray, block) pairs (K10's too),
@@ -201,6 +204,8 @@ paths of phase 11 and on the slab and gp paths of phase 14 (summed over
 the ranks).
 
 `python3 chip_smoke.py --multi` runs only phases 1-2 and 14.
+`python3 chip_smoke.py --super-any` runs only phases 1-2 and
+super_any_phase (one recorded pt-540p-terrain512 sample, ~1 min).
 `python3 chip_smoke.py --profile` runs only phases 1-2 and then
 profiles 5 frames of each frame program at the smoke view, 5 samples
 of the path tracer, and 5 frames / samples of the streamed cells
@@ -260,6 +265,12 @@ OPS_BOX, OPS_CONE = 18, 6
 # (box_ray: p, q, 1/d) and the box's widening are made once per ray and
 # per box and not counted, nor are comparisons and absolute values.
 OPS_RAYBOX = 3 * 8 + 5
+# FP32 operations of one (ray, superblock) pair of the admission super_any
+# (traverse.perray_super_any): per axis two subtractions, two divides, a
+# min, a max, the two comparisons of `inside` and the running max and min,
+# 10; then the exit's absolute value, product and two sums, the entry's
+# product and difference and the comparison, 7
+OPS_SUPER_ANY = 3 * 10 + 7
 # the streamed cells: the JAX package's bench_configs.py configs 6 (the
 # shadowed frame, cull and bvh) and 8 (the path tracer), builtin:terrain:512
 STREAM_GRID, STREAM_EYE, STREAM_TARGET = 512, (0.0, -0.4, -1.2), \
@@ -1441,7 +1452,7 @@ def stream_phase(card, K, Renderer, drive, record, check, results, errs,
     say(f"[path] pt-540p-terrain512: launches over {1 + PTS_SAMPLES} "
         f"samples: {path_launches['pt_stream']}")
     need = ("stream_closest_hit", "stream_closest_hit_perray",
-            "stream_anyhit", "texfilter")
+            "stream_anyhit", "texfilter", "super_any")
     absent = ("closest_hit", "closest_hit_perray", "extend_shadow",
               "anyhit", "frame", "texshade", "hier_cull")
     missing = [k for k in need if path_launches["pt_stream"][k] == 0]
@@ -1466,6 +1477,7 @@ def stream_phase(card, K, Renderer, drive, record, check, results, errs,
         kernels=ks))
     say(f"[pt] streamed sample: kernel calls "
         f"{ {k: len(v) for k, v in pt_calls.items()} }")
+    super_any_phase(card, K, Renderer, results, errs, say, pt_calls)
     k10_args, k10_kw = pt_calls["stream_closest_hit_perray"][0]
     k11b_args, k11b_kw = pt_calls["stream_anyhit"][0]
     k9b_args, k9b_kw = pt_calls["stream_closest_hit"][0]
@@ -1575,6 +1587,91 @@ def stream_phase(card, K, Renderer, drive, record, check, results, errs,
             f"{100 * bound_ms / ms:.1f}% of it; {unfused_ms:.4f} ms at the "
             f"unfused issue rate, {100 * unfused_ms / ms:.1f}% of it{note}")
     return data
+
+
+def super_any_work(args, kw, out):
+    """(bytes, FP32 operations, all pairs) of one super_any call: the ray
+    planes and act in once, the boxes in once, the flags out once; the
+    operations of the (live ray, superblock) pairs an admission needs: a
+    tile rejects a superblock only after all its live rays, and admits it
+    after one."""
+    import torch
+
+    slo, dx, tile_r = args[0], args[5], args[8]
+    act = kw.get("act")
+    n_rays, n_super = dx.shape[0], slo.shape[0]
+    n_tiles = n_rays // tile_r
+    live = (act.view(n_tiles, tile_r).sum(1) if act is not None else
+            torch.full((n_tiles,), tile_r, device=dx.device))
+    adm = out.sum(1)
+    need = int((live * (n_super - adm) + adm * (live > 0)).sum())
+    moved = n_rays * (6 * 4 + (1 if act is not None else 0)) \
+        + n_super * 6 * 4 + n_tiles * n_super
+    return moved, need * OPS_SUPER_ANY, int(live.sum()) * n_super
+
+
+def super_any_phase(card, K, Renderer, results, errs, say, calls=None):
+    """The admission kernel super_any (csrc/super_any.cu) at the
+    pt-540p-terrain512 sample's bounce wavefronts (the benchmark cell
+    terrain512-bvh.pt3-540p's scene and size): each call bitwise its plain
+    twin (traverse.perray_super_any), and the bounce-1 call timed against
+    it, beside its bound by bytes and by operations, into `results`.
+    `calls`: the sample's recorded kernel calls (None: record one)."""
+    import torch
+
+    from rust_wgpu_raytracing_tpu_torch.ops.pathtrace import (
+        PRNGKey, fold_in, render_pathtrace)
+
+    if calls is None:
+        rp = Renderer(pt_stream_config(), device="cuda")
+        ks, calls = _recording(K)
+        render_pathtrace(rp.data, rp.camera.uniforms().flat(),
+                         fold_in(PRNGKey(PT_SEED), 0), width=PTS_W,
+                         height=PTS_H, bounces=PTS_BOUNCES, spp=1,
+                         compact_cap="auto", kernels=ks)
+        torch.cuda.synchronize()
+        del rp
+    sa = calls.get("super_any", [])
+    if len(sa) != PTS_BOUNCES:
+        raise AssertionError(f"super_any: {len(sa)} calls in a "
+                             f"{PTS_BOUNCES}-bounce streamed sample")
+    for i, (args, kw) in enumerate(sa):
+        got = K.super_any(*args, **kw)
+        want = K.PLAIN.super_any(*args, **kw)
+        torch.cuda.synchronize()
+        exact = torch.equal(got, want)
+        moved, ops, pairs = super_any_work(args, kw, got)
+        say(f"[super_any] bounce {i + 1}: {args[5].shape[0]} rays "
+            f"({int(kw['act'].sum())} live), {args[0].shape[0]} "
+            f"superblocks, {int(got.sum())} of {got.numel()} (tile, "
+            f"superblock) pairs admitted; kernel vs plain bitwise {exact}")
+        if not exact:
+            raise AssertionError(f"super_any disagrees with its plain "
+                                 f"version at bounce {i + 1}")
+        errs["super_any"] = max(errs.get("super_any", 0.0),
+                                max_abs_err(got, want))
+    args, kw = sa[0]
+    p1 = time_ms(lambda: K.PLAIN.super_any(*args, **kw), 2)
+    k1 = time_ms(lambda: K.super_any(*args, **kw), 20)
+    k2 = time_ms(lambda: K.super_any(*args, **kw), 20)
+    dev, how = device_ms(lambda: K.super_any(*args, **kw), 20,
+                         "super_any_kernel")
+    moved, ops, pairs = super_any_work(args, kw, K.super_any(*args, **kw))
+    bound_ms, bound_by = bound(moved, ops)
+    all_ms, _ = bound(moved, pairs * OPS_SUPER_ANY)
+    ms = (k1 + k2) / 2
+    results["super_any"] = dict(max_abs_err=errs["super_any"], ms=ms,
+                                plain_ms=p1, bound_ms=bound_ms,
+                                bound_by=bound_by)
+    say(f"[timing] {card}: super_any {ms:.4f} ms (kernel, CUDA events, "
+        f"mean of 20 launches: {k1:.4f} / {k2:.4f}; device time "
+        f"{dev:.4f} ms, {how}) vs {p1:.4f} ms (plain, mean of 2) at the "
+        f"pt-540p-terrain512 bounce-1 wavefront; bound {bound_ms:.4f} ms "
+        f"by {bound_by} ({moved} bytes, {ops} FP32 operations of the "
+        f"pairs an admission needs), {100 * bound_ms / dev:.1f}% of the "
+        f"device time; every live pair ({pairs} pairs) {all_ms:.4f} ms, "
+        f"{100 * all_ms / dev:.1f}%; the bytes alone "
+        f"{moved / HBM_BYTES_S * 1e3:.4f} ms")
 
 
 def oracle_phase(card, K, Renderer, frame, say):
@@ -2367,8 +2464,8 @@ def flat_out(name, out):
     planes too, where there are any)."""
     if name == "closest_hit":
         return (out[0], out[1], *(out[2] or ()))
-    return (out,) if name in ("anyhit", "stream_anyhit",
-                              "hier_cull") else tuple(out)
+    return (out,) if name in ("anyhit", "stream_anyhit", "hier_cull",
+                              "super_any") else tuple(out)
 
 
 def _recording(K):
@@ -2905,7 +3002,8 @@ def main() -> int:
     # K4's kernel per mode, and K5's
     for label, fn, arg in [(f"frame, mode {m}", "rt_frame_resources", (v,))
                            for m, v in MODES.items()] + [
-            ("hier_cull", "rt_hier_cull_resources", ())]:
+            ("hier_cull", "rt_hier_cull_resources", ()),
+            ("super_any", "rt_super_any_resources", ())]:
         out = (ctypes.c_int * 4)()
         err = getattr(build.library(), fn)(*arg, out)
         if err:
@@ -2925,6 +3023,13 @@ def main() -> int:
         write_nm_assets(asset_dir)
         multidevice_phase(card, K, {}, say)
         shutil.rmtree(asset_dir, ignore_errors=True)
+        return 0
+
+    if "--super-any" in sys.argv[1:]:  # the admission kernel alone
+        from rust_wgpu_raytracing_tpu_torch.ops import kernels as K
+
+        super_any_phase(card, K, Renderer, {}, {}, say)
+        say(card)
         return 0
 
     if "--profile" in sys.argv[1:]:
@@ -3689,6 +3794,8 @@ def main() -> int:
         "stream_closest_hit_perray":
             "rust_wgpu_raytracing_tpu/ops/megakernel.py:1468",
         "stream_anyhit": "rust_wgpu_raytracing_tpu/ops/megakernel.py:1532",
+        "super_any": "none: XLA's fusion of "
+                     "rust_wgpu_raytracing_tpu/ops/traverse.py:155",
     }
     source = {"stream_closest_hit": "stream_sweep",
               "stream_closest_hit_perray": "stream_sweep",

@@ -53,6 +53,7 @@ _SIGNATURES = {
     "rt_extend_shadow": [_VOIDP] * 19 + [_INT] * 5 + [_VOIDP] * 3
     + [_VOIDP],
     "rt_hier_cull": [_VOIDP] * 3 + [_INT] * 2 + [_VOIDP] + [_VOIDP],
+    "rt_super_any": [_VOIDP] * 9 + [_INT] * 3 + [_VOIDP] + [_VOIDP],
     "rt_stream_closest_hit": [_VOIDP] * 14 + [_INT] + [_VOIDP] + [_INT] * 4
     + [_VOIDP] + [_VOIDP],
     "rt_stream_closest_hit_perray": [_VOIDP] * 13 + [_INT] * 5
@@ -68,6 +69,7 @@ _SIGNATURES = {
     "rt_stream_closest_hit_perray_resources": [_VOIDP],
     "rt_stream_anyhit_resources": [_VOIDP],
     "rt_hier_cull_resources": [_VOIDP],
+    "rt_super_any_resources": [_VOIDP],
     "rt_frame_resources": [_INT, _VOIDP],  # (int mode, int out[4])
 }
 

@@ -79,8 +79,8 @@ from .rounding import ftz, sqrt
 from .kernels import KERNELS, KernelSet
 from .kernels.common import TILE_R
 from .shade import quantize_rgba8
-from .traverse import (perray_super_any, ray_root_exit, slab_interval_entry,
-                       slab_interval_ok, tile_ray_bounds)
+from .traverse import (ray_root_exit, slab_interval_entry, slab_interval_ok,
+                       tile_ray_bounds)
 
 F32_INF = float("inf")
 BLOCK_F = 32
@@ -625,7 +625,8 @@ def gbuffer_perray(scene: SceneData, ox, oy, oz, dx, dy, dz, *,
     per-ray origin terms. Terminated paths carry zero directions; they
     cannot hit. stream as for gbuffer: the streamed branch (K10) keeps
     zero-direction rays out of the tile bounds and first clears the
-    words no live ray's forward line meets (perray_super_any) and hands
+    words no live ray's forward line meets (kernels.super_any, the
+    plain twin traverse.perray_super_any) and hands
     K10 the blocks' boxes, which it tests per ray (_block_boxes); the
     all-on-chip branch runs K7, with the same boxes."""
     f = scene.padded_faces
@@ -640,8 +641,8 @@ def gbuffer_perray(scene: SceneData, ox, oy, oz, dx, dy, dz, *,
                                act=live, kernels=kernels)
     if stream:
         _, _, slo, shi = _super_aabbs(scene, f // SUPER_F)
-        sup_ok = perray_super_any(slo, shi, oxp, oyp, ozp, dxp, dyp, dzp,
-                                  TILE_R, act=live)
+        sup_ok = kernels.super_any(slo, shi, oxp, oyp, ozp, dxp, dyp, dzp,
+                                   TILE_R, act=live)
         mask = torch.where(sup_ok.reshape(-1), mask, 0)
         mask3, order2, tlb3, texit = _stream_inputs(
             scene, mask, nwords, oxp, oyp, ozp, dxp, dyp, dzp, act=live)

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Time the port's all-on-chip sweeps K1 (closest_hit), K3 (anyhit), K4
-(frame), K7 (closest_hit_perray) and K8 (extend_shadow), and the
-LBVH-cut cull K5 (hier_cull), on one NVIDIA GPU, against another
-checkout of the port if asked.
+(frame), K7 (closest_hit_perray) and K8 (extend_shadow), the LBVH-cut
+cull K5 (hier_cull) and the streamed path tracer's superblock admission
+(super_any), on one NVIDIA GPU, against another checkout of the port if
+asked.
 
     python3 sweep_times.py [--against DIR]
 
@@ -15,7 +16,10 @@ same arguments), the path tracer's first sample (K1's primary sweep,
 K3's last-bounce shadow rays, K8's bounce-1 wavefront and K7 on its
 extension rays, K7's arguments from the checkout's own gbuffer_perray)
 and the streamed terrain:512 frame under
-accel="bvh" (K5's primary and shadow-wavefront culls). A time is the
+accel="bvh" (K5's primary and shadow-wavefront culls), and the 960x540
+3-bounce path tracer of terrain:512 (super_any at its bounce-1
+wavefront; a checkout without the kernel times the plain function
+traverse.perray_super_any, which its glue runs). A time is the
 mean of 20 launches after one, by CUDA events (K5's by its kernels'
 device time in torch.profiler's trace: its wrapper's host work takes
 longer than the kernel); at the orbit frames the mean of the five
@@ -60,6 +64,7 @@ def child(root: str) -> None:
     from rust_wgpu_raytracing_tpu_torch.ops.kernels.frame import MODES
     from rust_wgpu_raytracing_tpu_torch.ops.pathtrace import (
         PRNGKey, fold_in, render_pathtrace)
+    from rust_wgpu_raytracing_tpu_torch.ops.traverse import perray_super_any
 
     # chip_smoke.py's scenes and timer, from this script's checkout
     spec = importlib.util.spec_from_file_location(
@@ -156,7 +161,25 @@ def child(root: str) -> None:
                calls["hier_cull"][0]),
               ("hier_cull", "the bvh frame's shadow cull",
                calls["hier_cull"][1])]
+    del sdata
+    # the streamed path tracer's admission at its bounce-1 wavefront,
+    # rebuilt from K10's arguments (a checkout before the kernel has no
+    # wrapper to record: there the plain function is what the glue runs)
+    pcfg = cs.pt_stream_config()
+    pdata = Renderer(pcfg, device="cuda").data
+    calls = record(lambda ks: render_pathtrace(
+        pdata, Camera.from_config(pcfg.camera, cs.PTS_W / cs.PTS_H).uniforms(
+            ).flat(), fold_in(PRNGKey(cs.PT_SEED), 0), width=cs.PTS_W,
+        height=cs.PTS_H, bounces=cs.PTS_BOUNCES, spp=1, compact_cap="auto",
+        kernels=ks))
+    dx, dy, dz, ox, oy, oz = calls["stream_closest_hit_perray"][0][0][3:9]
+    _, _, slo, shi = MK._super_aabbs(pdata, pdata.padded_faces // 1024)
+    live = (dx != 0.0) | (dy != 0.0) | (dz != 0.0)
+    cases.append(("super_any", "the 540p streamed path tracer's bounce 1",
+                  ((slo, shi, ox, oy, oz, dx, dy, dz, 1024),
+                   {"act": live})))
     wrapper = {f.__name__: f for f in K.KERNELS}
+    wrapper.setdefault("super_any", perray_super_any)
     for name, at, sets in cases + orbits:
         sets = sets if isinstance(sets, list) else [sets]
         if name == "hier_cull":  # shorter than its wrapper's host work

@@ -163,7 +163,7 @@ def test_launch_counts_keep_their_api():
     drops those alone."""
     K.reset_launch_counts()
     want = {f.__name__: 0 for f in K.KERNELS}
-    assert K.launch_counts() == want and len(want) == 11
+    assert K.launch_counts() == want and len(want) == 12
     r = Renderer(scene("fused"), device="cpu")
     r.render()
     assert K.launch_counts() == want
