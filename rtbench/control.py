@@ -21,7 +21,7 @@ import sys
 
 import torch
 
-from . import check, harness, scenegen, traffic, verify
+from . import check, harness, traffic, verify
 
 
 def control_frames(cell, replay, seed: int):
@@ -42,7 +42,7 @@ def control_frames(cell, replay, seed: int):
 def readings(cell, seed: int, device: str, dtype=torch.bfloat16) -> dict:
     tr = cell.traffic
     replay = traffic.Replay(tr, cell.config, seed)
-    inputs = scenegen.make_inputs(cell.config, seed)
+    inputs = cell.scene.make_inputs(cell.config, seed)
     xs, ys = traffic.pixel_sample(tr, seed, int(tr["check_pixels"]))
     steps = control_frames(cell, replay, seed)
     ref = verify.reference_values(cell, inputs, replay, xs, ys, steps,

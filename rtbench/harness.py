@@ -3,10 +3,12 @@
 BENCHMARK.json lists the metrics, configurations and cells; each
 configuration is rtbench/configs/<name>.json, each traffic mix
 rtbench/workloads/<name>.json, each per-layer metric's reader
-rtbench/metrics/<name>.py (a `read(obs)` that returns a number or None)
+rtbench/metrics/<name>.py (a `read(obs)` that returns a number or None),
+each scene kind rtbench/scenes/<kind>.py (what makes a configuration's
+scene for the program and for the reference: rtbench/scenes/__init__.py)
 and each cell's correctness limits rtbench/limits/<cell>.json. A new
-scene, mix, metric or cell is new files and new entries: nothing here
-names one.
+scene kind, scene, mix, metric or cell is new files and new entries:
+nothing here names one.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ class Cell:
     limits: dict
     end_to_end: List[dict]
     per_layer: List[dict]
+    scene: object  # the configuration's scene kind (scene_kind)
 
 
 def load_json(path: str) -> dict:
@@ -54,14 +57,21 @@ def load_cell(name: str, root: str = ROOT) -> Cell:
     w = work[name]
     conf = {c["name"]: c for c in bench["configs"]}[w["config"]]
     here = os.path.join(root, "rtbench")
+    config = load_json(os.path.join(root, conf["file"]))
+    traffic = load_json(os.path.join(here, "workloads",
+                                     w["traffic"] + ".json"))
+    scene = scene_kind(config, root)
+    if scene.MOVES and int(traffic.get("pt_bounces", 0)) > 0:
+        raise ValueError(
+            f"workload {name!r}: the scene kind {_kind(config)!r} moves "
+            "its geometry between steps, and the path tracer's reference "
+            "accumulates its samples over fixed geometry")
     return Cell(
-        name=name, workload=w,
-        config=load_json(os.path.join(root, conf["file"])),
-        traffic=load_json(os.path.join(here, "workloads",
-                                       w["traffic"] + ".json")),
+        name=name, workload=w, config=config, traffic=traffic,
         limits=load_json(os.path.join(here, "limits", name + ".json")),
         end_to_end=[m for m in bench["end_to_end"] if _applies(m, name)],
-        per_layer=[m for m in bench["per_layer"] if _applies(m, name)])
+        per_layer=[m for m in bench["per_layer"] if _applies(m, name)],
+        scene=scene)
 
 
 def load_module(path: str, name: str):
@@ -69,6 +79,21 @@ def load_module(path: str, name: str):
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def _kind(config: dict) -> str:
+    return config["scene"].get("kind", "heightfield")
+
+
+def scene_kind(config: dict, root: str = ROOT):
+    """The module of the configuration's scene kind, rtbench/scenes/<kind>.py
+    ("heightfield" where its scene names no "kind")."""
+    kind = _kind(config)
+    rel = f"rtbench/scenes/{kind}.py"
+    path = os.path.join(root, rel)
+    if not os.path.isfile(path):
+        raise FileNotFoundError(f"no scene kind {kind!r}: {rel} is missing")
+    return load_module(path, "rtbench_scene_" + kind.replace(".", "_"))
 
 
 def metric_reader(name: str, root: str = ROOT) -> Callable:

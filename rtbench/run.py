@@ -3,15 +3,19 @@
     python3 -m rtbench.run --workload <cell> --seed <n> --seconds <s> \
         --trace <0|1>
 
-from the repository's root, on a machine with the cell's cards. It makes
-the cell's scene from the seed and writes it as OBJ/MTL/PNG files under
-$TMPDIR, builds a Renderer(backend="auto", device="cuda") over them with
-a FrameLoop, warms up, and then, for `--seconds`, drives FrameLoop.step()
-in a closed loop with the mix's keys: a step begins when the previous
-one returned, and a frame counts once its image is on the host. After
-the window it holds a seeded sample of the presented images, and the
-last, to the reference (rtbench/reference) at seeded pixels, and prints
-one JSON line last on standard output.
+from the repository's root, on a machine with the cell's cards. The
+configuration's scene kind (rtbench/scenes/<kind>.py) makes the scene's
+inputs from the seed, writes its asset files under $TMPDIR and gives
+the program's SceneConfig; the run builds a Renderer(backend="auto",
+device="cuda") over them with a FrameLoop, warms up, and then, for
+`--seconds`, drives FrameLoop.step() in a closed loop with the mix's
+keys, each step after the kind's change to the scene where it makes
+one: a step begins when the previous one returned, and a frame counts
+once its image is on the host. After the window it holds a seeded
+sample of the presented images, and the last, to the reference
+(rtbench/reference, over the kind's scene at the step that rendered
+each) at seeded pixels, and prints one JSON line last on standard
+output.
 
 --trace 0 reports the cell's end-to-end metrics: frame_ms (window over
 frames presented), frame_p95_ms (95th percentile of every step's time,
@@ -36,6 +40,7 @@ import time
 T_START = time.perf_counter()
 
 import argparse  # noqa: E402
+import functools  # noqa: E402
 import gc  # noqa: E402
 import json  # noqa: E402
 import math  # noqa: E402
@@ -46,7 +51,6 @@ import sys  # noqa: E402
 import tempfile  # noqa: E402
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "rust_wgpu_raytracing_tpu")
-SEED_MASK = 0xFFFFFFFF
 
 
 def log(msg: str) -> None:
@@ -73,11 +77,12 @@ def end_to_end(step_s, window_s, frames, samples, setup_s) -> dict:
 
 
 class Driver:
-    """Pushes the mix's key changes, then steps the FrameLoop; `g` is the
-    global step index (warm-up included)."""
+    """Pushes the mix's key changes, calls `advance(g)` where the scene
+    kind changes the scene, then steps the FrameLoop; `g` is the global
+    step index (warm-up included)."""
 
-    def __init__(self, loop, replay):
-        self.loop, self.replay = loop, replay
+    def __init__(self, loop, replay, advance=None):
+        self.loop, self.replay, self.advance = loop, replay, advance
         self.g = 0
         self.held = frozenset()
 
@@ -88,6 +93,8 @@ class Driver:
         for k in sorted(keys - self.held):
             self.loop.push_key(k, True)
         self.held = keys
+        if self.advance is not None:
+            self.advance(self.g)
         img = self.loop.step()
         self.g += 1
         return img
@@ -98,6 +105,15 @@ class Driver:
         for _ in range(n):
             with torch.profiler.record_function("rtbench.step"):
                 self.step()
+
+
+def bound_advance(kind, renderer, inputs):
+    """The scene kind's change to the program's scene before each step,
+    as Driver calls it (`advance(g)`); None where the kind makes none."""
+    advance = getattr(kind, "advance", None)
+    if advance is None:
+        return None
+    return functools.partial(advance, renderer, inputs)
 
 
 def instrument(renderer, render_ms: list) -> None:
@@ -128,70 +144,43 @@ def instrument(renderer, render_ms: list) -> None:
     renderer.fetch_image = fetch_image
 
 
-def scene_config(cell, replay, obj_name: str, seed: int):
-    import rust_wgpu_raytracing_tpu_torch as rt
-
-    cfg, tr = cell.config, cell.traffic
-    scene, mesh, render = cfg["scene"], cfg["scene"]["mesh"], cfg["render"]
-
-    def tup(d):
-        return {k: tuple(v) if isinstance(v, list) else v
-                for k, v in d.items()}
-    cam = replay.start
-    return rt.SceneConfig(
-        spheres=tuple(rt.SphereConfig(**tup(s))
-                      for s in scene.get("spheres", ())),
-        meshes=(rt.MeshConfig(
-            obj_path=obj_name, translation=tuple(mesh["translation"]),
-            scale=float(mesh["scale"]),
-            light_direction=tuple(mesh["light_direction"]),
-            normal_mapping=bool(mesh.get("normal_mapping", False))),),
-        camera=rt.CameraConfig(eye=tuple(float(v) for v in cam.eye),
-                               target=tuple(float(v) for v in cam.target),
-                               up=tuple(float(v) for v in cam.up)),
-        render=rt.RenderConfig(
-            width=tr["width"], height=tr["height"],
-            shadows=bool(render["shadows"]), accel=render["accel"],
-            variant=render["variant"],
-            pt_bounces=int(tr.get("pt_bounces", 0)),
-            pt_spp=int(tr.get("pt_spp", 64)), seed=seed & SEED_MASK))
-
-
 def run_cell(cell, *, seed: int, seconds: float, trace: bool, device: str,
              t_start: float = None, root: str = None):
     """One run of `cell`; returns (result dict, check lines). The caller
     has checked the device."""
     import torch
 
-    from . import harness, scenegen, trace as tracing, traffic, verify
+    from . import harness, trace as tracing, traffic, verify
     from .obs import Obs
 
     t_start = T_START if t_start is None else t_start
     root = root or harness.ROOT
     tr = cell.traffic
+    kind = cell.scene
     cuda = torch.device(device).type == "cuda"
 
     # ---- the inputs, made from the seed (timed apart from set-up) ----
     t_in = time.perf_counter()
     replay = traffic.Replay(tr, cell.config, seed)
-    inputs = scenegen.make_inputs(cell.config, seed)
+    inputs = kind.make_inputs(cell.config, seed)
     asset_dir = tempfile.mkdtemp(prefix="rtbench-assets-")
-    obj_name = scenegen.write_assets(inputs, asset_dir)
+    assets = kind.write_assets(inputs, asset_dir)
     xs, ys = traffic.pixel_sample(tr, seed, int(tr["check_pixels"]))
     inputs_s = time.perf_counter() - t_in
-    log(f"inputs: {inputs.faces.shape[0]} faces, made in {inputs_s:.3f} s "
-        "(not in setup_s)")
+    log(f"inputs: made in {inputs_s:.3f} s (not in setup_s)")
 
     # ---- set-up: the program loads the scene, then warms up ----
     os.environ["RWRT_ASSETS"] = asset_dir
     from rust_wgpu_raytracing_tpu_torch import Renderer
     from rust_wgpu_raytracing_tpu_torch.runtime.frame_loop import FrameLoop
 
-    renderer = Renderer(scene_config(cell, replay, obj_name, seed),
-                        backend="auto", device=device)
+    renderer = Renderer(
+        kind.program_config(cell.config, tr, replay.start, assets, seed),
+        backend="auto", device=device)
     shutil.rmtree(asset_dir, ignore_errors=True)
     loop = FrameLoop(renderer)
-    drv = Driver(loop, replay)
+    advance = bound_advance(kind, renderer, inputs)
+    drv = Driver(loop, replay, advance)
     render_ms = []
     if trace:
         instrument(renderer, render_ms)
@@ -289,7 +278,7 @@ def run_cell(cell, *, seed: int, seconds: float, trace: bool, device: str,
                              for m in cell.end_to_end}
 
     # ---- free the program, then hold its images to the reference ----
-    del loop, drv, renderer, img
+    del loop, drv, renderer, img, advance
     render_ms = obs = None
     gc.collect()
     if cuda:

@@ -1,4 +1,6 @@
-"""The benchmark's scene inputs, made from the seed, and their asset files.
+"""The heightfield scene kind's inputs, made from the seed, and their
+asset files (rtbench/scenes/heightfield.py; other kinds may build on
+these functions).
 
 A configuration names a heightfield (grid, size, amplitude: fixed), a
 texture size, the spheres, the light and the material. The seed draws

@@ -196,7 +196,8 @@ def sync_sites(run_steps, steps: int):
     return sum(where.values()), dict(where)
 
 
-def _images(cell, seed, obj_name, steps: int, on: bool, device: str):
+def _images(cell, seed, inputs, assets, steps: int, on: bool,
+            device: str):
     """The images of `steps` FrameLoop steps of a fresh Renderer, with
     the recorder on or off."""
     import torch
@@ -208,9 +209,11 @@ def _images(cell, seed, obj_name, steps: int, on: bool, device: str):
     from . import run, traffic
 
     replay = traffic.Replay(cell.traffic, cell.config, seed)
-    renderer = Renderer(run.scene_config(cell, replay, obj_name, seed),
-                        backend="auto", device=device)
-    drv = run.Driver(FrameLoop(renderer), replay)
+    renderer = Renderer(cell.scene.program_config(
+        cell.config, cell.traffic, replay.start, assets, seed),
+        backend="auto", device=device)
+    drv = run.Driver(FrameLoop(renderer), replay,
+                     run.bound_advance(cell.scene, renderer, inputs))
     profiler.enable(on)
     images = [drv.step() for _ in range(steps)]
     profiler.enable(False)
@@ -233,27 +236,29 @@ def measure(cell, seed: int, device: str = "cuda") -> dict:
     from rust_wgpu_raytracing_tpu_torch.runtime import profiler
     from rust_wgpu_raytracing_tpu_torch.runtime.frame_loop import FrameLoop
 
-    from . import run, scenegen, trace, traffic
+    from . import run, trace, traffic
 
     tr = cell.traffic
+    kind = cell.scene
     cuda = device == "cuda"
     replay = traffic.Replay(tr, cell.config, seed)
-    inputs = scenegen.make_inputs(cell.config, seed)
+    inputs = kind.make_inputs(cell.config, seed)
     asset_dir = tempfile.mkdtemp(prefix="rtbench-assets-")
-    obj_name = scenegen.write_assets(inputs, asset_dir)
+    assets = kind.write_assets(inputs, asset_dir)
     os.environ["RWRT_ASSETS"] = asset_dir
     out = {"cell": cell.name, "seed": seed}
 
     profiler.drain()
     profiler.enable()
-    renderer = Renderer(run.scene_config(cell, replay, obj_name, seed),
+    renderer = Renderer(kind.program_config(cell.config, tr, replay.start,
+                                            assets, seed),
                         backend="auto", device=device)
     profiler.enable(False)
     setup, counts = profiler.drain()
     out["setup_ms"] = {s.name: s.ns / 1e6 for s in setup}
     out["scene_build_s"] = counts.get("ns.setup.scene_build", 0) / 1e9
     loop = FrameLoop(renderer)
-    drv = run.Driver(loop, replay)
+    drv = run.Driver(loop, replay, run.bound_advance(kind, renderer, inputs))
     run.instrument(renderer, [])
     drv.steps(replay.warmup)
     if cuda:
@@ -331,8 +336,8 @@ def measure(cell, seed: int, device: str = "cuda") -> dict:
         torch.cuda.empty_cache()
 
     steps = max(4, n // 4)
-    off = _images(cell, seed, obj_name, steps, False, device)
-    on = _images(cell, seed, obj_name, steps, True, device)
+    off = _images(cell, seed, inputs, assets, steps, False, device)
+    on = _images(cell, seed, inputs, assets, steps, True, device)
     out["bitwise_on_off"] = all(
         (a is None and b is None) or (a is not None and b is not None
                                       and (a == b).all())

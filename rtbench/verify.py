@@ -3,8 +3,10 @@
 A checked frame is (the global step that presented it, the presented
 codes at the sampled pixels). The step before it rendered the frame, so
 its camera and, for the path tracer, its sample count come from the
-mix's replay. Path-traced frames of one accumulation share one pass of
-the reference, which keeps the mean at each count it needs.
+mix's replay, and its geometry from the cell's scene kind at that step.
+Path-traced frames of one accumulation share one pass of the reference,
+over the geometry of the accumulation's first step, which keeps the mean
+at each count it needs.
 """
 
 from __future__ import annotations
@@ -14,7 +16,6 @@ import torch
 from . import check
 from .reference import frame as ref_frame
 from .reference import pathtrace as ref_pt
-from .reference import scene as ref_scene
 
 SEED_MASK = 0xFFFFFFFF
 
@@ -25,7 +26,11 @@ def reference_values(cell, inputs, replay, xs, ys, steps, *, seed, device,
     presented at `steps`."""
     tr = cell.traffic
     cfg = cell.config
-    s = ref_scene.build(inputs, device=device, dtype=dtype)
+
+    def scene(step):
+        return cell.scene.reference_scene(inputs, step, device=device,
+                                          dtype=dtype)
+
     xs_t = torch.as_tensor(xs, device=device)
     ys_t = torch.as_tensor(ys, device=device)
     out = {}
@@ -34,8 +39,8 @@ def reference_values(cell, inputs, replay, xs, ys, steps, *, seed, device,
         for g in steps:
             cam, _ = replay.rendered(g - 1)
             out[g] = ref_frame.lit_pixels(
-                s, cam, xs_t, ys_t, width=tr["width"], height=tr["height"],
-                shadows=cfg["render"]["shadows"])
+                scene(g - 1), cam, xs_t, ys_t, width=tr["width"],
+                height=tr["height"], shadows=cfg["render"]["shadows"])
         return out
     groups = {}
     for g in steps:
@@ -48,9 +53,9 @@ def reference_values(cell, inputs, replay, xs, ys, steps, *, seed, device,
         cam, _ = replay.rendered(first)
         counts = [spp for _, spp in members]
         means = ref_pt.accumulate(
-            s, cam, xs_t, ys_t, width=tr["width"], height=tr["height"],
-            bounces=bounces, seed=seed & SEED_MASK, samples=max(counts),
-            means_at=counts)
+            scene(first), cam, xs_t, ys_t, width=tr["width"],
+            height=tr["height"], bounces=bounces, seed=seed & SEED_MASK,
+            samples=max(counts), means_at=counts)
         for g, spp in members:
             out[g] = means[spp]
     return out
