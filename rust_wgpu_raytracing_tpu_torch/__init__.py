@@ -35,6 +35,7 @@ faster than the default on the H100; PERF.md) and the TPU tools
 
 from .config import (
     CameraConfig,
+    InstancesConfig,
     LightConfig,
     MeshConfig,
     RenderConfig,
@@ -53,6 +54,7 @@ __all__ = [
     "CameraUniforms",
     "CameraConfig",
     "CircleCameraController",
+    "InstancesConfig",
     "LightConfig",
     "MeshConfig",
     "OrbitAnimator",

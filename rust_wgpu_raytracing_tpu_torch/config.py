@@ -133,6 +133,29 @@ class RenderConfig:
 
 
 @dataclass(frozen=True)
+class InstancesConfig:
+    """Instancing (BASELINE config 5): the scene's one mesh drawn `count`
+    times, each copy placed by an affine (3, 4) transform [R | t] that
+    the Renderer may change every frame (Renderer.set_instance_transforms;
+    ops/instances.py refits the soup on the device). count 0 is a plain
+    scene. `transforms` holds the first (count, 3, 4) placement (any
+    nested sequence or array, kept as nested float tuples); None places
+    the copies by ops/instances.grid_transforms(count).
+    An instanced scene has exactly one mesh and no spheres, and is drawn
+    by the frame programs and the oracle only: no path tracing, no
+    geometry sharding."""
+
+    count: int = 0
+    transforms: Optional[Tuple[Tuple[Tuple[float, ...], ...], ...]] = None
+
+    def __post_init__(self):
+        if self.transforms is not None:
+            object.__setattr__(self, "transforms", tuple(
+                tuple(tuple(float(v) for v in row) for row in t)
+                for t in self.transforms))
+
+
+@dataclass(frozen=True)
 class SceneConfig:
     """A full scene: primitives in PASS ORDER.
 
@@ -147,9 +170,21 @@ class SceneConfig:
     background: Vec3 = (0.0, 0.0, 0.0)  # cleared framebuffer color
     camera: CameraConfig = field(default_factory=CameraConfig)
     render: RenderConfig = field(default_factory=RenderConfig)
+    instances: InstancesConfig = field(default_factory=InstancesConfig)
+
+    def __repr__(self) -> str:
+        # a plain scene leaves the instancing field out, as to_json does,
+        # so it reads as the JAX package's SceneConfig
+        fields = [f.name for f in dataclasses.fields(self)
+                  if f.name != "instances" or self.instances.count]
+        return f"{type(self).__qualname__}(" + ", ".join(
+            f"{name}={getattr(self, name)!r}" for name in fields) + ")"
 
     def to_json(self) -> str:
-        return json.dumps(dataclasses.asdict(self), indent=2)
+        d = dataclasses.asdict(self)
+        if not self.instances.count:
+            del d["instances"]  # a plain scene writes the JAX package's JSON
+        return json.dumps(d, indent=2)
 
     @staticmethod
     def from_json(text: str) -> "SceneConfig":
@@ -174,6 +209,7 @@ class SceneConfig:
             camera=CameraConfig(**{**cam, **tup(cam, "eye"),
                                    **tup(cam, "target"), **tup(cam, "up")}),
             render=RenderConfig(**raw.get("render", {})),
+            instances=InstancesConfig(**raw.get("instances", {})),
         )
 
 

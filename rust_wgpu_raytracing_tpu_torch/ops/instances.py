@@ -29,6 +29,10 @@ culls from the refit blk_lo/blk_hi (ops/hier_cull.py), as in JAX.
                                       16, device="cuda")
     data = inst.instantiate(grid_transforms(16, z=-6.0, angle=0.05))
     color, depth = render_megakernel(data, uni, width=..., height=...)
+
+The Renderer reaches it through SceneConfig.instances
+(runtime/renderer.py): set-up builds the InstancedScene, and render()
+refits it whenever Renderer.set_instance_transforms gave new transforms.
 """
 
 from __future__ import annotations

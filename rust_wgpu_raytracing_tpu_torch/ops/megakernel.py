@@ -383,11 +383,19 @@ def pack_stream_columns(scene: SceneData) -> torch.Tensor:
                                   device=scene.tri_d.device)], dim=1)
 
 
+_GPACK_COLS = {}  # device -> GPACK_SRC_COLS as an int64 tensor there
+
+
 def gpack_from_stream(spack: torch.Tensor) -> torch.Tensor:
     """The (GPACK_ROWS, F) winner-attribute table derived from a full
-    streaming record (JAX gpack_from_stream), in one gather."""
-    cols = torch.tensor(GPACK_SRC_COLS, dtype=torch.int64,
-                        device=spack.device)
+    streaming record (JAX gpack_from_stream), in one gather. The column
+    indices go to the device once: a copy from pageable host memory at
+    each call made the host wait for the card, once a frame in an
+    instanced refit."""
+    cols = _GPACK_COLS.get(spack.device)
+    if cols is None:
+        cols = _GPACK_COLS[spack.device] = torch.tensor(
+            GPACK_SRC_COLS, dtype=torch.int64, device=spack.device)
     return spack.index_select(1, cols).t().contiguous()
 
 

@@ -42,10 +42,26 @@ this process's device, as the JAX package does on one device. Its
 variant_chosen is "gp". The path tracer takes precedence over every
 backend, as in the JAX package.
 
+SceneConfig.instances with count N > 0 makes an instanced scene
+(BASELINE config 5): the scene's one mesh drawn N times as one soup, each
+copy placed by an affine (3, 4) transform. Set-up builds an
+ops/instances.InstancedScene in place of a Scene and refits it once at
+the configured transforms (ops/instances.grid_transforms(N) where none
+are given); set_instance_transforms() stages the next (N, 3, 4)
+transforms on the device through one of two pinned host buffers, without
+waiting for the card, and the next render() refits the soup on the
+device (span "frame.refit", counter "refits") before it draws, once for
+any number of calls in between. The frame programs, their variant and
+accel checks and backend="oracle" take the refit SceneData as they take
+a built one; path tracing and backend="megakernel_gp" raise ValueError on
+an instanced scene. reset_device() rebuilds the instanced scene and
+refits it at the last transforms.
+
 The set-up is timed by two spans (runtime/profiler.timed):
 "setup.scene_build" (Scene.build: the OBJ import, the packing and the
-LBVH) and "setup.upload" (the SceneData to the device); their lengths
-stay in the counters "ns.setup.scene_build" and "ns.setup.upload".
+LBVH; or the InstancedScene's base mesh) and "setup.upload" (the
+SceneData to the device; or the first refit); their lengths stay in the
+counters "ns.setup.scene_build" and "ns.setup.upload".
 """
 
 from __future__ import annotations
@@ -61,6 +77,7 @@ from ..core.camera import Camera
 from ..core.controls import CircleCameraController
 from ..core.scene import Scene
 from ..io.image_out import encode_u8_device, write_png
+from ..ops.instances import InstancedScene, grid_transforms
 from ..ops.megakernel import (check_supported, fused_eligible,
                               render_megakernel)
 from ..ops.oracle import render_oracle
@@ -76,6 +93,29 @@ def resolve_device(device) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {device!r}")
     return dev
+
+
+def check_instances(config: SceneConfig, backend: str) -> None:
+    """ValueError, naming the reason, where SceneConfig.instances asks for
+    what the instanced scene does not draw."""
+    inst = config.instances
+    if inst.count < 0:
+        raise ValueError(f"instances.count {inst.count} < 0")
+    if inst.count == 0:
+        if inst.transforms is not None:
+            raise ValueError("instances.transforms given with "
+                             "instances.count 0")
+        return
+    if len(config.meshes) != 1 or config.spheres:
+        raise ValueError("an instanced scene draws exactly one mesh and no "
+                         f"spheres; got {len(config.meshes)} mesh(es) and "
+                         f"{len(config.spheres)} sphere(s)")
+    if config.render.pt_bounces > 0:
+        raise ValueError("an instanced scene is not path-traced: the path "
+                         "tracer accumulates over fixed geometry")
+    if backend == "megakernel_gp":
+        raise ValueError("an instanced scene is not geometry-sharded: "
+                         "backend 'megakernel_gp' shards a built scene")
 
 
 class Renderer:
@@ -94,6 +134,7 @@ class Renderer:
                     "scene does not validate under device limits:\n  "
                     + "\n  ".join(bad))
         self.backend = self._pick_backend(backend)
+        check_instances(config, self.backend)
         self._gp_mesh = None
         if self.backend == "megakernel_gp":
             from ..parallel.mesh import make_gp_mesh
@@ -115,10 +156,23 @@ class Renderer:
                 raise ValueError("variant='fused' needs a frame without "
                                  "mip and without normal mapping with "
                                  "shadows; use 'split' or 'auto'")
+        inst = config.instances
+        self._instanced = None  # the InstancedScene of an instanced scene
+        self._stale = False  # staged transforms not yet refit
         with profiler.timed("setup.scene_build"):
-            self.scene = Scene.build(config)
+            if inst.count:
+                self.scene = None
+                self._instanced = InstancedScene.from_config(
+                    config.meshes[0], inst.count, device=self.device)
+            else:
+                self.scene = Scene.build(config)
         with profiler.timed("setup.upload"):
-            self.data = self.scene.data.to(self.device)
+            if self._instanced is not None:
+                self._upload_instances(grid_transforms(inst.count)
+                                       if inst.transforms is None
+                                       else inst.transforms)
+            else:
+                self.data = self.scene.data.to(self.device)
         self.variant_ms = {}
         self.variant_chosen = None  # decided at the first render for auto
         if self.pathtrace:
@@ -145,6 +199,60 @@ class Renderer:
         self._last = None
         self._events = None
         self._last_frame_ms = float("nan")
+
+    # --- instancing ---
+    def set_instance_transforms(self, transforms) -> None:
+        """The instances' (N, 3, 4) affine transforms [R | t] (a host
+        array) for the next render(), which refits the soup before it
+        draws. ValueError on a plain scene or on another shape."""
+        if self._instanced is None:
+            raise ValueError("set_instance_transforms needs an instanced "
+                             "scene (SceneConfig.instances.count > 0)")
+        self._stage(transforms)
+        self._stale = True
+
+    def _upload_instances(self, transforms) -> None:
+        """Make the staging (on the card two pinned host buffers, each
+        with the event of the last copy out of it), stage `transforms`
+        and refit the soup at them: the set-up's and reset_device's."""
+        self._slot = 0
+        self._pinned = []
+        if self.device.type == "cuda":
+            shape = (self._instanced.n_instances, 3, 4)
+            self._pinned = [(torch.empty(shape, dtype=torch.float32,
+                                         pin_memory=True), torch.cuda.Event())
+                            for _ in range(2)]
+        self._stage(transforms)
+        self.data = self._instanced.instantiate(self._staged)
+        self._stale = False
+
+    def _stage(self, transforms) -> None:
+        """Check the shape, keep a host copy and put the transforms on the
+        device. On the card: written into the pinned buffer whose last
+        copy is oldest, then copied without blocking; the host waits (the
+        wait "transforms") only if that copy has not run yet."""
+        t = np.array(transforms, dtype=np.float32)
+        want = (self._instanced.n_instances, 3, 4)
+        if t.shape != want:
+            raise ValueError(f"transforms: shape {t.shape}, expected {want}")
+        self._transforms = t
+        if not self._pinned:
+            self._staged = torch.from_numpy(t).to(self.device)
+            return
+        self._slot ^= 1
+        buf, copied = self._pinned[self._slot]
+        if not copied.query():
+            with profiler.wait("transforms"):
+                copied.synchronize()
+        buf.numpy()[...] = t
+        self._staged = buf.to(self.device, non_blocking=True)
+        copied.record()
+
+    def _refit(self) -> None:
+        with profiler.span("frame.refit"):
+            self.data = self._instanced.instantiate(self._staged)
+        profiler.count("refits")
+        self._stale = False
 
     @property
     def _normal_mapping(self) -> bool:
@@ -257,7 +365,10 @@ class Renderer:
     # --- State::render (src/lib.rs:1012-1230) ---
     def render(self, block: bool = False):
         """Returns the device-resident (color, depth) tensors.
-        block=True waits for the frame (torch.cuda.synchronize)."""
+        block=True waits for the frame (torch.cuda.synchronize). An
+        instanced scene with new transforms is refit first."""
+        if self._stale:
+            self._refit()
         uni = self.camera.uniforms().flat()
         if self.variant_chosen is None and not self.pathtrace and \
                 self.backend == "megakernel":
@@ -345,13 +456,20 @@ class Renderer:
 
     def reset_device(self):
         """Rebuild the Renderer's device state: wait for the card, free
-        its cached blocks and upload the scene anew (FrameLoop's recovery
-        from a lost device, followed by a resize). Raises where the card
-        is still unusable."""
+        its cached blocks and upload the scene anew, or rebuild an
+        instanced scene and refit it at the last transforms (FrameLoop's
+        recovery from a lost device, followed by a resize). Raises where
+        the card is still unusable."""
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
             torch.cuda.empty_cache()
-        self.data = self.scene.data.to(self.device)
+        if self._instanced is not None:
+            self._instanced = InstancedScene.from_config(
+                self.config.meshes[0], self._instanced.n_instances,
+                device=self.device)
+            self._upload_instances(self._transforms)
+        else:
+            self.data = self.scene.data.to(self.device)
         self._last = None
         self._events = None
 

@@ -1,8 +1,8 @@
 """PyTorch port: it runs where JAX cannot be imported (the frame, the CLI,
-the path tracer, the oracle, mip sampling, instancing, the raster
-pipeline, the runtime shells, row slabs, the sharded functions on two
-gloo ranks and the geometry-parallel Renderer), and no file of the port
-imports JAX or the JAX package."""
+the path tracer, the oracle, mip sampling, instancing, also through the
+Renderer, the raster pipeline, the runtime shells, row slabs, the
+sharded functions on two gloo ranks and the geometry-parallel Renderer),
+and no file of the port imports JAX or the JAX package."""
 
 import re
 import subprocess
@@ -72,6 +72,13 @@ uni = pt.Camera.from_config(pt.CameraConfig(eye=(0.3, -0.5, -1.5),
                             1.0).uniforms().flat()
 color, depth = render_megakernel(data, uni, width=32, height=32)
 assert bool((depth < 1).any())
+ri = pt.Renderer(pt.SceneConfig(
+    meshes=(pt.MeshConfig(obj_path="builtin:cube"),),
+    camera=pt.CameraConfig(eye=(0.3, -0.5, -1.5), target=(0.0, 0.0, -6.0)),
+    render=pt.RenderConfig(width=32, height=32, accel="bvh"),
+    instances=pt.InstancesConfig(count=4)), device="cpu")
+ri.set_instance_transforms(grid_transforms(4, z=-6.0, angle=0.3))
+assert bool((ri.render(block=True)[0] == color).all())
 from rust_wgpu_raytracing_tpu_torch.ops import raster
 enc = raster.RasterEncoder(24, 24, device="cpu")
 mesh = raster.RasterMesh("tri", np.array([[-1, -1, 0], [1, -1, 0], [0, 1, 0]],
@@ -148,6 +155,7 @@ def test_no_port_file_imports_jax():
                 "ops/oracle.py", "ops/raygen.py", "ops/intersect.py",
                 "ops/miptex.py", "ops/bvh.py", "models/triangle.py",
                 "ops/instances.py", "ops/raster.py", "runtime/frame_loop.py",
+                "runtime/renderer.py", "config.py",
                 "runtime/limits.py", "runtime/server.py", "runtime/window.py",
                 "io/checkpoint.py", "utils/logging.py",
                 "parallel/__init__.py", "parallel/mesh.py",
