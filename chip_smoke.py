@@ -201,7 +201,11 @@ program on its own, and checks them:
 The kernels line's launches are each kernel's count from the first
 path run of phases 4-7 that uses it, plus its counts on the instanced
 paths of phase 11 and on the slab and gp paths of phase 14 (summed over
-the ranks).
+the ranks). A Renderer's lit frame on a plain scene is captured into a
+CUDA graph at its second frame and replayed after that, and a replay
+launches nothing from the host, so these counts cover the frames the
+host launched: each path's [path] line gives their number beside the
+graph captures and replays.
 
 `python3 chip_smoke.py --multi` runs only phases 1-2 and 14.
 `python3 chip_smoke.py --super-any` runs only phases 1-2 and
@@ -1761,6 +1765,21 @@ def mip_lods(data, uni):
     return lod[torch.isfinite(gb.t)]
 
 
+def host_frames(before, frames):
+    """Of `frames` Renderer frames drawn since the profiler's counters
+    read `before`, those whose kernels the host launched (and the launch
+    counters counted): a replayed frame launches none, its kernels run as
+    the captured graph's nodes, and a capture's own frame is counted
+    once at the capture and once as a replay."""
+    from rust_wgpu_raytracing_tpu_torch.runtime import profiler
+
+    now = profiler.counters()
+    captures, replays = (now.get(k, 0) - before.get(k, 0)
+                         for k in ("frame.graph_captures",
+                                   "frame.graph_replays"))
+    return frames - replays + captures
+
+
 def mip_phase(card, K, Renderer, drive, record, path_launches, say):
     """Phase 9: mip-1080p-heightfield91 through the Renderer (split,
     shadows, normal mapping on and off; WARMUP + FRAMES frames, orbit key
@@ -1775,17 +1794,19 @@ def mip_phase(card, K, Renderer, drive, record, path_launches, say):
     from rust_wgpu_raytracing_tpu_torch.core.camera import Camera
     from rust_wgpu_raytracing_tpu_torch.ops.megakernel import \
         render_megakernel
+    from rust_wgpu_raytracing_tpu_torch.runtime import profiler
 
     plain_k6 = K.KERNELS._replace(texfilter=K.PLAIN.texfilter)
     for nm in (True, False):
         rv = Renderer(mip_config(nm), device="cuda")
         if rv.variant_chosen != "split":
             raise AssertionError("mip must render split")
+        before = profiler.counters()
         times, launches, color, _ = drive(
             f"mip, normal mapping {nm}", rv,
             ("closest_hit", "texfilter", "anyhit"), ("frame", "texshade"))
         path_launches[f"mip_nm{int(nm)}"] = launches
-        per = launches["texfilter"] / (WARMUP + FRAMES)
+        per = launches["texfilter"] / host_frames(before, WARMUP + FRAMES)
         if per != (3 if nm else 2):
             raise AssertionError(f"mip: {per} K6 launches a frame")
         med = times[len(times) // 2]
@@ -3165,8 +3186,11 @@ def main() -> int:
 
     def drive(label, renderer, need, absent=(), frames=FRAMES):
         """Reset the counters, render WARMUP + frames with the orbit key
-        held, read the counters; returns (times, launches, last frame)."""
+        held, read the counters; returns (times, launches, last frame).
+        The launches cover the frames the host launched: the eager ones
+        and a capture, not the replays (printed beside them)."""
         K.reset_launch_counts()
+        before = profiler.counters()
         renderer.controller.process_key("d", True)
         times = []
         for i in range(WARMUP + frames):
@@ -3175,8 +3199,14 @@ def main() -> int:
             if i >= WARMUP:
                 times.append(renderer.last_frame_ms)
         launches = K.launch_counts()
-        say(f"[path] {label}: launches over {WARMUP + frames} frames: "
-            f"{launches}")
+        now = profiler.counters()
+        captures, replays = (now.get(k, 0) - before.get(k, 0)
+                             for k in ("frame.graph_captures",
+                                       "frame.graph_replays"))
+        say(f"[path] {label}: launches over the "
+            f"{WARMUP + frames - replays + captures} of {WARMUP + frames} "
+            f"frames the host launched (graph captures {captures}, "
+            f"replays {replays}): {launches}")
         missing = [k for k in need if launches[k] == 0]
         extra = [k for k in absent if launches[k] != 0]
         if missing or extra:

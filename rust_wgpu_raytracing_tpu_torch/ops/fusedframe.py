@@ -31,16 +31,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..core.camera import CameraUniforms
 from ..core.scene import SceneData
-from ..runtime.profiler import span, wait
+from ..runtime.profiler import span
 from .kernels import KERNELS, KernelSet
 from .kernels.common import TILE_R
-from .megakernel import (_block_boxes, _frame_shape, _mask_words, _mat_const,
-                         _pad1, _vmem_sched, blinn_phong_planar,
-                         gather_packed_taps,
-                         pack_face_columns, pack_origin_cols, perturb_normal,
-                         present_planar, raygen_planar, raygen_planar_tiled,
+from .megakernel import (_block_boxes, _mask_words, _mat_const, _pad1,
+                         _vmem_sched, blinn_phong_planar, frame_rays,
+                         gather_packed_taps, pack_face_columns,
+                         pack_origin_cols, perturb_normal, present_planar,
                          winner_occlusion)
 from .rounding import sqrt
 
@@ -81,14 +79,16 @@ def render_frame_fused(scene: SceneData, uni_flat, *, width: int,
                        quantize: bool = True, accel: str = "cull",
                        normal_mapping: bool = False,
                        shadow_mode: str = "auto", row0=None,
-                       total_height=None, kernels: KernelSet = KERNELS):
+                       total_height=None, kernels: KernelSet = KERNELS,
+                       camera=None):
     """One fused frame (module docstring). Returns (color (H,W,3) f32,
     depth (H,W) f32), bit for bit the JAX package's render_frame_fused
     under the same rounding rules. Normal mapping excludes shadows here
     (the shadow gate needs the perturbed normal): render_megakernel
     sends that case to the split frame. row0/total_height: the row slab
     [row0, row0 + height) of a taller image, in the split frame's ray
-    order (_frame_shape)."""
+    order (_frame_shape). camera: the frame's camera vector on the
+    scene's device, as render_megakernel takes it."""
     if normal_mapping and shadows:
         raise ValueError("the fused frame has no normal mapping with "
                          "shadows; render it with fused=False")
@@ -97,24 +97,9 @@ def render_frame_fused(scene: SceneData, uni_flat, *, width: int,
                          f"{SHADOW_MODES}")
     device = scene.tri_n.device
     with span("frame.raygen"):
-        uni = CameraUniforms.unflat(np.asarray(
-            uni_flat.cpu() if isinstance(uni_flat, torch.Tensor)
-            else uni_flat, np.float32))
-        with wait("uniforms"):
-            origin = torch.as_tensor(uni.origin, dtype=torch.float32,
-                                     device=device)
-
-        shape = _frame_shape(width, height, row0, total_height)
-        if shape is not None:
-            tile_h, tile_w, render_h = shape
-            dx, dy, dz = raygen_planar_tiled(
-                width, render_h, uni, device=device, row0=row0,
-                total_height=total_height or height, tile_h=tile_h,
-                tile_w=tile_w)
-        else:
-            dx, dy, dz = raygen_planar(width, height, uni, device=device,
-                                       row0=row0,
-                                       total_height=total_height)
+        camera, shape, (dx, dy, dz) = frame_rays(
+            uni_flat, camera, width, height, row0, total_height, device)
+        origin = camera[:3]
 
     f = scene.padded_faces
     nb = scene.blk_lo.shape[0]

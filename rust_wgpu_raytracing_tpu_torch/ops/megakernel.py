@@ -72,7 +72,7 @@ from ..core.scene import (GP_C1, GP_C2, GP_G1, GP_G2, GP_INVD, GP_MAT,
                           GP_N, GP_TAN, GP_UN, GP_UV, GP_VN, GPACK_SRC_COLS,
                           SC_DC, STREAM_COLS, STREAM_FACES, SUPER_F,
                           SceneData)
-from ..runtime.profiler import span, wait
+from ..runtime.profiler import span
 from .composite import to_nonlinear_depth
 from .hier_cull import hier_cull_fits, hier_cull_words
 from .rounding import ftz, sqrt
@@ -813,10 +813,52 @@ def _ray_matrix(uni: CameraUniforms):
     return m, m[:, 2] + m[:, 3]
 
 
+CAMERA_LEN = 12  # the frame's camera vector (camera_vector)
+
+
+def camera_vector(uni: CameraUniforms) -> np.ndarray:
+    """The frame's camera as (CAMERA_LEN,) f32 on the host: the origin,
+    then for each axis i the terms _directions takes, M[i, 0], M[i, 1]
+    and the constant column's i-th entry (_ray_matrix)."""
+    m, const = _ray_matrix(uni)
+    rows = np.concatenate([m[:, :2], const[:, None]], axis=1)
+    return np.concatenate([np.asarray(uni.origin, np.float32).reshape(3),
+                           rows.reshape(-1)]).astype(np.float32)
+
+
+def frame_camera(uni_flat, device) -> torch.Tensor:
+    """camera_vector of the (35,) uniforms `uni_flat` on `device`, put
+    there without waiting for the card: on the card through pinned
+    memory, copied without blocking."""
+    uni = CameraUniforms.unflat(np.asarray(
+        uni_flat.cpu() if isinstance(uni_flat, torch.Tensor) else uni_flat,
+        np.float32))
+    vec = torch.from_numpy(camera_vector(uni))
+    if torch.device(device).type == "cuda":
+        return vec.pin_memory().to(device, non_blocking=True)
+    return vec.to(device)
+
+
+def _camera_terms(camera):
+    """(m, const) of _directions: _ray_matrix's on the host for
+    CameraUniforms, or views of a camera vector tensor (camera_vector's
+    layout) whose entries stay on its device."""
+    if isinstance(camera, torch.Tensor):
+        rows = camera[3:CAMERA_LEN].view(3, 3)
+        return rows[:, :2], rows[:, 2]
+    return _ray_matrix(camera)
+
+
+def _term(v):
+    """A host f32 as a Python float; a 0-dim tensor as itself, which
+    rounds each product and sum as the float of the same value does."""
+    return v if isinstance(v, torch.Tensor) else float(v)
+
+
 def _directions(m, const, xr, yr):
-    dx = float(m[0, 0]) * xr + float(m[0, 1]) * yr + float(const[0])
-    dy = float(m[1, 0]) * xr + float(m[1, 1]) * yr + float(const[1])
-    dz = float(m[2, 0]) * xr + float(m[2, 1]) * yr + float(const[2])
+    dx = _term(m[0, 0]) * xr + _term(m[0, 1]) * yr + _term(const[0])
+    dy = _term(m[1, 0]) * xr + _term(m[1, 1]) * yr + _term(const[1])
+    dz = _term(m[2, 0]) * xr + _term(m[2, 1]) * yr + _term(const[2])
     inv_l = 1.0 / sqrt(dx * dx + dy * dy + dz * dz)
     return dx * inv_l, dy * inv_l, dz * inv_l
 
@@ -853,18 +895,19 @@ def ndc_planes(width, rows, total_height, tile_h=None, tile_w=None, *,
     return xr, yr
 
 
-def raygen_planar(width, height, uni: CameraUniforms, *, device,
-                  row0=None, total_height=None):
+def raygen_planar(width, height, camera, *, device, row0=None,
+                  total_height=None):
     """Planar pixelToRay (sphere/compute.wgsl:87-101): returns dx, dy, dz
-    (R,) f32 flat W-major (texel row 0 first). row0/total_height select
-    the row slab [row0, row0 + height) of a taller image."""
-    m, const = _ray_matrix(uni)
-    return _directions(m, const, *ndc_planes(
+    (R,) f32 flat W-major (texel row 0 first). camera: CameraUniforms
+    (the ray matrix as host floats) or a camera vector on `device`
+    (frame_camera; the same rays, read on the device). row0/total_height
+    select the row slab [row0, row0 + height) of a taller image."""
+    return _directions(*_camera_terms(camera), *ndc_planes(
         width, height, total_height or height, device=device, row0=row0))
 
 
-def raygen_planar_tiled(width, height, uni: CameraUniforms, *, device,
-                        row0=None, total_height=None, tile_h: int = 8,
+def raygen_planar_tiled(width, height, camera, *, device, row0=None,
+                        total_height=None, tile_h: int = 8,
                         tile_w: int = 128):
     """raygen_planar with rays ordered by (tile_h x tile_w)-PIXEL SCREEN
     TILES, so each 1024-ray schedule tile is a compact screen block and
@@ -872,8 +915,7 @@ def raygen_planar_tiled(width, height, uni: CameraUniforms, *, device,
     width % tile_w == 0 (render_megakernel pads rows and crops); NDC y
     uses total_height (the true image height) so visible pixels' rays
     equal the untiled ones. Reassemble outputs with tiled_to_image()."""
-    m, const = _ray_matrix(uni)
-    return _directions(m, const, *ndc_planes(
+    return _directions(*_camera_terms(camera), *ndc_planes(
         width, height, total_height or height, tile_h, tile_w,
         device=device, row0=row0))
 
@@ -908,6 +950,24 @@ def _pick_tile_shape(width: int, height: int):
     if choice[2] > 2 * height:
         return None
     return choice
+
+
+def frame_rays(uni_flat, camera, width, height, row0, total_height,
+               device):
+    """Both lit programs' rays: (the camera vector, `camera` or else
+    frame_camera of the host uniforms `uni_flat`; the ray order,
+    _frame_shape's; dx, dy, dz in that order over its rows)."""
+    if camera is None:
+        camera = frame_camera(uni_flat, device)
+    shape = _frame_shape(width, height, row0, total_height)
+    if shape is None:
+        return camera, shape, raygen_planar(
+            width, height, camera, device=device, row0=row0,
+            total_height=total_height)
+    tile_h, tile_w, render_h = shape
+    return camera, shape, raygen_planar_tiled(
+        width, render_h, camera, device=device, row0=row0,
+        total_height=total_height or height, tile_h=tile_h, tile_w=tile_w)
 
 
 def _frame_shape(width: int, height: int, row0, total_height):
@@ -1155,7 +1215,7 @@ def render_megakernel(scene: SceneData, uni_flat, *, width: int, height: int,
                       accel: str = "cull", fused: Optional[bool] = None,
                       mip: bool = False, row0=None, total_height=None,
                       emit_shadow_planes: bool = False,
-                      kernels: KernelSet = KERNELS):
+                      kernels: KernelSet = KERNELS, camera=None):
     """One frame on the scene's device. Returns (color (H,W,3) f32,
     depth (H,W) f32).
 
@@ -1181,7 +1241,13 @@ def render_megakernel(scene: SceneData, uni_flat, *, width: int, height: int,
     "frame.gbuffer", "frame.shade", "frame.shadow" and "frame.present"
     (runtime/profiler.py). A scene without a mesh ignores mip. `kernels`
     selects the kernel implementations (PLAIN composes the frame from
-    the plain PyTorch versions)."""
+    the plain PyTorch versions).
+
+    The frame reads its camera from the device: `camera`, a camera
+    vector on the scene's device (frame_camera), or else the one
+    frame_camera makes of the host uniforms `uni_flat`, which may then be
+    None. Nothing in the frame waits for the card, so a CUDA graph can
+    capture it (runtime/renderer.py)."""
     check_supported(scene, accel=accel)
     eligible = fused_eligible(scene, shadows=shadows,
                               normal_mapping=normal_mapping, mip=mip)
@@ -1201,30 +1267,15 @@ def render_megakernel(scene: SceneData, uni_flat, *, width: int, height: int,
             scene, uni_flat, width=width, height=height, near=near,
             far=far, background=background, shadows=shadows,
             quantize=quantize, accel=accel, normal_mapping=normal_mapping,
-            row0=row0, total_height=total_height, kernels=kernels)
+            row0=row0, total_height=total_height, kernels=kernels,
+            camera=camera)
 
     device = scene.tri_n.device
     with span("frame.raygen"):
-        uni = CameraUniforms.unflat(np.asarray(
-            uni_flat.cpu() if isinstance(uni_flat, torch.Tensor)
-            else uni_flat, np.float32))
-        with wait("uniforms"):
-            origin = torch.as_tensor(uni.origin, dtype=torch.float32,
-                                     device=device)
-
-        shape = _frame_shape(width, height, row0, total_height)
-        if shape is not None:
-            tile_h, tile_w, render_h = shape
-            dx, dy, dz = raygen_planar_tiled(
-                width, render_h, uni, device=device, row0=row0,
-                total_height=total_height or height, tile_h=tile_h,
-                tile_w=tile_w)
-        else:
-            render_h = height
-            dx, dy, dz = raygen_planar(width, height, uni, device=device,
-                                       row0=row0,
-                                       total_height=total_height)
-    r = width * render_h
+        camera, shape, (dx, dy, dz) = frame_rays(
+            uni_flat, camera, width, height, row0, total_height, device)
+        origin = camera[:3]
+    r = dx.shape[0]
 
     def full(v):
         return torch.full((r,), float(np.float32(v)), dtype=torch.float32,

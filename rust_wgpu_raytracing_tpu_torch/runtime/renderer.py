@@ -48,14 +48,29 @@ copy placed by an affine (3, 4) transform. Set-up builds an
 ops/instances.InstancedScene in place of a Scene and refits it once at
 the configured transforms (ops/instances.grid_transforms(N) where none
 are given); set_instance_transforms() stages the next (N, 3, 4)
-transforms on the device through one of two pinned host buffers, without
-waiting for the card, and the next render() refits the soup on the
+transforms on the device from pinned memory, without waiting for the
+card, and the next render() refits the soup on the
 device (span "frame.refit", counter "refits") before it draws, once for
 any number of calls in between. The frame programs, their variant and
 accel checks and backend="oracle" take the refit SceneData as they take
 a built one; path tracing and backend="megakernel_gp" raise ValueError on
 an instanced scene. reset_device() rebuilds the instanced scene and
 refits it at the last transforms.
+
+The lit frame (backend "megakernel", no path tracing) reads its camera
+from the device: render() copies the frame's camera vector
+(ops/megakernel.camera_vector) from pinned memory, without blocking,
+into one device tensor, which the frame program reads. Nothing else in
+the lit frame waits for the card, so on the card the Renderer launches
+a plain scene's lit frame as one CUDA graph: the first frame of a key
+(the size and the variant) runs eagerly, which also fills every lazy
+cache, the next frame with that key captures the frame program into a
+torch.cuda.CUDAGraph (counter "frame.graph_captures") and every later
+one replays it (counter "frame.graph_replays", span "frame.replay").
+An instanced scene is never captured: its refit makes a new SceneData.
+The replayed outputs are copied out of the graph's memory, so every
+frame returned stays as it was. resize() and reset_device() drop the
+graph; the CPU never captures.
 
 The set-up is timed by two spans (runtime/profiler.timed):
 "setup.scene_build" (Scene.build: the OBJ import, the packing and the
@@ -68,6 +83,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -78,8 +94,8 @@ from ..core.controls import CircleCameraController
 from ..core.scene import Scene
 from ..io.image_out import encode_u8_device, write_png
 from ..ops.instances import InstancedScene, grid_transforms
-from ..ops.megakernel import (check_supported, fused_eligible,
-                              render_megakernel)
+from ..ops.megakernel import (CAMERA_LEN, camera_vector, check_supported,
+                              fused_eligible, render_megakernel)
 from ..ops.oracle import render_oracle
 from ..ops.pathtrace import PRNGKey, fold_in, render_pathtrace
 from . import profiler
@@ -116,6 +132,16 @@ def check_instances(config: SceneConfig, backend: str) -> None:
     if backend == "megakernel_gp":
         raise ValueError("an instanced scene is not geometry-sharded: "
                          "backend 'megakernel_gp' shards a built scene")
+
+
+@dataclasses.dataclass
+class _FrameGraph:
+    """A captured lit frame: its key (width, height, variant) and the
+    frame's outputs in the graph's memory."""
+
+    key: tuple
+    graph: "torch.cuda.CUDAGraph"
+    outs: tuple
 
 
 class Renderer:
@@ -156,6 +182,11 @@ class Renderer:
                 raise ValueError("variant='fused' needs a frame without "
                                  "mip and without normal mapping with "
                                  "shadows; use 'split' or 'auto'")
+        # the lit frame: its camera comes from the device (module docstring)
+        self._lit = not self.pathtrace and self.backend == "megakernel"
+        self._graph: Optional[_FrameGraph] = None
+        self._drawn = None  # the key of the last frame drawn eagerly
+        self._make_camera()
         inst = config.instances
         self._instanced = None  # the InstancedScene of an instanced scene
         self._stale = False  # staged transforms not yet refit
@@ -212,41 +243,40 @@ class Renderer:
         self._stale = True
 
     def _upload_instances(self, transforms) -> None:
-        """Make the staging (on the card two pinned host buffers, each
-        with the event of the last copy out of it), stage `transforms`
-        and refit the soup at them: the set-up's and reset_device's."""
-        self._slot = 0
-        self._pinned = []
-        if self.device.type == "cuda":
-            shape = (self._instanced.n_instances, 3, 4)
-            self._pinned = [(torch.empty(shape, dtype=torch.float32,
-                                         pin_memory=True), torch.cuda.Event())
-                            for _ in range(2)]
+        """Stage `transforms` and refit the soup at them: the set-up's and
+        reset_device's."""
         self._stage(transforms)
         self.data = self._instanced.instantiate(self._staged)
         self._stale = False
 
     def _stage(self, transforms) -> None:
         """Check the shape, keep a host copy and put the transforms on the
-        device. On the card: written into the pinned buffer whose last
-        copy is oldest, then copied without blocking; the host waits (the
-        wait "transforms") only if that copy has not run yet."""
+        device: on the card from pinned memory, without blocking (the
+        caching host allocator keeps the pinned block until its copy has
+        run)."""
         t = np.array(transforms, dtype=np.float32)
         want = (self._instanced.n_instances, 3, 4)
         if t.shape != want:
             raise ValueError(f"transforms: shape {t.shape}, expected {want}")
         self._transforms = t
-        if not self._pinned:
-            self._staged = torch.from_numpy(t).to(self.device)
-            return
-        self._slot ^= 1
-        buf, copied = self._pinned[self._slot]
-        if not copied.query():
-            with profiler.wait("transforms"):
-                copied.synchronize()
-        buf.numpy()[...] = t
-        self._staged = buf.to(self.device, non_blocking=True)
-        copied.record()
+        host = torch.from_numpy(t)
+        if self.device.type == "cuda":
+            host = host.pin_memory()
+        self._staged = host.to(self.device, non_blocking=True)
+
+    def _make_camera(self) -> None:
+        """The device tensor a captured lit frame reads its camera from."""
+        self._camera = None
+        if self._lit and self.device.type == "cuda":
+            self._camera = torch.zeros(CAMERA_LEN, dtype=torch.float32,
+                                       device=self.device)
+
+    def _stage_camera(self, uni) -> torch.Tensor:
+        """The frame's camera vector on the device (module docstring)."""
+        vec = torch.from_numpy(camera_vector(uni))
+        if self._camera is None:
+            return vec
+        return self._camera.copy_(vec.pin_memory(), non_blocking=True)
 
     def _refit(self) -> None:
         with profiler.span("frame.refit"):
@@ -272,7 +302,7 @@ class Renderer:
             return backend
         raise ValueError(f"unknown backend {backend!r}")
 
-    def _frame(self, uni, variant=None):
+    def _frame(self, uni, variant=None, camera=None):
         rc = self.config.render
         if self.pathtrace:
             return self._pathtrace_frame(uni)
@@ -300,7 +330,41 @@ class Renderer:
             quantize=rc.quantize_rgba8,
             normal_mapping=self._normal_mapping,
             accel=rc.accel, fused=(variant or self.variant_chosen) == "fused",
-            mip=rc.mip)
+            mip=rc.mip, camera=camera)
+
+    def _draw(self, uni, camera):
+        """The frame: on the card a plain scene's lit frame runs eagerly,
+        is captured or is replayed (module docstring); the rest runs
+        eagerly."""
+        if not self._lit or self._instanced is not None \
+                or self.device.type != "cuda":
+            return self._frame(uni, camera=camera)
+        key = (self.width, self.height, self.variant_chosen)
+        g = self._graph
+        if g is None or g.key != key:
+            drawn, self._drawn = self._drawn, key
+            if drawn != key:
+                self._graph = None
+                return self._frame(uni, camera=camera)
+            g = self._graph = self._capture(key, uni, camera)
+        profiler.count("frame.graph_replays")
+        with profiler.span("frame.replay"):
+            g.graph.replay()
+            return tuple(t.clone() for t in g.outs)
+
+    def _capture(self, key, uni, camera) -> _FrameGraph:
+        """Capture the frame program, reading `camera`, in a CUDA graph
+        on a stream of its own (nothing runs until the replay)."""
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.device(self.device), torch.cuda.graph(
+                graph, stream=torch.cuda.Stream(self.device)):
+            outs = self._frame(uni, camera=camera)
+        profiler.count("frame.graph_captures")
+        return _FrameGraph(key, graph, tuple(outs))
+
+    def _drop_graph(self) -> None:
+        self._graph = None
+        self._drawn = None
 
     def _pathtrace_frame(self, uni):
         """One progressive sample (JAX runtime/renderer.py PT frame):
@@ -342,11 +406,12 @@ class Renderer:
             fn()
         return (time.perf_counter() - t0) * 1e3 / n
 
-    def _autotune(self, uni) -> None:
+    def _autotune(self, uni, camera) -> None:
         """variant="auto": time split and fused on this frame, keep the
         faster."""
         self.variant_ms = {
-            name: self._time_frames(lambda name=name: self._frame(uni, name))
+            name: self._time_frames(
+                lambda name=name: self._frame(uni, name, camera))
             for name in ("split", "fused")}
         self.variant_chosen = min(self.variant_ms, key=self.variant_ms.get)
 
@@ -369,22 +434,23 @@ class Renderer:
         instanced scene with new transforms is refit first."""
         if self._stale:
             self._refit()
-        uni = self.camera.uniforms().flat()
-        if self.variant_chosen is None and not self.pathtrace and \
-                self.backend == "megakernel":
-            self._autotune(uni)
+        cam = self.camera.uniforms()
+        uni = cam.flat()
+        camera = self._stage_camera(cam) if self._lit else None
+        if self.variant_chosen is None and self._lit:
+            self._autotune(uni, camera)
         if self.device.type == "cuda":
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
-            color, depth = self._frame(uni)
+            color, depth = self._draw(uni, camera)
             end.record()
             self._events = (start, end)
             if block:
                 torch.cuda.synchronize(self.device)
         else:
             t0 = time.perf_counter()
-            color, depth = self._frame(uni)
+            color, depth = self._draw(uni, camera)
             self._events = None
             self._last_frame_ms = (time.perf_counter() - t0) * 1e3
         self.frame_count += 1
@@ -412,9 +478,9 @@ class Renderer:
             self.config, render=dataclasses.replace(
                 self.config.render, width=width, height=height))
         self._reset_accumulation()
+        self._drop_graph()
         rc = self.config.render
-        if not self.pathtrace and self.backend == "megakernel" and \
-                rc.variant == "auto" and self._fused_eligible():
+        if self._lit and rc.variant == "auto" and self._fused_eligible():
             # as JAX's _build_frame_fn: the next render re-times both
             # programs at the new size
             self.variant_chosen = None
@@ -458,11 +524,14 @@ class Renderer:
         """Rebuild the Renderer's device state: wait for the card, free
         its cached blocks and upload the scene anew, or rebuild an
         instanced scene and refit it at the last transforms (FrameLoop's
-        recovery from a lost device, followed by a resize). Raises where
-        the card is still unusable."""
+        recovery from a lost device, followed by a resize); drop the
+        frame's graph and make its camera tensor anew. Raises where the
+        card is still unusable."""
+        self._drop_graph()
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
             torch.cuda.empty_cache()
+        self._make_camera()
         if self._instanced is not None:
             self._instanced = InstancedScene.from_config(
                 self.config.meshes[0], self._instanced.n_instances,

@@ -12,10 +12,12 @@ off: the callers take their Python/NumPy path and give the same arrays.
 The tests skip only where g++ is absent.
 """
 
+import fcntl
 import os
 import shutil
 import subprocess
 import sys
+import time
 
 import numpy as np
 import pytest
@@ -29,6 +31,30 @@ from test_torch_host import REPO, port_config, terrain_config
 TREE_FIELDS = ("left", "right", "parent", "node_lo", "node_hi")
 
 
+def whole_jax_native(native) -> None:
+    """Build the JAX package's native library with its own make, under a
+    file lock, and wait until it loads. That make writes the library in
+    place, so where pytest workers start together one of them can load
+    the file while another is still writing it; its loader then gives up
+    for good in that process, so it is let try again here."""
+    if shutil.which("make") is None:
+        return
+    lock_dir = REPO / "build"
+    lock_dir.mkdir(exist_ok=True)
+    load = "import ctypes, sys; ctypes.CDLL(sys.argv[1])"
+    with open(lock_dir / ".jax_native.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        for _ in range(60):
+            subprocess.run(["make", "-C", os.path.dirname(native._LIB_PATH),
+                            "-s"], capture_output=True, timeout=300)
+            if subprocess.run([sys.executable, "-c", load, native._LIB_PATH],
+                              capture_output=True).returncode == 0:
+                break
+            time.sleep(1)
+    if native._lib is None:
+        native._tried = False
+
+
 @pytest.fixture(scope="module")
 def jnat():
     """The JAX package's native bindings, its library available."""
@@ -36,6 +62,7 @@ def jnat():
         pytest.skip("g++ absent: no native library to build")
     from rust_wgpu_raytracing_tpu import native
 
+    whole_jax_native(native)
     assert native.available()
     return native
 

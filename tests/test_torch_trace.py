@@ -192,10 +192,10 @@ def scene(program, **render_kw):
 
 
 STEP = ["step", "update", "present.encode", "render"]
-FUSED = ["frame.raygen", "uniforms.wait", "frame.gbuffer", "frame.shadow",
-         "frame.shade", "frame.present"]
-SPLIT = ["frame.raygen", "uniforms.wait", "frame.gbuffer", "frame.shade",
-         "frame.shadow", "frame.present"]
+FUSED = ["frame.raygen", "frame.gbuffer", "frame.shadow", "frame.shade",
+         "frame.present"]
+SPLIT = ["frame.raygen", "frame.gbuffer", "frame.shade", "frame.shadow",
+         "frame.present"]
 PT = ["uniforms.wait", "background.wait", "pt.raygen", "pt.primary",
       "pt.bounce", "pt.bounce", "pt.bounce", "pt.accumulate"]
 CASES = {
@@ -233,8 +233,7 @@ def test_renderer_records_its_phases_in_order(program):
         render = next(i for i, s in enumerate(spans)
                       if s.step == step and s.name == "render")
         inside = [s.name for s in spans if s.parent == render]
-        assert inside == [p for p in phases if p != "uniforms.wait"
-                          or program == "pathtrace"]
+        assert inside == phases
     if program == "pathtrace":
         bounces = [s.attrs["bounce"] for s in spans
                    if s.step == 1 and s.name == "pt.bounce"]
