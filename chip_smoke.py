@@ -1103,9 +1103,10 @@ def raycull_phase(record, check, say):
     origin and a camera on a face's plane), the arguments from the port's
     own glue on the card (gbuffer and anyhit_rays on the all-on-chip
     sweeps and forced onto the streamed ones, extend_shadow_rays,
-    gbuffer_perray on both sweeps, raycull.frame_args: K4 in all four modes on the
-    meshes with the reference's spheres and a grazing light); every
-    output equal, with the boxes and without. Then the hazard of a zero
+    gbuffer_perray on both sweeps, fusedframe.frame_args: K4 in all four
+    modes on the meshes with the reference's spheres and a grazing
+    light); every output equal, with the boxes and without. Then the
+    hazard of a zero
     t: the split frame from a camera on a face's plane
     (raycull.plane_camera_config; also forced onto the streamed sweeps on
     the 32-face mesh) and the fused frame in both shadow modes through
@@ -1120,11 +1121,11 @@ def raycull_phase(record, check, say):
     from rust_wgpu_raytracing_tpu_torch.ops import kernels as K
     from rust_wgpu_raytracing_tpu_torch.ops import megakernel as MK
     from rust_wgpu_raytracing_tpu_torch.config import reference_scene
-    from rust_wgpu_raytracing_tpu_torch.ops.fusedframe import \
-        render_frame_fused
+    from rust_wgpu_raytracing_tpu_torch.ops.fusedframe import (
+        frame_args, render_frame_fused)
     from rust_wgpu_raytracing_tpu_torch.testing.raycull import (
         ADVERSARIAL_KINDS, CAMERA_KINDS, adversarial_camera,
-        adversarial_rays, frame_args, plane_camera_config, write_grid_mesh)
+        adversarial_rays, plane_camera_config, write_grid_mesh)
 
     root = tempfile.mkdtemp(prefix="rt_cull_")
     before = os.environ.get("RWRT_ASSETS")
@@ -1184,7 +1185,8 @@ def raycull_phase(record, check, say):
                              adversarial_camera(kind, cells, lit.blk_lo,
                                                 lit.blk_hi, 1300 + seed))
                 for mode in ("none", "sched", "nm", "inkernel"):
-                    args, kw = frame_args(lit, origin, d, mode)
+                    args, kw = frame_args(lit, origin, *d)
+                    kw["mode"] = mode
                     check(view, "frame", args, kw)
                     check(view, "frame", args[:BOX_ARG["frame"]], kw,
                           " (no boxes)")
@@ -1997,9 +1999,8 @@ def lbvh_phase(card, data, say):
         o = torch.tensor(u.origin, dtype=torch.float32, device="cuda")
         f = d.padded_faces
         nb = d.blk_lo.shape[0]
-        flat, nwords = _mask_words(d, "cull", o[0], o[1], o[2], dx, dy, dz,
-                                   1024, f // nb, f)
         bounds = tile_ray_bounds(o[0], o[1], o[2], dx, dy, dz, 1024)
+        flat, nwords = _mask_words(d, "cull", bounds, f // nb)
         bvh_walk_mask_words(d.bvh_pack, d.bvh_nodes, *bounds, nwords)
         torch.cuda.synchronize()
         start = torch.cuda.Event(enable_timing=True)

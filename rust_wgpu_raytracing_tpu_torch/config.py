@@ -117,14 +117,17 @@ class RenderConfig:
     # textureSampleGrad(..., 0, 0) (triangle_list/compute.wgsl:225), so
     # parity rendering must too. See ops/miptex.py.
     mip: bool = False
-    # Frame-program variant (megakernel backend): "split" = Pallas
-    # closest-hit sweep + XLA shade + Pallas shadow any-hit; "fused" =
-    # the whole geometric frame in ONE Pallas kernel (ops/fusedframe.py;
-    # needs a VMEM-resident mesh, no normal mapping / mip). Both are
-    # bit-identical (tested) — "auto" (the default) times each over a
-    # few frames on first render and locks the faster one for this
-    # device/scene (round-4 on-chip: fused wins 16.6 vs 57.1 ms at the
-    # dense 1080p view; ineligible scenes fall back to split).
+    # Frame-program variant (megakernel backend): "split" = the
+    # closest-hit sweep (K1, or K9 streamed), the PyTorch shade with the
+    # texture kernel (K2) and the shadow any-hit sweep (K3 or K11);
+    # "fused" = the sweep, the spheres, the shading factors and the
+    # composite in one frame kernel (K4, ops/fusedframe.py; needs a mesh
+    # of at most STREAM_FACES faces, not normal mapping with shadows, no
+    # mip). Both draw the same quantized frame (tested). "auto" (the
+    # default) takes split where the fused frame is not eligible and
+    # otherwise times both at the first render, eagerly (1 warm-up, then
+    # 8 frames each), and keeps the faster, though later frames replay
+    # as a CUDA graph on the card (runtime/renderer.py).
     variant: str = "auto"
     # Path tracing (BASELINE config 4): 0 = off (Blinn-Phong primary rays).
     pt_bounces: int = 0

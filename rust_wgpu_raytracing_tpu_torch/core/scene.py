@@ -74,7 +74,7 @@ STREAM_FACES = 16384
 
 # Streaming record layout, one 128-column f32 row per face (the JAX
 # package's, kept so the record carries across as it is):
-#   0-39   the static per-face columns (ops/megakernel.py pack_face_columns)
+#   0-39   the static per-face columns (ops/scenepacks.py pack_face_columns)
 #   40-43  [d, c0, c1, c2] plane constants (per-ray-origin sweeps)
 #   48-55  reserved for the shared-origin terms (the port's sweep reads
 #          them from the per-frame (F, 8) origin-term tensor instead)
@@ -263,7 +263,7 @@ class SceneData:
     gpack: torch.Tensor
 
     # (F, STREAM_COLS) f32 streaming record past STREAM_FACES faces,
-    # (0, STREAM_COLS) otherwise (ops/megakernel.py _stream_pack)
+    # (0, STREAM_COLS) otherwise (ops/scenepacks.py stream_pack)
     spack: torch.Tensor
 
     num_faces: int = 0

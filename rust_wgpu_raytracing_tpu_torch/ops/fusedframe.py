@@ -5,8 +5,8 @@ frame render_megakernel draws by default on an eligible scene (a mesh
 of at most STREAM_FACES faces, and not normal mapping with shadows).
 The frame kernel (kernels.frame, K4) runs the closest-hit sweep, the
 winner's shading attributes, the sphere passes, the Blinn-Phong
-factors and the composite in one launch; it gets the face blocks'
-boxes (_block_boxes: the cluster AABBs), which it tests per ray. The
+factors and the composite in one launch, on the arguments frame_args
+makes (the blocks' boxes it tests per ray are the cluster AABBs). The
 tail traces the winner shadow wavefront with the scheduled any-hit
 kernel (K3, shadow_mode "sched"), perturbs the normal through the bump
 sample (K6, normal mapping), gathers the texels once and shades them
@@ -34,43 +34,25 @@ import torch
 from ..core.scene import SceneData
 from ..runtime.profiler import span
 from .kernels import KERNELS, KernelSet
-from .kernels.common import TILE_R
-from .megakernel import (_block_boxes, _mask_words, _mat_const, _pad1,
-                         _vmem_sched, blinn_phong_planar, frame_rays,
-                         gather_packed_taps, pack_face_columns,
-                         pack_origin_cols, perturb_normal, present_planar,
-                         winner_occlusion)
-from .rounding import sqrt
+from .megakernel import (_mat_const, blinn_phong_planar, frame_rays,
+                         gather_packed_taps, pack_origin_cols, perturb_normal,
+                         present_planar, sweep_inputs, winner_occlusion)
+from .scenepacks import frame_const, pack_face_columns, pack_plane_consts
 
-F32_INF = float("inf")
 SHADOW_MODES = ("auto", "sched", "inkernel")
 
 
-def frame_const(scene: SceneData, origin: torch.Tensor) -> torch.Tensor:
-    """The frame kernel's const vector (kernels/frame.py docstring):
-    origin, root AABB, 13 floats per sphere, the material lights, the
-    cluster AABBs (empty clusters +inf / -inf) and the static
-    near-to-far cluster order along material 0's light, as floats. The
-    order only decides how early the in-kernel shadow loop meets
-    occluders: any order gives the same frame."""
-    finite = torch.isfinite(scene.blk_lo) & torch.isfinite(scene.blk_hi)
-    blo = torch.where(finite, scene.blk_lo, F32_INF)
-    bhi = torch.where(finite, scene.blk_hi, -F32_INF)
-    parts = [origin.reshape(3), blo.amin(dim=0), bhi.amax(dim=0)]
-    if scene.num_spheres:
-        parts.append(torch.cat(
-            [scene.sphere_center, scene.sphere_radius[:, None],
-             scene.sphere_color, scene.sphere_coeff, scene.sphere_light],
-            dim=1).reshape(-1))
-    parts.append(scene.mat_light.reshape(-1))
-    parts.append(torch.cat([blo, bhi], dim=1).reshape(-1))
-    ld = scene.mat_light[0]
-    ln = sqrt((ld * ld).sum())
-    sdir = -ld / torch.where(ln > 0, ln, 1.0)
-    proj = ((blo + bhi) * 0.5 * sdir[None, :]).sum(dim=1)
-    proj = torch.where(torch.isfinite(proj), proj, F32_INF)  # empty last
-    parts.append(torch.argsort(proj, stable=True).to(torch.float32))
-    return torch.cat(parts).contiguous()
+def frame_args(scene: SceneData, origin, dx, dy, dz, *, accel: str = "cull",
+               kernels: KernelSet = KERNELS):
+    """(args, kw): the frame kernel's arguments, but near, far and mode,
+    for the shared-origin rays dx, dy, dz from `origin` (3,)."""
+    rs = sweep_inputs(scene, origin, dx, dy, dz, accel=accel, stream=False,
+                      kernels=kernels)
+    args = [*rs.sched, frame_const(scene, origin), *rs.planes, rs.texit,
+            pack_face_columns(scene), pack_origin_cols(scene, origin),
+            pack_plane_consts(scene), *rs.boxes]
+    return args, dict(ns=scene.num_spheres, nmat=scene.mat_ambient.shape[0],
+                      block_f=rs.block_f)
 
 
 def render_frame_fused(scene: SceneData, uni_flat, *, width: int,
@@ -101,11 +83,7 @@ def render_frame_fused(scene: SceneData, uni_flat, *, width: int,
             uni_flat, camera, width, height, row0, total_height, device)
         origin = camera[:3]
 
-    f = scene.padded_faces
-    nb = scene.blk_lo.shape[0]
-    block_f = f // nb
     ns = scene.num_spheres
-    nmat = scene.mat_ambient.shape[0]
     nrays = dx.shape[0]
     use_sched = shadows and shadow_mode != "inkernel"
     if normal_mapping:
@@ -115,22 +93,9 @@ def render_frame_fused(scene: SceneData, uni_flat, *, width: int,
     else:
         mode = "sched" if use_sched else "inkernel"
     with span("frame.gbuffer"):
-        dxp, dyp, dzp = (_pad1(v, TILE_R) for v in (dx, dy, dz))
-        fpack = pack_face_columns(scene)
-        oterm = pack_origin_cols(scene, origin)
-        dc = torch.cat([scene.tri_d[:, None], scene.tri_c,
-                        torch.zeros((f, 4), dtype=torch.float32,
-                                    device=device)], dim=1)
-        o = (origin[0], origin[1], origin[2])
-        mask, nwords = _mask_words(scene, accel, *o, dxp, dyp, dzp, TILE_R,
-                                   block_f, f, kernels=kernels)
-        tlb, order, texit = _vmem_sched(scene, mask, nwords, *o, dxp, dyp,
-                                        dzp, TILE_R, f, block_f)
-        outs = kernels.frame(tlb, order, frame_const(scene, origin), dxp,
-                             dyp, dzp, texit, fpack, oterm, dc,
-                             *_block_boxes(scene, f, block_f), ns=ns,
-                             nmat=nmat, block_f=block_f, near=near, far=far,
-                             mode=mode)
+        args, kw = frame_args(scene, origin, dx, dy, dz, accel=accel,
+                              kernels=kernels)
+        outs = kernels.frame(*args, **kw, near=near, far=far, mode=mode)
         outs = [p[:nrays] for p in outs]
     depth, kind, occ, uvx, uvy, mat, lam, spec = outs[:8]
 

@@ -49,6 +49,7 @@ from ..core.scene import (CULL_BLOCK, FACE_PAD, STREAM_COLS, STREAM_FACES,
 from .intersect import _dot3
 from .megakernel import _f32
 from .rounding import sqrt
+from .scenepacks import gpack_from_stream, pack_stream_columns
 
 F32_INF = float("inf")
 
@@ -267,8 +268,6 @@ class InstancedScene:
         # the template's records describe the untransformed mesh: rebuild
         # them from the refit columns, once a frame, so that every kernel
         # of the frame shares them
-        from .megakernel import gpack_from_stream, pack_stream_columns
-
         sp = pack_stream_columns(sd)
         if build_spack:
             return dataclasses.replace(sd, spack=sp,

@@ -12,13 +12,15 @@ extend_shadow_pallas, `anyhit_rays` for anyhit_pallas,
 LBVH-cut cull of accel="bvh", ops/hier_cull.py). Everything per ray is
 planar: separate (R,) tensors per component, rays ordered by 32x32
 screen tiles so that each 1024-ray schedule tile is a compact screen
-block.
+block. Every culled sweep takes its ray set's padded planes, mask words
+and schedule from one front end, sweep_inputs, and the scene's constant
+tensors from ops/scenepacks.py.
 
 Meshes above STREAM_FACES faces take the streamed branch of gbuffer,
 gbuffer_perray and anyhit_rays (stream=None decides as JAX's
 _should_stream does): rays pad to batches of STREAM_BATCH tiles, the
 mask words cover one 1024-face superblock each, and the sweep kernels
-K9-K11 walk each batch's words front to back (_stream_sched). The
+K9-K11 walk each batch's words front to back (_stream_inputs). The
 shadow wavefronts of such scenes are re-tiled by origin Morton code
 (anyhit_reordered), and the path tracer's bounce wavefront by origin
 Morton code and direction octant (_bounce_sort_perm) before its
@@ -38,12 +40,6 @@ results flushed to zero as XLA and the TPU flush them (rounding.ftz).
 Memory: JAX fuses the flat scan into one XLA loop; here its (tiles,
 clusters, 3) temporaries would take GBs at 1080p past 500k faces, so
 _mask_words scans a chunk of tiles at a time (the words are the same).
-
-Stale tables: a scene whose streaming record or winner-attribute table
-does not cover its faces (a refit whose records were not rebuilt) gets
-them rebuilt from its tensors (_stream_pack, _gpack_stream), in one
-shot: JAX chunks the record build only for the TPU's (8, 128) tiles
-(pack_stream_columns_chunked), which the card does not need.
 
 mip=True (RenderConfig.mip) shades the split frame's mesh pass from the
 texture pyramid (ops/miptex.py): a ray-cone LOD and two taps of the
@@ -69,15 +65,17 @@ import torch
 
 from ..core.camera import CameraUniforms
 from ..core.scene import (GP_C1, GP_C2, GP_G1, GP_G2, GP_INVD, GP_MAT,
-                          GP_N, GP_TAN, GP_UN, GP_UV, GP_VN, GPACK_SRC_COLS,
-                          SC_DC, STREAM_COLS, STREAM_FACES, SUPER_F,
-                          SceneData)
+                          GP_N, GP_TAN, GP_UN, GP_UV, GP_VN, STREAM_FACES,
+                          SUPER_F, SceneData)
 from ..runtime.profiler import span
 from .composite import to_nonlinear_depth
 from .hier_cull import hier_cull_fits, hier_cull_words
 from .rounding import ftz, sqrt
 from .kernels import KERNELS, KernelSet
 from .kernels.common import TILE_R
+from .scenepacks import (block_boxes, cluster_boxes, pack_face_columns,
+                         pack_plane_consts, stream_pack, super_boxes,
+                         winner_table)
 from .shade import quantize_rgba8
 from .traverse import (ray_root_exit, slab_interval_entry, slab_interval_ok,
                        tile_ray_bounds)
@@ -129,30 +127,6 @@ class GBuffer(NamedTuple):
     bz: Optional[torch.Tensor] = None
 
 
-def pack_face_columns(scene: SceneData) -> torch.Tensor:
-    """(F, 40) f32 per-face static pack, the JAX kernels' layout. The
-    sweep kernels read columns 0-11 (N and the edge planes g0-g2)."""
-    f = scene.tri_p0.shape[0]
-    n = scene.tri_n
-    nlen = sqrt(n[:, 0:1] * n[:, 0:1] + n[:, 1:2] * n[:, 1:2]
-                      + n[:, 2:3] * n[:, 2:3])
-    un = torch.where(nlen > 0, n / torch.where(nlen > 0, nlen, 1.0), 0.0)
-    cols = [
-        n,  # 0-2
-        scene.tri_g.reshape(f, 9),  # 3-11
-        scene.tri_inv_denom[:, None],  # 12
-        un,  # 13-15
-        scene.tri_uv.reshape(f, 6),  # 16-21
-        scene.tri_mat.to(torch.float32)[:, None],  # 22
-        scene.tri_orig.to(torch.float32)[:, None],  # 23
-        scene.tri_tangent,  # 24-26
-        scene.tri_bitangent,  # 27-29
-        scene.tri_vn.reshape(f, 9),  # 30-38
-        torch.zeros((f, 1), dtype=torch.float32, device=n.device),  # 39 pad
-    ]
-    return torch.cat(cols, dim=1)
-
-
 def pack_origin_cols(scene: SceneData, origin: torch.Tensor) -> torch.Tensor:
     """(F, 8) f32 per-frame origin terms for shared-origin rays:
     cols [t_num, hc0, hc1, hc2, 0...] with t_num = -(N.O + d),
@@ -173,16 +147,16 @@ def expand_tf_gbuffer(scene: SceneData, t, face, dx, dy, dz,
                       oterm=None, with_nm: bool = False,
                       oxyz=None) -> GBuffer:
     """Resolve the G-buffer from the sweep's (t, face): ONE gather of the
-    winner faces' gpack columns (_gpack_stream: the scene's table, or
-    one derived from the streaming record where it is stale), then
-    h1/h2/ndotd and the shading attributes recomputed with the kernels'
-    own expressions on the winner's values. Shared-origin rays pass the frame's exact
-    origin-term floats `oterm`; per-ray-origin rays (bounces) pass
-    oxyz=(ox, oy, oz), and the origin terms are recomputed per ray as
-    the per-ray sweep computes them. with_nm adds the interpolated
-    vertex normal and the face's tangent frame. Miss rays (t == inf)
-    zero every attribute."""
-    gp = _gpack_stream(scene)
+    winner faces' gpack columns (scenepacks.winner_table: the scene's
+    table, or one derived from the streaming record where it is stale),
+    then h1/h2/ndotd and the shading attributes recomputed with the
+    kernels' own expressions on the winner's values. Shared-origin rays
+    pass the frame's exact origin-term floats `oterm`; per-ray-origin
+    rays (bounces) pass oxyz=(ox, oy, oz), and the origin terms are
+    recomputed per ray as the per-ray sweep computes them. with_nm adds
+    the interpolated vertex normal and the face's tangent frame. Miss
+    rays (t == inf) zero every attribute."""
+    gp = winner_table(scene)
     idx = face.clamp(0, gp.shape[1] - 1).long()
     a = gp.index_select(1, idx)  # (GPACK_ROWS, R)
     hit = torch.isfinite(t)
@@ -262,22 +236,21 @@ def _pack_mask_bits(mask):
     return words.to(torch.int32).reshape(-1), nw
 
 
-def _vmem_sched(scene: SceneData, mask, nwords: int, ox, oy, oz,
-                dx, dy, dz, tile_r: int, f: int, block_f: int, act=None):
-    """Front-to-back schedule for the sweep kernels.
+def _vmem_sched(scene: SceneData, mask, nwords: int, bounds, ox, oy, oz,
+                dx, dy, dz, block_f: int):
+    """Front-to-back schedule for the sweep kernels from the tiles' ray
+    bounds (tile_ray_bounds; JAX _vmem_sched computes them itself).
 
     Returns (tlb (T, nb) f32, order (T, nb) i32, texit (R,) f32):
     per-(tile, face-block) conservative entry-t lower bounds (+inf where
     the accel mask culls the block), the per-tile visit order ascending
     in entry t (a stable sort, as jnp.argsort is), and the per-ray
     root-exit cap. (The JAX version returns tlb/order as (T, 1, nb).)"""
+    f = scene.padded_faces
     nb = f // block_f
-    n_tiles = dx.shape[0] // tile_r
-    omin, omax, dmin, dmax = tile_ray_bounds(ox, oy, oz, dx, dy, dz,
-                                             tile_r, act)
-    finite = torch.isfinite(scene.blk_lo) & torch.isfinite(scene.blk_hi)
-    blo = torch.where(finite, scene.blk_lo, F32_INF)
-    bhi = torch.where(finite, scene.blk_hi, -F32_INF)
+    omin, omax, dmin, dmax = bounds
+    n_tiles = omin.shape[0]
+    blo, bhi, lo, hi = cluster_boxes(scene)
     a = blo[None, :, :] - omax[:, None, :]
     b = bhi[None, :, :] - omin[:, None, :]
     _, t0 = slab_interval_entry(a, b, dmin[:, None, :], dmax[:, None, :])
@@ -294,8 +267,6 @@ def _vmem_sched(scene: SceneData, mask, nwords: int, ox, oy, oz,
     tlb = torch.where(bits != 0, t0, F32_INF)
     order = torch.argsort(tlb, dim=1, stable=True).to(torch.int32)
 
-    lo = blo.amin(dim=0)
-    hi = bhi.amax(dim=0)
     texit = ray_root_exit(lo, hi, ox, oy, oz, dx, dy, dz)
     live = (dx != 0.0) | (dy != 0.0) | (dz != 0.0)
     texit = torch.where(live, texit, -1.0)
@@ -309,19 +280,6 @@ def _natural_block_f(scene: SceneData, f: int) -> int:
     if nbc and f % nbc == 0:
         return max(1, f // nbc)
     return min(BLOCK_F, f)
-
-
-def _block_boxes(scene: SceneData, f: int, block_f: int):
-    """(lo, hi) (f // block_f, 3) f32: each face block's box, the union
-    of the cluster AABBs it holds (a block holds whole clusters: K8's
-    blocks are the clusters, the streamed sweeps' 32-face blocks hold one
-    cluster or four 8-face ones), for the per-ray culling of K1, K3 and
-    K8-K11."""
-    k = block_f * scene.blk_lo.shape[0] // f  # clusters per block
-    if k == 1:
-        return scene.blk_lo, scene.blk_hi
-    return (scene.blk_lo.reshape(-1, k, 3).amin(dim=1),
-            scene.blk_hi.reshape(-1, k, 3).amax(dim=1))
 
 
 def _cull_mask(scene: SceneData, omin, omax, dmin, dmax):
@@ -339,172 +297,61 @@ def _should_stream(f: int, block_f: int) -> bool:
     return f > STREAM_FACES and f % SUPER_F == 0 and block_f == BLOCK_F
 
 
-def _stream_setup(scene: SceneData, stream: Optional[bool]):
-    """(stream, block_f) of a sweep (JAX's prologue of gbuffer_pallas and
-    co.): stream=None decides by _should_stream; a streamed sweep works
-    in 32-face blocks, so a fine-cluster scene forced onto it regroups
-    its mask to 32 faces."""
-    f = scene.padded_faces
-    block_f = _natural_block_f(scene, f)
-    if stream is None:
-        stream = _should_stream(f, block_f)
-    if stream and block_f != BLOCK_F:
-        if f % BLOCK_F:
-            raise ValueError(f"{f} faces: the streamed sweep needs whole "
-                             f"{BLOCK_F}-face blocks")
-        block_f = BLOCK_F
-    return stream, block_f
+def _stream_inputs(scene: SceneData, mask, nwords: int, bounds, ox, oy, oz,
+                   dx, dy, dz):
+    """The streamed sweeps' schedule over padded rays from the tiles' ray
+    bounds (JAX _stream_mask_spec's data and _stream_sched): mask3 (NB,
+    nsub+1, S) each batch's subtile mask rows, row nsub their union;
+    order2 (NB, S) the batch's words by tlb3's row nsub (stable, as
+    jnp.argsort); tlb3 (NB, nsub+1, S) per-(subtile, word) entry-t lower
+    bounds (+inf for an empty word), row nsub the batch minimum; texit
+    (R,) the root-exit cap, -1 for zero directions."""
+    slo, shi = super_boxes(scene)
+    n_tiles, n_super, nsub = dx.shape[0] // TILE_R, slo.shape[0], STREAM_BATCH
+    if nwords != n_super:
+        raise ValueError(f"{nwords} mask words per tile for {n_super} "
+                         f"superblocks")
+    g = mask.reshape(n_tiles // nsub, nsub, nwords)
+    union = g[:, 0, :]
+    for k in range(1, nsub):
+        union = union | g[:, k, :]
+    mask3 = torch.cat([g, union[:, None, :]], dim=1).contiguous()
 
-
-def _stream_pack(scene: SceneData) -> torch.Tensor:
-    """The (F, STREAM_COLS) streaming record: SceneData.spack when it
-    covers the scene's faces (Scene.build past STREAM_FACES, an
-    instanced refit), else built from the scene's tensors by
-    pack_stream_columns (a small scene forced onto the streamed path),
-    as JAX's _stream_pack builds it."""
-    if scene.spack.shape[0] == scene.padded_faces:
-        return scene.spack
-    return pack_stream_columns(scene)
-
-
-def pack_stream_columns(scene: SceneData) -> torch.Tensor:
-    """The streaming record built from the scene's tensors in one shot
-    (JAX pack_stream_columns): pack_face_columns' 40 columns, then
-    [d, c0, c1, c2] at SC_DC, then zeros. JAX also keeps a chunked twin
-    (pack_stream_columns_chunked) because the one-shot build's narrow
-    operands pad to the TPU's (8, 128) tiles and ran out of memory at 2M
-    faces; here the record is (F, 128) f32 and nothing more (1 GB at 2M
-    faces on an 80 GB card), and the values are the same."""
-    f = scene.padded_faces
-    return torch.cat([pack_face_columns(scene), scene.tri_d[:, None],
-                      scene.tri_c,
-                      torch.zeros((f, STREAM_COLS - SC_DC - 4),
-                                  dtype=torch.float32,
-                                  device=scene.tri_d.device)], dim=1)
-
-
-_GPACK_COLS = {}  # device -> GPACK_SRC_COLS as an int64 tensor there
-
-
-def gpack_from_stream(spack: torch.Tensor) -> torch.Tensor:
-    """The (GPACK_ROWS, F) winner-attribute table derived from a full
-    streaming record (JAX gpack_from_stream), in one gather. The column
-    indices go to the device once: a copy from pageable host memory at
-    each call made the host wait for the card, once a frame in an
-    instanced refit."""
-    cols = _GPACK_COLS.get(spack.device)
-    if cols is None:
-        cols = _GPACK_COLS[spack.device] = torch.tensor(
-            GPACK_SRC_COLS, dtype=torch.int64, device=spack.device)
-    return spack.index_select(1, cols).t().contiguous()
-
-
-def _gpack_stream(scene: SceneData) -> torch.Tensor:
-    """The winner-attribute table (JAX _gpack_stream): SceneData.gpack
-    when it covers the scene's faces, else derived from the streaming
-    record. Every reader of the table goes through here, so a stale
-    table (one whose width is not padded_faces) is rebuilt, never
-    indexed."""
-    if scene.gpack.shape[1] == scene.padded_faces:
-        return scene.gpack
-    return gpack_from_stream(_stream_pack(scene))
-
-
-def _super_aabbs(scene: SceneData, n_super: int):
-    """Cluster AABBs with padding turned into empty boxes, and their
-    per-superblock unions ((S, 3) each) (JAX _super_aabbs)."""
-    finite = torch.isfinite(scene.blk_lo) & torch.isfinite(scene.blk_hi)
-    blo = torch.where(finite, scene.blk_lo, F32_INF)
-    bhi = torch.where(finite, scene.blk_hi, -F32_INF)
-    slo = blo.reshape(n_super, -1, 3).amin(dim=1)
-    shi = bhi.reshape(n_super, -1, 3).amax(dim=1)
-    return blo, bhi, slo, shi
-
-
-def _stream_sched(scene: SceneData, mask, ox, oy, oz, dx, dy, dz,
-                  tile_r: int, nsub: int, n_super: int, act=None):
-    """Front-to-back schedule of the streamed sweeps (JAX _stream_sched).
-
-    Returns (tlb3 (NB, nsub+1, S) f32, order2 (NB, S) i32, texit (R,)):
-    per-(subtile, superblock word) entry-t lower bounds (+inf where the
-    subtile's word is empty), row nsub the batch minimum; the batch's
-    word order ascending in that minimum (a stable sort, as
-    jnp.argsort); the per-ray root-exit cap, -1 for zero directions."""
-    blo, bhi, slo, shi = _super_aabbs(scene, n_super)
-    omin, omax, dmin, dmax = tile_ray_bounds(ox, oy, oz, dx, dy, dz,
-                                             tile_r, act)
+    omin, omax, dmin, dmax = bounds
     a = slo[None, :, :] - omax[:, None, :]  # (T,S,3)
     b = shi[None, :, :] - omin[:, None, :]
     _, t0 = slab_interval_entry(a, b, dmin[:, None, :], dmax[:, None, :])
-
-    n_tiles = dx.shape[0] // tile_r
-    m = mask.reshape(n_tiles, n_super)
-    tlb = torch.where(m != 0, t0, F32_INF)
+    tlb = torch.where(mask.reshape(n_tiles, n_super) != 0, t0, F32_INF)
     g = tlb.reshape(n_tiles // nsub, nsub, n_super)
     tmin = g.amin(dim=1)
     tlb3 = torch.cat([g, tmin[:, None, :]], dim=1)
     order2 = torch.argsort(tmin, dim=1, stable=True).to(torch.int32)
 
-    lo = blo.amin(dim=0)
-    hi = bhi.amax(dim=0)
+    _, _, lo, hi = cluster_boxes(scene)
     texit = ray_root_exit(lo, hi, ox, oy, oz, dx, dy, dz)
     live = (dx != 0.0) | (dy != 0.0) | (dz != 0.0)
     texit = torch.where(live, texit, -1.0)
-    return tlb3.contiguous(), order2.contiguous(), texit
+    return mask3, order2.contiguous(), tlb3.contiguous(), texit
 
 
-def _stream_mask_rows(mask, n_tiles: int, nwords: int, nsub: int):
-    """(NB, nsub+1, nwords) i32: each batch's subtile mask rows and, as
-    row nsub, their union (the data of JAX _stream_mask_spec)."""
-    g = mask.reshape(n_tiles // nsub, nsub, nwords)
-    union = g[:, 0, :]
-    for k in range(1, nsub):
-        union = union | g[:, k, :]
-    return torch.cat([g, union[:, None, :]], dim=1).contiguous()
-
-
-def _stream_inputs(scene: SceneData, mask, nwords: int, ox, oy, oz,
-                   dx, dy, dz, act=None):
-    """(mask3, order2, tlb3, texit) of a streamed sweep over padded
-    rays (R a multiple of STREAM_BATCH tiles)."""
-    n_super = scene.padded_faces // SUPER_F
-    if nwords != n_super:
-        raise ValueError(f"{nwords} mask words per tile for {n_super} "
-                         f"superblocks")
-    mask3 = _stream_mask_rows(mask, dx.shape[0] // TILE_R, nwords,
-                              STREAM_BATCH)
-    tlb3, order2, texit = _stream_sched(scene, mask, ox, oy, oz, dx, dy, dz,
-                                        TILE_R, STREAM_BATCH, n_super, act)
-    return mask3, order2, tlb3, texit
-
-
-def tile_cull_mask(scene: SceneData, ox, oy, oz, dx, dy, dz, tile_r,
-                   act=None):
-    """(tiles, clusters) i32 conservative activity mask — the FLAT scan
-    (interval-arithmetic slab test of every tile's ray cone against every
-    cluster AABB)."""
-    return _cull_mask(scene, *tile_ray_bounds(ox, oy, oz, dx, dy, dz,
-                                              tile_r, act))
-
-
-def _mask_words(scene: SceneData, accel: str, ox, oy, oz, dx, dy, dz,
-                tile_r: int, block_f: int, f: int, act=None,
+def _mask_words(scene: SceneData, accel: str, bounds, block_f: int,
                 kernels: KernelSet = KERNELS):
-    """Packed per-(tile, block) activity words (JAX _mask_words):
-    "brute" sets every bit, "cull" runs the flat interval scan, "bvh"
-    the two-level LBVH-cut cull (kernel K5) where the JAX package runs
-    it (the cluster table matches the blocks and hier_cull_fits) and
-    the flat scan elsewhere. All are conservative, so the frame is
+    """Packed per-(tile, block) activity words from the tiles' ray
+    bounds (tile_ray_bounds; JAX _mask_words computes them itself):
+    "brute" sets every bit, "cull" runs the flat interval scan, "bvh" the
+    two-level LBVH-cut cull (kernel K5) where the JAX package runs it
+    (the cluster table matches the blocks and hier_cull_fits) and the
+    flat scan elsewhere. All are conservative, so the frame is
     bit-identical across them."""
-    n_tiles = dx.shape[0] // tile_r
+    f = scene.padded_faces
+    n_tiles = bounds[0].shape[0]
     nb = f // block_f
     nwords = -(-nb // 32)
     if accel == "brute":
         return torch.full((n_tiles * nwords,), -1, dtype=torch.int32,
-                          device=dx.device), nwords
+                          device=bounds[0].device), nwords
     if accel not in ("cull", "bvh"):
         raise ValueError(f"unknown accel {accel!r}")
-    bounds = tile_ray_bounds(ox, oy, oz, dx, dy, dz, tile_r, act)
     if accel == "bvh" and scene.blk_lo.shape[0] == nb and \
             hier_cull_fits(nb):
         words = hier_cull_words(scene.blk_lo, scene.blk_hi, *bounds,
@@ -515,6 +362,77 @@ def _mask_words(scene: SceneData, accel: str, ox, oy, oz, dx, dy, dz,
         _cull_mask(scene, *(x[t0:t0 + step] for x in bounds)), f,
         block_f))[0] for t0 in range(0, n_tiles, step)]
     return torch.cat(words), nwords
+
+
+class SweepInputs(NamedTuple):
+    """A ray set made ready for a sweep kernel (sweep_inputs)."""
+
+    stream: bool  # the streamed sweeps (K9-K11), else the all-on-chip ones
+    block_f: int  # faces a block
+    planes: tuple  # padded (dx, dy, dz), then (ox, oy, oz) if per ray
+    act: Optional[torch.Tensor]  # the padded activity as f32, or None
+    mask: torch.Tensor  # packed per-(tile, block) activity words
+    nwords: int  # words a tile
+    # the schedule, _vmem_sched's (tlb, order) or _stream_inputs' (mask3,
+    # order2, tlb3), then its texit; () and None with sched=False
+    sched: tuple
+    texit: Optional[torch.Tensor]
+    boxes: tuple  # the face blocks' (lo, hi), scenepacks.block_boxes
+
+
+def sweep_inputs(scene: SceneData, o, dx, dy, dz, *, act=None,
+                 act_cull: Optional[bool] = None, sched: bool = True,
+                 accel: str = "cull", stream: Optional[bool] = None,
+                 kernels: KernelSet = KERNELS) -> SweepInputs:
+    """The front end of every culled sweep (JAX: the prologue of
+    gbuffer_pallas and co.). o: the shared origin (3,) or per-ray planes
+    (ox, oy, oz); dx, dy, dz (R,) pad to whole tiles, STREAM_BATCH of
+    them on the streamed path (stream=None: JAX's _should_stream), which
+    works in 32-face blocks. act (R,): the rays an any-hit sweep tests,
+    which the schedule's tile bounds take, the mask's too where act_cull
+    (None: streamed only). A per-ray closest hit (no act) on the
+    streamed path keeps zero-direction rays out of both and clears the
+    words no live ray's line meets (kernels.super_any). The bounds are
+    computed once where mask and schedule agree. sched=False: the mask
+    words only (K8 walks them)."""
+    f = scene.padded_faces
+    block_f = _natural_block_f(scene, f)
+    if stream is None:
+        stream = _should_stream(f, block_f)
+    if stream and block_f != BLOCK_F:
+        if f % BLOCK_F:
+            raise ValueError(f"{f} faces: the streamed sweep needs whole "
+                             f"{BLOCK_F}-face blocks")
+        block_f = BLOCK_F
+    pad_to = TILE_R * (STREAM_BATCH if stream else 1)
+    d = [_pad1(v, pad_to) for v in (dx, dy, dz)]
+    shared = isinstance(o, torch.Tensor)
+    op = [o[0], o[1], o[2]] if shared else [_pad1(v, pad_to) for v in o]
+    actp = live = None
+    if act is not None:
+        actp = _pad1(act.to(torch.float32), pad_to)
+        live = actp > 0
+    elif stream and not shared:  # a closest hit: parked rays stay out
+        live = (d[0] != 0.0) | (d[1] != 0.0) | (d[2] != 0.0)
+    if act_cull is None:
+        act_cull = stream
+    bounds = tile_ray_bounds(*op, *d, TILE_R, live)
+    mask, nwords = _mask_words(
+        scene, accel, bounds if act_cull or act is None
+        else tile_ray_bounds(*op, *d, TILE_R), block_f, kernels=kernels)
+    rows, texit = [], None
+    if sched and stream:
+        if act is None and not shared:
+            sup_ok = kernels.super_any(*super_boxes(scene), *op, *d, TILE_R,
+                                       act=live)
+            mask = torch.where(sup_ok.reshape(-1), mask, 0)
+        *rows, texit = _stream_inputs(scene, mask, nwords, bounds, *op, *d)
+    elif sched:
+        *rows, texit = _vmem_sched(scene, mask, nwords, bounds, *op, *d,
+                                   block_f)
+    return SweepInputs(stream, block_f, tuple(d) if shared else tuple(d + op),
+                       actp, mask, nwords, tuple(rows), texit,
+                       block_boxes(scene, block_f))
 
 
 def _sphere_pack(scene: SceneData, origin: torch.Tensor) -> torch.Tensor:
@@ -538,48 +456,28 @@ def gbuffer(scene: SceneData, origin, dx, dy, dz, *, accel: str = "cull",
     with_nm fills the G-buffer's normal-mapping planes. stream=None
     takes the streamed sweep (K9) past STREAM_FACES faces, the
     all-on-chip one (K1) below; K9 gets the origin and both get the
-    blocks' boxes (_block_boxes), which they test per ray."""
-    f = scene.padded_faces
-    stream, block_f = _stream_setup(scene, stream)
+    blocks' boxes (scenepacks.block_boxes), which they test per ray."""
     nrays = dx.shape[0]
-    pad_to = TILE_R * (STREAM_BATCH if stream else 1)
-    dx, dy, dz = (_pad1(v, pad_to) for v in (dx, dy, dz))
-
+    rs = sweep_inputs(scene, origin, dx, dy, dz, accel=accel, stream=stream,
+                      kernels=kernels)
     oterm = pack_origin_cols(scene, origin)
-    o0, o1, o2 = origin[0], origin[1], origin[2]
-    mask, nwords = _mask_words(scene, accel, o0, o1, o2, dx, dy, dz,
-                               TILE_R, block_f, f, kernels=kernels)
-    if stream:
-        mask3, order2, tlb3, texit = _stream_inputs(
-            scene, mask, nwords, o0, o1, o2, dx, dy, dz)
+    if rs.stream:
         t, face = kernels.stream_closest_hit(
-            mask3, order2, tlb3, dx, dy, dz, texit, _stream_pack(scene),
-            oterm, origin.reshape(3).contiguous(),
-            *_block_boxes(scene, f, block_f))
+            *rs.sched, *rs.planes, rs.texit, stream_pack(scene), oterm,
+            origin.reshape(3).contiguous(), *rs.boxes)
         sph = None
     else:
-        tlb, order, texit = _vmem_sched(scene, mask, nwords, o0, o1, o2,
-                                        dx, dy, dz, TILE_R, f, block_f)
         sph_pack = (_sphere_pack(scene, origin) if with_spheres
                     else origin.reshape(3).contiguous())
         t, face, sph = kernels.closest_hit(
-            tlb, order, dx, dy, dz, texit, pack_face_columns(scene), oterm,
-            sph_pack, *_block_boxes(scene, f, block_f), block_f=block_f,
-            near=near, far=far)
+            *rs.sched, *rs.planes, rs.texit, pack_face_columns(scene), oterm,
+            sph_pack, *rs.boxes, block_f=rs.block_f, near=near, far=far)
     t, face = t[:nrays], face[:nrays]
     if sph is not None:
         sph = tuple(p[:nrays] for p in sph)
-    gb = expand_tf_gbuffer(scene, t, face, dx[:nrays], dy[:nrays],
-                           dz[:nrays], oterm, with_nm=with_nm)
+    gb = expand_tf_gbuffer(scene, t, face, dx, dy, dz, oterm,
+                           with_nm=with_nm)
     return gb, sph
-
-
-def _plane_consts(scene: SceneData) -> torch.Tensor:
-    """(F, 8) [d, c0, c1, c2, 0...]: the per-ray-origin sweeps' dc."""
-    f = scene.tri_d.shape[0]
-    return torch.cat([scene.tri_d[:, None], scene.tri_c,
-                      torch.zeros((f, 4), dtype=torch.float32,
-                                  device=scene.tri_d.device)], dim=1)
 
 
 def anyhit_rays(scene: SceneData, ox, oy, oz, dx, dy, dz, active, *,
@@ -594,33 +492,18 @@ def anyhit_rays(scene: SceneData, ox, oy, oz, dx, dy, dz, active, *,
     same either way, the mask and the sweep's work are not. stream as
     for gbuffer (K11 streamed, K3 all on chip, both with the blocks'
     boxes)."""
-    f = scene.padded_faces
-    stream, block_f = _stream_setup(scene, stream)
-    if act_cull is None:
-        act_cull = stream
     nrays = dx.shape[0]
-    pad_to = TILE_R * (STREAM_BATCH if stream else 1)
-    args = [_pad1(a, pad_to) for a in (dx, dy, dz, ox, oy, oz)]
-    act = _pad1(active.to(torch.float32), pad_to)
-    dxp, dyp, dzp, oxp, oyp, ozp = args
-    mask, nwords = _mask_words(scene, accel, oxp, oyp, ozp,
-                               dxp, dyp, dzp, TILE_R, block_f, f,
-                               act=(act > 0) if act_cull else None,
-                               kernels=kernels)
-    if stream:
-        mask3, order2, tlb3, texit = _stream_inputs(
-            scene, mask, nwords, oxp, oyp, ozp, dxp, dyp, dzp, act=act > 0)
-        occ = kernels.stream_anyhit(mask3, order2, tlb3, *args, act, texit,
-                                    _stream_pack(scene),
-                                    *_block_boxes(scene, f, block_f))
-        return occ[:nrays] > 0.0
-    fpack = pack_face_columns(scene)
-    dc = _plane_consts(scene)
-    tlb, order, texit = _vmem_sched(scene, mask, nwords,
-                                    oxp, oyp, ozp, dxp, dyp, dzp,
-                                    TILE_R, f, block_f, act=(act > 0))
-    occ = kernels.anyhit(tlb, order, *args, act, texit, fpack, dc,
-                         *_block_boxes(scene, f, block_f), block_f=block_f)
+    rs = sweep_inputs(scene, (ox, oy, oz), dx, dy, dz, act=active,
+                      act_cull=act_cull, accel=accel, stream=stream,
+                      kernels=kernels)
+    if rs.stream:
+        occ = kernels.stream_anyhit(*rs.sched, *rs.planes, rs.act, rs.texit,
+                                    stream_pack(scene), *rs.boxes)
+    else:
+        occ = kernels.anyhit(*rs.sched, *rs.planes, rs.act, rs.texit,
+                             pack_face_columns(scene),
+                             pack_plane_consts(scene), *rs.boxes,
+                             block_f=rs.block_f)
     return occ[:nrays] > 0.0
 
 
@@ -634,37 +517,19 @@ def gbuffer_perray(scene: SceneData, ox, oy, oz, dx, dy, dz, *,
     cannot hit. stream as for gbuffer: the streamed branch (K10) keeps
     zero-direction rays out of the tile bounds and first clears the
     words no live ray's forward line meets (kernels.super_any, the
-    plain twin traverse.perray_super_any) and hands
-    K10 the blocks' boxes, which it tests per ray (_block_boxes); the
-    all-on-chip branch runs K7, with the same boxes."""
-    f = scene.padded_faces
-    stream, block_f = _stream_setup(scene, stream)
+    plain twin traverse.perray_super_any; sweep_inputs) and hands K10
+    the blocks' boxes, which it tests per ray; the all-on-chip branch
+    runs K7, with the same boxes."""
     nrays = dx.shape[0]
-    pad_to = TILE_R * (STREAM_BATCH if stream else 1)
-    planes = [_pad1(a, pad_to) for a in (dx, dy, dz, ox, oy, oz)]
-    dxp, dyp, dzp, oxp, oyp, ozp = planes
-    live = ((dxp != 0.0) | (dyp != 0.0) | (dzp != 0.0)) if stream else None
-    mask, nwords = _mask_words(scene, accel, oxp, oyp, ozp,
-                               dxp, dyp, dzp, TILE_R, block_f, f,
-                               act=live, kernels=kernels)
-    if stream:
-        _, _, slo, shi = _super_aabbs(scene, f // SUPER_F)
-        sup_ok = kernels.super_any(slo, shi, oxp, oyp, ozp, dxp, dyp, dzp,
-                                   TILE_R, act=live)
-        mask = torch.where(sup_ok.reshape(-1), mask, 0)
-        mask3, order2, tlb3, texit = _stream_inputs(
-            scene, mask, nwords, oxp, oyp, ozp, dxp, dyp, dzp, act=live)
+    rs = sweep_inputs(scene, (ox, oy, oz), dx, dy, dz, accel=accel,
+                      stream=stream, kernels=kernels)
+    if rs.stream:
         t, face = kernels.stream_closest_hit_perray(
-            mask3, order2, tlb3, *planes, texit, _stream_pack(scene),
-            *_block_boxes(scene, f, block_f))
+            *rs.sched, *rs.planes, rs.texit, stream_pack(scene), *rs.boxes)
     else:
-        tlb, order, texit = _vmem_sched(scene, mask, nwords,
-                                        oxp, oyp, ozp, dxp, dyp, dzp,
-                                        TILE_R, f, block_f)
         t, face = kernels.closest_hit_perray(
-            tlb, order, *planes, texit, pack_face_columns(scene),
-            _plane_consts(scene), *_block_boxes(scene, f, block_f),
-            block_f=block_f)
+            *rs.sched, *rs.planes, rs.texit, pack_face_columns(scene),
+            pack_plane_consts(scene), *rs.boxes, block_f=rs.block_f)
     return expand_tf_gbuffer(scene, t[:nrays], face[:nrays], dx, dy, dz,
                              oxyz=(ox, oy, oz))
 
@@ -684,7 +549,7 @@ def extend_shadow_rays(scene: SceneData, ox, oy, oz, dx, dy, dz,
     in the kernel), so one parked ray cannot open its tile's bounds to
     the whole scene. The kernel walks the union of the two masks, gates
     each half by its own bit and tests a block's faces only for the rays
-    whose line enters its box (_block_boxes).
+    whose line enters its box (scenepacks.block_boxes).
 
     Past STREAM_FACES (JAX's fallback of extend_shadow_pallas) the whole
     wavefront is first sorted by origin Morton code and direction octant
@@ -694,8 +559,7 @@ def extend_shadow_rays(scene: SceneData, ox, oy, oz, dx, dy, dz,
     cull can bound, where tiles of hemisphere samples admit every
     cluster."""
     f = scene.padded_faces
-    block_f = _natural_block_f(scene, f)
-    if _should_stream(f, block_f):
+    if _should_stream(f, _natural_block_f(scene, f)):
         perm = _bounce_sort_perm(scene, ox, oy, oz, dx, dy, dz)
         pv = _permute_planes([ox, oy, oz, dx, dy, dz, sox, soy, soz,
                               sdx, sdy, sdz, active.to(torch.float32)], perm)
@@ -712,21 +576,14 @@ def extend_shadow_rays(scene: SceneData, ox, oy, oz, dx, dy, dz,
                      nx=back[7], ny=back[8], nz=back[9], mat=back[10])
         return gb, back[11] > 0.0
     nrays = dx.shape[0]
-    planes = [_pad1(a, TILE_R) for a in (dx, dy, dz, ox, oy, oz,
-                                         sdx, sdy, sdz, sox, soy, soz)]
-    act = _pad1(active.to(torch.float32), TILE_R)
-    (dxp, dyp, dzp, oxp, oyp, ozp,
-     sdxp, sdyp, sdzp, soxp, soyp, sozp) = planes
-    actb = act > 0
-    words_a, _ = _mask_words(scene, accel, oxp, oyp, ozp, dxp, dyp, dzp,
-                             TILE_R, block_f, f, act=actb, kernels=kernels)
-    words_b, _ = _mask_words(scene, accel, soxp, soyp, sozp,
-                             sdxp, sdyp, sdzp, TILE_R, block_f, f, act=actb,
-                             kernels=kernels)
+    kw = dict(act=active, act_cull=True, sched=False, accel=accel,
+              stream=False, kernels=kernels)
+    ext = sweep_inputs(scene, (ox, oy, oz), dx, dy, dz, **kw)
+    shd = sweep_inputs(scene, (sox, soy, soz), sdx, sdy, sdz, **kw)
     t, face, occ = kernels.extend_shadow(
-        words_a, words_b, *planes, act, pack_face_columns(scene),
-        _plane_consts(scene), *_block_boxes(scene, f, block_f),
-        block_f=block_f)
+        ext.mask, shd.mask, *ext.planes, *shd.planes, ext.act,
+        pack_face_columns(scene), pack_plane_consts(scene),
+        *ext.boxes, block_f=ext.block_f)
     gb = expand_tf_gbuffer(scene, t[:nrays], face[:nrays], dx, dy, dz,
                            oxyz=(ox, oy, oz))
     return gb, occ[:nrays] > 0.0
@@ -748,9 +605,7 @@ def _origin_morton(scene: SceneData, ox, oy, oz):
     finite cluster-AABB extent (JAX _origin_morton); out-of-scene
     sentinels clip to the last cell. The extent divides as a tensor, as
     XLA divides by a traced value."""
-    finite = torch.isfinite(scene.blk_lo) & torch.isfinite(scene.blk_hi)
-    lo = torch.where(finite, scene.blk_lo, F32_INF).amin(dim=0)
-    hi = torch.where(finite, scene.blk_hi, -F32_INF).amax(dim=0)
+    _, _, lo, hi = cluster_boxes(scene)
     ext = torch.clamp_min(hi - lo, _f32(1e-12))
 
     def q(p, a):

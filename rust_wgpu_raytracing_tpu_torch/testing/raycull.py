@@ -401,29 +401,6 @@ def frame_culled(tlb, order, const, dx, dy, dz, texit, fpack, oterm, dc,
                             mode=mode)
 
 
-def frame_args(data, origin, d, mode: str):
-    """K4's (args, kw) for the shared-origin rays d (3 planes (n,))
-    leaving origin (3,), built as render_frame_fused builds them (accel
-    "cull"): the rays padded to whole tiles, the schedule, the const
-    vector, the face pack, origin terms and plane constants, and the
-    face blocks' boxes."""
-    from ..ops import megakernel as MK
-    from ..ops.fusedframe import frame_const
-
-    x, y, z = (MK._pad1(v, TILE_R) for v in d)
-    f = data.padded_faces
-    block_f = f // data.blk_lo.shape[0]
-    o = (origin[0], origin[1], origin[2])
-    mask, nw = MK._mask_words(data, "cull", *o, x, y, z, TILE_R, block_f, f)
-    tlb, order, texit = MK._vmem_sched(data, mask, nw, *o, x, y, z, TILE_R,
-                                       f, block_f)
-    args = [tlb, order, frame_const(data, origin), x, y, z, texit,
-            MK.pack_face_columns(data), MK.pack_origin_cols(data, origin),
-            MK._plane_consts(data), *MK._block_boxes(data, f, block_f)]
-    return args, dict(ns=data.num_spheres, nmat=data.mat_ambient.shape[0],
-                      block_f=block_f, mode=mode)
-
-
 def extend_shadow_culled(words_a, words_b, dx, dy, dz, ox, oy, oz, sdx, sdy,
                          sdz, sox, soy, soz, act, fpack, dc, blk_lo, blk_hi,
                          *, block_f: int):

@@ -15,8 +15,10 @@ import torch
 from rust_wgpu_raytracing_tpu_torch import config as pcfg
 from rust_wgpu_raytracing_tpu_torch.core.scene import Scene
 from rust_wgpu_raytracing_tpu_torch.ops import megakernel as P
+from rust_wgpu_raytracing_tpu_torch.ops import scenepacks as SP
 from rust_wgpu_raytracing_tpu_torch.ops.kernels import (anyhit, anyhit_plain,
                                                         launch_counts)
+from rust_wgpu_raytracing_tpu_torch.ops.traverse import tile_ray_bounds
 from test_torch_host import (cuda_device, jax_config,  # noqa: F401
                              jax_reference, terrain_config)
 
@@ -124,12 +126,12 @@ def port_inputs(name, device):
     o = [P._pad1(torch.from_numpy(v).to(device), 1024) for v in o]
     d = [P._pad1(torch.from_numpy(v).to(device), 1024) for v in d]
     a = P._pad1(torch.from_numpy(act).to(device).float(), 1024)
-    mask, nw = P._mask_words(data, accel, *o, *d, 1024, bf, f)
-    tlb, order, texit = P._vmem_sched(data, mask, nw, *o, *d, 1024, f, bf,
-                                      act=a > 0)
+    mask, nw = P._mask_words(data, accel, tile_ray_bounds(*o, *d, 1024), bf)
+    tlb, order, texit = P._vmem_sched(
+        data, mask, nw, tile_ray_bounds(*o, *d, 1024, a > 0), *o, *d, bf)
     dc = torch.cat([data.tri_d[:, None], data.tri_c,
                     torch.zeros((f, 4), device=device)], dim=1)
-    return [tlb, order, *d, *o, a, texit, P.pack_face_columns(data), dc], bf
+    return [tlb, order, *d, *o, a, texit, SP.pack_face_columns(data), dc], bf
 
 
 def test_port_inputs_match_jax_inputs(ref):

@@ -16,9 +16,11 @@ from rust_wgpu_raytracing_tpu_torch import config as pcfg
 from rust_wgpu_raytracing_tpu_torch.core.camera import Camera
 from rust_wgpu_raytracing_tpu_torch.core.scene import Scene
 from rust_wgpu_raytracing_tpu_torch.ops import megakernel as P
+from rust_wgpu_raytracing_tpu_torch.ops import scenepacks as SP
 from rust_wgpu_raytracing_tpu_torch.ops.kernels import (closest_hit,
                                                         closest_hit_plain,
                                                         launch_counts)
+from rust_wgpu_raytracing_tpu_torch.ops.traverse import tile_ray_bounds
 from test_torch_host import (cube_config, cuda_device,  # noqa: F401
                              jax_config, jax_reference, terrain_config)
 
@@ -159,10 +161,11 @@ def port_inputs(name, device):
     bf = P._natural_block_f(data, f)
     x, y, z = (P._pad1(v, 1024) for v in rays)
     o = (origin[0], origin[1], origin[2])
-    mask, nw = P._mask_words(data, accel, *o, x, y, z, 1024, bf, f)
-    tlb, order, texit = P._vmem_sched(data, mask, nw, *o, x, y, z, 1024, f,
+    bounds = tile_ray_bounds(*o, x, y, z, 1024)
+    mask, nw = P._mask_words(data, accel, bounds, bf)
+    tlb, order, texit = P._vmem_sched(data, mask, nw, bounds, *o, x, y, z,
                                       bf)
-    return ([tlb, order, x, y, z, texit, P.pack_face_columns(data),
+    return ([tlb, order, x, y, z, texit, SP.pack_face_columns(data),
              P.pack_origin_cols(data, origin), P._sphere_pack(data, origin)],
             bf)
 

@@ -24,9 +24,11 @@ import torch
 from rust_wgpu_raytracing_tpu_torch import config as pcfg
 from rust_wgpu_raytracing_tpu_torch.core.scene import Scene
 from rust_wgpu_raytracing_tpu_torch.ops import megakernel as P
+from rust_wgpu_raytracing_tpu_torch.ops import scenepacks as SP
 from rust_wgpu_raytracing_tpu_torch.ops.kernels import (
     anyhit, anyhit_plain, closest_hit_perray, closest_hit_perray_plain,
     extend_shadow, extend_shadow_plain, launch_counts)
+from rust_wgpu_raytracing_tpu_torch.ops.traverse import tile_ray_bounds
 from test_torch_host import (cuda_device, jax_config,  # noqa: F401
                              jax_reference, terrain_config,
                              textured_config, write_textured_assets)
@@ -176,12 +178,12 @@ def port_inputs(name, assets, device):
     pad = [P._pad1(torch.from_numpy(v).to(device), 1024)
            for v in (*d, *o, *sd, *so)]
     a = P._pad1(torch.from_numpy(act).to(device).float(), 1024)
-    wa, _ = P._mask_words(data, accel, *pad[3:6], *pad[0:3], 1024, bf, f,
-                          act=a > 0)
-    wb, _ = P._mask_words(data, accel, *pad[9:12], *pad[6:9], 1024, bf, f,
-                          act=a > 0)
-    return [wa, wb, *pad, a, P.pack_face_columns(data),
-            P._plane_consts(data)], bf, data
+    wa, _ = P._mask_words(data, accel, tile_ray_bounds(
+        *pad[3:6], *pad[0:3], 1024, a > 0), bf)
+    wb, _ = P._mask_words(data, accel, tile_ray_bounds(
+        *pad[9:12], *pad[6:9], 1024, a > 0), bf)
+    return [wa, wb, *pad, a, SP.pack_face_columns(data),
+            SP.pack_plane_consts(data)], bf, data
 
 
 def test_act_aware_mask_words_match_jax(ref, assets):
@@ -196,16 +198,18 @@ def test_act_aware_mask_words_match_jax(ref, assets):
 def split_kernels(args, bf, data, k7, k3):
     """K7 + K3 on K8's rays: K7 through its own schedule (act-blind mask,
     as gbuffer_perray builds it), K3 through anyhit_rays' schedule."""
-    f = data.padded_faces
     planes = args[2:15]
     d, o, sd, so, act = (planes[0:3], planes[3:6], planes[6:9],
                          planes[9:12], planes[12])
-    mask, nw = P._mask_words(data, "cull", *o, *d, 1024, bf, f)
-    tlb, order, texit = P._vmem_sched(data, mask, nw, *o, *d, 1024, f, bf)
+    bounds = tile_ray_bounds(*o, *d, 1024)
+    mask, nw = P._mask_words(data, "cull", bounds, bf)
+    tlb, order, texit = P._vmem_sched(data, mask, nw, bounds, *o, *d, bf)
     t, face = k7(tlb, order, *d, *o, texit, args[15], args[16], block_f=bf)
-    mask, nw = P._mask_words(data, "cull", *so, *sd, 1024, bf, f)
-    tlb, order, texit = P._vmem_sched(data, mask, nw, *so, *sd, 1024, f, bf,
-                                      act=act > 0)
+    mask, nw = P._mask_words(data, "cull", tile_ray_bounds(*so, *sd, 1024),
+                             bf)
+    tlb, order, texit = P._vmem_sched(
+        data, mask, nw, tile_ray_bounds(*so, *sd, 1024, act > 0), *so, *sd,
+        bf)
     occ = k3(tlb, order, *sd, *so, act, texit, args[15], args[16],
              block_f=bf)
     return t, face, occ

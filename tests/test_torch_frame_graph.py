@@ -15,7 +15,8 @@ replayed frame is bitwise the eager frame; one capture for each scene and shape,
 none until the second frame after reset_device; an instanced scene never
 captures, whether it is refit every frame or every other frame, and
 stays bitwise; a frame returned earlier is unchanged after
-later renders; a replayed frame makes no host sync.
+later renders; a replayed frame makes no host sync; a scene constant
+(ops/scenepacks.py) first requested inside a capture raises.
 """
 
 import dataclasses as dc
@@ -30,6 +31,7 @@ from rust_wgpu_raytracing_tpu_torch.core.camera import Camera
 from rust_wgpu_raytracing_tpu_torch.core.scene import Scene
 from rust_wgpu_raytracing_tpu_torch.ops import instances as pinst
 from rust_wgpu_raytracing_tpu_torch.ops import megakernel as MK
+from rust_wgpu_raytracing_tpu_torch.ops import scenepacks as SP
 from rust_wgpu_raytracing_tpu_torch.runtime import profiler
 from test_torch_host import (cuda_device, terrain_config,  # noqa: F401
                              textured_config, write_textured_assets)
@@ -310,3 +312,20 @@ def test_a_replayed_frame_makes_no_host_sync(cuda_device):
         torch.cuda.set_sync_debug_mode(0)
     assert graph_counts() == (c0, p0 + 3)
     assert same_frame(frames[-1], eager_frame(r, r.camera.uniforms().flat()))
+
+
+@pytest.mark.gpu
+def test_a_scene_constant_first_requested_in_a_capture_raises(cuda_device):
+    """Capture records kernels without running them, so a scene constant
+    first built there would hold nothing: the request raises. One built
+    before the capture is handed out inside it."""
+    data = Scene.build(terrain_config(pcfg)).data.to(cuda_device)
+    x = torch.ones(4, device=cuda_device)
+    with pytest.raises(RuntimeError, match="capture"):
+        with torch.cuda.graph(torch.cuda.CUDAGraph()):
+            x.mul_(2.0)
+            SP.pack_face_columns(data)
+    built = SP.pack_face_columns(data)
+    with torch.cuda.graph(torch.cuda.CUDAGraph()):
+        x.mul_(2.0)
+        assert SP.pack_face_columns(data) is built

@@ -25,10 +25,11 @@ from rust_wgpu_raytracing_tpu_torch import config as pcfg
 from rust_wgpu_raytracing_tpu_torch.core.camera import Camera
 from rust_wgpu_raytracing_tpu_torch.core.scene import Scene
 from rust_wgpu_raytracing_tpu_torch.ops import megakernel as P
-from rust_wgpu_raytracing_tpu_torch.ops.fusedframe import frame_const
+from rust_wgpu_raytracing_tpu_torch.ops import scenepacks as SP
 from rust_wgpu_raytracing_tpu_torch.ops.kernels import (frame, frame_plain,
                                                         launch_counts)
 from rust_wgpu_raytracing_tpu_torch.ops.kernels.frame import N_OUT
+from rust_wgpu_raytracing_tpu_torch.ops.traverse import tile_ray_bounds
 from rust_wgpu_raytracing_tpu_torch.testing.raycull import frame_culled
 from test_torch_host import (cuda_device, jax_config,  # noqa: F401
                              jax_reference, terrain_config, textured_config,
@@ -145,7 +146,7 @@ def test_frame_culled_matches_jax_kernel(ref, assets, monkeypatch, scene,
     monkeypatch.setenv("RWRT_ASSETS", assets)
     args, kw = case_args(ref, scene, mode)
     data = Scene.build(SCENES[scene]()).data
-    boxes = P._block_boxes(data, data.padded_faces, kw["block_f"])
+    boxes = SP.block_boxes(data, kw["block_f"])
     outs = frame_culled(*args, *boxes, **kw)
     want = ref[f"{scene}_{mode}_outs"]
     assert len(outs) == want.shape[0]
@@ -182,14 +183,15 @@ def port_args(scene, mode, device):
     f = data.padded_faces
     bf = f // data.blk_lo.shape[0]
     o = (origin[0], origin[1], origin[2])
-    mask, nw = P._mask_words(data, "cull", *o, x, y, z, 1024, bf, f)
-    tlb, order, texit = P._vmem_sched(data, mask, nw, *o, x, y, z, 1024, f,
+    bounds = tile_ray_bounds(*o, x, y, z, 1024)
+    mask, nw = P._mask_words(data, "cull", bounds, bf)
+    tlb, order, texit = P._vmem_sched(data, mask, nw, bounds, *o, x, y, z,
                                       bf)
     dc = torch.cat([data.tri_d[:, None], data.tri_c,
                     torch.zeros((f, 4), device=device)], dim=1)
-    args = [tlb, order, frame_const(data, origin), x, y, z, texit,
-            P.pack_face_columns(data), P.pack_origin_cols(data, origin), dc,
-            *P._block_boxes(data, f, bf)]
+    args = [tlb, order, SP.frame_const(data, origin), x, y, z, texit,
+            SP.pack_face_columns(data), P.pack_origin_cols(data, origin), dc,
+            *SP.block_boxes(data, bf)]
     return args, dict(ns=data.num_spheres, nmat=data.mat_ambient.shape[0],
                       block_f=bf, mode=mode)
 

@@ -6,8 +6,13 @@ interpreter with XLA's CPU code generation capped below FMA
 (test_torch_host.jax_reference says why). Everything here must then be
 EXACTLY equal: rays, face packs, origin terms, cull masks, schedules,
 the winner expansion and the texel gather.
+
+The sweeps' front end (megakernel.sweep_inputs) is held to the units it
+composes, and the scene's constants (ops/scenepacks.py) to being built
+once per SceneData.
 """
 
+import dataclasses
 import os
 
 import numpy as np
@@ -17,9 +22,14 @@ import torch
 from rust_wgpu_raytracing_tpu import config as jcfg
 from rust_wgpu_raytracing_tpu_torch.core.camera import Camera
 from rust_wgpu_raytracing_tpu_torch.core.scene import Scene
+from rust_wgpu_raytracing_tpu_torch.ops import kernels as K
 from rust_wgpu_raytracing_tpu_torch.ops import megakernel as P
+from rust_wgpu_raytracing_tpu_torch.ops import scenepacks as SP
 from rust_wgpu_raytracing_tpu_torch.ops.composite import to_nonlinear_depth
 from rust_wgpu_raytracing_tpu_torch.ops.shade import quantize_rgba8
+from rust_wgpu_raytracing_tpu_torch.ops.traverse import (perray_super_any,
+                                                         tile_ray_bounds)
+from rust_wgpu_raytracing_tpu_torch.runtime.profiler import count_ops
 from test_torch_host import (cube_config, jax_reference, port_config,
                              terrain_config, textured_config,
                              write_textured_assets)
@@ -195,7 +205,7 @@ def test_pick_tile_shape_matches_jax(w, h):
 
 def test_face_and_origin_packs_match_jax(ref, frame):
     data, _, origin = frame
-    eq(P.pack_face_columns(data), ref["fpack"])
+    eq(SP.pack_face_columns(data), ref["fpack"])
     eq(P.pack_origin_cols(data, origin), ref["oterm"])
 
 
@@ -206,9 +216,10 @@ def test_mask_words_and_schedule_match_jax(ref, frame, accel):
     bf = P._natural_block_f(data, f)
     rays = padded_rays()
     o = (origin[0], origin[1], origin[2])
-    mask, nw = P._mask_words(data, accel, *o, *rays, 1024, bf, f)
+    bounds = tile_ray_bounds(*o, *rays, 1024)
+    mask, nw = P._mask_words(data, accel, bounds, bf)
     eq(mask, ref[f"mask_{accel}"])
-    tlb, order, texit = P._vmem_sched(data, mask, nw, *o, *rays, 1024, f, bf)
+    tlb, order, texit = P._vmem_sched(data, mask, nw, bounds, *o, *rays, bf)
     eq(tlb, ref[f"tlb_{accel}"])
     eq(order, ref[f"order_{accel}"])
     eq(texit, ref[f"texit_{accel}"])
@@ -216,8 +227,9 @@ def test_mask_words_and_schedule_match_jax(ref, frame, accel):
 
 def test_tile_cull_mask_matches_jax(ref, frame):
     data, _, origin = frame
-    eq(P.tile_cull_mask(data, origin[0], origin[1], origin[2],
-                        *padded_rays(), 1024), ref["cull_mask"])
+    eq(P._cull_mask(data, *tile_ray_bounds(
+        origin[0], origin[1], origin[2], *padded_rays(), 1024)),
+       ref["cull_mask"])
 
 
 def test_shadow_schedule_matches_jax(ref, frame):
@@ -228,13 +240,128 @@ def test_shadow_schedule_matches_jax(ref, frame):
     o = [P._pad1(torch.from_numpy(v), 1024) for v in so]
     d = [P._pad1(torch.from_numpy(v), 1024) for v in sd]
     a = P._pad1(torch.from_numpy(act).float(), 1024)
-    mask, nw = P._mask_words(data, "cull", *o, *d, 1024, bf, f)
+    mask, nw = P._mask_words(data, "cull", tile_ray_bounds(*o, *d, 1024), bf)
     eq(mask, ref["shadow_mask"])
-    tlb, order, texit = P._vmem_sched(data, mask, nw, *o, *d, 1024, f, bf,
-                                      act=a > 0)
+    tlb, order, texit = P._vmem_sched(
+        data, mask, nw, tile_ray_bounds(*o, *d, 1024, a > 0), *o, *d, bf)
     eq(tlb, ref["shadow_tlb"])
     eq(order, ref["shadow_order"])
     eq(texit, ref["shadow_texit"])
+
+
+# sweep_inputs' cases: (origin, act given, act_cull, sched, stream, the
+# rays the mask's tile bounds take, the rays the schedule's take): None
+# all, "act" the active ones, "live" those with a direction
+FRONT_CASES = {
+    "shared": ("shared", False, None, True, False, None, None),
+    "shared_streamed": ("shared", False, None, True, True, None, None),
+    "perray": ("perray", False, None, True, False, None, None),
+    "perray_streamed": ("perray", False, None, True, True, "live", "live"),
+    "anyhit_act_cull": ("perray", True, True, True, False, "act", "act"),
+    "anyhit": ("perray", True, None, True, False, None, "act"),
+    "anyhit_streamed": ("perray", True, None, True, True, "act", "act"),
+    "words": ("perray", True, True, False, False, "act", None),
+}
+
+
+@pytest.mark.parametrize("case", sorted(FRONT_CASES))
+def test_sweep_inputs_compose_the_units(frame, case, monkeypatch):
+    """sweep_inputs, the one front end of the culled sweeps: bitwise the
+    units composed by hand as each sweep composed them (the padded
+    planes, _mask_words, then _vmem_sched or _stream_inputs, with the
+    streamed per-ray closest hit's super_any admission between them; a
+    small scene forced onto the streamed path), with one tile_ray_bounds
+    call where the mask and the schedule take the same rays and two
+    where they do not (the all-on-chip any-hit without act_cull)."""
+    kind, with_act, act_cull, sched, stream, mask_by, sched_by = \
+        FRONT_CASES[case]
+    data = frame[0].to("cpu")
+    if kind == "shared":
+        o, d, act = frame[2], rays_for(W, H), None
+    else:
+        so, sd, act = shadow_rays(3000)
+        o, d = ([torch.from_numpy(v) for v in x] for x in (so, sd))
+        act = torch.from_numpy(act) if with_act else None
+    calls = []
+
+    def counted(*a, **kw):
+        calls.append(a)
+        return tile_ray_bounds(*a, **kw)
+    monkeypatch.setattr(P, "tile_ray_bounds", counted)
+    got = P.sweep_inputs(data, o, *d, act=act, act_cull=act_cull,
+                         sched=sched, stream=stream)
+    monkeypatch.undo()
+    assert len(calls) == (1 if mask_by == sched_by or not sched else 2)
+
+    bf = 32 if stream else P._natural_block_f(data, data.padded_faces)
+    n = 1024 * (P.STREAM_BATCH if stream else 1)
+    dp = [P._pad1(v, n) for v in d]
+    op = [o[0], o[1], o[2]] if kind == "shared" else [P._pad1(v, n)
+                                                       for v in o]
+    actp = None if act is None else P._pad1(act.to(torch.float32), n)
+    by = {None: None, "act": None if actp is None else actp > 0,
+          "live": (dp[0] != 0.0) | (dp[1] != 0.0) | (dp[2] != 0.0)}
+    mask, nw = P._mask_words(data, "cull",
+                             tile_ray_bounds(*op, *dp, 1024, by[mask_by]),
+                             bf)
+    bounds = tile_ray_bounds(*op, *dp, 1024, by[sched_by])
+    want = (None,)
+    if sched and stream:
+        if case == "perray_streamed":
+            ok = perray_super_any(*SP.super_boxes(data), *op, *dp, 1024,
+                                  act=by["live"])
+            mask = torch.where(ok.reshape(-1), mask, 0)
+        want = P._stream_inputs(data, mask, nw, bounds, *op, *dp)
+    elif sched:
+        want = P._vmem_sched(data, mask, nw, bounds, *op, *dp, bf)
+    assert (got.stream, got.block_f, got.nwords) == (stream, bf, nw)
+    planes = dp if kind == "shared" else dp + op
+    assert len(got.planes) == len(planes)
+    assert len(got.sched) == len(want) - 1 and (got.texit is None) == (
+        want[-1] is None)
+    for g, w in zip((*got.planes, got.mask, *got.sched, got.texit),
+                    (*planes, mask, *want)):
+        assert g is w is None or torch.equal(g, w)
+    assert (got.act is None) == (actp is None)
+    if actp is not None:
+        assert torch.equal(got.act, actp)
+
+
+def n_ops(fn):
+    return sum(count_ops(fn, K.PLAIN).values())
+
+
+@pytest.mark.parametrize("fused", [True, False])
+def test_scene_constants_are_built_once_per_scene_data(frame, fused):
+    """A second frame on the same SceneData dispatches fewer torch
+    operations than the first, by exactly the operations that build the
+    scene's constants the frame reads (ops/scenepacks.py); a copy made
+    by .to() or dataclasses.replace starts with nothing cached and
+    builds them again."""
+    data, uni, origin = frame
+
+    def draw(scene):
+        return lambda ks: P.render_megakernel(
+            scene, uni.flat(), width=W, height=H, shadows=True, fused=fused,
+            kernels=ks)
+    scene = data.to("cpu")
+    first, second = n_ops(draw(scene)), n_ops(draw(scene))
+    probe = dataclasses.replace(data)
+    bf = P._natural_block_f(data, data.padded_faces)
+
+    def build(ks):
+        SP.pack_face_columns(probe)
+        SP.pack_plane_consts(probe)
+        SP.block_boxes(probe, bf)
+        SP.cluster_boxes(probe)
+        if fused:
+            SP.frame_const(probe, origin)
+    consts = n_ops(build)
+    if fused:  # less the origin's join, which every frame makes
+        consts -= n_ops(lambda ks: SP.frame_const(probe, origin))
+    assert consts > 0 and first - second == consts
+    for copy in (scene.to("cpu"), dataclasses.replace(scene)):
+        assert n_ops(draw(copy)) == first
 
 
 @pytest.mark.parametrize("name", ["cube", "terrain"])

@@ -292,8 +292,9 @@ def test_bvh_mask_words_match_jax_and_cover_flat(ref, scenes, name):
     bf = f // data.blk_lo.shape[0]
     origin = t(ref[f"{name}_origin"])
     rays = [t(v) for v in ref[f"{name}_rays"]]
-    bvh, nw = P._mask_words(data, "bvh", *origin, *rays, 1024, bf, f)
-    cull, _ = P._mask_words(data, "cull", *origin, *rays, 1024, bf, f)
+    bounds = tile_ray_bounds(*origin, *rays, 1024)
+    bvh, nw = P._mask_words(data, "bvh", bounds, bf)
+    cull, _ = P._mask_words(data, "cull", bounds, bf)
     np.testing.assert_array_equal(bvh.numpy(), ref[f"{name}_bvh_mask"])
     np.testing.assert_array_equal(cull.numpy(), ref[f"{name}_cull_mask"])
     hw = bvh.numpy().view(np.uint32)

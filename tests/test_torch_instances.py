@@ -30,6 +30,7 @@ from rust_wgpu_raytracing_tpu_torch.core.scene import (CULL_BLOCK,
                                                        STREAM_COLS)
 from rust_wgpu_raytracing_tpu_torch.ops import instances as pinst
 from rust_wgpu_raytracing_tpu_torch.ops import megakernel as MK
+from rust_wgpu_raytracing_tpu_torch.ops import scenepacks as SP
 from rust_wgpu_raytracing_tpu_torch.ops.intersect import intersect_tris
 from rust_wgpu_raytracing_tpu_torch.ops.oracle import render_oracle
 from test_torch_host import (assert_frame_bar, jax_reference,
@@ -170,11 +171,11 @@ def test_oneshot_record_matches_jax_chunked_record(ref):
     assert tuple(sd.spack.shape) == (4 * 1024, STREAM_COLS)
     np.testing.assert_array_equal(bits(sd.spack.numpy()),
                                   bits(ref["cube4_super.chunked"]))
-    np.testing.assert_array_equal(bits(MK.pack_stream_columns(sd).numpy()),
+    np.testing.assert_array_equal(bits(SP.pack_stream_columns(sd).numpy()),
                                   bits(ref["cube4_super.chunked"]))
     assert tuple(sd.gpack.shape) == (GPACK_ROWS, 4 * 1024)
     np.testing.assert_array_equal(
-        bits(MK.gpack_from_stream(sd.spack).numpy()),
+        bits(SP.gpack_from_stream(sd.spack).numpy()),
         bits(ref["cube4_super.gpack"]))
 
 
@@ -234,7 +235,7 @@ def test_stale_gpack_is_rebuilt_not_clamped():
     the fresh table, where indexing the stale one (clamped) would not."""
     _, sd = port_scene("cube4")
     uni = uni_flat(NEAR_EYE)
-    fresh = MK._gpack_stream(sd)
+    fresh = SP.winner_table(sd)
     assert tuple(fresh.shape) == (GPACK_ROWS, sd.padded_faces)
     cu = CameraUniforms.unflat(np.asarray(uni, np.float32))
     origin = torch.as_tensor(cu.origin, dtype=torch.float32)
@@ -245,7 +246,7 @@ def test_stale_gpack_is_rebuilt_not_clamped():
     for stale in (sd.gpack[:, :128].clone(),
                   torch.zeros((GPACK_ROWS, 0), dtype=torch.float32)):
         stale_sd = dataclasses.replace(sd, gpack=stale)
-        assert MK._gpack_stream(stale_sd).shape == fresh.shape
+        assert SP.winner_table(stale_sd).shape == fresh.shape
         gb, _ = MK.gbuffer(stale_sd, origin, dx, dy, dz)
         for name in ("u", "v", "nd", "uvx", "uvy", "nx", "ny", "nz", "mat"):
             assert torch.equal(getattr(gb, name), getattr(gb_fresh, name))

@@ -25,8 +25,10 @@ import torch
 from rust_wgpu_raytracing_tpu_torch import config as pcfg
 from rust_wgpu_raytracing_tpu_torch.core.scene import Scene
 from rust_wgpu_raytracing_tpu_torch.ops import megakernel as P
+from rust_wgpu_raytracing_tpu_torch.ops import scenepacks as SP
 from rust_wgpu_raytracing_tpu_torch.ops.kernels import (
     closest_hit_perray, closest_hit_perray_plain, launch_counts)
+from rust_wgpu_raytracing_tpu_torch.ops.traverse import tile_ray_bounds
 from rust_wgpu_raytracing_tpu_torch.testing.raycull import \
     sched_perray_culled
 from test_torch_host import (cuda_device, jax_config,  # noqa: F401
@@ -142,11 +144,11 @@ def test_closest_hit_perray_matches_jax_kernel(ref, name):
 
 @pytest.mark.parametrize("name", sorted(CASES))
 def test_closest_hit_perray_with_boxes_matches_jax_kernel(ref, assets, name):
-    """With the port's block boxes (gbuffer_perray's _block_boxes): the
+    """With the port's block boxes (gbuffer_perray's block_boxes): the
     plain version and the culled walk's model, bitwise JAX's kernel."""
     args, bf = case_inputs(ref, name)
     data = port_data(CASES[name][0], assets)
-    boxes = P._block_boxes(data, data.padded_faces, bf)
+    boxes = SP.block_boxes(data, bf)
     n = ref[f"{name}_t"].shape[0]
     for t, face in (closest_hit_perray(*args, *boxes, block_f=bf),
                     sched_perray_culled(*args, *boxes, block_f=bf)):
@@ -200,10 +202,11 @@ def port_inputs(name, assets, device):
     o, d = bounce_wavefront(kind, seed)
     o = [P._pad1(torch.from_numpy(v).to(device), 1024) for v in o]
     d = [P._pad1(torch.from_numpy(v).to(device), 1024) for v in d]
-    mask, nw = P._mask_words(data, accel, *o, *d, 1024, bf, f)
-    tlb, order, texit = P._vmem_sched(data, mask, nw, *o, *d, 1024, f, bf)
-    return [tlb, order, *d, *o, texit, P.pack_face_columns(data),
-            P._plane_consts(data)], bf
+    bounds = tile_ray_bounds(*o, *d, 1024)
+    mask, nw = P._mask_words(data, accel, bounds, bf)
+    tlb, order, texit = P._vmem_sched(data, mask, nw, bounds, *o, *d, bf)
+    return [tlb, order, *d, *o, texit, SP.pack_face_columns(data),
+            SP.pack_plane_consts(data)], bf
 
 
 def test_port_inputs_match_jax_inputs(ref, assets):
@@ -220,7 +223,7 @@ def test_port_inputs_match_jax_inputs(ref, assets):
 def test_closest_hit_perray_cuda_matches_plain(name, assets, cuda_device):
     args, bf = port_inputs(name, assets, cuda_device)
     data = port_data(CASES[name][0], assets, cuda_device)
-    boxes = P._block_boxes(data, data.padded_faces, bf)
+    boxes = SP.block_boxes(data, bf)
     pt, pf = closest_hit_perray_plain(*args, block_f=bf)
     for a in (args, args + list(boxes)):
         before = launch_counts()["closest_hit_perray"]

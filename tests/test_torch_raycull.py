@@ -36,7 +36,7 @@ lie inside the clusters' boxes). Then the wavefronts of 64x64 path
 traces of a heightfield (K1 primary, K7 and K8 bounce 1, K3 last bounce) and of
 a streamed one (K9, K10, K11). The arguments come from the port's own
 glue (extend_shadow_rays, gbuffer, gbuffer_perray, anyhit_rays,
-raycull.frame_args), which hands the kernels the boxes. The card tests
+fusedframe.frame_args), which hands the kernels the boxes. The card tests
 (marked gpu) hold the CUDA kernels to the plain versions on the same
 inputs.
 """
@@ -53,10 +53,12 @@ from rust_wgpu_raytracing_tpu_torch.core.camera import Camera
 from rust_wgpu_raytracing_tpu_torch.core.scene import Scene
 from rust_wgpu_raytracing_tpu_torch.ops import kernels as K
 from rust_wgpu_raytracing_tpu_torch.ops import megakernel as P
-from rust_wgpu_raytracing_tpu_torch.ops.fusedframe import render_frame_fused
+from rust_wgpu_raytracing_tpu_torch.ops import scenepacks as SP
+from rust_wgpu_raytracing_tpu_torch.ops.fusedframe import (frame_args,
+                                                          render_frame_fused)
 from rust_wgpu_raytracing_tpu_torch.testing.raycull import (
     ADVERSARIAL_KINDS, CAMERA_KINDS, adversarial_camera, adversarial_rays,
-    extend_shadow_culled, frame_args, frame_culled, item_walks, mask_pairs,
+    extend_shadow_culled, frame_culled, item_walks, mask_pairs,
     plane_camera_config, sched_anyhit_culled, sched_closest_culled,
     sched_perray_culled,
     sched_pairs, stream_anyhit_culled, stream_pairs, stream_perray_culled,
@@ -148,8 +150,9 @@ def k4_args(data, mesh, kind, seed, mode):
     origin, d = adversarial_camera(kind, MESHES[mesh], data.blk_lo,
                                    data.blk_hi, seed)
     dev = data.blk_lo.device
-    return frame_args(data, torch.from_numpy(origin).to(dev),
-                      [v.to(dev) for v in tens(d)], mode)
+    args, kw = frame_args(data, torch.from_numpy(origin).to(dev),
+                          *(v.to(dev) for v in tens(d)))
+    return args, dict(kw, mode=mode)
 
 
 def rays(kind, mesh, data, seed):
@@ -312,8 +315,7 @@ def test_culled_k9_equals_plain(meshes, mesh, kind, monkeypatch):
                                    data.blk_hi, seed)
     args, kw = k9_args(data, origin, d)
     assert len(args) == 12 and torch.equal(args[9], torch.from_numpy(origin))
-    assert torch.equal(args[10], P._block_boxes(data, data.padded_faces,
-                                                32)[0])
+    assert torch.equal(args[10], SP.block_boxes(data, 32)[0])
     want = K.stream_closest_hit_plain(*args, **kw)
     for _ in segs(monkeypatch):
         got = stream_shared_culled(*args)
@@ -806,7 +808,7 @@ def test_perray_super_any_margins(meshes, mesh, kind):
     seed = 400 + KINDS.index(kind) + 10 * sorted(MESHES).index(mesh)
     o, d, _, _, _ = rays(kind, mesh, data, seed)
     n_super = data.padded_faces // 1024
-    _, _, slo, shi = P._super_aabbs(data, n_super)
+    slo, shi = SP.super_boxes(data)
     ox, oy, oz, dx, dy, dz = (torch.from_numpy(v) for v in (*o, *d))
     live = (dx != 0) | (dy != 0) | (dz != 0)
     sup_ok = perray_super_any(slo, shi, ox, oy, oz, dx, dy, dz, 1024,
@@ -817,7 +819,7 @@ def test_perray_super_any_margins(meshes, mesh, kind):
     need = meets & live[:, None]
     assert int(need.sum()) > 100
     assert bool(admitted[need].all())
-    fpack, dc = P.pack_face_columns(data), P._plane_consts(data)
+    fpack, dc = SP.pack_face_columns(data), SP.pack_plane_consts(data)
     hits = 0
     for s in range(n_super):
         rows = slice(s * 1024, (s + 1) * 1024)
@@ -874,7 +876,8 @@ def test_wrappers_take_and_ignore_boxes(meshes):
     with pytest.raises(TypeError):
         K.anyhit(*args[:12], args[12].double(), args[13], **kw)
     for mode in ("sched", "inkernel"):
-        args, kw = frame_args(data, torch.from_numpy(origin), tens(d), mode)
+        args, kw = frame_args(data, torch.from_numpy(origin), *tens(d))
+        kw["mode"] = mode
         assert_bits(K.frame(*args, **kw), K.frame(*args[:10], **kw),
                     [f"plane {i}" for i in range(16)])
     with pytest.raises(ValueError):
@@ -884,13 +887,12 @@ def test_wrappers_take_and_ignore_boxes(meshes):
 
 
 def test_block_boxes_follow_the_blocks(meshes):
-    """_block_boxes: a block of 32 faces over 8-face clusters takes the
+    """block_boxes: a block of 32 faces over 8-face clusters takes the
     union of its four boxes (padding stays +inf / -inf)."""
     data = meshes["bf8"]
-    f = data.padded_faces
-    lo, hi = P._block_boxes(data, f, 8)
+    lo, hi = SP.block_boxes(data, 8)
     assert lo is data.blk_lo and hi is data.blk_hi
-    lo, hi = P._block_boxes(data, f, 32)
+    lo, hi = SP.block_boxes(data, 32)
     assert torch.equal(lo, data.blk_lo.view(-1, 4, 3).amin(1))
     assert torch.equal(hi, data.blk_hi.view(-1, 4, 3).amax(1))
     assert bool(torch.isinf(lo[-1]).all()) and bool((lo[-1] > 0).all())

@@ -27,7 +27,9 @@ from rust_wgpu_raytracing_tpu_torch.core.camera import Camera
 from rust_wgpu_raytracing_tpu_torch.core.scene import Scene
 from rust_wgpu_raytracing_tpu_torch.ops import kernels as K
 from rust_wgpu_raytracing_tpu_torch.ops import megakernel as P
-from rust_wgpu_raytracing_tpu_torch.ops.traverse import perray_super_any
+from rust_wgpu_raytracing_tpu_torch.ops import scenepacks as SP
+from rust_wgpu_raytracing_tpu_torch.ops.traverse import (perray_super_any,
+                                                         tile_ray_bounds)
 from test_torch_host import (cuda_device, jax_config,  # noqa: F401
                              jax_reference, terrain_config)
 
@@ -217,13 +219,13 @@ def test_port_stream_schedule_matches_jax(refs, scenes, name):
     data = scenes[name]
     origin = t(ref[f"{name}_origin"])
     rays = [P._pad1(t(v), 8 * 1024) for v in ref[f"{name}_rays"]]
-    f = data.padded_faces
-    mask, nw = P._mask_words(data, "cull", *origin, *rays, 1024, 32, f)
+    bounds = tile_ray_bounds(*origin, *rays, 1024)
+    mask, nw = P._mask_words(data, "cull", bounds, 32)
     bits_equal(mask, ref[f"{name}_k9_mask"], "mask")
-    got = P._stream_inputs(data, mask, nw, *origin, *rays)
+    got = P._stream_inputs(data, mask, nw, bounds, *origin, *rays)
     for k, v in zip(SCHED, got):
         bits_equal(v, ref[f"{name}_k9_{k}"], k)
-    bits_equal(P._stream_pack(data), ref[f"{name}_spack"], "spack")
+    bits_equal(SP.stream_pack(data), ref[f"{name}_spack"], "spack")
 
 
 @pytest.mark.parametrize("name", sorted(CASES))
@@ -284,20 +286,22 @@ def test_stream_schedules_of_the_wavefronts_match_jax(refs, scenes, name):
     op = [P._pad1(v, 8 * 1024) for v in o]
     dp = [P._pad1(v, 8 * 1024) for v in d]
     sdp = [P._pad1(v, 8 * 1024) for v in sd]
-    f = data.padded_faces
     live = (dp[0] != 0.0) | (dp[1] != 0.0) | (dp[2] != 0.0)
-    mask, nw = P._mask_words(data, "cull", *op, *dp, 1024, 32, f, act=live)
-    _, _, slo, shi = P._super_aabbs(data, nw)
+    bounds = tile_ray_bounds(*op, *dp, 1024, live)
+    mask, nw = P._mask_words(data, "cull", bounds, 32)
+    slo, shi = SP.super_boxes(data)
+    assert slo.shape[0] == nw
     sup_ok = perray_super_any(slo, shi, *op, *dp, 1024, act=live)
     bits_equal(sup_ok, ref[f"{name}_sup_ok"], "sup_ok")
     mask = torch.where(sup_ok.reshape(-1), mask, 0)
-    for k, v in zip(SCHED, P._stream_inputs(data, mask, nw, *op, *dp,
-                                            act=live)):
+    for k, v in zip(SCHED, P._stream_inputs(data, mask, nw, bounds, *op,
+                                            *dp)):
         bits_equal(v, ref[f"{name}_k10_{k}"], f"k10 {k}")
     actp = P._pad1(act.to(torch.float32), 8 * 1024) > 0
-    mask, nw = P._mask_words(data, "cull", *op, *sdp, 1024, 32, f, act=actp)
-    for k, v in zip(SCHED, P._stream_inputs(data, mask, nw, *op, *sdp,
-                                            act=actp)):
+    bounds = tile_ray_bounds(*op, *sdp, 1024, actp)
+    mask, nw = P._mask_words(data, "cull", bounds, 32)
+    for k, v in zip(SCHED, P._stream_inputs(data, mask, nw, bounds, *op,
+                                            *sdp)):
         bits_equal(v, ref[f"{name}_k11_{k}"], f"k11 {k}")
 
 
@@ -439,7 +443,7 @@ def test_streamed_glue_hands_k9_and_k11_their_boxes(scenes):
               kernels=ks)
     o, _, sd, act = bounce_tensors()
     P.anyhit_rays(data, *o, *sd, act, kernels=ks)
-    lo, hi = P._block_boxes(data, data.padded_faces, 32)
+    lo, hi = SP.block_boxes(data, 32)
     a9, _ = calls["stream_closest_hit_plain"]
     a11, _ = calls["stream_anyhit_plain"]
     assert torch.equal(a9[9], origin)

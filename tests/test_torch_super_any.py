@@ -30,6 +30,7 @@ from rust_wgpu_raytracing_tpu_torch.core.camera import Camera
 from rust_wgpu_raytracing_tpu_torch.core.scene import Scene
 from rust_wgpu_raytracing_tpu_torch.ops import kernels as K
 from rust_wgpu_raytracing_tpu_torch.ops import megakernel as P
+from rust_wgpu_raytracing_tpu_torch.ops import scenepacks as SP
 from rust_wgpu_raytracing_tpu_torch.ops.pathtrace import (PRNGKey, fold_in,
                                                           render_pathtrace)
 from rust_wgpu_raytracing_tpu_torch.ops.traverse import perray_super_any
@@ -108,8 +109,8 @@ def box_sets(data):
     """The superblock boxes the glue hands the kernel, and the cluster
     boxes with padding turned empty (-> +inf / -inf) and as stored
     (+inf padding on both sides)."""
-    blo, bhi, slo, shi = P._super_aabbs(data, data.padded_faces // 1024)
-    return {"superblocks": (slo, shi), "clusters": (blo, bhi),
+    return {"superblocks": SP.super_boxes(data),
+            "clusters": SP.cluster_boxes(data)[:2],
             "raw clusters": (data.blk_lo, data.blk_hi)}
 
 
