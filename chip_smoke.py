@@ -210,6 +210,11 @@ graph captures and replays.
 `python3 chip_smoke.py --multi` runs only phases 1-2 and 14.
 `python3 chip_smoke.py --super-any` runs only phases 1-2 and
 super_any_phase (one recorded pt-540p-terrain512 sample, ~1 min).
+`python3 chip_smoke.py --sweep-front` runs only phases 1-2 and
+sweep_front_phase: K13 (the culled sweeps' front end) against its plain
+twin at the refscene orbit's two 1080p ray sets and one 4K ray set of
+64 instances, bitwise (a zero tile bound up to its sign) and timed
+beside its byte bound, then the orbit frame's launches (~2 min).
 `python3 chip_smoke.py --profile` runs only phases 1-2 and then
 profiles 5 frames of each frame program at the smoke view, 5 samples
 of the path tracer, and 5 frames / samples of the streamed cells
@@ -1484,6 +1489,7 @@ def stream_phase(card, K, Renderer, drive, record, check, results, errs,
     say(f"[pt] streamed sample: kernel calls "
         f"{ {k: len(v) for k, v in pt_calls.items()} }")
     super_any_phase(card, K, Renderer, results, errs, say, pt_calls)
+    sweep_front_phase(card, K, Renderer, results, say)
     k10_args, k10_kw = pt_calls["stream_closest_hit_perray"][0]
     k11b_args, k11b_kw = pt_calls["stream_anyhit"][0]
     k9b_args, k9b_kw = pt_calls["stream_closest_hit"][0]
@@ -1678,6 +1684,162 @@ def super_any_phase(card, K, Renderer, results, errs, say, calls=None):
         f"device time; every live pair ({pairs} pairs) {all_ms:.4f} ms, "
         f"{100 * all_ms / dev:.1f}%; the bytes alone "
         f"{moved / HBM_BYTES_S * 1e3:.4f} ms")
+
+
+def sweep_front_bytes(args, kw, out) -> int:
+    """Bytes one sweep_front call moves at the least: the ray planes
+    (three for a shared origin) and act in once, the boxes and given
+    words in once, each output out once."""
+    import torch
+
+    o, dx, act = args[0], args[1], args[4]
+    planes = 3 + (0 if torch.is_tensor(o) else 3) + (act is not None)
+    moved = dx.shape[0] * 4 * planes
+    for pair in (kw.get("cull_boxes"), kw.get("sched_boxes"),
+                 kw.get("root")):
+        moved += sum(b.numel() * 4 for b in pair or ())
+    if kw.get("words") is not None:
+        moved += kw["words"].numel() * 4
+    outs = list(out.bounds)
+    if out.mask_bounds is not out.bounds:
+        outs += list(out.mask_bounds)
+    if kw.get("words") is None:
+        outs.append(out.words)
+    outs += [out.tlb, out.order, out.texit]
+    return moved + sum(t.numel() * 4 for t in outs if t is not None)
+
+
+def sweep_front_same(got, want) -> bool:
+    """K13 against its plain twin: every output bitwise, a tile bound up
+    to the sign of a zero (kernels/sweep_front.py says why)."""
+    import torch
+
+    def bits(x, signless=False):
+        if x.dtype != torch.float32:
+            return x
+        x = x + 0.0 if signless else x
+        return torch.where(torch.isnan(x), float("nan"), x).view(torch.int32)
+    for g, w in zip(got.bounds + got.mask_bounds,
+                    want.bounds + want.mask_bounds):
+        if not torch.equal(bits(g, True), bits(w, True)):
+            return False
+    for g, w in zip(got[2:], want[2:]):
+        if (g is None) != (w is None) or (
+                g is not None and not torch.equal(bits(g), bits(w))):
+            return False
+    return True
+
+
+def sweep_front_phase(card, K, Renderer, results, say):
+    """K13 (kernels.sweep_front, csrc/sweep_front.cu) at the ray sets of
+    the benchmark cells refscene-terrain91.orbit-1080p (the fused 1080p
+    frame's camera and shadow rays) and instances64-terrain23.still-4k
+    (the 4K camera rays of 64 refit instances): each call bitwise its
+    plain twin, timed against it (CUDA events: the kernel's mean of 20
+    launches, the plain twin's of 2; the kernel's device time from
+    torch.profiler) beside its byte bound; results["sweep_front"] takes
+    the refscene camera rays'. Then the orbit Renderer's launches: K13
+    and sweep_inputs calls over its eager and capture frames, and the
+    device operations a replayed frame (torch.profiler)."""
+    import torch
+
+    from rust_wgpu_raytracing_tpu_torch.config import (
+        CameraConfig, MeshConfig, RenderConfig, SceneConfig, reference_scene)
+    from rust_wgpu_raytracing_tpu_torch.core.camera import Camera
+    from rust_wgpu_raytracing_tpu_torch.ops import instances as pinst
+    from rust_wgpu_raytracing_tpu_torch.ops.megakernel import \
+        render_megakernel
+    from rust_wgpu_raytracing_tpu_torch.runtime import profiler
+
+    # the refscene configuration (rtbench/configs/refscene-terrain91.json)
+    orbit_cfg = SceneConfig(
+        spheres=reference_scene().spheres,
+        meshes=(MeshConfig(obj_path="builtin:terrain:91",
+                           translation=(0.0, 0.0, -3.0),
+                           light_direction=(6.0, -1.0, 1.0)),),
+        camera=CameraConfig(eye=DENSE_EYE, target=DENSE_TARGET),
+        render=RenderConfig(width=WIDTH, height=HEIGHT, shadows=True,
+                            accel="cull", variant="fused"))
+    rv = Renderer(orbit_cfg, device="cuda")
+    ks, calls = _recording(K)
+    render_megakernel(rv.data, rv.camera.uniforms().flat(), width=WIDTH,
+                      height=HEIGHT, shadows=True, fused=True, kernels=ks)
+    sets = [("refscene 1080p camera rays", *calls["sweep_front"][0]),
+            ("refscene 1080p shadow rays", *calls["sweep_front"][1])]
+    inst = pinst.InstancedScene.from_config(MeshConfig(obj_path=INST_MESH),
+                                            64, device="cuda")
+    soup = inst.instantiate(pinst.grid_transforms(64, z=-6.0,
+                                                  angle=INST_ANGLE))
+    w4, h4 = INST_4K
+    uni4 = Camera.from_config(CameraConfig(eye=(0.0, 7.0, -2.0),
+                                           target=(0.0, 0.0, -6.0)),
+                              w4 / h4).uniforms().flat()
+    ks, calls = _recording(K)
+    render_megakernel(soup, uni4, width=w4, height=h4, accel="bvh",
+                      fused=False, kernels=ks)
+    sets.append(("instances64 4K camera rays", *calls["sweep_front"][0]))
+    torch.cuda.synchronize()
+    for label, args, kw in sets:
+        got = K.sweep_front(*args, **kw)
+        want = K.PLAIN.sweep_front(*args, **kw)
+        torch.cuda.synchronize()
+        exact = sweep_front_same(got, want)
+        n_tiles = got.bounds[0].shape[0]
+        what = ", ".join(k for k in ("cull_boxes", "words", "sched_boxes",
+                                     "root") if kw.get(k) is not None)
+        say(f"[sweep_front] {label}: {args[1].shape[0]} rays, {n_tiles} "
+            f"tiles, {kw['faces'] // kw['block_f']} blocks of "
+            f"{kw['block_f']} faces, gates {kw.get('gate')} / "
+            f"{kw.get('mask_gate')}, given {what}; kernel vs plain bitwise "
+            f"{exact}")
+        if not exact:
+            raise AssertionError(f"sweep_front disagrees with its plain "
+                                 f"twin at the {label}")
+        p1 = time_ms(lambda: K.PLAIN.sweep_front(*args, **kw), 2)
+        k1 = time_ms(lambda: K.sweep_front(*args, **kw), 20)
+        k2 = time_ms(lambda: K.sweep_front(*args, **kw), 20)
+        p2 = time_ms(lambda: K.PLAIN.sweep_front(*args, **kw), 2)
+        dev, how = device_ms(lambda: K.sweep_front(*args, **kw), 20,
+                             "sweep_front_kernel")
+        moved = sweep_front_bytes(args, kw, got)
+        bound_ms, bound_by = bound(moved, 0)
+        ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
+        say(f"[timing] {card}: sweep_front {ms:.4f} ms (kernel, CUDA "
+            f"events, mean of 20 launches: {k1:.4f} / {k2:.4f}; device "
+            f"time {dev:.4f} ms, {how}) vs {plain_ms:.4f} ms (plain, "
+            f"{p1:.4f} / {p2:.4f}) at the {label}; bound {bound_ms:.4f} ms "
+            f"by {bound_by} ({moved} bytes), {100 * bound_ms / dev:.1f}% "
+            f"of the device time")
+        if "sweep_front" not in results:
+            results["sweep_front"] = dict(max_abs_err=0.0, ms=ms,
+                                          plain_ms=plain_ms,
+                                          bound_ms=bound_ms,
+                                          bound_by=bound_by)
+    del soup, inst
+
+    # the orbit Renderer: its eager and capture frames launch K13 once a
+    # sweep_inputs call; a replay launches nothing from the host
+    before = profiler.counters()
+    rv.controller.process_key("d", True)
+    for _ in range(4):
+        rv.update()
+        rv.render(block=True)
+    now = profiler.counters()
+    fronts, inputs, captures, replays = (
+        now.get(k, 0) - before.get(k, 0)
+        for k in ("launches.sweep_front", "sweep.inputs",
+                  "frame.graph_captures", "frame.graph_replays"))
+    say(f"[sweep_front] refscene orbit Renderer, 4 frames (graph captures "
+        f"{captures}, replays {replays}): launches.sweep_front {fronts}, "
+        f"sweep.inputs {inputs}, ratio "
+        f"{fronts / inputs if inputs else float('nan'):.3f}")
+    if inputs == 0 or fronts != inputs:
+        raise AssertionError(f"sweep_front: {fronts} launches for {inputs} "
+                             f"sweep_inputs calls")
+    prof = profile_frames(rv)
+    prof.pop("top")
+    say(f"[sweep_front] {card}: refscene orbit 1080p, replayed frames "
+        f"{json.dumps(prof)}")
 
 
 def oracle_phase(card, K, Renderer, frame, say):
@@ -2486,6 +2648,9 @@ def flat_out(name, out):
     planes too, where there are any)."""
     if name == "closest_hit":
         return (out[0], out[1], *(out[2] or ()))
+    if name == "sweep_front":
+        return (*out.bounds, *out.mask_bounds,
+                *(t for t in out[2:] if t is not None))
     return (out,) if name in ("anyhit", "stream_anyhit", "hier_cull",
                               "super_any") else tuple(out)
 
@@ -3025,7 +3190,8 @@ def main() -> int:
     for label, fn, arg in [(f"frame, mode {m}", "rt_frame_resources", (v,))
                            for m, v in MODES.items()] + [
             ("hier_cull", "rt_hier_cull_resources", ()),
-            ("super_any", "rt_super_any_resources", ())]:
+            ("super_any", "rt_super_any_resources", ()),
+            ("sweep_front", "rt_sweep_front_resources", ())]:
         out = (ctypes.c_int * 4)()
         err = getattr(build.library(), fn)(*arg, out)
         if err:
@@ -3051,6 +3217,13 @@ def main() -> int:
         from rust_wgpu_raytracing_tpu_torch.ops import kernels as K
 
         super_any_phase(card, K, Renderer, {}, {}, say)
+        say(card)
+        return 0
+
+    if "--sweep-front" in sys.argv[1:]:  # K13 alone
+        from rust_wgpu_raytracing_tpu_torch.ops import kernels as K
+
+        sweep_front_phase(card, K, Renderer, {}, say)
         say(card)
         return 0
 
@@ -3175,7 +3348,8 @@ def main() -> int:
                                      f"{kw.get('mode')}")
         if name == "closest_hit" and len(got) == 2:  # no spheres
             planes = "t, face"
-        shape = "x".join(map(str, args[0].shape))
+        first = args[0] if torch.is_tensor(args[0]) else args[1]
+        shape = "x".join(map(str, first.shape))
         say(f"[kernel] {view}: {name}{tag} {'OK' if ok else 'MISMATCH'} vs "
             f"plain on ({planes}), first arg {shape}; max_abs_err {err!r}; "
             f"bitwise {exact}; {bar}")
@@ -3827,6 +4001,9 @@ def main() -> int:
         "stream_anyhit": "rust_wgpu_raytracing_tpu/ops/megakernel.py:1532",
         "super_any": "none: XLA's fusion of "
                      "rust_wgpu_raytracing_tpu/ops/traverse.py:155",
+        "sweep_front": "none: XLA's fusion of "
+                       "rust_wgpu_raytracing_tpu/ops/megakernel.py "
+                       "tile_ray_bounds, _mask_words, _vmem_sched",
     }
     source = {"stream_closest_hit": "stream_sweep",
               "stream_closest_hit_perray": "stream_sweep",

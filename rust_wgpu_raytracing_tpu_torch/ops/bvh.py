@@ -4,7 +4,7 @@ The reference brute-forces every face per pixel
 (triangle_list/compute.wgsl:190-202). Faces are instead sorted by the
 Morton code of their centroid and grouped into fixed-size clusters (=
 the intersection kernels' face block), so cluster AABBs are tight and
-a per-tile interval slab test (ops/megakernel.py _cull_mask) can
+a per-tile interval slab test (ops/traverse.py cull_mask) can
 skip whole clusters. The test is conservative, so culled rendering is
 bit-identical to brute force.
 
@@ -286,7 +286,7 @@ def linearize_bvh(bvh: LBVH) -> np.ndarray:
 
 def tile_cull_mask_np(dmin, dmax, omin, omax, blk_lo, blk_hi):
     """NumPy reference of the interval slab test (the torch version is
-    ops/megakernel.py _cull_mask). Shapes: (T,3) tile dir/origin
+    ops/traverse.py cull_mask). Shapes: (T,3) tile dir/origin
     bounds, (B,3) cluster AABBs -> (T,B) bool."""
     t_cnt, b_cnt = dmin.shape[0], blk_lo.shape[0]
     out = np.zeros((t_cnt, b_cnt), bool)

@@ -16,6 +16,7 @@ runtime/profiler.py; launch_counts() reads them).
 | K10 | stream_closest_hit_perray | csrc/stream_sweep.cu | ops/megakernel.py _make_streaming_chp_slim_kernel |
 | K11 | stream_anyhit | csrc/stream_sweep.cu | ops/megakernel.py _make_streaming_anyhit_kernel |
 | K12 | super_any | csrc/super_any.cu | none: XLA's fusion of ops/traverse.py perray_super_any |
+| K13 | sweep_front | csrc/sweep_front.cu | none: XLA's fusion of ops/megakernel.py tile_ray_bounds, _mask_words' flat scan and _vmem_sched |
 
 A wrapper launches its kernel for CUDA tensors and runs its plain
 version for CPU tensors. The frames and the path tracer take a
@@ -40,6 +41,7 @@ from .stream_sweep import (stream_anyhit, stream_anyhit_plain,
                            stream_closest_hit_perray_plain,
                            stream_closest_hit_plain)
 from .super_any import super_any, super_any_plain
+from .sweep_front import sweep_front, sweep_front_plain
 from .texfilter import texfilter, texfilter_plain
 from .texshade import texshade, texshade_plain
 
@@ -57,17 +59,18 @@ class KernelSet(NamedTuple):
     stream_closest_hit_perray: Callable
     stream_anyhit: Callable
     super_any: Callable
+    sweep_front: Callable
 
 
 KERNELS = KernelSet(closest_hit, anyhit, texshade, frame, texfilter,
                     closest_hit_perray, extend_shadow, hier_cull,
                     stream_closest_hit, stream_closest_hit_perray,
-                    stream_anyhit, super_any)
+                    stream_anyhit, super_any, sweep_front)
 PLAIN = KernelSet(closest_hit_plain, anyhit_plain, texshade_plain,
                   frame_plain, texfilter_plain, closest_hit_perray_plain,
                   extend_shadow_plain, hier_cull_plain,
                   stream_closest_hit_plain, stream_closest_hit_perray_plain,
-                  stream_anyhit_plain, super_any_plain)
+                  stream_anyhit_plain, super_any_plain, sweep_front_plain)
 
 
 def launch_counts() -> dict:

@@ -54,6 +54,7 @@ _SIGNATURES = {
     + [_VOIDP],
     "rt_hier_cull": [_VOIDP] * 3 + [_INT] * 2 + [_VOIDP] + [_VOIDP],
     "rt_super_any": [_VOIDP] * 9 + [_INT] * 3 + [_VOIDP] + [_VOIDP],
+    "rt_sweep_front": [_VOIDP] * 15 + [_INT] * 6 + [_VOIDP] * 6 + [_VOIDP],
     "rt_stream_closest_hit": [_VOIDP] * 14 + [_INT] + [_VOIDP] + [_INT] * 4
     + [_VOIDP] + [_VOIDP],
     "rt_stream_closest_hit_perray": [_VOIDP] * 13 + [_INT] * 5
@@ -70,6 +71,7 @@ _SIGNATURES = {
     "rt_stream_anyhit_resources": [_VOIDP],
     "rt_hier_cull_resources": [_VOIDP],
     "rt_super_any_resources": [_VOIDP],
+    "rt_sweep_front_resources": [_VOIDP],
     "rt_frame_resources": [_INT, _VOIDP],  # (int mode, int out[4])
 }
 

@@ -13,8 +13,9 @@ LBVH-cut cull of accel="bvh", ops/hier_cull.py). Everything per ray is
 planar: separate (R,) tensors per component, rays ordered by 32x32
 screen tiles so that each 1024-ray schedule tile is a compact screen
 block. Every culled sweep takes its ray set's padded planes, mask words
-and schedule from one front end, sweep_inputs, and the scene's constant
-tensors from ops/scenepacks.py.
+and schedule from one front end, sweep_inputs (its ray work one launch
+of kernel K13, kernels.sweep_front), and the scene's constant tensors
+from ops/scenepacks.py.
 
 Meshes above STREAM_FACES faces take the streamed branch of gbuffer,
 gbuffer_perray and anyhit_rays (stream=None decides as JAX's
@@ -37,9 +38,10 @@ products (XLA lowers `x ** 2` to `x * x`); the Blinn-Phong `hdotn **
 32.0` stays torch's pow, within 1 ulp of XLA's, with its denormal
 results flushed to zero as XLA and the TPU flush them (rounding.ftz).
 
-Memory: JAX fuses the flat scan into one XLA loop; here its (tiles,
-clusters, 3) temporaries would take GBs at 1080p past 500k faces, so
-_mask_words scans a chunk of tiles at a time (the words are the same).
+Memory: JAX fuses the flat scan into one XLA loop; in the plain twin
+its (tiles, clusters, 3) temporaries would take GBs at 1080p past 500k
+faces, so traverse.flat_mask_words scans a chunk of tiles at a time (the
+words are the same); K13 holds none.
 
 mip=True (RenderConfig.mip) shades the split frame's mesh pass from the
 texture pyramid (ops/miptex.py): a ray-cone LOD and two taps of the
@@ -67,7 +69,7 @@ from ..core.camera import CameraUniforms
 from ..core.scene import (GP_C1, GP_C2, GP_G1, GP_G2, GP_INVD, GP_MAT,
                           GP_N, GP_TAN, GP_UN, GP_UV, GP_VN, STREAM_FACES,
                           SUPER_F, SceneData)
-from ..runtime.profiler import span
+from ..runtime.profiler import count, span
 from .composite import to_nonlinear_depth
 from .hier_cull import hier_cull_fits, hier_cull_words
 from .rounding import ftz, sqrt
@@ -77,8 +79,8 @@ from .scenepacks import (block_boxes, cluster_boxes, pack_face_columns,
                          pack_plane_consts, stream_pack, super_boxes,
                          winner_table)
 from .shade import quantize_rgba8
-from .traverse import (ray_root_exit, slab_interval_entry, slab_interval_ok,
-                       tile_ray_bounds)
+from .traverse import (flat_mask_words, slab_interval_entry,
+                       sweep_root_exit, tile_schedule)
 
 F32_INF = float("inf")
 BLOCK_F = 32
@@ -87,8 +89,6 @@ BLOCK_F = 32
 # TPU measurement knob, and is not read here): they share one order row
 # and stop row
 STREAM_BATCH = 8
-# (tile, cluster) pairs per step of the flat scan (see module docstring)
-CULL_CHUNK_PAIRS = 1 << 22
 
 
 def _rcp(c) -> float:
@@ -208,69 +208,19 @@ def _pad1(x, tile, fill=0.0):
     return x
 
 
-def _regroup_mask(mask, f, block_f):
-    """Adapt a (tiles, f/cluster) cull mask to the kernels' face-block
-    granularity (coarser blocks OR the member clusters; finer repeat)."""
-    cull = f // mask.shape[1]
-    if block_f == cull:
-        return mask
-    if block_f > cull:
-        return mask.reshape(mask.shape[0], -1, block_f // cull).amax(dim=2)
-    return mask.repeat_interleave(cull // block_f, dim=1)
-
-
-def _pack_mask_bits(mask):
-    """Pack a (tiles, nb) 0/1 i32 mask into (tiles * ceil(nb/32),) i32
-    words, bit k of word w = block 32w + k."""
-    t, nb = mask.shape
-    nw = -(-nb // 32)
-    pad = nw * 32 - nb
-    if pad:
-        mask = torch.cat([mask, torch.zeros((t, pad), dtype=mask.dtype,
-                                            device=mask.device)], dim=1)
-    bits = mask.reshape(t, nw, 32).to(torch.int64)
-    weights = torch.ones(32, dtype=torch.int64, device=mask.device) << \
-        torch.arange(32, dtype=torch.int64, device=mask.device)
-    words = (bits * weights).sum(dim=2)  # in [0, 2^32)
-    words = torch.where(words >= 2**31, words - 2**32, words)
-    return words.to(torch.int32).reshape(-1), nw
-
-
 def _vmem_sched(scene: SceneData, mask, nwords: int, bounds, ox, oy, oz,
                 dx, dy, dz, block_f: int):
     """Front-to-back schedule for the sweep kernels from the tiles' ray
     bounds (tile_ray_bounds; JAX _vmem_sched computes them itself).
 
     Returns (tlb (T, nb) f32, order (T, nb) i32, texit (R,) f32):
-    per-(tile, face-block) conservative entry-t lower bounds (+inf where
-    the accel mask culls the block), the per-tile visit order ascending
-    in entry t (a stable sort, as jnp.argsort is), and the per-ray
-    root-exit cap. (The JAX version returns tlb/order as (T, 1, nb).)"""
-    f = scene.padded_faces
-    nb = f // block_f
-    omin, omax, dmin, dmax = bounds
-    n_tiles = omin.shape[0]
+    traverse.tile_schedule over the cluster boxes with padding clusters
+    empty (scenepacks.cluster_boxes) and the per-ray root-exit cap. (The
+    JAX version returns tlb/order as (T, 1, nb).)"""
     blo, bhi, lo, hi = cluster_boxes(scene)
-    a = blo[None, :, :] - omax[:, None, :]
-    b = bhi[None, :, :] - omin[:, None, :]
-    _, t0 = slab_interval_entry(a, b, dmin[:, None, :], dmax[:, None, :])
-
-    cull = f // scene.blk_lo.shape[0]
-    if block_f > cull:
-        t0 = t0.reshape(n_tiles, -1, block_f // cull).amin(dim=2)
-    elif block_f < cull:
-        t0 = t0.repeat_interleave(cull // block_f, dim=1)
-
-    words = mask.reshape(n_tiles, nwords)
-    c = torch.arange(nb, dtype=torch.int32, device=dx.device)
-    bits = (words[:, (c >> 5).long()] >> (c & 31)) & 1
-    tlb = torch.where(bits != 0, t0, F32_INF)
-    order = torch.argsort(tlb, dim=1, stable=True).to(torch.int32)
-
-    texit = ray_root_exit(lo, hi, ox, oy, oz, dx, dy, dz)
-    live = (dx != 0.0) | (dy != 0.0) | (dz != 0.0)
-    texit = torch.where(live, texit, -1.0)
-    return tlb.contiguous(), order.contiguous(), texit
+    tlb, order = tile_schedule(blo, bhi, mask, bounds, scene.padded_faces,
+                               block_f)
+    return tlb, order, sweep_root_exit(lo, hi, ox, oy, oz, dx, dy, dz)
 
 
 def _natural_block_f(scene: SceneData, f: int) -> int:
@@ -282,32 +232,22 @@ def _natural_block_f(scene: SceneData, f: int) -> int:
     return min(BLOCK_F, f)
 
 
-def _cull_mask(scene: SceneData, omin, omax, dmin, dmax):
-    """(tiles, clusters) i32: the flat slab test of the tiles' cones
-    (bounds (T, 3) each) against every cluster AABB."""
-    a = scene.blk_lo[None, :, :] - omax[:, None, :]  # (T,B,3)
-    b = scene.blk_hi[None, :, :] - omin[:, None, :]
-    ok = slab_interval_ok(a, b, dmin[:, None, :], dmax[:, None, :])
-    return ok.to(torch.int32)
-
-
 def _should_stream(f: int, block_f: int) -> bool:
     """JAX _should_stream: meshes above STREAM_FACES (padded to whole
     superblocks) at the 32-face block take the streamed sweeps."""
     return f > STREAM_FACES and f % SUPER_F == 0 and block_f == BLOCK_F
 
 
-def _stream_inputs(scene: SceneData, mask, nwords: int, bounds, ox, oy, oz,
-                   dx, dy, dz):
+def _stream_rows(scene: SceneData, mask, nwords: int, bounds):
     """The streamed sweeps' schedule over padded rays from the tiles' ray
     bounds (JAX _stream_mask_spec's data and _stream_sched): mask3 (NB,
     nsub+1, S) each batch's subtile mask rows, row nsub their union;
     order2 (NB, S) the batch's words by tlb3's row nsub (stable, as
     jnp.argsort); tlb3 (NB, nsub+1, S) per-(subtile, word) entry-t lower
-    bounds (+inf for an empty word), row nsub the batch minimum; texit
-    (R,) the root-exit cap, -1 for zero directions."""
+    bounds (+inf for an empty word), row nsub the batch minimum."""
     slo, shi = super_boxes(scene)
-    n_tiles, n_super, nsub = dx.shape[0] // TILE_R, slo.shape[0], STREAM_BATCH
+    omin, omax, dmin, dmax = bounds
+    n_tiles, n_super, nsub = omin.shape[0], slo.shape[0], STREAM_BATCH
     if nwords != n_super:
         raise ValueError(f"{nwords} mask words per tile for {n_super} "
                          f"superblocks")
@@ -317,7 +257,6 @@ def _stream_inputs(scene: SceneData, mask, nwords: int, bounds, ox, oy, oz,
         union = union | g[:, k, :]
     mask3 = torch.cat([g, union[:, None, :]], dim=1).contiguous()
 
-    omin, omax, dmin, dmax = bounds
     a = slo[None, :, :] - omax[:, None, :]  # (T,S,3)
     b = shi[None, :, :] - omin[:, None, :]
     _, t0 = slab_interval_entry(a, b, dmin[:, None, :], dmax[:, None, :])
@@ -326,23 +265,35 @@ def _stream_inputs(scene: SceneData, mask, nwords: int, bounds, ox, oy, oz,
     tmin = g.amin(dim=1)
     tlb3 = torch.cat([g, tmin[:, None, :]], dim=1)
     order2 = torch.argsort(tmin, dim=1, stable=True).to(torch.int32)
+    return mask3, order2.contiguous(), tlb3.contiguous()
 
+
+def _stream_inputs(scene: SceneData, mask, nwords: int, bounds, ox, oy, oz,
+                   dx, dy, dz):
+    """_stream_rows' (mask3, order2, tlb3), then texit (R,): the
+    root-exit cap, -1 for zero directions."""
     _, _, lo, hi = cluster_boxes(scene)
-    texit = ray_root_exit(lo, hi, ox, oy, oz, dx, dy, dz)
-    live = (dx != 0.0) | (dy != 0.0) | (dz != 0.0)
-    texit = torch.where(live, texit, -1.0)
-    return mask3, order2.contiguous(), tlb3.contiguous(), texit
+    return (*_stream_rows(scene, mask, nwords, bounds),
+            sweep_root_exit(lo, hi, ox, oy, oz, dx, dy, dz))
+
+
+def _hier_cull_runs(scene: SceneData, accel: str, nb: int) -> bool:
+    """Whether the words come from K5: accel="bvh" where the JAX package
+    runs it (the cluster table matches the blocks and hier_cull_fits)."""
+    if accel not in ("brute", "cull", "bvh"):
+        raise ValueError(f"unknown accel {accel!r}")
+    return accel == "bvh" and scene.blk_lo.shape[0] == nb and \
+        hier_cull_fits(nb)
 
 
 def _mask_words(scene: SceneData, accel: str, bounds, block_f: int,
                 kernels: KernelSet = KERNELS):
     """Packed per-(tile, block) activity words from the tiles' ray
     bounds (tile_ray_bounds; JAX _mask_words computes them itself):
-    "brute" sets every bit, "cull" runs the flat interval scan, "bvh" the
-    two-level LBVH-cut cull (kernel K5) where the JAX package runs it
-    (the cluster table matches the blocks and hier_cull_fits) and the
-    flat scan elsewhere. All are conservative, so the frame is
-    bit-identical across them."""
+    "brute" sets every bit, "cull" runs the flat interval scan
+    (traverse.flat_mask_words), "bvh" the two-level LBVH-cut cull
+    (kernel K5) where _hier_cull_runs and the flat scan elsewhere. All
+    are conservative, so the frame is bit-identical across them."""
     f = scene.padded_faces
     n_tiles = bounds[0].shape[0]
     nb = f // block_f
@@ -350,18 +301,12 @@ def _mask_words(scene: SceneData, accel: str, bounds, block_f: int,
     if accel == "brute":
         return torch.full((n_tiles * nwords,), -1, dtype=torch.int32,
                           device=bounds[0].device), nwords
-    if accel not in ("cull", "bvh"):
-        raise ValueError(f"unknown accel {accel!r}")
-    if accel == "bvh" and scene.blk_lo.shape[0] == nb and \
-            hier_cull_fits(nb):
+    if _hier_cull_runs(scene, accel, nb):
         words = hier_cull_words(scene.blk_lo, scene.blk_hi, *bounds,
                                 nwords=nwords, kernels=kernels)
         return words.reshape(-1), nwords
-    step = max(1, CULL_CHUNK_PAIRS // max(1, scene.blk_lo.shape[0]))
-    words = [_pack_mask_bits(_regroup_mask(
-        _cull_mask(scene, *(x[t0:t0 + step] for x in bounds)), f,
-        block_f))[0] for t0 in range(0, n_tiles, step)]
-    return torch.cat(words), nwords
+    return flat_mask_words(scene.blk_lo, scene.blk_hi, bounds, f,
+                           block_f), nwords
 
 
 class SweepInputs(NamedTuple):
@@ -392,9 +337,16 @@ def sweep_inputs(scene: SceneData, o, dx, dy, dz, *, act=None,
     which the schedule's tile bounds take, the mask's too where act_cull
     (None: streamed only). A per-ray closest hit (no act) on the
     streamed path keeps zero-direction rays out of both and clears the
-    words no live ray's line meets (kernels.super_any). The bounds are
-    computed once where mask and schedule agree. sched=False: the mask
-    words only (K8 walks them)."""
+    words no live ray's line meets (kernels.super_any). sched=False: the
+    mask words only (K8 walks them).
+
+    The tile bounds, the flat scan's words, the all-on-chip schedule and
+    texit come from one launch of kernels.sweep_front (K13); K5's words
+    (accel="bvh") need the bounds first, so where the all-on-chip
+    schedule reads them K13 runs twice. The streamed rows
+    (_stream_rows), super_any and K5 run after it. Each call counts
+    "sweep.inputs"."""
+    count("sweep.inputs")
     f = scene.padded_faces
     block_f = _natural_block_f(scene, f)
     if stream is None:
@@ -407,31 +359,50 @@ def sweep_inputs(scene: SceneData, o, dx, dy, dz, *, act=None,
     pad_to = TILE_R * (STREAM_BATCH if stream else 1)
     d = [_pad1(v, pad_to) for v in (dx, dy, dz)]
     shared = isinstance(o, torch.Tensor)
-    op = [o[0], o[1], o[2]] if shared else [_pad1(v, pad_to) for v in o]
-    actp = live = None
-    if act is not None:
-        actp = _pad1(act.to(torch.float32), pad_to)
-        live = actp > 0
-    elif stream and not shared:  # a closest hit: parked rays stay out
-        live = (d[0] != 0.0) | (d[1] != 0.0) | (d[2] != 0.0)
+    op = o.reshape(3).contiguous() if shared else \
+        tuple(_pad1(v, pad_to) for v in o)
+    actp = None if act is None else _pad1(act.to(torch.float32), pad_to)
+    gate = "act" if act is not None else (
+        "live" if stream and not shared else None)
     if act_cull is None:
         act_cull = stream
-    bounds = tile_ray_bounds(*op, *d, TILE_R, live)
-    mask, nwords = _mask_words(
-        scene, accel, bounds if act_cull or act is None
-        else tile_ray_bounds(*op, *d, TILE_R), block_f, kernels=kernels)
-    rows, texit = [], None
+    mask_gate = gate if act_cull or act is None else None
+    nb = f // block_f
+    nwords = -(-nb // 32)
+    blo, bhi, lo, hi = cluster_boxes(scene)
+    root = (lo, hi) if sched else None
+    sbox = (blo, bhi) if sched and not stream else None
+
+    def front(**kw):
+        return kernels.sweep_front(op, *d, actp, gate=gate,
+                                   mask_gate=mask_gate, faces=f,
+                                   block_f=block_f, **kw)
+    if accel == "brute":
+        fr = front(words=torch.full((d[0].shape[0] // TILE_R * nwords,), -1,
+                                    dtype=torch.int32, device=d[0].device),
+                   sched_boxes=sbox, root=root)
+    elif not _hier_cull_runs(scene, accel, nb):
+        fr = front(cull_boxes=(scene.blk_lo, scene.blk_hi), sched_boxes=sbox,
+                   root=root)
+    else:  # K5 reads the bounds, the on-chip schedule its words
+        fr = front(root=None if sbox else root)
+        words = hier_cull_words(scene.blk_lo, scene.blk_hi,
+                                *fr.mask_bounds, nwords=nwords,
+                                kernels=kernels).reshape(-1)
+        fr = front(words=words, sched_boxes=sbox, root=root) if sbox \
+            else fr._replace(words=words)
+    mask, rows = fr.words, ()
     if sched and stream:
         if act is None and not shared:
+            live = (d[0] != 0.0) | (d[1] != 0.0) | (d[2] != 0.0)
             sup_ok = kernels.super_any(*super_boxes(scene), *op, *d, TILE_R,
                                        act=live)
             mask = torch.where(sup_ok.reshape(-1), mask, 0)
-        *rows, texit = _stream_inputs(scene, mask, nwords, bounds, *op, *d)
+        rows = _stream_rows(scene, mask, nwords, fr.bounds)
     elif sched:
-        *rows, texit = _vmem_sched(scene, mask, nwords, bounds, *op, *d,
-                                   block_f)
-    return SweepInputs(stream, block_f, tuple(d) if shared else tuple(d + op),
-                       actp, mask, nwords, tuple(rows), texit,
+        rows = (fr.tlb, fr.order)
+    return SweepInputs(stream, block_f, tuple(d) if shared else tuple(d) + op,
+                       actp, mask, nwords, rows, fr.texit,
                        block_boxes(scene, block_f))
 
 

@@ -2,8 +2,12 @@
 
 Counterpart of the JAX package's ops/traverse.py (slab tests, root
 exit, per-tile ray bounds, the per-ray superblock admission of the
-streamed bounce sweep). Every expression keeps the JAX operation order,
-so the masks and schedules are bit-identical to the JAX ones.
+streamed bounce sweep), with the flat scan's words (flat_mask_words)
+and the all-on-chip schedule (tile_schedule) of its ops/megakernel.py:
+together with tile_ray_bounds and sweep_root_exit they are the plain
+twin of kernel K13 (kernels/sweep_front.py). Every expression keeps the
+JAX operation order, so the masks and schedules are bit-identical to
+the JAX ones.
 accel="bvh" renders through the two-level LBVH cut (ops/hier_cull.py,
 the JAX package's traverse_pallas); the stackless skip-pointer walk over
 SceneData.bvh_pack, bvh_walk_mask_words, is here as in the JAX package,
@@ -20,6 +24,8 @@ SUPER_ANY_PAIRS = 1 << 24
 # steps of bvh_walk_mask_words between its checks for a live tile (each
 # check reads one flag on the host)
 WALK_CHECK_STEPS = 64
+# (tile, cluster) pairs per step of the flat scan (flat_mask_words)
+CULL_CHUNK_PAIRS = 1 << 22
 
 
 def slab_interval_ok(a, b, dn, dp):
@@ -85,6 +91,96 @@ def ray_root_exit(lo, hi, ox, oy, oz, dx, dy, dz):
         t1 = torch.minimum(t1, tf)
     hit = t1 >= t0
     return torch.where(hit, t1 * (1.0 + 1e-5) + 1e-6, -1.0)
+
+
+def sweep_root_exit(lo, hi, ox, oy, oz, dx, dy, dz):
+    """The sweeps' per-ray cap `texit`: ray_root_exit, -1.0 for rays
+    with a zero direction."""
+    texit = ray_root_exit(lo, hi, ox, oy, oz, dx, dy, dz)
+    live = (dx != 0.0) | (dy != 0.0) | (dz != 0.0)
+    return torch.where(live, texit, -1.0)
+
+
+def cull_mask(blk_lo, blk_hi, omin, omax, dmin, dmax):
+    """(tiles, clusters) i32: the flat slab test of the tiles' cones
+    (bounds (T, 3) each) against every cluster AABB (blk_lo, blk_hi
+    (B, 3), padding clusters as the scene holds them)."""
+    a = blk_lo[None, :, :] - omax[:, None, :]  # (T,B,3)
+    b = blk_hi[None, :, :] - omin[:, None, :]
+    ok = slab_interval_ok(a, b, dmin[:, None, :], dmax[:, None, :])
+    return ok.to(torch.int32)
+
+
+def regroup_mask(mask, f, block_f):
+    """Adapt a (tiles, f/cluster) cull mask to the kernels' face-block
+    granularity (coarser blocks OR the member clusters; finer repeat)."""
+    cull = f // mask.shape[1]
+    if block_f == cull:
+        return mask
+    if block_f > cull:
+        return mask.reshape(mask.shape[0], -1, block_f // cull).amax(dim=2)
+    return mask.repeat_interleave(cull // block_f, dim=1)
+
+
+def pack_mask_bits(mask):
+    """Pack a (tiles, nb) 0/1 i32 mask into (tiles * ceil(nb/32),) i32
+    words, bit k of word w = block 32w + k."""
+    t, nb = mask.shape
+    nw = -(-nb // 32)
+    pad = nw * 32 - nb
+    if pad:
+        mask = torch.cat([mask, torch.zeros((t, pad), dtype=mask.dtype,
+                                            device=mask.device)], dim=1)
+    bits = mask.reshape(t, nw, 32).to(torch.int64)
+    weights = torch.ones(32, dtype=torch.int64, device=mask.device) << \
+        torch.arange(32, dtype=torch.int64, device=mask.device)
+    words = (bits * weights).sum(dim=2)  # in [0, 2^32)
+    words = torch.where(words >= 2**31, words - 2**32, words)
+    return words.to(torch.int32).reshape(-1), nw
+
+
+def flat_mask_words(blk_lo, blk_hi, bounds, f: int, block_f: int):
+    """The flat scan's packed (tile, block) activity words, (T *
+    ceil(nb/32),) i32 for nb = f / block_f blocks: cull_mask over the
+    clusters, regrouped to block_f faces a block and packed. Chunks of
+    tiles bound the (tiles, clusters, 3) temporaries to CULL_CHUNK_PAIRS
+    pairs a step (JAX fuses the scan into one XLA loop; here they would
+    take GBs at 1080p past 500k faces); the words are the same."""
+    n_tiles = bounds[0].shape[0]
+    step = max(1, CULL_CHUNK_PAIRS // max(1, blk_lo.shape[0]))
+    return torch.cat([pack_mask_bits(regroup_mask(
+        cull_mask(blk_lo, blk_hi, *(x[t0:t0 + step] for x in bounds)), f,
+        block_f))[0] for t0 in range(0, n_tiles, step)])
+
+
+def tile_schedule(blo, bhi, words, bounds, f: int, block_f: int):
+    """The all-on-chip sweeps' front-to-back schedule (JAX _vmem_sched
+    without its root exit): (tlb (T, nb) f32, order (T, nb) i32) for nb
+    = f / block_f blocks. tlb: each (tile, block)'s conservative entry-t
+    lower bound from the tiles' ray bounds (T, 3) each against the
+    cluster boxes blo, bhi (padding clusters empty: +inf, -inf),
+    regrouped to blocks by their minimum, +inf where the packed mask
+    words (T * nwords,) clear the block; order: each tile's blocks
+    ascending in tlb, a stable sort as jnp.argsort is."""
+    nb = f // block_f
+    omin, omax, dmin, dmax = bounds
+    n_tiles = omin.shape[0]
+    a = blo[None, :, :] - omax[:, None, :]
+    b = bhi[None, :, :] - omin[:, None, :]
+    _, t0 = slab_interval_entry(a, b, dmin[:, None, :], dmax[:, None, :])
+
+    cull = f // blo.shape[0]
+    if block_f > cull:
+        t0 = t0.reshape(n_tiles, -1, block_f // cull).amin(dim=2)
+    elif block_f < cull:
+        t0 = t0.repeat_interleave(cull // block_f, dim=1)
+
+    words = words.reshape(n_tiles, -1)
+    c = torch.arange(nb, dtype=torch.int32, device=words.device)
+    bits = (words[:, (c >> 5).long()] >> (c & 31)) & 1
+    tlb = torch.where(bits != 0, t0, F32_INF)
+    order = torch.argsort(tlb, dim=1, stable=True).to(torch.int32)
+    return tlb.contiguous(), order.contiguous()
 
 
 def _tile_minmax(x, tile_r, act=None):

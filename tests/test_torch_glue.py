@@ -13,6 +13,7 @@ once per SceneData.
 """
 
 import dataclasses
+import importlib
 import os
 
 import numpy as np
@@ -27,12 +28,17 @@ from rust_wgpu_raytracing_tpu_torch.ops import megakernel as P
 from rust_wgpu_raytracing_tpu_torch.ops import scenepacks as SP
 from rust_wgpu_raytracing_tpu_torch.ops.composite import to_nonlinear_depth
 from rust_wgpu_raytracing_tpu_torch.ops.shade import quantize_rgba8
-from rust_wgpu_raytracing_tpu_torch.ops.traverse import (perray_super_any,
+from rust_wgpu_raytracing_tpu_torch.ops.traverse import (cull_mask,
+                                                         perray_super_any,
                                                          tile_ray_bounds)
 from rust_wgpu_raytracing_tpu_torch.runtime.profiler import count_ops
 from test_torch_host import (cube_config, jax_reference, port_config,
                              terrain_config, textured_config,
                              write_textured_assets)
+
+# the module (the package's name sweep_front is the wrapper)
+SF = importlib.import_module(
+    "rust_wgpu_raytracing_tpu_torch.ops.kernels.sweep_front")
 
 RAY_SIZES = [(64, 64), (96, 64), (1920, 1080), (100, 30)]
 W, H = 96, 64
@@ -227,7 +233,7 @@ def test_mask_words_and_schedule_match_jax(ref, frame, accel):
 
 def test_tile_cull_mask_matches_jax(ref, frame):
     data, _, origin = frame
-    eq(P._cull_mask(data, *tile_ray_bounds(
+    eq(cull_mask(data.blk_lo, data.blk_hi, *tile_ray_bounds(
         origin[0], origin[1], origin[2], *padded_rays(), 1024)),
        ref["cull_mask"])
 
@@ -271,8 +277,9 @@ def test_sweep_inputs_compose_the_units(frame, case, monkeypatch):
     planes, _mask_words, then _vmem_sched or _stream_inputs, with the
     streamed per-ray closest hit's super_any admission between them; a
     small scene forced onto the streamed path), with one tile_ray_bounds
-    call where the mask and the schedule take the same rays and two
-    where they do not (the all-on-chip any-hit without act_cull)."""
+    call in its plain front end (kernels.sweep_front_plain) where the
+    mask and the schedule take the same rays and two where they do not
+    (the all-on-chip any-hit without act_cull)."""
     kind, with_act, act_cull, sched, stream, mask_by, sched_by = \
         FRONT_CASES[case]
     data = frame[0].to("cpu")
@@ -287,7 +294,7 @@ def test_sweep_inputs_compose_the_units(frame, case, monkeypatch):
     def counted(*a, **kw):
         calls.append(a)
         return tile_ray_bounds(*a, **kw)
-    monkeypatch.setattr(P, "tile_ray_bounds", counted)
+    monkeypatch.setattr(SF, "tile_ray_bounds", counted)
     got = P.sweep_inputs(data, o, *d, act=act, act_cull=act_cull,
                          sched=sched, stream=stream)
     monkeypatch.undo()

@@ -23,8 +23,10 @@ from rust_wgpu_raytracing_tpu_torch.core.camera import Camera
 from rust_wgpu_raytracing_tpu_torch.core.scene import Scene
 from rust_wgpu_raytracing_tpu_torch.ops import bvh, traverse
 from rust_wgpu_raytracing_tpu_torch.ops.megakernel import (
-    _cull_mask, _pack_mask_bits, raygen_planar, raygen_planar_tiled)
+    raygen_planar, raygen_planar_tiled)
 from rust_wgpu_raytracing_tpu_torch.ops.traverse import (bvh_walk_mask_words,
+                                                         cull_mask,
+                                                         pack_mask_bits,
                                                          tile_ray_bounds)
 from test_torch_host import port_config, terrain_config
 
@@ -102,8 +104,8 @@ def walk_case(grid, w, h, tiled):
         dx, dy, dz = raygen_planar(w, h, uni, device="cpu")
     o = torch.tensor(uni.origin, dtype=torch.float32)
     bounds = tile_ray_bounds(o[0], o[1], o[2], dx, dy, dz, 1024)
-    flat = _cull_mask(data, *bounds)
-    words, nwords = _pack_mask_bits(flat)
+    flat = cull_mask(data.blk_lo, data.blk_hi, *bounds)
+    words, nwords = pack_mask_bits(flat)
     return data, JScene.build(jc).data, bounds, words.reshape(-1, nwords)
 
 

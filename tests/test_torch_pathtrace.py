@@ -181,8 +181,10 @@ def test_compact_drops_dead_tiles():
 
 def test_pathtrace_runs_the_kernels_of_its_path():
     """Primary closest hit (K1), the fused sweep (K8), the last shadow
-    any-hit (K3) and the albedo filter (K6); no frame kernel, texshade
-    or per-ray closest hit. Each threefry draw is 169 torch operations,
+    any-hit (K3) and the albedo filter (K6), and the culled sweeps' front
+    end (K13) once a ray set: the primary rays, K8's two sets at each
+    bounce and the last shadow rays; no frame kernel, texshade or per-ray
+    closest hit. Each threefry draw is 169 torch operations,
     two per sample and two per bounce (ROADMAP.md item 8)."""
     cfg = scene_config("terrain", 32, 32)
     data = Scene.build(cfg).data
@@ -192,7 +194,8 @@ def test_pathtrace_runs_the_kernels_of_its_path():
         kernels=ks), K.PLAIN)
     assert {k: v for k, v in counts.items() if k.startswith("kernel")} == {
         "kernel closest_hit_plain": 1, "kernel extend_shadow_plain": 3,
-        "kernel anyhit_plain": 1, "kernel texfilter_plain": 4}
+        "kernel anyhit_plain": 1, "kernel texfilter_plain": 4,
+        "kernel sweep_front_plain": 1 + 2 * 3 + 1}
     assert counts["aten.bitwise_xor"] == 21 * (2 + 2 * 3)
     draw = count_ops(lambda ks: P.uniform(P.PRNGKey(1), 64, device="cpu"),
                      K.PLAIN)

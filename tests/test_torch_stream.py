@@ -364,7 +364,7 @@ def test_streamed_extend_shadow_equals_split_sweeps(scenes):
                        for f, p in zip(K.KERNELS, K.PLAIN)))
     gb, occ = P.extend_shadow_rays(data, *o, *d, *o, *sd, hit, kernels=ks)
     assert calls == {"super_any": 1, "stream_closest_hit_perray": 1,
-                     "stream_anyhit": 1}
+                     "stream_anyhit": 1, "sweep_front": 2}
     want = P.gbuffer_perray(data, *o, *d)
     for k in GB:
         assert torch.equal(getattr(gb, k), getattr(want, k)), k

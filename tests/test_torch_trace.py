@@ -163,7 +163,7 @@ def test_launch_counts_keep_their_api():
     drops those alone."""
     K.reset_launch_counts()
     want = {f.__name__: 0 for f in K.KERNELS}
-    assert K.launch_counts() == want and len(want) == 12
+    assert K.launch_counts() == want and len(want) == 13
     r = Renderer(scene("fused"), device="cpu")
     r.render()
     assert K.launch_counts() == want
@@ -275,8 +275,10 @@ def test_pathtrace_compaction_spans_and_counters(cap, branch):
     sample += ["pt.bounce"] * 3
     assert names(spans) == (["uniforms.wait", "background.wait"]
                             + sample * 2 + ["pt.accumulate"])
+    # a sample's sweep_inputs calls: the primary closest hit, K8's pair
+    # at each of the two bounces and the last bounce's any-hit
     want = {"syncs.uniforms": 1, "syncs.background": 1,
-            f"pt.{branch or 'full'}": 2}
+            f"pt.{branch or 'full'}": 2, "sweep.inputs": 2 * 6}
     if cap is not None:
         want["syncs.compact"] = 2
     assert counts == want
