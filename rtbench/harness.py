@@ -61,11 +61,19 @@ def load_cell(name: str, root: str = ROOT) -> Cell:
     traffic = load_json(os.path.join(here, "workloads",
                                      w["traffic"] + ".json"))
     scene = scene_kind(config, root)
-    if scene.MOVES and int(traffic.get("pt_bounces", 0)) > 0:
+    pathtraced = int(traffic.get("pt_bounces", 0)) > 0
+    if scene.MOVES and pathtraced:
         raise ValueError(
             f"workload {name!r}: the scene kind {_kind(config)!r} moves "
             "its geometry between steps, and the path tracer's reference "
             "accumulates its samples over fixed geometry")
+    if (pathtraced and hasattr(scene, "reference_lit")
+            and not hasattr(scene, "reference_accumulate")):
+        raise ValueError(
+            f"workload {name!r}: the scene kind {_kind(config)!r} gives "
+            "reference_lit but no reference_accumulate, and the path "
+            "tracer's reference (rtbench/reference/pathtrace.py) knows "
+            "only a RefScene")
     return Cell(
         name=name, workload=w, config=config, traffic=traffic,
         limits=load_json(os.path.join(here, "limits", name + ".json")),

@@ -32,10 +32,12 @@ class Obs:
         return int(self.cell.traffic.get("pt_bounces", 0)) > 0
 
     def shape(self) -> dict:
-        """The cell's sizes, from its configuration and mix alone."""
+        """The cell's sizes, from its configuration and mix alone;
+        "faces" is what the sweeps take: an instanced configuration's
+        whole soup ("instanced_faces"), else its mesh's "faces"."""
         tr, cfg = self.cell.traffic, self.cell.config
         return {"width": tr["width"], "height": tr["height"],
-                "faces": cfg["faces"],
+                "faces": cfg.get("instanced_faces", cfg["faces"]),
                 "spheres": len(cfg["scene"].get("spheres", ())),
                 "bounces": int(tr.get("pt_bounces", 0))}
 

@@ -12,15 +12,32 @@ and gives:
 - program_config(config, traffic, camera, assets, seed): the port's
   SceneConfig, with the camera at `camera` (the mix's start);
 - reference_scene(inputs, step, *, device, dtype): the reference's
-  RefScene (rtbench/reference/scene.py) of the geometry the program drew
-  at global step `step`; triangles from several meshes or transforms
-  reach reference.scene.build as world-space arrays (scale 1,
+  scene of the geometry the program drew at global step `step`, built
+  in `dtype` (float32, or the control's bfloat16): a RefScene
+  (rtbench/reference/scene.py), or for a kind that gives reference_lit
+  whatever that function takes; triangles from several meshes or
+  transforms reach reference.scene.build as world-space arrays (scale 1,
   translation 0);
 - MOVES: true where the geometry changes between steps. Such a kind
   takes no path-traced mix: the reference accumulates over fixed
   geometry;
 - optionally advance(renderer, inputs, step): the kind's change to the
-  program's scene, made before FrameLoop.step() of global step `step`.
+  program's scene, made before FrameLoop.step() of global step `step`;
+- optionally reference_lit(scene, cam, xs, ys, *, width, height,
+  render): the reference's lit frame at pixels (xs, ys) of a
+  width x height frame seen from `cam`, over `scene` as the kind's
+  reference_scene returned it, with the configuration's whole "render";
+  (P, 3) linear values quantized to rgba8 levels, as
+  reference.frame.lit_pixels gives them. verify takes it in place of
+  lit_pixels (which sees only "render"'s "shadows"), so a kind whose
+  frame needs more (a normal map, a mip pyramid) brings its own
+  reference as new files;
+- optionally reference_accumulate(scene, cam, xs, ys, *, width, height,
+  bounces, seed, samples, means_at, render): the same for the path
+  tracer, in place of reference.pathtrace.accumulate. A kind that gives
+  reference_lit takes a path-traced mix only if it gives this too
+  (harness.load_cell refuses it otherwise): the path tracer's reference
+  knows only a RefScene.
 
 This package holds what kinds share: the program's SceneConfig around a
 kind's meshes, and a static kind's reference scene.

@@ -40,3 +40,13 @@ def test_share_is_least_time_over_device_time():
     assert share(obs, K4) == pytest.approx(100.0 * least / 400e-6)
     assert harness.metric_reader("K4_roofline")(obs) == share(obs, K4)
     assert harness.metric_reader("K9_roofline")(obs) is None
+
+
+@pytest.mark.parametrize("cell, nbytes", [
+    # 3840 x 2160 pixels x 20 B, the 61,952 faces of the 64 copies x 36 B
+    ("instances64-terrain23.still-4k", 168_118_272),
+    # 1920 x 1080 x 20 B, 522,242 faces x 36 B: the mesh's own faces
+    ("terrain512-bvh.orbit-1080p", 60_272_712)])
+def test_k9_bytes_take_the_swept_faces(cell, nbytes):
+    assert K9.work(Obs(cell=harness.load_cell(cell)).shape()) == (0.0,
+                                                                  nbytes)

@@ -5,7 +5,8 @@ The new kind written here (two heightfields side by side, two meshes in
 the program's SceneConfig, one material, texture and light) runs the
 tiny lit and path-traced cells with `correct` true on the CPU; stubs
 show the order of Driver's calls, the steps verify asks the kind for,
-and the cells load_cell refuses.
+and the cells load_cell refuses. A kind with a lit-frame reference of
+its own (OWN_KIND) decides `correct` in a run and in the control.
 """
 
 from __future__ import annotations
@@ -15,7 +16,9 @@ import types
 
 import pytest
 
-from rtbench import harness, run, traffic, verify
+import torch
+
+from rtbench import control, harness, run, traffic, verify
 from rtbench.reference import frame as ref_frame
 from rtbench.reference import pathtrace as ref_pt
 from rtbench.tests import tiny
@@ -79,6 +82,40 @@ def reference_scene(inputs, step, *, device, dtype):
 
 MOVING_KIND = '''
 MOVES = True
+'''
+
+OWN_KIND = '''
+"""The heightfield kind with a lit-frame reference of its own:
+reference_scene wraps the RefScene with the step and dtype it was built
+for, and reference_lit records each call, unwraps the scene and adds
+SHIFT to every value of reference.frame.lit_pixels."""
+
+from rtbench.reference import frame
+from rtbench.scenes import heightfield
+
+MOVES = False
+SHIFT = 0.0
+CALLS = []
+
+make_inputs = heightfield.make_inputs
+write_assets = heightfield.write_assets
+program_config = heightfield.program_config
+
+
+class Own:
+    def __init__(self, ref, step, dtype):
+        self.ref, self.step, self.dtype = ref, step, dtype
+
+
+def reference_scene(inputs, step, *, device, dtype):
+    return Own(heightfield.reference_scene(inputs, step, device=device,
+                                           dtype=dtype), step, dtype)
+
+
+def reference_lit(scene, cam, xs, ys, *, width, height, render):
+    CALLS.append((scene, cam, render))
+    return frame.lit_pixels(scene.ref, cam, xs, ys, width=width,
+                            height=height, shadows=render["shadows"]) + SHIFT
 '''
 
 
@@ -239,3 +276,120 @@ def test_verify_asks_for_each_accumulations_first_step(monkeypatch):
     assert drawn == [("scene4", "cam4", [2, 3]), ("scene8", "cam8", [2]),
                      ("scene12", "cam12", [1])]
     assert out == {6: 2, 7: 3, 10: 2, 13: 1}
+
+
+def _own_cell(tmp_path, shift=0.0, accumulate=""):
+    """The tiny lit and path-traced cells of OWN_KIND with `shift` (and
+    `accumulate`, source appended to the kind); returns (root, cells)."""
+    root = tiny.make_root(tmp_path)
+    (tmp_path / "rtbench" / "scenes" / "own.py").write_text(
+        OWN_KIND.replace("SHIFT = 0.0", f"SHIFT = {shift!r}") + accumulate)
+    return root, _add_config(root, "own", "own")
+
+
+@pytest.mark.parametrize("shift, correct", [(0.0, True), (2 / 255, False)])
+def test_kind_reference_lit_decides_correct(tmp_path, shift, correct):
+    root, (orbit, _) = _own_cell(tmp_path, shift)
+    cell = harness.load_cell(orbit, root)
+    seed = 2**31 + 41
+    res, _ = run.run_cell(cell, seed=seed, seconds=1.0, trace=False,
+                          device="cpu", t_start=time.perf_counter(),
+                          root=root)
+    assert res["correct"] is correct, res["checks"]
+    calls = cell.scene.CALLS
+    assert len(calls) == res["checks"]["frames_checked"]["value"] >= 1
+    replay = traffic.Replay(cell.traffic, cell.config, seed)
+    for scene, cam, render in calls:
+        assert isinstance(scene, cell.scene.Own)
+        assert scene.dtype == torch.float32
+        assert (cam.eye == replay.rendered(scene.step)[0].eye).all()
+        assert render is cell.config["render"]
+    if not correct:  # every value two rgba8 levels off
+        assert res["checks"]["bad_px_share"]["value"] == 1.0
+
+
+def test_control_takes_the_kinds_reference(tmp_path):
+    root, (orbit, _) = _own_cell(tmp_path)
+    cell = harness.load_cell(orbit, root)
+    seed = 2**31 + 43
+    out = control.readings(cell, seed, "cpu")
+    steps = [int(g) for g in out["frames"]]
+    calls = cell.scene.CALLS
+    assert all(r is cell.config["render"] for _, _, r in calls)
+    assert [(s.dtype, s.step) for s, _, _ in calls] == (
+        [(torch.float32, g - 1) for g in steps]
+        + [(torch.bfloat16, g - 1) for g in steps])
+
+
+def test_reference_lit_without_accumulate_takes_no_path_traced_mix(
+        tmp_path):
+    root, (orbit, pt) = _own_cell(tmp_path)
+    assert hasattr(harness.load_cell(orbit, root).scene, "reference_lit")
+    with pytest.raises(ValueError, match="'own' gives reference_lit but "
+                                         "no reference_accumulate"):
+        harness.load_cell(pt, root)
+
+
+def test_reference_accumulate_lets_a_kind_path_trace(tmp_path):
+    root, (_, pt) = _own_cell(tmp_path, accumulate='''
+
+def reference_accumulate(scene, cam, xs, ys, *, render, **kwargs):
+    from rtbench.reference import pathtrace
+    CALLS.append((scene, cam, render))
+    return pathtrace.accumulate(scene.ref, cam, xs, ys, **kwargs)
+''')
+    cell = harness.load_cell(pt, root)
+    res, _ = run.run_cell(cell, seed=2**31 + 45, seconds=1.0, trace=False,
+                          device="cpu", t_start=time.perf_counter(),
+                          root=root)
+    assert res["correct"], res["checks"]
+    assert cell.scene.CALLS
+    assert all(r is cell.config["render"] for _, _, r in cell.scene.CALLS)
+
+
+def _own_stub(bounces, drawn):
+    """A kind whose scene is the step's name and whose references record
+    what they were given; the configuration's "render" has keys beyond
+    "shadows"."""
+    def reference_scene(inputs, step, *, device, dtype):
+        return f"scene{step}"
+
+    def reference_lit(s, cam, xs, ys, *, width, height, render):
+        drawn.append((s, cam, width, height, render))
+        return s
+
+    def reference_accumulate(s, cam, xs, ys, *, width, height, bounces,
+                             seed, samples, means_at, render):
+        drawn.append((s, cam, width, height, render))
+        return {n: (s, n) for n in means_at}
+    return types.SimpleNamespace(
+        traffic={"width": 8, "height": 4, "pt_bounces": bounces},
+        config={"render": {"shadows": True, "normal_mapping": True,
+                           "mip": True}},
+        scene=types.SimpleNamespace(
+            reference_scene=reference_scene, reference_lit=reference_lit,
+            reference_accumulate=reference_accumulate))
+
+
+def _no_default(*a, **k):
+    raise AssertionError("the default reference was called")
+
+
+def test_verify_hands_the_kind_its_scene_and_whole_render(monkeypatch):
+    monkeypatch.setattr(ref_frame, "lit_pixels", _no_default)
+    monkeypatch.setattr(ref_pt, "accumulate", _no_default)
+    drawn = []
+    cell = _own_stub(0, drawn)
+    out = verify.reference_values(cell, None, _Rendered(), [0], [0],
+                                  [3, 9, 20], seed=1, device="cpu")
+    assert out == {3: "scene2", 9: "scene8", 20: "scene19"}
+    assert drawn == [(f"scene{g}", f"cam{g}", 8, 4, cell.config["render"])
+                     for g in (2, 8, 19)]
+    assert all(d[4] is cell.config["render"] for d in drawn)
+    drawn.clear()
+    cell = _own_stub(2, drawn)
+    out = verify.reference_values(cell, None, _Rendered(), [0], [0],
+                                  [6, 7, 13], seed=1, device="cpu")
+    assert out == {6: ("scene4", 2), 7: ("scene4", 3), 13: ("scene12", 1)}
+    assert drawn == [("scene4", "cam4", 8, 4, cell.config["render"]),
+                     ("scene12", "cam12", 8, 4, cell.config["render"])]

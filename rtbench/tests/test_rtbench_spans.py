@@ -116,16 +116,27 @@ def test_scene_build_s_reads_the_setup_span(cell):
 
 
 def test_new_entries():
-    per = {m["name"]: m for m in BENCH["per_layer"]}
-    assert per["syncs_per_sample.pt"] == {
-        "name": "syncs_per_sample.pt", "unit": "syncs", "better": "lower",
-        "source": "program_counter", "layer": "path tracer",
-        "moves": "sample_ms", "workloads": PTS}
-    assert per["scene_build_s"] == {
-        "name": "scene_build_s", "unit": "s", "better": "lower",
-        "source": "program_span", "layer": "scene", "moves": "setup_s",
-        "workloads": ORBITS + PTS}
-    assert list(per)[-2:] == ["syncs_per_sample.pt", "scene_build_s"]
+    """The two entries that came with the program's recorder keep their
+    fields, their first cells and their place after the eleven metrics
+    before them; cells and metrics added after them are free."""
+    names = [m["name"] for m in BENCH["per_layer"]]
+    assert set(names[:11]) == {
+        "enqueue_ms.frame", "enqueue_ms.pt", "launches_per_frame.frame",
+        "launches_per_sample.pt", "host_syncs_per_sample.pt",
+        "K4_roofline", "K9_roofline", "K8_roofline", "K10_roofline",
+        "device_idle.frame", "device_idle.pt"}
+    assert names[11:13] == ["syncs_per_sample.pt", "scene_build_s"]
+    per = {m["name"]: dict(m) for m in BENCH["per_layer"]}
+    for name, fields, cells in (
+            ("syncs_per_sample.pt",
+             {"unit": "syncs", "source": "program_counter",
+              "layer": "path tracer", "moves": "sample_ms"}, PTS),
+            ("scene_build_s",
+             {"unit": "s", "source": "program_span", "layer": "scene",
+              "moves": "setup_s"}, ORBITS + PTS)):
+        workloads = per[name].pop("workloads")
+        assert per[name] == dict(fields, name=name, better="lower")
+        assert workloads[:len(cells)] == cells
 
 
 @pytest.mark.parametrize("cell", [tiny.TINY_ORBIT, tiny.TINY_PT])

@@ -7,6 +7,12 @@ mix's replay, and its geometry from the cell's scene kind at that step.
 Path-traced frames of one accumulation share one pass of the reference,
 over the geometry of the accumulation's first step, which keeps the mean
 at each count it needs.
+
+The reference is rtbench/reference's frame.lit_pixels and
+pathtrace.accumulate over the kind's RefScene, or the kind's own
+reference_lit and reference_accumulate where it gives them
+(rtbench/scenes/__init__.py): those take whatever the kind's
+reference_scene returns and the configuration's whole "render".
 """
 
 from __future__ import annotations
@@ -20,12 +26,23 @@ from .reference import pathtrace as ref_pt
 SEED_MASK = 0xFFFFFFFF
 
 
+def _lit_pixels(scene, cam, xs, ys, *, width, height, render):
+    return ref_frame.lit_pixels(scene, cam, xs, ys, width=width,
+                                height=height, shadows=render["shadows"])
+
+
+def _accumulate(scene, cam, xs, ys, *, render, **kwargs):
+    return ref_pt.accumulate(scene, cam, xs, ys, **kwargs)
+
+
 def reference_values(cell, inputs, replay, xs, ys, steps, *, seed, device,
                      dtype=torch.float32):
     """{presenting step: (P, 3) reference linear values} for the frames
     presented at `steps`."""
     tr = cell.traffic
-    cfg = cell.config
+    render = cell.config["render"]
+    lit = getattr(cell.scene, "reference_lit", _lit_pixels)
+    accumulate = getattr(cell.scene, "reference_accumulate", _accumulate)
 
     def scene(step):
         return cell.scene.reference_scene(inputs, step, device=device,
@@ -38,9 +55,8 @@ def reference_values(cell, inputs, replay, xs, ys, steps, *, seed, device,
     if bounces == 0:
         for g in steps:
             cam, _ = replay.rendered(g - 1)
-            out[g] = ref_frame.lit_pixels(
-                scene(g - 1), cam, xs_t, ys_t, width=tr["width"],
-                height=tr["height"], shadows=cfg["render"]["shadows"])
+            out[g] = lit(scene(g - 1), cam, xs_t, ys_t, width=tr["width"],
+                         height=tr["height"], render=render)
         return out
     groups = {}
     for g in steps:
@@ -52,10 +68,10 @@ def reference_values(cell, inputs, replay, xs, ys, steps, *, seed, device,
     for first, members in groups.items():
         cam, _ = replay.rendered(first)
         counts = [spp for _, spp in members]
-        means = ref_pt.accumulate(
+        means = accumulate(
             scene(first), cam, xs_t, ys_t, width=tr["width"],
             height=tr["height"], bounces=bounces, seed=seed & SEED_MASK,
-            samples=max(counts), means_at=counts)
+            samples=max(counts), means_at=counts, render=render)
         for g, spp in members:
             out[g] = means[spp]
     return out
