@@ -13,7 +13,8 @@ sample (K6, normal mapping), gathers the texels once and shades them
 (K2), selects the colours, quantizes and de-tiles. The phases are the
 spans "frame.raygen", "frame.gbuffer" (the cull mask, the schedule and
 K4), "frame.shadow", "frame.shade" and "frame.present"
-(runtime/profiler.py).
+(runtime/profiler.py), with "frame.normal_map" inside "frame.shade"
+around perturb_normal (K4 writes the normal-mapping planes).
 
 shadow_mode: "sched" (and "auto") emits the winner's shadow-ray inputs
 and traces them with K3 over the split frame's per-tile schedule;
@@ -119,8 +120,9 @@ def render_frame_fused(scene: SceneData, uni_flat, *, width: int,
 
         lam_mesh, spec_mesh = lam, spec
         if normal_mapping:
-            nx, ny, nz = perturb_normal(scene, mat, *outs[8:20], uvx,
-                                        1.0 - uvy, kernels=kernels)
+            with span("frame.normal_map"):
+                nx, ny, nz = perturb_normal(scene, mat, *outs[8:20], uvx,
+                                            1.0 - uvy, kernels=kernels)
             light = [mc(lambda k, c=c: scene.mat_light[k, c])
                      for c in range(3)]
             lam_mesh, spec_mesh = blinn_phong_planar(nx, ny, nz, dx, dy, dz,

@@ -115,7 +115,7 @@ class GBuffer(NamedTuple):
     ny: torch.Tensor
     nz: torch.Tensor
     mat: torch.Tensor  # material id as f32
-    # normal-mapping extras (None unless requested with with_nm=True)
+    # normal-mapping extras (None until gather_nm_planes fills them)
     vnx: Optional[torch.Tensor] = None  # interpolated vertex normal
     vny: Optional[torch.Tensor] = None
     vnz: Optional[torch.Tensor] = None
@@ -144,8 +144,7 @@ def pack_origin_cols(scene: SceneData, origin: torch.Tensor) -> torch.Tensor:
 
 
 def expand_tf_gbuffer(scene: SceneData, t, face, dx, dy, dz,
-                      oterm=None, with_nm: bool = False,
-                      oxyz=None) -> GBuffer:
+                      oterm=None, oxyz=None) -> GBuffer:
     """Resolve the G-buffer from the sweep's (t, face): ONE gather of the
     winner faces' gpack columns (scenepacks.winner_table: the scene's
     table, or one derived from the streaming record where it is stale),
@@ -153,9 +152,8 @@ def expand_tf_gbuffer(scene: SceneData, t, face, dx, dy, dz,
     kernels' own expressions on the winner's values. Shared-origin rays
     pass the frame's exact origin-term floats `oterm`; per-ray-origin
     rays (bounces) pass oxyz=(ox, oy, oz), and the origin terms are
-    recomputed per ray as the per-ray sweep computes them. with_nm adds
-    the interpolated vertex normal and the face's tangent frame. Miss
-    rays (t == inf) zero every attribute."""
+    recomputed per ray as the per-ray sweep computes them. Miss rays
+    (t == inf) zero every attribute."""
     gp = winner_table(scene)
     idx = face.clamp(0, gp.shape[1] - 1).long()
     a = gp.index_select(1, idx)  # (GPACK_ROWS, R)
@@ -185,19 +183,31 @@ def expand_tf_gbuffer(scene: SceneData, t, face, dx, dy, dz,
     w_n = 1.0 - u_n - v_n
     uvx = u_n * a[GP_UV] + v_n * a[GP_UV + 2] + w_n * a[GP_UV + 4]
     uvy = u_n * a[GP_UV + 1] + v_n * a[GP_UV + 3] + w_n * a[GP_UV + 5]
-    nm = {}
-    if with_nm:
-        for ax, (vk, tk, bk) in enumerate(
-                zip(("vnx", "vny", "vnz"), ("tx", "ty", "tz"),
-                    ("bx", "by", "bz"))):
-            nm[vk] = m(u_n * a[GP_VN + ax] + v_n * a[GP_VN + 3 + ax]
-                       + w_n * a[GP_VN + 6 + ax])
-            nm[tk] = m(a[GP_TAN + ax])
-            nm[bk] = m(a[GP_TAN + 3 + ax])
     return GBuffer(t=t, face=face, u=m(u_n), v=m(v_n), nd=m(nd),
                    uvx=m(uvx), uvy=m(uvy), nx=m(a[GP_UN]),
-                   ny=m(a[GP_UN + 1]), nz=m(a[GP_UN + 2]), mat=m(a[GP_MAT]),
-                   **nm)
+                   ny=m(a[GP_UN + 1]), nz=m(a[GP_UN + 2]), mat=m(a[GP_MAT]))
+
+
+def gather_nm_planes(scene: SceneData, gb: GBuffer) -> GBuffer:
+    """`gb` with its normal-mapping planes (the JAX package's G-buffer
+    with with_nm=True, bit for bit): each winner's vertex normals
+    interpolated with its weights gb.u, gb.v and 1 - u - v, and its
+    face's tangent frame, from ONE gather of the winners' vertex-normal
+    and tangent columns of the table (rows GP_VN to GP_TAN + 5). Miss
+    rays get zero planes."""
+    cols = winner_table(scene)[GP_VN:GP_TAN + 6]
+    a = cols.index_select(1, gb.face.clamp(0, cols.shape[1] - 1).long())
+    hit = torch.isfinite(gb.t)
+    w = 1.0 - gb.u - gb.v
+    nm = {}
+    for ax, (vk, tk, bk) in enumerate(
+            zip(("vnx", "vny", "vnz"), ("tx", "ty", "tz"),
+                ("bx", "by", "bz"))):
+        nm[vk] = torch.where(hit, gb.u * a[ax] + gb.v * a[3 + ax]
+                             + w * a[6 + ax], 0.0)
+        nm[tk] = torch.where(hit, a[9 + ax], 0.0)
+        nm[bk] = torch.where(hit, a[12 + ax], 0.0)
+    return gb._replace(**nm)
 
 
 def _pad1(x, tile, fill=0.0):
@@ -414,7 +424,7 @@ def _sphere_pack(scene: SceneData, origin: torch.Tensor) -> torch.Tensor:
 
 
 def gbuffer(scene: SceneData, origin, dx, dy, dz, *, accel: str = "cull",
-            near: float = 0.01, far: float = 100.0, with_nm: bool = False,
+            near: float = 0.01, far: float = 100.0,
             with_spheres: bool = True, stream: Optional[bool] = None,
             kernels: KernelSet = KERNELS):
     """Closest-hit G-buffer for shared-origin planar rays dx/dy/dz (R,)
@@ -424,10 +434,10 @@ def gbuffer(scene: SceneData, origin, dx, dy, dz, *, accel: str = "cull",
     without spheres, with with_spheres=False (the path tracer runs
     sphere_pass_planar per sphere instead) and on the streamed branch,
     which fuses no spheres (the caller runs the per-sphere passes).
-    with_nm fills the G-buffer's normal-mapping planes. stream=None
-    takes the streamed sweep (K9) past STREAM_FACES faces, the
-    all-on-chip one (K1) below; K9 gets the origin and both get the
-    blocks' boxes (scenepacks.block_boxes), which they test per ray."""
+    stream=None takes the streamed sweep (K9) past STREAM_FACES faces,
+    the all-on-chip one (K1) below; K9 gets the origin and both get the
+    blocks' boxes (scenepacks.block_boxes), which they test per ray.
+    gather_nm_planes adds the normal-mapping planes."""
     nrays = dx.shape[0]
     rs = sweep_inputs(scene, origin, dx, dy, dz, accel=accel, stream=stream,
                       kernels=kernels)
@@ -446,8 +456,7 @@ def gbuffer(scene: SceneData, origin, dx, dy, dz, *, accel: str = "cull",
     t, face = t[:nrays], face[:nrays]
     if sph is not None:
         sph = tuple(p[:nrays] for p in sph)
-    gb = expand_tf_gbuffer(scene, t, face, dx, dy, dz, oterm,
-                           with_nm=with_nm)
+    gb = expand_tf_gbuffer(scene, t, face, dx, dy, dz, oterm)
     return gb, sph
 
 
@@ -1065,7 +1074,9 @@ def render_megakernel(scene: SceneData, uni_flat, *, width: int, height: int,
     bit the JAX package's render_megakernel(fused=False) under the same
     rounding rules; its phases are the spans "frame.raygen",
     "frame.gbuffer", "frame.shade", "frame.shadow" and "frame.present"
-    (runtime/profiler.py). A scene without a mesh ignores mip. `kernels`
+    (runtime/profiler.py), with "frame.normal_map" inside "frame.shade"
+    around the normal-mapping block (gather_nm_planes and
+    perturb_normal). A scene without a mesh ignores mip. `kernels`
     selects the kernel implementations (PLAIN composes the frame from
     the plain PyTorch versions).
 
@@ -1126,8 +1137,7 @@ def render_megakernel(scene: SceneData, uni_flat, *, width: int, height: int,
     if has_mesh:
         with span("frame.gbuffer"):
             gb, sph_out = gbuffer(scene, origin, dx, dy, dz, accel=accel,
-                                  near=near, far=far,
-                                  with_nm=normal_mapping, kernels=kernels)
+                                  near=near, far=far, kernels=kernels)
 
     with span("frame.shade"):
         cr, cg, cb = (full(background[0]), full(background[1]),
@@ -1219,10 +1229,12 @@ def render_megakernel(scene: SceneData, uni_flat, *, width: int, height: int,
             tex_v = 1.0 - gb.uvy  # V-flip (triangle_list/compute.wgsl:223)
 
             if normal_mapping:
-                nx, ny, nz = perturb_normal(
-                    scene, gb.mat, nx, ny, nz, gb.vnx, gb.vny, gb.vnz,
-                    gb.tx, gb.ty, gb.tz, gb.bx, gb.by, gb.bz, tex_u, tex_v,
-                    kernels=kernels)
+                with span("frame.normal_map"):
+                    nm = gather_nm_planes(scene, gb)
+                    nx, ny, nz = perturb_normal(
+                        scene, gb.mat, nx, ny, nz, nm.vnx, nm.vny, nm.vnz,
+                        nm.tx, nm.ty, nm.tz, nm.bx, nm.by, nm.bz, tex_u,
+                        tex_v, kernels=kernels)
 
             # per-pixel light dir can vary by material (reference quirk:
             # per-kernel light dirs) — resolve via M-way select

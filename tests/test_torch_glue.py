@@ -382,8 +382,8 @@ def test_expand_tf_gbuffer_matches_jax(ref, name):
     t = torch.from_numpy(ref[f"gb_{name}_t"])
     face = torch.from_numpy(ref[f"gb_{name}_face"])
     assert torch.isfinite(t).any() and not torch.isfinite(t).all()
-    gb = P.expand_tf_gbuffer(data, t, face, *dirs,
-                             P.pack_origin_cols(data, origin), with_nm=True)
+    gb = P.gather_nm_planes(data, P.expand_tf_gbuffer(
+        data, t, face, *dirs, P.pack_origin_cols(data, origin)))
     for k in gb._fields:  # the normal-mapping planes included
         eq(getattr(gb, k), ref[f"gb_{name}_{k}"])
 

@@ -290,6 +290,74 @@ def test_pathtrace_compaction_spans_and_counters(cap, branch):
                           else ["compact.wait"])
 
 
+def nm_scene(program):
+    """The bump-mapped box of write_textured_assets (normal mapping on):
+    "nm_split" with shadows (the split frame), "nm_fused" without."""
+    import dataclasses as dc
+
+    from rust_wgpu_raytracing_tpu_torch import config as pcfg
+    from test_torch_host import textured_config
+
+    shadows = program == "nm_split"
+    cfg = textured_config(pcfg, width=W, height=H, shadows=shadows,
+                          bump=True)
+    return dc.replace(cfg, render=dc.replace(
+        cfg.render, variant="split" if shadows else "fused"))
+
+
+def drive_nm(program, on, tmp_path, monkeypatch, steps=3):
+    """drive() over nm_scene(program), or over scene(program) for a
+    program without normal mapping."""
+    if not program.startswith("nm"):
+        return drive(program, on, steps)
+    from test_torch_host import write_textured_assets
+
+    write_textured_assets(str(tmp_path), bump=True)
+    monkeypatch.setenv("RWRT_ASSETS", str(tmp_path))
+    loop = FrameLoop(Renderer(nm_scene(program), device="cpu"))
+    loop.push_key("d", True)
+    profiler.enable(on)
+    images = [loop.step() for _ in range(steps)]
+    images.append(loop.flush())
+    profiler.enable(False)
+    spans, _ = profiler.drain()
+    return images, spans
+
+
+@pytest.mark.parametrize("program", ["nm_split", "nm_fused", "split",
+                                     "fused"])
+def test_normal_map_span_opens_once_per_nm_frame(program, tmp_path,
+                                                 monkeypatch):
+    """frame.normal_map opens once in each frame with normal mapping,
+    inside frame.shade, and never in a frame without it."""
+    _, spans = drive_nm(program, True, tmp_path, monkeypatch)
+    for step in (0, 1, 2):
+        nm = [s for s in spans if s.step == step
+              and s.name == "frame.normal_map"]
+        if not program.startswith("nm"):
+            assert nm == []
+            continue
+        assert len(nm) == 1
+        assert spans[nm[0].parent].name == "frame.shade"
+    if program.startswith("nm"):  # the other phases as before
+        phases = [s.name for s in spans if s.step == 1
+                  and s.name.startswith("frame.")]
+        want = FUSED if program == "nm_fused" else SPLIT
+        assert [p for p in phases if p != "frame.normal_map"] == [
+            p for p in want if p != "frame.shadow" or program == "nm_split"]
+
+
+@pytest.mark.parametrize("program", ["nm_split", "nm_fused"])
+def test_nm_frames_are_bitwise_the_same_with_the_recorder_on(
+        program, tmp_path, monkeypatch):
+    off, none = drive_nm(program, False, tmp_path, monkeypatch)
+    on, spans = drive_nm(program, True, tmp_path, monkeypatch)
+    assert none == [] and "frame.normal_map" in names(spans)
+    assert len(off) == len(on) == 4 and off[0] is None and on[0] is None
+    for a, b in zip(off[1:], on[1:]):
+        assert a is not None and np.array_equal(a, b)
+
+
 def test_renderer_times_its_setup():
     before = profiler.counters()
     Renderer(scene("fused"), device="cpu")
